@@ -1,0 +1,19 @@
+"""CRFP in PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The port of ``crfp_tpu`` (JAX/Pallas), module for module: ``crfp_torch/X``
+mirrors ``crfp_tpu/X``. It computes the logical math of the JAX package;
+the TPU layout devices (space-to-depth operand forms, per-cell window
+anchoring, the fused-prep DCN kernel) are not carried.
+
+Public entry points take and return NHWC tensors like the JAX models;
+inside, tensors are NCHW. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``. The three kernels of the streaming path live in
+``crfp_torch/csrc`` and are built with ``nvcc`` at first use
+(``crfp_torch.ops.cuda``); on CPU tensors every op runs its plain
+PyTorch version.
+"""
+
+from crfp_torch.models.config import ModelConfig
+from crfp_torch.models.runtime import CRFPRuntimeV18
+
+__all__ = ["ModelConfig", "CRFPRuntimeV18"]

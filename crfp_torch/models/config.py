@@ -1,0 +1,44 @@
+"""Model configuration: the fields of ``crfp_tpu.models.crfp.ModelConfig``
+that the logical math reads (crfp_tpu/models/crfp.py:67-154).
+
+The TPU layout switches of the JAX config (``hr_s2d``, ``lv3_s2d``,
+``emit_s2d``, ``dcn_anchor``, ``dcn_fused``) are not carried: the port
+always computes the plain layout and the plain ±window clamp.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    variant: str = "v18"
+    mid_channels: int = 32
+    scale: int = 8
+    y_only: bool = False
+    offset_prop: bool = True
+    split_ratio: int = 3
+    deform_groups: int = 8
+    dcn_kernel: int = 3
+    max_residue_magnitude: float = 10.0
+    # sample displacements of the 1/4-res alignment stages and the lv-state
+    # warp clamp to +-dcn_window pixels (the windowed CUDA kernels); None =
+    # exact, unclamped plain version
+    dcn_window: int | None = None
+    # the same for the HR-level dcn_3 and the HR state warp
+    dcn_window_hr: int | None = None
+
+    @property
+    def last_channels(self) -> int:
+        return self.mid_channels // 8
+
+    @property
+    def keep_channels(self) -> int:
+        """Channels continuing down the cascade in the DSV split (v18)."""
+        return (self.mid_channels * self.split_ratio) // 4
+
+    @property
+    def state_channels(self) -> int:
+        """Per-level persistent state channels in the DSV split (v18)."""
+        return (self.mid_channels * (4 - self.split_ratio)) // 4

@@ -1,0 +1,232 @@
+"""Latency-oriented v18 streaming model (crfp_tpu/models/runtime.py:47-278).
+
+The reference benchmark model MRCF_simple_v18: flow is estimated only on
+the warp_size/8 crop of the LR frame, the alignment cascade runs on ROI
+crops anchored at the top-left, the per-level DSV states live at ROI/4,
+and the final resblock stitches the ROI back into the full frame through
+a two-input-conv block. The fovea patch is blended into the top-left
+corner.
+
+This is the JAX model's ``hr_s2d=False`` branch: the port computes the
+logical math in plain NCHW layout (the JAX package's space-to-depth forms
+are bit-equivalent TPU layouts, tests/test_models.py). Three kernels run
+per frame: kernel A for the four DCNs (dcn_0/1/2 per-tap, dcn_3
+shared-tap), kernel B for the HR and lv state warps, kernel C for the
+output frame (crfp_torch/ops/cuda).
+
+Public entry points (``encode``, ``step0``, ``step``) take and return NHWC
+tensors like the JAX model — frames, encoder features and the state
+tensors; inside, everything is NCHW. The NHWC tensors returned are views
+of NCHW storage, so handing them back costs no copy.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from crfp_torch.models.config import ModelConfig
+from crfp_torch.nn.align import DCNAlign
+from crfp_torch.nn.flow import FNet
+from crfp_torch.nn.layers import (
+    Conv,
+    PixelShufflePack,
+    PixelUnShufflePackV2,
+    ResidualBlockNoBN,
+    ResidualBlocksWithInputConv,
+    init_parameters,
+    lrelu,
+)
+from crfp_torch.nn.lte import LTESimpleHRSingle, LTESimpleLR
+from crfp_torch.ops import resize
+from crfp_torch.ops.cuda.emit import emit_frame
+from crfp_torch.ops.cuda.warp import flow_warp_windowed
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2).contiguous()
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+class ResidualBlocksWithInputConvV2(nn.Module):
+    """Two input convs: the ROI result of ``conv1`` is patched into the
+    top-left corner of ``conv2``'s full-frame result before the residual
+    blocks. ``full_channels=None``: the block never sees a larger full
+    frame and has no ``conv2`` (as in the JAX tree, where an uncalled
+    conv has no parameters)."""
+
+    def __init__(self, roi_channels: int, full_channels: int | None,
+                 out_channels: int, num_blocks: int = 1):
+        super().__init__()
+        self.conv1 = Conv(roi_channels, out_channels)
+        if full_channels is not None:
+            self.conv2 = Conv(full_channels, out_channels)
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(f"block{i}", ResidualBlockNoBN(out_channels))
+
+    def forward(self, feat_roi: torch.Tensor,
+                feat_full: torch.Tensor | None = None) -> torch.Tensor:
+        o1 = self.conv1(feat_roi)
+        if feat_full is not None and feat_full.shape[-2:] != feat_roi.shape[-2:]:
+            x = self.conv2(feat_full)
+            # in place on conv2's fresh output
+            x[:, :, : o1.shape[2], : o1.shape[3]] = o1
+        else:
+            x = o1
+        x = lrelu(x)
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class CRFPRuntimeV18(nn.Module):
+    """Streaming step API: ``encode``, then ``step0`` on the first frame and
+    ``step`` on every later one.
+
+    ``device``: where the model lives (default ``cuda``; tests pass
+    ``cpu``). ``seed``: seeds the ``torch.Generator`` that initialises the
+    parameters (the JAX package's init distributions)."""
+
+    def __init__(self, cfg: ModelConfig, warp_size: tuple[int, int] = (720, 720),
+                 *, device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        if cfg.variant != "v18":
+            raise ValueError(f"CRFPRuntimeV18 needs variant 'v18', got {cfg.variant!r}")
+        self.cfg = cfg
+        self.warp_size = tuple(warp_size)
+        m, last, keep = cfg.mid_channels, cfg.last_channels, cfg.keep_channels
+        st = cfg.state_channels
+        dg, dk, mag = cfg.deform_groups, cfg.dcn_kernel, cfg.max_residue_magnitude
+        img = 1 if cfg.y_only else 3  # channels of the LR, fovea and output frames
+        self.spynet = FNet(img)
+        self.dcn_0 = DCNAlign(m, dg, dk, mag, window=cfg.dcn_window)
+        self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
+                              window=cfg.dcn_window)
+        self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
+                              window=cfg.dcn_window)
+        self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
+                              pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
+                              window=cfg.dcn_window_hr, pre_offset_channels=m)
+        self.encoder_lr = LTESimpleLR(m, img)
+        self.encoder_hr = LTESimpleHRSingle(last, 2 * img)
+        self.conv_tttf = Conv(2 * last, last)
+        self.conv_last = Conv(last, img)
+        # cold-start resblocks (plain) and steady-state stitching resblocks
+        self.forward_resblocks_0_ = ResidualBlocksWithInputConv(keep, m)
+        self.forward_resblocks_1_ = ResidualBlocksWithInputConv(keep, m)
+        self.forward_resblocks_2_ = ResidualBlocksWithInputConv(keep, m)
+        self.forward_resblocks_3_ = ResidualBlocksWithInputConv(last, last)
+        # stages 0-2 stitch a same-size ROI (concat(feat_temp, aligned) over
+        # feat_temp), so their conv2 is never built
+        self.forward_resblocks_0 = ResidualBlocksWithInputConvV2(2 * m, None, m)
+        self.forward_resblocks_1 = ResidualBlocksWithInputConvV2(2 * m, None, m)
+        self.forward_resblocks_2 = ResidualBlocksWithInputConvV2(2 * m, None, m)
+        self.forward_resblocks_3 = ResidualBlocksWithInputConvV2(2 * last, last, last)
+        self.downsample = PixelUnShufflePackV2(last, m, 4)
+        self.upsample = PixelShufflePack(m, keep, 2)
+        self.upsample_post = PixelShufflePack(keep, last, 4)
+        assert m == keep + st
+        init_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    # ---- public NHWC entry points -------------------------------------
+
+    def encode(self, lr: torch.Tensor, fv: torch.Tensor):
+        """lr (N, h, w, c), fv (N, fh, fw, c) -> (x_lr, x_hr), NHWC; c is 3,
+        or 1 with ``cfg.y_only``."""
+        x_lr, x_hr = self._encode(_nchw(lr), _nchw(fv))
+        return _nhwc(x_lr), _nhwc(x_hr)
+
+    def step0(self, lr, x_lr, x_hr):
+        """Cold start. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
+        state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw(x_hr))
+        return self._state_nhwc(state), out
+
+    def step(self, state, lr, pre_lr, x_lr, x_hr):
+        """Steady state. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
+        state = {"hr": _nchw(state["hr"]), "lv": tuple(_nchw(f) for f in state["lv"])}
+        state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
+                                _nchw(x_hr))
+        return self._state_nhwc(state), out
+
+    @staticmethod
+    def _state_nhwc(state):
+        return {"hr": _nhwc(state["hr"]), "lv": tuple(_nhwc(f) for f in state["lv"])}
+
+    # ---- NCHW internals -----------------------------------------------
+
+    def _encode(self, lr, fv):
+        return self.encoder_lr(lr), self.encoder_hr(torch.cat([fv, fv], dim=1))
+
+    def _compute_flow(self, lr_cur, lr_prev):
+        wph, wpw = self.warp_size
+        return self.spynet(lr_cur[:, :, : wph // 8, : wpw // 8],
+                           lr_prev[:, :, : wph // 8, : wpw // 8])
+
+    def _step0(self, lr, x_lr, x_hr):
+        sr = self.cfg.split_ratio
+        wph, wpw = self.warp_size
+        x = self.upsample(x_lr)  # keep @ 2h x 2w
+        lvs = []
+        for rb in (self.forward_resblocks_0_, self.forward_resblocks_1_,
+                   self.forward_resblocks_2_):
+            chunks = torch.chunk(rb(x), 4, dim=1)
+            lvs.append(torch.cat(chunks[sr:], dim=1)[:, :, : wph // 4, : wpw // 4]
+                       .contiguous())
+            x = torch.cat(chunks[:sr], dim=1)
+        x = lrelu(self.upsample_post(x))
+        lv3 = self.forward_resblocks_3_(x)
+        lv3, out = self._finish(lv3, x_hr, lr)
+        return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
+
+    def _step(self, state, lr, pre_lr, x_lr, x_hr):
+        cfg = self.cfg
+        sr = cfg.split_ratio
+        wph, wpw = self.warp_size
+        flow = self._compute_flow(lr, pre_lr)
+        feat_prop_lv0 = self.upsample(x_lr)
+        # the warp kernels take f32 flow whatever the activations' dtype
+        flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
+        flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
+
+        hr_state = state["hr"]  # last @ ROI
+        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+        lv3_warped = self.downsample(hr_warped)
+        lv3_state = self.downsample(hr_state)
+        f = flow_warp_windowed(torch.cat(state["lv"], dim=1), flow_lv3, cfg.dcn_window)
+        feats = torch.chunk(f, 3, dim=1)
+
+        roi_lv0 = feat_prop_lv0[:, :, : wph // 4, : wpw // 4]
+        offset = None
+        lvs = []
+        for dcn, rb, f in ((self.dcn_0, self.forward_resblocks_0, feats[0]),
+                           (self.dcn_1, self.forward_resblocks_1, feats[1]),
+                           (self.dcn_2, self.forward_resblocks_2, feats[2])):
+            feat_temp = torch.cat([roi_lv0, f], dim=1)
+            aligned, offset = dcn(feat_temp, lv3_state, lv3_warped, flow_lv3,
+                                  offset if cfg.offset_prop else None)
+            chunks = torch.chunk(rb(torch.cat([feat_temp, aligned], dim=1), feat_temp),
+                                 4, dim=1)
+            lvs.append(torch.cat(chunks[sr:], dim=1))
+
+        full_lv3 = lrelu(self.upsample_post(feat_prop_lv0))
+        roi = full_lv3[:, :, :wph, :wpw]
+        aligned, _ = self.dcn_3(roi, hr_state, hr_warped, flow_lv0,
+                                offset if cfg.offset_prop else None)
+        lv3 = self.forward_resblocks_3(torch.cat([roi, aligned], dim=1), full_lv3)
+        lv3, out = self._finish(lv3, x_hr, lr)
+        return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
+
+    def _finish(self, lv3, x_hr, lr):
+        """Blend the fovea into the top-left corner, reconstruct, and emit
+        the NHWC frame ``conv_last(lv3) + upsample(lr, scale)`` (kernel C).
+        Returns (lv3 NCHW, frame NHWC)."""
+        fh, fw = x_hr.shape[-2:]
+        blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
+        lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
+        lv3 = lrelu(lv3)
+        return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)

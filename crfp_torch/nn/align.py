@@ -1,0 +1,120 @@
+"""Flow-guided deformable alignment, NCHW (crfp_tpu/nn/align.py:107-337).
+
+concat(cur, warped_prev, flow) -> two conv+lrelu -> [fuse the previous
+stage's offset feature] -> zero-init offset head ``mag * tanh(raw)`` plus
+the flipped flow, and a zero-init sigmoid mask head -> modulated DCN with
+an identity-initialised weight. Plain layout only.
+
+- Per-tap mode (dcn_0/1/2, G groups): head channel ``(g*K2 + k)*2 +
+  {dy, dx}`` — which is already the DCN's packed offset layout — and one
+  mask per (group, tap).
+- Repeat mode (dcn_3, G=1): one (dy, dx) and one mask per pixel for every
+  tap; the raw offset channels are packed ``[y*g | x*g]``
+  (crfp_tpu/nn/align.py:237-240).
+
+Offsets are (dy, dx) while flow is (dx, dy). The DCN is kernel A's
+dispatcher, with offsets clamped to ±window (``window=None``: no clamp,
+the exact DCN). The JAX package's TPU-only ``anchor``,
+``s2d`` and ``fused_prep`` forms are not carried: off the TPU they compute
+this same plain clamp (crfp_tpu/nn/align.py:42-84).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from crfp_torch.nn.layers import Conv, PixelShufflePack, lrelu
+from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
+
+
+class DCNAlign(nn.Module):
+    def __init__(
+        self,
+        mid_channels: int,
+        deform_groups: int = 8,
+        kernel: int = 3,
+        max_residue_magnitude: float = 10.0,
+        *,
+        repeat: bool = False,
+        pre_offset: bool = False,
+        interpolate: str = "none",
+        window: int | None = None,
+        in_channels: int | None = None,
+        pre_offset_channels: int | None = None,
+    ):
+        """``in_channels``: channels of concat(cur, warped_prev, flow),
+        default 2*mid + 2. ``pre_offset_channels``: channels of the
+        incoming offset feature, default mid (only read with
+        ``interpolate='pixelshuffle'``)."""
+        super().__init__()
+        m, g, k = mid_channels, deform_groups, kernel
+        if repeat and g != 1:
+            raise ValueError("repeat mode is defined for one deform group")
+        if interpolate not in ("none", "pixelshuffle"):
+            raise ValueError(f"interpolate={interpolate!r}")
+        self.mid_channels, self.deform_groups, self.kernel = m, g, k
+        self.max_residue_magnitude = max_residue_magnitude
+        self.repeat, self.pre_offset = repeat, pre_offset
+        self.interpolate, self.window = interpolate, window
+        k2 = k * k
+        self.dcn_block_conv1 = Conv(in_channels or 2 * m + 2, m)
+        self.dcn_block_conv2 = Conv(m, m)
+        if pre_offset:
+            if interpolate == "pixelshuffle":
+                self.upsample = PixelShufflePack(pre_offset_channels or m, m, 4)
+            self.conv_fuse = Conv(2 * m, m)
+        self.dcn_offset = Conv(m, g * 2 * (1 if repeat else k2), init="zeros")
+        self.dcn_mask = Conv(m, g * (1 if repeat else k2), init="zeros")
+        self.dcn_weight = nn.Parameter(torch.empty(m, m, k, k))
+        self.dcn_bias = nn.Parameter(torch.empty(m))
+        self.init_parameters(None)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator | None) -> None:
+        """Identity DCN weight (centre tap, channel i -> i), zero bias."""
+        self.dcn_weight.zero_()
+        c = self.kernel // 2
+        idx = torch.arange(self.mid_channels)
+        self.dcn_weight[idx, idx, c, c] = 1.0
+        self.dcn_bias.zero_()
+
+    def forward(
+        self,
+        cur_x: torch.Tensor,
+        pre_x: torch.Tensor,
+        pre_x_aligned: torch.Tensor,
+        flow: torch.Tensor,
+        pre_offset_feat: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (aligned pre_x, offset feature for propagation).
+
+        flow: (N, 2, H, W), channels (dx, dy), at cur_x's resolution."""
+        feat = torch.cat([cur_x, pre_x_aligned, flow.to(cur_x.dtype)], dim=1)
+        feat = lrelu(self.dcn_block_conv1(feat))
+        feat = lrelu(self.dcn_block_conv2(feat))
+        if pre_offset_feat is not None:
+            assert self.pre_offset
+            if self.interpolate == "pixelshuffle":
+                pre_offset_feat = self.upsample(pre_offset_feat) * 2.0
+            feat = lrelu(self.conv_fuse(torch.cat([feat, pre_offset_feat], dim=1)))
+
+        n, _, h, w = feat.shape
+        g, mag = self.deform_groups, self.max_residue_magnitude
+        # the kernel takes f32 offsets/masks/weights whatever x's dtype
+        raw = self.dcn_offset(feat).float()
+        flow = flow.float()
+        if self.repeat:
+            off_y = mag * torch.tanh(raw[:, :g]) + flow[:, 1:2]
+            off_x = mag * torch.tanh(raw[:, g:]) + flow[:, 0:1]
+        else:
+            raw = raw.reshape(n, -1, 2, h, w)  # (n, g*k2, {dy, dx}, h, w)
+            off_y = mag * torch.tanh(raw[:, :, 0]) + flow[:, 1:2]
+            off_x = mag * torch.tanh(raw[:, :, 1]) + flow[:, 0:1]
+        off = torch.stack([off_y, off_x], dim=2).reshape(n, -1, h, w)
+        mask = torch.sigmoid(self.dcn_mask(feat).float())
+        kw = dict(shared_taps=self.repeat, shared_mask=self.repeat)
+        aligned = deform_conv2d_windowed(
+            pre_x.contiguous(), off, mask, self.dcn_weight.float(),
+            self.dcn_bias.float(), max_displacement=self.window, **kw)
+        return aligned, feat

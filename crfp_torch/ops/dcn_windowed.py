@@ -1,0 +1,72 @@
+"""Windowed modulated deformable conv (DCNv2), plain PyTorch, NCHW.
+
+The plain version beside kernel A (``crfp_torch/ops/cuda/dcn.py``), with
+the semantics of crfp_tpu/ops/dcn_windowed.py:40-177: each offset
+component is clamped to ``±max_displacement`` (None: unclamped, the exact
+DCN), then every tap ``k`` of output pixel ``p`` takes an exact bilinear
+sample of ``x`` at ``p + p_k + offset`` with zeros outside the frame, is
+scaled by its mask, contracted with the weight, and the bias is added last.
+
+Layouts (the packed channel order of torchvision / DCNv2):
+- x: (N, C, H, W); channels split into G contiguous groups of C/G.
+- offset: (N, G*T*2, H, W), channel ``(g*T + k)*2 + {0: dy, 1: dx}``, with
+  T = 1 when ``shared_taps`` (one displacement for all taps) else kh*kw.
+- mask: (N, G*M, H, W), channel ``g*M + k``, M = 1 when ``shared_mask``.
+- weight: (O, C, kh, kw); bias: (O,) or None. Stride 1, 'same' padding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crfp_torch.ops.warp import bilinear_sample_zeros
+
+
+def deform_conv2d_windowed_ref(
+    x: torch.Tensor,
+    offset: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    max_displacement: int | None = None,
+    shared_taps: bool = False,
+    shared_mask: bool = False,
+) -> torch.Tensor:
+    """Returns (N, O, H, W) in x's dtype; computes in float32."""
+    n, c, h, w = x.shape
+    o, wc, kh, kw = weight.shape
+    assert wc == c, (x.shape, weight.shape)
+    k2 = kh * kw
+    taps = 1 if shared_taps else k2
+    mtaps = 1 if shared_mask else k2
+    g = offset.shape[1] // (2 * taps)
+    assert offset.shape == (n, g * taps * 2, h, w), offset.shape
+    assert mask.shape == (n, g * mtaps, h, w), mask.shape
+    cpg = c // g
+
+    off = offset.float().reshape(n, g, taps, 2, h, w)
+    if max_displacement is not None:
+        d = float(max_displacement)
+        off = off.clamp(-d, d)
+    dev = x.device
+    ky = (torch.arange(kh, device=dev, dtype=torch.float32) - (kh - 1) // 2
+          ).repeat_interleave(kw).view(1, 1, k2, 1, 1)
+    kx = (torch.arange(kw, device=dev, dtype=torch.float32) - (kw - 1) // 2
+          ).repeat(kh).view(1, 1, k2, 1, 1)
+    gy = torch.arange(h, device=dev, dtype=torch.float32).view(1, 1, 1, h, 1)
+    gx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, 1, 1, w)
+    sy = (gy + ky) + off[:, :, :, 0]  # (n, g, k2, h, w)
+    sx = (gx + kx) + off[:, :, :, 1]
+
+    samp = bilinear_sample_zeros(
+        x.reshape(n * g, cpg, h, w),
+        sy.expand(n, g, k2, h, w).reshape(n * g, k2, h, w),
+        sx.expand(n, g, k2, h, w).reshape(n * g, k2, h, w),
+    ).reshape(n, g, cpg, k2, h, w)
+    samp = samp * mask.float().reshape(n, g, 1, mtaps, h, w)
+    w2 = weight.float().reshape(o, g, cpg, k2)
+    out = torch.einsum("ngckhw,ogck->nohw", samp, w2)
+    if bias is not None:
+        out = out + bias.float().view(1, o, 1, 1)
+    return out.to(x.dtype)

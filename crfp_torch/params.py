@@ -1,0 +1,89 @@
+"""Checkpoints: the JAX package's flat flax ``.npz`` onto the port's modules.
+
+The ``.npz`` format is that of crfp_tpu/utils/params_io.py::save_params_npz
+(:27): one array per flax leaf, keyed ``params/<module path>/<leaf>``. The
+port's module tree follows the flax names, so the mapping is mechanical:
+
+- ``a/b/conv/kernel`` (HWIO) -> ``a.b.conv.weight`` (OIHW);
+- ``a/dcn_weight`` (kh, kw, C, O) -> ``a.dcn_weight`` (O, C, kh, kw);
+- every other leaf (biases, ``dcn_bias``) passes through.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def load_npz(path: str) -> dict[str, np.ndarray]:
+    """The flat {flax path: array} dict of a ``.npz`` checkpoint."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax leaves -> the port's state_dict (float tensors on the CPU)."""
+    out = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        a = np.asarray(value)
+        if parts[-1] == "kernel":
+            parts[-1] = "weight"
+            a = a.transpose(3, 2, 0, 1)
+        elif parts[-1] == "dcn_weight":
+            a = a.transpose(3, 2, 0, 1)
+        out[".".join(parts)] = torch.tensor(np.ascontiguousarray(a))
+    return out
+
+
+_RB_INPUT = re.compile(r"^(forward_resblocks_)(\d)\.input_conv(\..*)$")
+_RB_ANY = re.compile(r"^(forward_resblocks_)(\d)(\..*)$")
+
+
+def runtime_params_from_batch(
+    batch_flat: dict[str, np.ndarray], init_state: dict[str, torch.Tensor]
+) -> tuple[dict[str, torch.Tensor], int]:
+    """Adapt a batch-trunk checkpoint onto the runtime model's state_dict
+    (crfp_tpu/models/runtime.py:448-496, without flax).
+
+    The runtime trunk splits each batch ``forward_resblocks_i`` into a
+    cold-start copy ``forward_resblocks_i_`` (its input conv has a smaller
+    arity, so only its residual blocks take the trained weights) and a
+    steady-state stitching block whose ``conv1`` and ``conv2`` both take
+    the batch block's ``input_conv``. Everything else maps name for name.
+
+    ``init_state``: the runtime model's state_dict, which supplies every
+    leaf the checkpoint cannot (``CRFPRuntimeV18`` initialises its
+    parameters from a seeded ``torch.Generator``). Returns (state_dict,
+    number of leaves kept from ``init_state``)."""
+    mapped = {}
+    for k, v in from_jax(batch_flat).items():
+        m = _RB_INPUT.match(k)
+        if m:
+            pre, i, rest = m.groups()
+            mapped[f"{pre}{i}.conv1{rest}"] = v
+            mapped[f"{pre}{i}.conv2{rest}"] = v
+            mapped[f"{pre}{i}_.input_conv{rest}"] = v
+            continue
+        m = _RB_ANY.match(k)
+        if m:
+            pre, i, rest = m.groups()
+            mapped[k] = v
+            mapped[f"{pre}{i}_{rest}"] = v
+            continue
+        mapped[k] = v
+
+    out = {}
+    n_unmapped = 0
+    for k, init in init_state.items():
+        v = mapped.get(k)
+        if v is not None and tuple(v.shape) == tuple(init.shape):
+            out[k] = v.to(device=init.device, dtype=init.dtype)
+        else:
+            out[k] = init
+            n_unmapped += 1
+    return out, n_unmapped

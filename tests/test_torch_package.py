@@ -1,0 +1,189 @@
+"""crfp_torch package rules: no JAX in the port, dispatchers that take the
+plain version only for CPU tensors, a build that raises instead of falling
+back, and (on a card only, marker ``cuda``) every kernel against its plain
+version."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+_ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "crfp_tpu")
+
+
+def _port_files():
+    files = sorted((_ROOT / "crfp_torch").rglob("*.py"))
+    files.append(_ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert (_ROOT / "chip_smoke.py").exists()
+    assert len(files) > 15, files
+    bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def _dcn_args(shared: bool):
+    g, k2 = (1, 9) if shared else (2, 9)
+    taps = 1 if shared else k2
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, 6, 7, generator=gen)
+    off = torch.randn(1, g * taps * 2, 6, 7, generator=gen) * 3
+    mask = torch.rand(1, g * taps, 6, 7, generator=gen)
+    w = torch.randn(4, 4, 3, 3, generator=gen)
+    b = torch.randn(4, generator=gen)
+    return x, off, mask, w, b
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_tap", "shared"])
+def test_dcn_dispatcher_takes_plain_version_on_cpu(shared):
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    args = _dcn_args(shared)
+    before = dcn.launches
+    kw = dict(max_displacement=2, shared_taps=shared, shared_mask=shared)
+    got = dcn.deform_conv2d_windowed(*args, **kw)
+    assert torch.equal(got, deform_conv2d_windowed_ref(*args, **kw))
+    assert dcn.launches == before
+
+
+def test_warp_and_emit_dispatchers_take_plain_version_on_cpu():
+    from crfp_torch.ops.cuda import emit, warp
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 3, 8, 9, generator=gen)
+    flow = torch.randn(1, 2, 8, 9, generator=gen) * 4
+    before = (warp.launches, emit.launches)
+    assert torch.equal(warp.flow_warp_windowed(x, flow, 2),
+                       flow_warp_windowed_ref(x, flow, 2))
+    y = torch.randn(1, 48, 2, 3, generator=gen)
+    lr = torch.rand(1, 3, 1, 1, generator=gen)
+    frame = emit.emit_frame(y, lr, r=4)
+    assert frame.shape == (1, 8, 12, 3)
+    assert torch.equal(frame, emit.emit_frame_ref(y, lr, r=4))
+    assert (warp.launches, emit.launches) == before
+
+
+def test_dispatchers_raise_for_non_cuda_devices():
+    """A tensor that is neither on the CPU nor on a card is refused, never
+    sent to the plain version."""
+    from crfp_torch.ops.cuda import dcn, emit, warp
+
+    x, off, mask, w, b = (t.to("meta") for t in _dcn_args(False))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dcn.deform_conv2d_windowed(x, off, mask, w, b, max_displacement=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        warp.flow_warp_windowed(x, torch.zeros(1, 2, 6, 7, device="meta"), 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        emit.emit_frame(torch.zeros(1, 3, 8, 8, device="meta"),
+                        torch.zeros(1, 3, 1, 1, device="meta"))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from crfp_torch.ops.cuda import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.function("dcn_fwd", "crfp_dcn_fwd", [])
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_targets_follow_the_sources():
+    """One library per csrc/*.cu, named by a hash of source and flags."""
+    from crfp_torch.ops.cuda import _build
+
+    names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
+    assert names == ["dcn_fwd", "emit", "flow_warp"]
+    t = _build._target(_build.SRC_DIR / "emit.cu")
+    assert t.parent == _build.BUILD_DIR and t.name.startswith("libemit-")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ---- on the card -------------------------------------------------------
+# The skip condition is a string, so pytest evaluates it when the test is
+# set up, not when the module is imported.
+
+_NEEDS_CARD = pytest.mark.skipif("not torch.cuda.is_available()",
+                                 reason="needs an NVIDIA GPU and nvcc")
+
+
+def _cuda_dcn(shared: bool, dtype: torch.dtype, window: int | None = 2):
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    x, off, mask, w, b = (t.cuda() for t in _dcn_args(shared))
+    kw = dict(max_displacement=window, shared_taps=shared, shared_mask=shared)
+    want = deform_conv2d_windowed_ref(x, off, mask, w, b, **kw)
+    got = dcn.deform_conv2d_windowed(x.to(dtype), off, mask, w, b, **kw)
+    torch.cuda.synchronize()
+    return got.float(), want
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("shared", [False, True], ids=["per_tap", "shared"])
+def test_kernel_a_matches_plain_on_card(shared):
+    got, want = _cuda_dcn(shared, torch.float32)
+    assert float((got - want).abs().max()) <= 1e-4
+    got, _ = _cuda_dcn(shared, torch.bfloat16)
+    assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("shared", [False, True], ids=["per_tap", "shared"])
+def test_kernel_a_unclamped_matches_plain_on_card(shared):
+    """max_displacement=None (the exact DCN) launches the kernel unclamped."""
+    from crfp_torch.ops.cuda import dcn
+
+    before = dcn.launches
+    got, want = _cuda_dcn(shared, torch.float32, window=None)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert dcn.launches == before + 1
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+def test_kernel_b_and_c_match_plain_on_card():
+    from crfp_torch.ops.cuda import emit, warp
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 24, 30, 33, generator=gen).cuda()
+    flow = (torch.randn(1, 2, 30, 33, generator=gen) * 12).cuda()
+    got = warp.flow_warp_windowed(x, flow, 8)
+    assert float((got - flow_warp_windowed_ref(x, flow, 8)).abs().max()) <= 1e-5
+    for r in (1, 4):
+        y = torch.randn(1, 3 * r * r, 64 // r, 96 // r, generator=gen).cuda()
+        lr = torch.rand(1, 3, 8, 12, generator=gen).cuda()
+        err = (emit.emit_frame(y, lr, r) - emit.emit_frame_ref(y, lr, r)).abs().max()
+        assert float(err) <= 1e-5
+    torch.cuda.synchronize()
