@@ -16,7 +16,23 @@ Phases, in order; any failure exits non-zero without the final line:
    f32; every frame must agree to >= 80 dB PSNR and max|d| <= 1e-3, and
    the launch counters must show A 4, B 2, C 1 per steady-state frame;
 4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench;
-5. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+5. hold the training kernels against their plain versions at the training
+   shapes of the recipe of record (B 2, T 7, GT 192, mid 32; TF32 off):
+   kernel D (dcn_bwd, flow_warp_bwd) gradients f32 to 1e-4 of max|ref|,
+   bf16 inputs against the f32 plain version to 2e-2 of max|ref|; kernel F
+   (ssim) map to 1e-5 abs and masked mean to 1e-6 at (14,192,192,3),
+   (14,192,192,1) and (1,1080,1920,3); time kernel, plain version and,
+   where one PyTorch call computes the same function, that call;
+6. train the batch CRFP from checkpoints/v18_mid32_struct.npz (strict
+   load, windows 8/32, remat): 3 f32 steps through the kernels against 3
+   through the plain versions from the same state and batches (losses to
+   1e-4 relative, every parameter to 2*lr*steps), with the launch counts
+   of every kernel asserted; then 10 amp steps on one batch from the
+   checkpoint, which must stay finite, and 10 from the seeded init, which
+   must also descend;
+7. time the amp train step (crfp_torch.bench.train.run_train_bench), the
+   training main path, with the launch counts of every kernel asserted;
+8. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -24,6 +40,7 @@ Imports nothing of JAX or of crfp_tpu.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -78,22 +95,31 @@ def bound(inputs, outputs, flops: float, dtype: str) -> tuple[float, str, float,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's three kernel call sites to the plain versions
-    (the model calls the dispatchers by these module-level names)."""
+    """Route the models' and the metric's kernel call sites to the plain
+    versions (they call the dispatchers by these module-level names); on
+    the plain versions autograd of plain PyTorch applies."""
+    import crfp_torch.models.crfp as cr
     import crfp_torch.models.runtime as rt
     import crfp_torch.nn.align as al
+    import crfp_torch.ops.metrics as mt
     from crfp_torch.ops.cuda.emit import emit_frame_ref
+    from crfp_torch.ops.cuda.ssim import ssim_map_ref
     from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
     from crfp_torch.ops.warp import flow_warp_windowed_ref
 
-    saved = (al.deform_conv2d_windowed, rt.flow_warp_windowed, rt.emit_frame)
-    al.deform_conv2d_windowed = deform_conv2d_windowed_ref
-    rt.flow_warp_windowed = flow_warp_windowed_ref
-    rt.emit_frame = emit_frame_ref
+    sites = [(al, "deform_conv2d_windowed", deform_conv2d_windowed_ref),
+             (rt, "flow_warp_windowed", flow_warp_windowed_ref),
+             (rt, "emit_frame", emit_frame_ref),
+             (cr, "flow_warp_windowed", flow_warp_windowed_ref),
+             (mt, "ssim_map", ssim_map_ref)]
+    saved = [getattr(m, name) for m, name, _ in sites]
+    for m, name, plain in sites:
+        setattr(m, name, plain)
     try:
         yield
     finally:
-        al.deform_conv2d_windowed, rt.flow_warp_windowed, rt.emit_frame = saved
+        for (m, name, _), fn in zip(sites, saved):
+            setattr(m, name, fn)
 
 
 def phase_build():
@@ -108,6 +134,31 @@ def phase_build():
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+
+
+def _record(modes, kernel, mode, calls, err, bf16_rel, k_ms, p_ms, lib_ms, bnd):
+    """Print one (kernel, call shape) line and append its record; ``calls``
+    is the number of such calls per frame (serving) or per step (training)."""
+    b_ms, b_by, t_bytes, t_ops = bnd
+    print(f"[kernel] {kernel:13s} {mode:34s} f32 max|d| {err:.3e}  bf16 "
+          f"max|d|/max|ref| {'-' if bf16_rel is None else f'{bf16_rel:.3e}'}  "
+          f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
+          f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+          f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+    modes.append(dict(kernel=kernel, mode=mode, calls=calls, max_abs_err=err,
+                      bf16_rel_err=bf16_rel, ms=k_ms, plain_ms=p_ms,
+                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+
+
+def _smooth(gen, c, hw, amp, n=1):
+    """A flow-like field (n, c, *hw) on the card: std ``amp``, varying over
+    ~32 pixels."""
+    import torch
+    import torch.nn.functional as F
+
+    lo = torch.randn(n, c, max(2, hw[0] // 32), max(2, hw[1] // 32), generator=gen)
+    return F.interpolate((lo * amp).cuda(), size=hw, mode="bilinear",
+                         align_corners=False).contiguous()
 
 
 def phase_kernels(gen):
@@ -129,24 +180,10 @@ def phase_kernels(gen):
 
     q = (WARP[0] // 4, WARP[1] // 4)
     modes = []  # one record per (kernel, main-path call shape)
-
-    def record(kernel, mode, calls, err, bf16_rel, k_ms, p_ms, lib_ms, bnd):
-        b_ms, b_by, t_bytes, t_ops = bnd
-        print(f"[kernel] {kernel:9s} {mode:34s} f32 max|d| {err:.3e}  bf16 "
-              f"max|d|/max|ref| {bf16_rel:.3e}  kernel {k_ms:.4f} ms  plain "
-              f"{p_ms:.4f} ms  library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-              f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})")
-        modes.append(dict(kernel=kernel, mode=mode, calls_per_frame=calls,
-                          max_abs_err=err, bf16_rel_err=bf16_rel, ms=k_ms,
-                          plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by))
+    record = functools.partial(_record, modes)
 
     def smooth(c, hw, amp):
-        """A flow-like field: std ``amp``, varying over ~32 pixels."""
-        lo = torch.randn(1, c, max(2, hw[0] // 32), max(2, hw[1] // 32), generator=gen)
-        return F.interpolate((lo * amp).to(dev), size=hw, mode="bilinear",
-                             align_corners=False).contiguous()
+        return _smooth(gen, c, hw, amp)
 
     def check(kernel, mode, tol, got, ref):
         err = float((got - ref).abs().max())
@@ -255,6 +292,34 @@ def phase_kernels(gen):
     return modes
 
 
+def _zero_counts() -> None:
+    from crfp_torch.ops.cuda import dcn, emit, ssim, warp
+
+    dcn.launches = warp.launches = emit.launches = 0
+    dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
+
+
+def _counts() -> dict:
+    from crfp_torch.ops.cuda import dcn, emit, ssim, warp
+
+    return {"dcn_fwd": dcn.launches, "flow_warp": warp.launches,
+            "emit": emit.launches, "dcn_bwd": dcn.bwd_launches,
+            "flow_warp_bwd": warp.bwd_launches, "ssim": ssim.launches}
+
+
+def _train_expect(steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps at the recipe: T-1 recurrent
+    steps of 4 DCNs and 3 warps each, run twice forward (remat recomputes
+    each step in the backward pass) and once backward; two SSIM metrics;
+    no frame emission in the batch trunk."""
+    from crfp_torch.bench.train import RECIPE
+
+    n_rec = RECIPE["t"] - 1
+    per_step = {"dcn_fwd": 2 * 4 * n_rec, "flow_warp": 2 * 3 * n_rec, "emit": 0,
+                "dcn_bwd": 4 * n_rec, "flow_warp_bwd": 3 * n_rec, "ssim": 2}
+    return {k: v * steps for k, v in per_step.items()}
+
+
 def phase_slice():
     """Phase 3. Returns the launch counts of the kernel-path run."""
     import numpy as np
@@ -262,7 +327,6 @@ def phase_slice():
 
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.runtime import CRFPRuntimeV18
-    from crfp_torch.ops.cuda import dcn, emit, warp
     from crfp_torch.params import load_npz, runtime_params_from_batch
 
     t = 5
@@ -292,13 +356,13 @@ def phase_slice():
 
     with plain_kernels():
         want = run()
-    dcn.launches = warp.launches = emit.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     got = run()
     wall = time.perf_counter() - t0
-    launches = {"dcn_fwd": dcn.launches, "flow_warp": warp.launches,
-                "emit": emit.launches}
-    expect = {"dcn_fwd": 4 * (t - 1), "flow_warp": 2 * (t - 1), "emit": t}
+    launches = _counts()
+    expect = {"dcn_fwd": 4 * (t - 1), "flow_warp": 2 * (t - 1), "emit": t,
+              "dcn_bwd": 0, "flow_warp_bwd": 0, "ssim": 0}
     print(f"[slice] {t} frames 1080p warp {WARP} mid {MID} f32 via kernels in "
           f"{wall:.3f} s (first run, host clock); launches {launches}")
     if launches != expect:
@@ -332,6 +396,242 @@ def phase_bench():
     return res
 
 
+def _grads(fn, inputs, grad_out):
+    """(output, gradients of every input) of ``fn`` for ``grad_out``."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, grad_out)
+    return out.detach(), grads
+
+
+def _time_backward(fn, inputs, grad_out, iters=20, warmup=3):
+    """ms of autograd's backward through ``fn`` alone (the forward graph is
+    built once and kept)."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True),
+                   iters=iters, warmup=warmup)
+
+
+def phase_kernels_train(gen):
+    """Phase 5: kernels D and F at the training shapes. Returns their
+    records (calls per train step)."""
+    import torch
+
+    from crfp_torch.bench.train import RECIPE
+    from crfp_torch.ops.cuda import dcn, ssim, warp
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    b, t, gt, mid = RECIPE["b"], RECIPE["t"], RECIPE["gt"], RECIPE["mid"]
+    n_rec = t - 1  # recurrent steps per clip
+    lv = (gt // 4, gt // 4)
+    modes = []
+    record = functools.partial(_record, modes)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    def check_grads(kernel, mode, got, want, tol):
+        """max|d| <= tol * max|ref| for every gradient; returns (max abs
+        error, max relative error)."""
+        abs_err, rel_err = 0.0, 0.0
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            d = float((g_.float() - w_).abs().max())
+            rel = d / float(w_.abs().max())
+            if not rel <= tol:
+                fail(f"{kernel} {mode}: gradient {i} max|d| {d} is {rel:.3e} of "
+                     f"max|ref| > {tol}")
+            abs_err, rel_err = max(abs_err, d), max(rel_err, rel)
+        return abs_err, rel_err
+
+    # ---- D for the DCN stages: per-tap dcn_0/1/2, shared-tap dcn_3 -------
+    for mode, (c, o, g, hw, d, shared, calls) in {
+        f"per-tap G=8 D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, mid, 8, lv, 8, False, 3 * n_rec),
+        f"shared G=1 D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, mid // 8, 1, (gt, gt), 32,
+                                                       True, n_rec),
+    }.items():
+        taps = 1 if shared else 9
+        x = randn(b, c, *hw)
+        noisy = randn(b, g * taps * 2, *hw, std=0.75 * d)
+        off = (_smooth(gen, 2, hw, d, n=b).repeat(1, g * taps, 1, 1)
+               + randn(b, g * taps * 2, *hw, std=1.0 if shared else 2.0))
+        mask = torch.rand(b, g * taps, *hw, generator=gen).cuda()
+        wt = randn(o, c, 3, 3, std=0.1)
+        bias = randn(o)
+        gout = randn(b, o, *hw)
+        kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
+
+        def kern(*a):
+            return dcn.deform_conv2d_windowed(*a, **kw)
+
+        def plain(*a):
+            return deform_conv2d_windowed_ref(*a, **kw)
+
+        err = 0.0
+        for o_ in (noisy, off):
+            _, got = _grads(kern, (x, o_, mask, wt, bias), gout)
+            _, want = _grads(plain, (x, o_, mask, wt, bias), gout)
+            torch.cuda.synchronize()
+            err = max(err, check_grads("kernel D dcn", mode, got, want, 1e-4)[0])
+        xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+        _, gotb = _grads(kern, (xb, off, mask, wt, bias), gb)
+        torch.cuda.synchronize()
+        _, rel = check_grads("kernel D dcn bf16", mode, gotb, want, 2e-2)
+        k_ms = time_ms(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
+        p_ms = _time_backward(plain, (xb, off, mask, wt, bias), gb, iters=5)
+        n_px = b * hw[0] * hw[1]
+        # per (pixel, group, tap, channel): the O-wide contraction for s and
+        # for dW, the four-corner sample and its two position derivatives
+        flops = n_px * g * 9 * (c // g) * (4 * o + 22)
+        dxb, doff, dmask, dw = dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
+        record("dcn_bwd", mode, calls, err, rel, k_ms, p_ms, None,
+               bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16"))
+
+    # ---- D at k=1: the HR state, lv3_state and the stacked lv states -----
+    for mode, (c, hw, d) in {
+        f"HR D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, (gt, gt), 32),
+        f"lv3_state D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, lv, 8),
+        f"lv D=8 ({b},{3 * mid // 4},{lv[0]},{lv[1]})": (3 * mid // 4, lv, 8),
+    }.items():
+        x = randn(b, c, *hw)
+        noisy = randn(b, 2, *hw, std=0.75 * d)
+        flow = _smooth(gen, 2, hw, d, n=b)
+        gout = randn(b, c, *hw)
+
+        def kern(x_, f_):
+            return warp.flow_warp_windowed(x_, f_, d)
+
+        def plain(x_, f_):
+            return flow_warp_windowed_ref(x_, f_, d)
+
+        err = 0.0
+        for f_ in (noisy, flow):
+            _, got = _grads(kern, (x, f_), gout)
+            _, want = _grads(plain, (x, f_), gout)
+            torch.cuda.synchronize()
+            err = max(err, check_grads("kernel D warp", mode, got, want, 1e-4)[0])
+        xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+        _, gotb = _grads(kern, (xb, flow), gb)
+        torch.cuda.synchronize()
+        _, rel = check_grads("kernel D warp bf16", mode, gotb, want, 2e-2)
+        k_ms = time_ms(lambda: warp.flow_warp_backward(xb, flow, gb, d))
+        p_ms = _time_backward(plain, (xb, flow), gb, iters=5)
+        # yardstick: grid_sample's backward on a precomputed bf16 grid (the
+        # clamp is outside it, as in phase 2's forward yardstick)
+        h, w = hw
+        fc = flow.clamp(-d, d)
+        gx = (torch.arange(w, device="cuda").view(1, 1, w) + fc[:, 0]) * (2.0 / (w - 1)) - 1
+        gy = (torch.arange(h, device="cuda").view(1, h, 1) + fc[:, 1]) * (2.0 / (h - 1)) - 1
+        grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
+        lib_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gb, xb, grid, 0, 0, True, [True, True]))
+        dxb, dflow = warp.flow_warp_backward(xb, flow, gb, d)
+        record("flow_warp_bwd", mode, n_rec, err, rel, k_ms, p_ms, lib_ms,
+               bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"))
+
+    # ---- F: the train step's RGB and luma calls, and a 1080p frame -------
+    for mode, (n, c, h, w, calls) in {
+        f"RGB ({b * t},{gt},{gt},3)": (b * t, 3, gt, gt, 1),
+        f"Y ({b * t},{gt},{gt},1)": (b * t, 1, gt, gt, 1),
+        "1080p (1,1080,1920,3) (checked, not on the path)": (1, 3, 1080, 1920, 0),
+    }.items():
+        # white-noise frames: the map's f32 rounding (<x^2> - mu^2 over
+        # C2 = 9e-4) stays far below the limit in both versions
+        hr = torch.rand(n, c, h, w, generator=gen).cuda()
+        sr = (hr + randn(n, c, h, w, std=0.1)).clamp(0, 1)
+        got = ssim.ssim_map(sr, hr)
+        want = ssim.ssim_map_ref(sr, hr)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        mean_err = float((got.double().mean() - want.double().mean()).abs())
+        if not (err <= 1e-5 and mean_err <= 1e-6):
+            fail(f"kernel F ssim {mode}: map max|d| {err} (limit 1e-5), masked mean "
+                 f"|d| {mean_err} (limit 1e-6)")
+        k_ms = time_ms(lambda: ssim.ssim_map(sr, hr))
+        p_ms = time_ms(lambda: ssim.ssim_map_ref(sr, hr), iters=5)
+        # two 11-tap passes over five moments, the three products x^2, y^2,
+        # xy once per pixel, the formula
+        flops = n * c * h * w * (2 * 5 * 11 * 2 + 3 + 15)
+        record("ssim", mode, calls, err, None, k_ms, p_ms, None,
+               bound([sr, hr], [got], flops, "float32"))
+    return modes
+
+
+def phase_train():
+    """Phase 6."""
+    from crfp_torch.bench.train import build_trainer, device_batches
+
+    steps, lr = 3, 2e-4
+    batches = device_batches(steps, seed=0)
+
+    def run(tag):
+        model, opt, step = build_trainer(amp=False, ckpt=str(CKPT), lr_rate=lr)
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(steps):
+            m = step(opt, batches[i], i)
+            losses.append(float(m["loss"]))
+            print(f"[train] {tag} f32 step {i}: " + ", ".join(
+                f"{k} {float(v):.6f}" for k, v in m.items()))
+        print(f"[train] {tag}: {steps} f32 steps in {time.perf_counter() - t0:.2f} s "
+              "(host clock, first steps)")
+        return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    with plain_kernels():
+        want_losses, want_params = run("plain")
+    _zero_counts()
+    got_losses, got_params = run("kernels")
+    launches = _counts()
+    expect = _train_expect(steps)
+    print(f"[train] launches in {steps} kernel steps: {launches}")
+    if launches != expect:
+        fail(f"train launch counts {launches} != expected {expect}")
+    for i, (g, w) in enumerate(zip(got_losses, want_losses)):
+        if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+            fail(f"train step {i}: loss {g} through the kernels, {w} plain")
+    worst = max(float((got_params[k] - want_params[k]).abs().max()) for k in want_params)
+    print(f"[train] losses kernels {got_losses} plain {want_losses}; max param "
+          f"|d| after {steps} steps {worst:.3e} (limit {2 * lr * steps:.1e})")
+    if not worst <= 2 * lr * steps:
+        fail(f"parameters differ by {worst} > {2 * lr * steps} after {steps} steps")
+
+    # amp: 10 steps on one batch from the checkpoint must stay finite; 10
+    # from the seeded init must descend. (From the trained weights, Adam's
+    # first step moves every parameter by the full rate whatever its
+    # gradient, and that step raises the loss on a batch the model already
+    # fits; 10 steps do not win it back.)
+    for tag, ckpt in (("checkpoint", str(CKPT)), ("seeded init", None)):
+        _, opt, step = build_trainer(amp=True, ckpt=ckpt, lr_rate=lr)
+        amp_losses = [float(step(opt, batches[0], i)["loss"]) for i in range(10)]
+        print(f"[train] amp losses on one batch from the {tag}: {amp_losses}")
+        if not all(math.isfinite(v) for v in amp_losses):
+            fail(f"amp steps from the {tag} gave non-finite losses: {amp_losses}")
+    if not amp_losses[-1] < amp_losses[0]:
+        fail(f"amp steps from the seeded init did not descend: {amp_losses}")
+
+
+def phase_train_bench():
+    """Phase 7: the training main path, amp at the recipe. Returns the
+    launch counts of the bench's steps (warm-up and timed)."""
+    from crfp_torch.bench.train import run_train_bench
+
+    steps, warmup = 10, 3
+    _zero_counts()
+    res = run_train_bench(steps=steps, warmup=warmup)
+    launches = _counts()
+    print(f"[train bench] {json.dumps(res)}")
+    expect = _train_expect(warmup + steps)
+    print(f"[train bench] launches in {warmup + steps} amp steps: {launches}")
+    if launches != expect:
+        fail(f"amp train launch counts {launches} != expected {expect}")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
@@ -358,39 +658,56 @@ def main() -> int:
     phase_build()
     gen = torch.Generator().manual_seed(0)
     modes = phase_kernels(gen)
-    launches = phase_slice()
+    serve_launches = phase_slice()
     phase_bench()
+    modes += phase_kernels_train(gen)
+    phase_train()
+    train_launches = phase_train_bench()
 
     kernels = []
+    serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
+    train = "main-path calls per amp train step (B 2, T 7, GT 192, mid 32), bf16 inputs"
     meta = {
         "dcn_fwd": ("crfp_torch/csrc/dcn_fwd.cu", "crfp_tpu/ops/pallas/dcn.py:59",
-                    "crfp_tpu/ops/pallas/dcn.py::_dcn_kernel"),
+                    "crfp_tpu/ops/pallas/dcn.py::_dcn_kernel", serve),
         "flow_warp": ("crfp_torch/csrc/flow_warp.cu", "crfp_tpu/ops/pallas/warp.py:29",
                       "crfp_tpu/ops/pallas/warp.py::flow_warp_windowed_pallas "
-                      "(_dcn_kernel at k=1)"),
+                      "(_dcn_kernel at k=1)", serve),
         "emit": ("crfp_torch/csrc/emit.cu", "crfp_tpu/ops/pallas/emit.py:55",
-                 "crfp_tpu/ops/pallas/emit.py::_emit_kernel"),
+                 "crfp_tpu/ops/pallas/emit.py::_emit_kernel", serve),
+        "dcn_bwd": ("crfp_torch/csrc/dcn_bwd.cu", "crfp_tpu/ops/pallas/dcn.py:219",
+                    "crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel", train),
+        "flow_warp_bwd": ("crfp_torch/csrc/flow_warp_bwd.cu",
+                          "crfp_tpu/ops/pallas/dcn.py:219",
+                          "crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel at k=1, no mask "
+                          "(the windowed warp's backward)", train),
+        "ssim": ("crfp_torch/csrc/ssim.cu", "crfp_tpu/ops/pallas/ssim.py:55",
+                 "crfp_tpu/ops/pallas/ssim.py::_ssim_kernel", train),
     }
-    for name, (src, replaces, tpu) in meta.items():
+    for name, (src, replaces, tpu, per) in meta.items():
         ms = [m for m in modes if m["kernel"] == name]
-        on_path = [m for m in ms if m["calls_per_frame"] > 0]
+        on_path = [m for m in ms if m["calls"] > 0]
 
-        def per_frame(key):
-            return sum(m[key] * m["calls_per_frame"] for m in on_path)
+        def per_unit(key):
+            return sum(m[key] * m["calls"] for m in on_path)
 
-        lib = (per_frame("library_ms")
+        lib = (per_unit("library_ms")
                if all(m["library_ms"] is not None for m in on_path) else None)
-        b_ms = per_frame("bound_ms")
+        serving = per is serve
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "tpu_counterpart": tpu, "launches": launches[name],
+            "tpu_counterpart": tpu,
+            # launches on this kernel's own main path: the 5-frame serving
+            # slice (phase 3) or the 13 amp steps of the train bench (phase 7)
+            "launches": (serve_launches if serving else train_launches)[name],
+            **({"launches_train": train_launches[name]} if serving else {}),
             "max_abs_err": max(m["max_abs_err"] for m in ms),
-            "ms": per_frame("ms"), "kernel_ms": per_frame("ms"),
-            "plain_ms": per_frame("plain_ms"), "bound_ms": b_ms,
+            "ms": per_unit("ms"), "kernel_ms": per_unit("ms"),
+            "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
             "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
                          else "operations"),
             "library_ms": lib,
-            "per_frame_of": "main-path calls per steady-state frame, bf16 inputs",
+            "per_unit_of": per,
             "modes": ms,
         })
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

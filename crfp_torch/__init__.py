@@ -7,13 +7,16 @@ anchoring, the fused-prep DCN kernel) are not carried.
 
 Public entry points take and return NHWC tensors like the JAX models;
 inside, tensors are NCHW. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``. The three kernels of the streaming path live in
-``crfp_torch/csrc`` and are built with ``nvcc`` at first use
-(``crfp_torch.ops.cuda``); on CPU tensors every op runs its plain
-PyTorch version.
+passes ``device="cpu"``. Two paths are ported: the v18 streaming runtime
+(``CRFPRuntimeV18``) and the v18 training step (the batch trunk ``CRFP``
+with ``crfp_torch.train``). Their kernels live in ``crfp_torch/csrc`` and
+are built with ``nvcc`` at first use (``crfp_torch.ops.cuda``); the DCN
+and warp dispatchers are autograd Functions whose backward is a kernel
+too. On CPU tensors every op runs its plain PyTorch version.
 """
 
 from crfp_torch.models.config import ModelConfig
+from crfp_torch.models.crfp import CRFP
 from crfp_torch.models.runtime import CRFPRuntimeV18
 
-__all__ = ["ModelConfig", "CRFPRuntimeV18"]
+__all__ = ["ModelConfig", "CRFP", "CRFPRuntimeV18"]

@@ -1,15 +1,19 @@
-"""Where the time of the streaming slice goes on the GPU.
+"""Where the time of the streaming slice and of the train step goes on
+the GPU.
 
     python -m crfp_torch.bench.profile
 
-Builds the benchmark's chain (crfp_torch.bench.runtime.build_chain: 1080p,
-warp 720^2, mid 32, t=5, bf16) and, after a warm-up, times 4 reps of it
-twice in one process: once without the profiler (CUDA events around the
-chain) and once under ``torch.profiler``. Prints the device time by kernel
-(top 25) and by group (the port's three kernels, convolutions, resizes,
+Streaming: builds the benchmark's chain (crfp_torch.bench.runtime.build_chain:
+1080p, warp 720^2, mid 32, t=5, bf16) and, after a warm-up, times 4 reps
+of it twice in one process: once without the profiler (CUDA events around
+the chain) and once under ``torch.profiler``. Training: the same for 4
+steps of the amp train step at the recipe of record
+(crfp_torch.bench.train: B 2, T 7, GT 192, mid 32, windows 8/32, remat),
+after 3 warm-up steps. Prints, per frame or per step, the device time by
+kernel (top 25) and by group (the port's kernels, convolutions, resizes,
 the rest), the device idle share of each chain's wall time, and one JSON
-line with the same numbers. Fails without a card, or if the trace holds
-no device time.
+line each with the same numbers. Fails without a card, or if a trace
+holds no device time.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import warnings
 
 import torch
 
+from crfp_torch.bench import train as train_bench
 from crfp_torch.bench.runtime import build_chain
 
 # kernel-name substrings -> group, first match wins
@@ -27,6 +32,9 @@ _GROUPS = (
     ("kernel A dcn_fwd", ("dcn_fwd_kernel",)),
     ("kernel B flow_warp", ("flow_warp_kernel",)),
     ("kernel C emit", ("emit_kernel",)),
+    ("kernel D dcn_bwd", ("dcn_bwd_kernel",)),
+    ("kernel D flow_warp_bwd", ("flow_warp_bwd_kernel",)),
+    ("kernel F ssim", ("ssim_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "cutlass", "sm90", "winograd",
                      "implicit", "fprop", "dgrad", "wgrad")),
     ("layout conversion", ("nchwToNhwc", "nhwcToNchw", "transpose", "permute")),
@@ -42,12 +50,12 @@ def _group(name: str) -> str:
     return "elementwise / other"
 
 
-def _timed(chain, reps: int) -> float:
-    """Wall time of ``chain(reps)`` in microseconds, by CUDA events."""
+def _timed(run) -> float:
+    """Wall time of ``run()`` in microseconds, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    chain(reps)
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) * 1e3
@@ -62,19 +70,23 @@ def _idle_share(busy_us: float, wall_us: float, what: str) -> float:
     return 1.0 - busy_us / wall_us
 
 
-def profile_runtime(reps: int = 4, t: int = 5) -> dict:
-    chain = build_chain(preset="1080p", t=t, bf16=True)
+def _profiled(run, units: int) -> dict:
+    """Run ``run()`` (which does ``units`` frames or steps) once without and
+    once under the profiler; the per-unit breakdown of the profiled run's
+    device time and both idle shares."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        chain(3)
-        torch.cuda.synchronize()
-        wall_plain_us = _timed(chain, reps)
-        with torch.profiler.profile(activities=acts) as prof:
-            wall_prof_us = _timed(chain, reps)
-    frames = reps * t
+    torch.cuda.synchronize()
+    wall_plain_us = _timed(run)
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_prof_us = _timed(run)
+    # user annotations (the optimizer's "Optimizer.step#Adam.step" range)
+    # appear on the device timeline too and span kernels counted already
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)
+                   or e.name.startswith("Optimizer.")}
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in annotations:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -91,44 +103,71 @@ def profile_runtime(reps: int = 4, t: int = 5) -> dict:
         g[0] += us
         g[1] += n
     return {
-        "device": torch.cuda.get_device_name(0),
-        "preset": "1080p", "dtype": "bfloat16",
-        "frames": frames,
-        "wall_ms_per_frame": wall_plain_us / 1e3 / frames,
-        "wall_ms_per_frame_profiled": wall_prof_us / 1e3 / frames,
-        "device_busy_ms_per_frame": busy_us / 1e3 / frames,
-        # the busy time is the profiled chain's; the unprofiled chain runs
+        "wall_ms": wall_plain_us / 1e3 / units,
+        "wall_ms_profiled": wall_prof_us / 1e3 / units,
+        "device_busy_ms": busy_us / 1e3 / units,
+        # the busy time is the profiled run's; the unprofiled run launches
         # the same kernels on the same build
         "device_idle_share": _idle_share(busy_us, wall_plain_us, "unprofiled"),
         "device_idle_share_profiled": _idle_share(busy_us, wall_prof_us, "profiled"),
-        "launches_per_frame": sum(n for _, n in kernels.values()) / frames,
-        "groups": {g: {"ms_per_frame": us / 1e3 / frames, "launches_per_frame": n / frames,
+        "launches": sum(n for _, n in kernels.values()) / units,
+        "groups": {g: {"ms": us / 1e3 / units, "launches": n / units,
                        "share_of_busy": us / busy_us}
                    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])},
         "top_kernels": [
-            {"name": name[:120], "ms_per_frame": us / 1e3 / frames,
-             "launches_per_frame": n / frames, "group": _group(name)}
+            {"name": name[:120], "ms": us / 1e3 / units, "launches": n / units,
+             "group": _group(name)}
             for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]],
     }
 
 
-def main() -> int:
-    r = profile_runtime()
-    print(f"[profile] {r['device']} {r['preset']} {r['dtype']}: wall "
-          f"{r['wall_ms_per_frame']:.3f} ms/frame unprofiled, "
-          f"{r['wall_ms_per_frame_profiled']:.3f} profiled; device busy "
-          f"{r['device_busy_ms_per_frame']:.3f} ms/frame; idle share "
+def profile_runtime(reps: int = 4, t: int = 5) -> dict:
+    """Per frame of the bf16 streaming slice (1080p, warp 720^2, mid 32)."""
+    chain = build_chain(preset="1080p", t=t, bf16=True)
+    with torch.inference_mode():
+        chain(3)
+        r = _profiled(lambda: chain(reps), reps * t)
+    return {"device": torch.cuda.get_device_name(0), "what": "streaming slice",
+            "preset": "1080p", "dtype": "bfloat16", "per": "frame", **r}
+
+
+def profile_train(steps: int = 4, warmup: int = 3) -> dict:
+    """Per step of the amp train step at the recipe of record."""
+    rc = train_bench.RECIPE
+    opt, step, batches = train_bench.warmed_trainer(warmup, 2 * steps)
+    count = iter(range(warmup, len(batches)))
+
+    def run():
+        for _ in range(steps):
+            i = next(count)
+            step(opt, batches[i], i)
+
+    r = _profiled(run, steps)
+    return {"device": torch.cuda.get_device_name(0), "what": "train step",
+            **rc, "dtype": "bfloat16 (amp)", "per": "step", **r}
+
+
+def _report(r: dict) -> None:
+    per = r["per"]
+    print(f"[profile] {r['device']} {r['what']}: wall {r['wall_ms']:.3f} ms/{per} "
+          f"unprofiled, {r['wall_ms_profiled']:.3f} profiled; device busy "
+          f"{r['device_busy_ms']:.3f} ms/{per}; idle share "
           f"{r['device_idle_share']:.3f} unprofiled, "
           f"{r['device_idle_share_profiled']:.3f} profiled; "
-          f"{r['launches_per_frame']:.1f} launches/frame")
+          f"{r['launches']:.1f} launches/{per}")
     for g, v in r["groups"].items():
-        print(f"[profile] group {g:22s} {v['ms_per_frame']:.4f} ms/frame "
+        print(f"[profile] group {g:22s} {v['ms']:.4f} ms/{per} "
               f"({v['share_of_busy'] * 100:.1f} % of busy, "
-              f"{v['launches_per_frame']:.1f} launches/frame)")
+              f"{v['launches']:.1f} launches/{per})")
     for k in r["top_kernels"]:
-        print(f"[profile] {k['ms_per_frame']:.4f} ms/frame x{k['launches_per_frame']:.1f} "
+        print(f"[profile] {k['ms']:.4f} ms/{per} x{k['launches']:.1f} "
               f"[{k['group']}] {k['name']}")
     print(json.dumps(r))
+
+
+def main() -> int:
+    _report(profile_runtime())
+    _report(profile_train())
     return 0
 
 

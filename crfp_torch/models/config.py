@@ -28,6 +28,18 @@ class ModelConfig:
     dcn_window: int | None = None
     # the same for the HR-level dcn_3 and the HR state warp
     dcn_window_hr: int | None = None
+    # the batch trunk's flow net; only 'fnet' is ported ('spynet' raises)
+    flow_net: str = "fnet"
+    # recompute each recurrent step of the batch trunk in the backward pass
+    # (torch.utils.checkpoint, non-reentrant) instead of keeping its
+    # activations: the JAX package's nn.remat of the scan body
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.flow_net == "spynet":
+            raise NotImplementedError("flow_net='spynet' is not ported yet; use 'fnet'")
+        if self.flow_net != "fnet":
+            raise ValueError(f"flow_net={self.flow_net!r} (expected 'fnet')")
 
     @property
     def last_channels(self) -> int:

@@ -108,6 +108,11 @@ def check(rc: int, lib_name: str, fn_name: str) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}: {msg}")
 
 
+def window(max_displacement: int | None) -> float:
+    """The kernels' clamp argument: a negative D means no clamp."""
+    return -1.0 if max_displacement is None else float(max_displacement)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 

@@ -1,0 +1,48 @@
+"""Masked PSNR and SSIM with the reference's semantics (crfp_tpu/ops/metrics.py).
+
+- masked PSNR: ``mse = ((a-b)^2 * mask).sum() / (mask.sum() * C)``, then
+  ``-20*log10(sqrt(mse))``; a zero error gives the floor of one 8-bit step
+  spread over every element (:37-45).
+- masked SSIM: the SSIM map (11x11 Gaussian window, sigma 1.5, zero 'same'
+  padding, C1 0.01^2, C2 0.03^2 on [0, 1] images), masked mean over
+  ``mask.sum() * C`` (:64-99). The map is kernel F on CUDA tensors
+  (``crfp_torch/ops/cuda/ssim.py``, forward only) and its plain version on
+  CPU tensors.
+
+Inputs are NHWC; the mask is (N, H, W, 1), broadcast over channels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from crfp_torch.ops.cuda.ssim import gaussian_1d, ssim_map
+
+
+def _gaussian_window() -> np.ndarray:
+    """The 11x11 window: the outer product of the f32-normalised 1-D taps."""
+    g = np.asarray(gaussian_1d(), np.float32)
+    return np.outer(g, g).astype(np.float32)
+
+
+def masked_psnr(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """PSNR over the masked region of [0, 1]-ranged NHWC images."""
+    c = sr.shape[-1]
+    mask = mask.to(sr.dtype)
+    mse = (((sr - hr) ** 2) * mask).sum() / (mask.sum() * c)
+    zero_floor = -20.0 * math.log10(math.sqrt((1.0 / 255.0) ** 2 / math.prod(sr.shape)))
+    return torch.where(mse == 0, torch.full_like(mse, zero_floor),
+                       -20.0 * torch.log10(torch.sqrt(mse)))
+
+
+def masked_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean of the SSIM map of [0, 1]-ranged NHWC images. On the card
+    the inputs must not require grad (kernel F has no backward)."""
+    c = sr.shape[-1]
+    smap = ssim_map(sr.float().permute(0, 3, 1, 2).contiguous(),
+                    hr.float().permute(0, 3, 1, 2).contiguous())
+    mask = mask.to(smap.dtype).permute(0, 3, 1, 2)
+    return (smap * mask).sum() / (mask.sum() * c)

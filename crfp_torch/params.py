@@ -7,6 +7,10 @@ port's module tree follows the flax names, so the mapping is mechanical:
 - ``a/b/conv/kernel`` (HWIO) -> ``a.b.conv.weight`` (OIHW);
 - ``a/dcn_weight`` (kh, kw, C, O) -> ``a.dcn_weight`` (O, C, kh, kw);
 - every other leaf (biases, ``dcn_bias``) passes through.
+
+:func:`to_jax` is the inverse, and :func:`save_npz` writes the flat format,
+so the JAX package loads a checkpoint the port trained
+(crfp_tpu/utils/params_io.py::load_params).
 """
 
 from __future__ import annotations
@@ -38,6 +42,31 @@ def from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             a = a.transpose(3, 2, 0, 1)
         out[".".join(parts)] = torch.tensor(np.ascontiguousarray(a))
     return out
+
+
+def to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's state_dict -> flat flax leaves ``params/<path>/<leaf>``, as
+    numpy copies: ``a.b.conv.weight`` (OIHW) -> ``a/b/conv/kernel`` (HWIO),
+    ``a.dcn_weight`` (O, C, kh, kw) -> (kh, kw, C, O), every other leaf as
+    it is."""
+    out = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        a = value.detach().cpu().numpy()
+        if parts[-1] == "weight":
+            parts[-1] = "kernel"
+            a = a.transpose(2, 3, 1, 0)
+        elif parts[-1] == "dcn_weight":
+            a = a.transpose(2, 3, 1, 0)
+        # a copy: .numpy() shares the parameter's storage
+        out["/".join(["params", *parts])] = np.array(a, order="C")
+    return out
+
+
+def save_npz(state_dict: dict[str, torch.Tensor], path: str) -> None:
+    """Write ``state_dict`` as a flat flax ``.npz`` (the format of
+    crfp_tpu/utils/params_io.py::save_params_npz)."""
+    np.savez_compressed(path, **to_jax(state_dict))
 
 
 _RB_INPUT = re.compile(r"^(forward_resblocks_)(\d)\.input_conv(\..*)$")

@@ -39,6 +39,11 @@ def test_port_imports_no_jax():
     files = _port_files()
     assert (_ROOT / "chip_smoke.py").exists()
     assert len(files) > 15, files
+    # the training slice's modules are scanned too
+    for rel in ("models/crfp.py", "train/loop.py", "train/schedule.py", "ops/metrics.py",
+                "ops/color.py", "ops/cuda/ssim.py", "data/fovea.py", "data/procedural.py",
+                "tools/train_procedural.py", "bench/train.py"):
+        assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}, bad
@@ -121,7 +126,7 @@ def test_build_targets_follow_the_sources():
     from crfp_torch.ops.cuda import _build
 
     names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
-    assert names == ["dcn_fwd", "emit", "flow_warp"]
+    assert names == ["dcn_bwd", "dcn_fwd", "emit", "flow_warp", "flow_warp_bwd", "ssim"]
     t = _build._target(_build.SRC_DIR / "emit.cu")
     assert t.parent == _build.BUILD_DIR and t.name.startswith("libemit-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -187,3 +192,83 @@ def test_kernel_b_and_c_match_plain_on_card():
         err = (emit.emit_frame(y, lr, r) - emit.emit_frame_ref(y, lr, r)).abs().max()
         assert float(err) <= 1e-5
     torch.cuda.synchronize()
+
+
+def _grads(fn, inputs, grad_out):
+    """Gradients of ``fn(*inputs)`` for ``grad_out``, by autograd."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out.backward(grad_out)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _rel_err(got, want):
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("shared", [False, True], ids=["per_tap", "shared"])
+def test_kernel_d_dcn_backward_matches_plain_on_card(shared):
+    """Autograd through the DCN dispatcher on CUDA tensors launches kernel
+    A forward and kernel D backward; every gradient agrees with autograd
+    of the plain version."""
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    gen = torch.Generator().manual_seed(3)
+    g, c, o = (1, 4, 4) if shared else (8, 32, 32)
+    taps = 1 if shared else 9
+    x = torch.randn(2, c, 13, 17, generator=gen).cuda()
+    off = (torch.randn(2, g * taps * 2, 13, 17, generator=gen) * 3).cuda()
+    mask = torch.rand(2, g * taps, 13, 17, generator=gen).cuda()
+    w = (torch.randn(o, c, 3, 3, generator=gen) * 0.2).cuda()
+    b = torch.randn(o, generator=gen).cuda()
+    gout = torch.randn(2, o, 13, 17, generator=gen).cuda()
+    kw = dict(max_displacement=2, shared_taps=shared, shared_mask=shared)
+    before = (dcn.launches, dcn.bwd_launches)
+    out, got = _grads(lambda *a: dcn.deform_conv2d_windowed(*a, **kw),
+                      (x, off, mask, w, b), gout)
+    torch.cuda.synchronize()
+    assert (dcn.launches, dcn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    _, want = _grads(lambda *a: deform_conv2d_windowed_ref(*a, **kw),
+                     (x, off, mask, w, b), gout)
+    for name, gg, ww in zip(("x", "offset", "mask", "weight", "bias"), got, want):
+        assert _rel_err(gg, ww) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("window", [8, None], ids=["clamped", "unclamped"])
+def test_kernel_d_warp_backward_matches_plain_on_card(window):
+    from crfp_torch.ops.cuda import warp
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 24, 30, 33, generator=gen).cuda()
+    flow = (torch.randn(2, 2, 30, 33, generator=gen) * 12).cuda()
+    gout = torch.randn(2, 24, 30, 33, generator=gen).cuda()
+    before = warp.bwd_launches
+    _, got = _grads(lambda *a: warp.flow_warp_windowed(*a, window), (x, flow), gout)
+    torch.cuda.synchronize()
+    assert warp.bwd_launches == before + 1
+    _, want = _grads(lambda *a: flow_warp_windowed_ref(*a, window), (x, flow), gout)
+    for name, gg, ww in zip(("x", "flow"), got, want):
+        assert _rel_err(gg, ww) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+def test_kernel_f_ssim_matches_plain_on_card():
+    from crfp_torch.ops.cuda import ssim
+
+    gen = torch.Generator().manual_seed(5)
+    hr = torch.rand(3, 3, 70, 101, generator=gen).cuda()
+    sr = (hr + 0.1 * torch.randn(3, 3, 70, 101, generator=gen).cuda()).clamp(0, 1)
+    before = ssim.launches
+    got = ssim.ssim_map(sr, hr)
+    torch.cuda.synchronize()
+    assert ssim.launches == before + 1
+    assert float((got - ssim.ssim_map_ref(sr, hr)).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="no backward"):
+        ssim.ssim_map(sr.requires_grad_(True), hr)

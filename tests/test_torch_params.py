@@ -1,7 +1,9 @@
 """crfp_torch.params against the JAX package: the trained checkpoint
 checkpoints/v18_mid32_struct.npz through both packages'
 runtime_params_from_batch, leaf for leaf, and 3 frames of the slice at
-mid 32 on the CPU (f32, tiny frame) under the adapted weights."""
+mid 32 on the CPU (f32, tiny frame) under the adapted weights; to_jax as
+the exact inverse of from_jax, and a save_npz checkpoint that the JAX
+package loads and applies."""
 
 import sys
 
@@ -94,3 +96,42 @@ def test_trained_weights_three_frames_match_jax(adapted):
     for i, (g, w) in enumerate(zip(got, want)):
         err = float(np.abs(g - w).max())
         assert err <= 1e-4, (i, err)
+
+
+def test_to_jax_inverts_from_jax_exactly():
+    from crfp_torch.params import from_jax, load_npz, to_jax
+
+    flat = load_npz(CKPT)
+    back = to_jax(from_jax(flat))
+    assert sorted(back) == sorted(flat)
+    for k, v in flat.items():
+        assert back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v)
+
+
+def test_save_npz_loads_in_the_jax_package(tmp_path):
+    """A checkpoint the port writes loads through the JAX package's loader,
+    and the JAX CRFP applies it to the port's output (f32, CPU)."""
+    import jax
+    import jax.numpy as jnp
+
+    from crfp_tpu.models.crfp import CRFP as JCRFP
+    from crfp_tpu.models.crfp import ModelConfig as JConfig
+    from crfp_tpu.utils.params_io import load_params
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.params import save_npz
+
+    model = CRFP(ModelConfig(mid_channels=16), device="cpu", seed=3)
+    path = str(tmp_path / "port.npz")
+    save_npz(model.state_dict(), path)
+    rng = np.random.default_rng(9)
+    lr = rng.uniform(0, 1, (1, 2, 8, 8, 3)).astype(np.float32)
+    fv = rng.uniform(0, 1, (1, 2, 64, 64, 3)).astype(np.float32)
+    mk = np.zeros((1, 2, 64, 64, 1), np.float32)
+    mk[:, :, 8:40, 16:48] = 1.0
+    want = jax.jit(JCRFP(JConfig(variant="v18", mid_channels=16)).apply)(
+        load_params(path), jnp.asarray(lr), jnp.asarray(fv), jnp.asarray(mk))
+    with torch.no_grad():
+        got = model(torch.from_numpy(lr), torch.from_numpy(fv), torch.from_numpy(mk))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
