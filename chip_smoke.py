@@ -9,19 +9,30 @@ Phases, in order; any failure exits non-zero without the final line:
    main-path shapes (1080p, warp 720^2, mid 32): f32 with TF32 off, A to
    1e-4 abs, B and C to 1e-5 abs; bf16 inputs against the f32 plain
    version to 2e-2 of max|ref|; time kernel, plain version and, where one
-   PyTorch call computes the same function, that call;
+   PyTorch call computes the same function, that call. Kernel E
+   (dcn_fused) at the serving shape (1,32,180,180) and the gate shape
+   (1,32,180,320): f32 to 1e-4 of max|ref| on white-noise and smooth heads,
+   bf16 x and heads to 2e-2 of max|ref| against the f32 plain version on
+   the same (rounded) values, and f32 against the PyTorch prologue followed
+   by kernel A on the same operands to 1e-5 on a smooth field; timed beside
+   its plain version and beside prologue + A. Kernels A and B are held
+   the same way at the gate's 16:9 shapes too (A per-tap (1,32,180,320)
+   and shared (1,4,720,1280), each clamped and unclamped; B (1,4,720,1280),
+   (1,32,180,320) and (1,24,180,320));
 3. drive the slice through its entry points (encode, step0, step) over 5
    frames at 1080p / warp 720^2 / mid 32 with checkpoints/v18_mid32_struct.npz,
    once through the kernels and once through the plain versions, both in
    f32; every frame must agree to >= 80 dB PSNR and max|d| <= 1e-3, and
    the launch counters must show A 4, B 2, C 1 per steady-state frame;
-4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench;
+4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench,
+   in turns with ModelConfig.dcn_fused off, on, on, off (off: A 4, B 2, C 1
+   per steady frame; on: E 3, A 1, B 2, C 1), launch counts asserted;
 5. hold the training kernels against their plain versions at the training
    shapes of the recipe of record (B 2, T 7, GT 192, mid 32; TF32 off):
    kernel D (dcn_bwd, flow_warp_bwd) gradients f32 to 1e-4 of max|ref|,
    bf16 inputs against the f32 plain version to 2e-2 of max|ref|; kernel F
    (ssim) map to 1e-5 abs and masked mean to 1e-6 at (14,192,192,3),
-   (14,192,192,1) and (1,1080,1920,3); time kernel, plain version and,
+   (14,192,192,1), (1,1080,1920,3) and the gate's (1,720,1280,3); time kernel, plain version and,
    where one PyTorch call computes the same function, that call;
 6. train the batch CRFP from checkpoints/v18_mid32_struct.npz (strict
    load, windows 8/32, remat): 3 f32 steps through the kernels against 3
@@ -32,7 +43,24 @@ Phases, in order; any failure exits non-zero without the final line:
    must also descend;
 7. time the amp train step (crfp_torch.bench.train.run_train_bench), the
    training main path, with the launch counts of every kernel asserted;
-8. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+8. run the deployment quality gate (crfp_torch.bench.deploy_gate.run_gate)
+   at full width: checkpoints/v18_mid32_procedural.npz, mid 32, LR 90x160 ->
+   720x1280, fovea 96, sigmas 10/50/100, 20 frames each, EXACT (f32,
+   unclamped) against DEPLOY (bf16, windows 8/32, dcn_fused). Every zone
+   must hold |dPSNR| <= 0.05 dB and every sigma an exact-vs-deploy
+   agreement >= 50 dB (the JAX package documents >= 51.5 dB for its own
+   deployment configuration, docs/DEPLOY.md); the launch counts of the run
+   and of each path alone (EXACT: A 4, B 3 per steady frame, E 0; DEPLOY:
+   E 3, A 1, B 3; DEPLOY without dcn_fused: A 4, B 3; F 1 per evaluated
+   frame and evaluator; C 0) are asserted, and DEPLOY with and without
+   dcn_fused must agree to >= 60 dB over one sigma. Then 4 frames of that
+   clip go through EXACT, DEPLOY with dcn_fused and DEPLOY without it,
+   each in f32, once through the kernels and once through the plain
+   versions (>= 80 dB and max|d| <= 1e-3 per frame, as in phase 3), and
+   through bf16 DEPLOY with dcn_fused (>= 60 dB per frame); the zone
+   evaluation of the kernels' frames with kernel F must equal the one with
+   F's plain version to 1e-4 dB and 1e-5 SSIM;
+9. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -51,6 +79,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "checkpoints" / "v18_mid32_struct.npz"
+GATE_CKPT = ROOT / "checkpoints" / "v18_mid32_procedural.npz"
+GATE_LR_HW, GATE_FRAMES, GATE_SIGMAS = (90, 160), 20, (10.0, 50.0, 100.0)
+# exact-vs-deploy agreement of the gate, dB; frames of the gate streamed through
+# the plain versions, and the bf16 limit of kernels against plain there, dB
+GATE_AGREE_DB, GATE_PLAIN_FRAMES, GATE_PLAIN_BF16_DB = 50.0, 4, 60.0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
 # cores 989 TFLOP/s; f32 outside the tensor cores 67 TFLOP/s
@@ -95,23 +128,29 @@ def bound(inputs, outputs, flops: float, dtype: str) -> tuple[float, str, float,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the models' and the metric's kernel call sites to the plain
+    """Route the models', the metric's and the zone evaluator's kernel call sites to the plain
     versions (they call the dispatchers by these module-level names); on
     the plain versions autograd of plain PyTorch applies."""
+    import crfp_torch.eval.zones as zn
     import crfp_torch.models.crfp as cr
     import crfp_torch.models.runtime as rt
     import crfp_torch.nn.align as al
     import crfp_torch.ops.metrics as mt
     from crfp_torch.ops.cuda.emit import emit_frame_ref
     from crfp_torch.ops.cuda.ssim import ssim_map_ref
-    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.dcn_windowed import (
+        deform_conv2d_fusedprep_ref,
+        deform_conv2d_windowed_ref,
+    )
     from crfp_torch.ops.warp import flow_warp_windowed_ref
 
     sites = [(al, "deform_conv2d_windowed", deform_conv2d_windowed_ref),
+             (al, "deform_conv2d_fusedprep", deform_conv2d_fusedprep_ref),
              (rt, "flow_warp_windowed", flow_warp_windowed_ref),
              (rt, "emit_frame", emit_frame_ref),
              (cr, "flow_warp_windowed", flow_warp_windowed_ref),
-             (mt, "ssim_map", ssim_map_ref)]
+             (mt, "ssim_map", ssim_map_ref),
+             (zn, "ssim_map", ssim_map_ref)]
     saved = [getattr(m, name) for m, name, _ in sites]
     for m, name, plain in sites:
         setattr(m, name, plain)
@@ -136,18 +175,21 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
-def _record(modes, kernel, mode, calls, err, bf16_rel, k_ms, p_ms, lib_ms, bnd):
+def _record(modes, kernel, mode, calls, err, bf16_rel, k_ms, p_ms, lib_ms, bnd,
+            **extra):
     """Print one (kernel, call shape) line and append its record; ``calls``
-    is the number of such calls per frame (serving) or per step (training)."""
+    is the number of such calls per unit of the kernel's own main path (a
+    serving frame, a train step, a DEPLOY frame of the gate)."""
     b_ms, b_by, t_bytes, t_ops = bnd
     print(f"[kernel] {kernel:13s} {mode:34s} f32 max|d| {err:.3e}  bf16 "
           f"max|d|/max|ref| {'-' if bf16_rel is None else f'{bf16_rel:.3e}'}  "
           f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
           f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-          f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+          f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})"
+          + "".join(f"  {k} {v:.4g}" for k, v in extra.items()))
     modes.append(dict(kernel=kernel, mode=mode, calls=calls, max_abs_err=err,
                       bf16_rel_err=bf16_rel, ms=k_ms, plain_ms=p_ms,
-                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra))
 
 
 def _smooth(gen, c, hw, amp, n=1):
@@ -166,8 +208,12 @@ def phase_kernels(gen):
     import torch
     import torch.nn.functional as F
 
-    from crfp_torch.ops.cuda import dcn, emit, warp
-    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, warp
+    from crfp_torch.ops.dcn_windowed import (
+        deform_conv2d_fusedprep_ref,
+        deform_conv2d_windowed_ref,
+        fusedprep_offsets_and_mask,
+    )
     from crfp_torch.ops.warp import flow_warp_windowed_ref
 
     dev = "cuda"
@@ -179,6 +225,9 @@ def phase_kernels(gen):
         return torch.rand(*shape, generator=gen).to(dev)
 
     q = (WARP[0] // 4, WARP[1] // 4)
+    # the gate's 16:9 planes: the 1/4-res stages and the HR level
+    gq = (GATE_LR_HW[0] * 2, GATE_LR_HW[1] * 2)
+    ghr = (GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8)
     modes = []  # one record per (kernel, main-path call shape)
     record = functools.partial(_record, modes)
 
@@ -201,10 +250,15 @@ def phase_kernels(gen):
     # lands somewhere else) and on smooth flow-like ones; times are taken
     # on the smooth ones, which is what the model feeds the kernels.
 
-    # ---- A: per-tap (dcn_0/1/2) and shared-tap (dcn_3) ----------------
-    for mode, (c, o, g, hw, d, shared) in {
-        "per-tap G=8 D=8 (1,32,180,180)": (MID, MID, 8, q, 8, False),
-        "shared G=1 D=32 (1,4,720,720)": (MID // 8, MID // 8, 1, WARP, 32, True),
+    # ---- A: per-tap (dcn_0/1/2) and shared-tap (dcn_3), at the serving
+    # shapes and at the gate's (each also unclamped, as the gate's EXACT
+    # side runs it) ------------------------------------------------------
+    for mode, (c, o, g, hw, d, shared, calls) in {
+        "per-tap G=8 D=8 (1,32,180,180)": (MID, MID, 8, q, 8, False, 3),
+        "shared G=1 D=32 (1,4,720,720)": (MID // 8, MID // 8, 1, WARP, 32, True, 1),
+        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (MID, MID, 8, gq, 8, False, 0),
+        f"shared G=1 D=32 (1,4,{ghr[0]},{ghr[1]}) gate": (MID // 8, MID // 8, 1, ghr, 32,
+                                                        True, 0),
     }.items():
         taps = 1 if shared else 9
         x = randn(1, c, *hw)
@@ -236,13 +290,73 @@ def phase_kernels(gen):
                        iters=5)
         n_px = hw[0] * hw[1]
         flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9  # contraction + samples
-        record("dcn_fwd", mode, 1 if shared else 3, err, rel, k_ms, p_ms, None,
+        record("dcn_fwd", mode, calls, err, rel, k_ms, p_ms, None,
                bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16"))
 
+    # ---- E: dcn_0/1/2 from the raw heads, serving and gate shapes --------
+    for mode, (hw, calls) in {
+        f"per-tap G=8 D=8 (1,32,{q[0]},{q[1]}) serving, dcn_fused": (q, 0),
+        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (gq, 3),
+    }.items():
+        c = o = MID
+        g, d, mag = 8, 8, 10.0
+        x = randn(1, c, *hw)
+        # white-noise heads saturate tanh and the clip; the smooth ones are
+        # what the model's head convolutions produce. Anisotropic flow.
+        raw_n, rawm_n = randn(1, g * 18, *hw, std=0.7), randn(1, g * 9, *hw, std=2.0)
+        raw_s = smooth(g * 18, hw, 0.3) + randn(1, g * 18, *hw, std=0.02)
+        rawm_s = smooth(g * 9, hw, 1.5)
+        flow = smooth(2, hw, 3.0) + torch.tensor([2.0, -1.0], device=dev).view(1, 2, 1, 1)
+        wt = randn(o, c, 3, 3, std=0.1)
+        b = randn(o)
+        kw = dict(max_residue_magnitude=mag, max_displacement=d)
+        err = 0.0
+        for r_, m_ in ((raw_n, rawm_n), (raw_s, rawm_s)):
+            ref = deform_conv2d_fusedprep_ref(x, r_, m_, flow, wt, b, **kw)
+            got = dcn_fused.deform_conv2d_fusedprep(x, r_, m_, flow, wt, b, **kw)
+            torch.cuda.synchronize()
+            err = max(err, check("kernel E", mode, 1e-4 * float(ref.abs().max()), got, ref))
+        # against the PyTorch prologue, then kernel A, on a smooth field
+        yy = torch.arange(hw[0], device=dev).view(1, 1, -1, 1)
+        xx = torch.arange(hw[1], device=dev).view(1, 1, 1, -1)
+        fr = torch.linspace(-0.3, 0.3, c, device=dev).view(1, c, 1, 1)
+        xs = torch.sin(yy * fr + xx * fr.flip(1) + 10 * fr).contiguous()
+
+        def prologue_a(x_, r_, m_):
+            off, mask = fusedprep_offsets_and_mask(r_, m_, flow, mag)
+            return dcn.deform_conv2d_windowed(x_, off, mask, wt, b, max_displacement=d)
+
+        got = dcn_fused.deform_conv2d_fusedprep(xs, raw_s, rawm_s, flow, wt, b, **kw)
+        torch.cuda.synchronize()
+        err_pa = check("kernel E", mode + " vs prologue + A", 1e-5, got,
+                       prologue_a(xs, raw_s, rawm_s))
+        # bf16 x and heads against the f32 plain version on the same values
+        xb, rb, mb = (t.to(torch.bfloat16) for t in (x, raw_s, rawm_s))
+        refb = deform_conv2d_fusedprep_ref(xb.float(), rb.float(), mb.float(), flow,
+                                           wt, b, **kw)
+        gotb = dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b, **kw)
+        torch.cuda.synchronize()
+        rel = check_bf16("kernel E", mode, gotb, refb)
+        k_ms = time_ms(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b,
+                                                                 **kw))
+        pa_ms = time_ms(lambda: prologue_a(xb, rb, mb))
+        p_ms = time_ms(lambda: deform_conv2d_fusedprep_ref(xb, rb, mb, flow, wt, b, **kw),
+                       iters=5)
+        n_px = hw[0] * hw[1]
+        # contraction + samples + the prologue (two tanh, a sigmoid, the
+        # flow add and the clip per group and tap, ~40 operations)
+        flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9 + 40 * n_px * g * 9
+        record("dcn_fused", mode, calls, err, rel, k_ms, p_ms, None,
+               bound([xb, rb, mb, flow, wt, b], [gotb], flops, "bfloat16"),
+               prologue_a_ms=pa_ms, max_abs_err_vs_prologue_a=err_pa)
+
     # ---- B: HR state (D=32) and the concatenated lv states (D=8) -------
-    for mode, (c, hw, d) in {
-        "HR D=32 (1,4,720,720)": (MID // 8, WARP, 32),
-        "lv D=8 (1,24,180,180)": (3 * MID // 4, q, 8),
+    for mode, (c, hw, d, calls) in {
+        "HR D=32 (1,4,720,720)": (MID // 8, WARP, 32, 1),
+        "lv D=8 (1,24,180,180)": (3 * MID // 4, q, 8, 1),
+        f"HR D=32 (1,4,{ghr[0]},{ghr[1]}) gate": (MID // 8, ghr, 32, 0),
+        f"lv3_state D=8 (1,32,{gq[0]},{gq[1]}) gate": (MID, gq, 8, 0),
+        f"lv D=8 (1,24,{gq[0]},{gq[1]}) gate": (3 * MID // 4, gq, 8, 0),
     }.items():
         x = randn(1, c, *hw)
         noisy = randn(1, 2, *hw, std=0.75 * d)
@@ -269,7 +383,7 @@ def phase_kernels(gen):
         lib_ms = time_ms(lambda: F.grid_sample(xb, grid, mode="bilinear",
                                                padding_mode="zeros",
                                                align_corners=True))
-        record("flow_warp", mode, 1, err, rel, k_ms, p_ms, lib_ms,
+        record("flow_warp", mode, calls, err, rel, k_ms, p_ms, lib_ms,
                bound([xb, flow], [gotb], 8 * h * w * c, "bfloat16"))
 
     # ---- C: r=1 (main path) and r=4 (the s2d frame) --------------------
@@ -293,18 +407,24 @@ def phase_kernels(gen):
 
 
 def _zero_counts() -> None:
-    from crfp_torch.ops.cuda import dcn, emit, ssim, warp
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, ssim, warp
 
-    dcn.launches = warp.launches = emit.launches = 0
+    dcn.launches = warp.launches = emit.launches = dcn_fused.launches = 0
     dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
 
 
 def _counts() -> dict:
-    from crfp_torch.ops.cuda import dcn, emit, ssim, warp
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, ssim, warp
 
     return {"dcn_fwd": dcn.launches, "flow_warp": warp.launches,
             "emit": emit.launches, "dcn_bwd": dcn.bwd_launches,
-            "flow_warp_bwd": warp.bwd_launches, "ssim": ssim.launches}
+            "flow_warp_bwd": warp.bwd_launches, "dcn_fused": dcn_fused.launches,
+            "ssim": ssim.launches}
+
+
+def _expect(**counts) -> dict:
+    """A full launch-count dict: the kernels named, every other one 0."""
+    return {**dict.fromkeys(_counts(), 0), **counts}
 
 
 def _train_expect(steps: int) -> dict:
@@ -315,8 +435,8 @@ def _train_expect(steps: int) -> dict:
     from crfp_torch.bench.train import RECIPE
 
     n_rec = RECIPE["t"] - 1
-    per_step = {"dcn_fwd": 2 * 4 * n_rec, "flow_warp": 2 * 3 * n_rec, "emit": 0,
-                "dcn_bwd": 4 * n_rec, "flow_warp_bwd": 3 * n_rec, "ssim": 2}
+    per_step = _expect(dcn_fwd=2 * 4 * n_rec, flow_warp=2 * 3 * n_rec,
+                       dcn_bwd=4 * n_rec, flow_warp_bwd=3 * n_rec, ssim=2)
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -361,8 +481,7 @@ def phase_slice():
     got = run()
     wall = time.perf_counter() - t0
     launches = _counts()
-    expect = {"dcn_fwd": 4 * (t - 1), "flow_warp": 2 * (t - 1), "emit": t,
-              "dcn_bwd": 0, "flow_warp_bwd": 0, "ssim": 0}
+    expect = _expect(dcn_fwd=4 * (t - 1), flow_warp=2 * (t - 1), emit=t)
     print(f"[slice] {t} frames 1080p warp {WARP} mid {MID} f32 via kernels in "
           f"{wall:.3f} s (first run, host clock); launches {launches}")
     if launches != expect:
@@ -383,17 +502,169 @@ def phase_slice():
 
 
 def phase_bench():
+    """Phase 4: the 1080p serving bench without and with dcn_fused, in one
+    call. Returns {configuration: [ms/frame of each run]}."""
     from crfp_torch.bench.runtime import run_runtime_bench
-    from crfp_torch.ops.cuda import dcn, emit, warp
 
-    dcn.launches = warp.launches = emit.launches = 0
-    res = run_runtime_bench(preset="1080p", warp_size=WARP, bf16=True)
-    print(f"[bench] {res}")
-    print(f"[bench] launches during the bench: dcn_fwd {dcn.launches}, "
-          f"flow_warp {warp.launches}, emit {emit.launches}")
-    if min(dcn.launches, warp.launches, emit.launches) == 0:
-        fail("the bench did not go through every kernel")
-    return res
+    t, repeat_time, warm_up = 5, 30, 10
+    reps = warm_up + 2 * (repeat_time - warm_up)  # a warm-up and two timed chains
+    steady, frames = reps * (t - 1), reps * t
+    results = {"structured": [], "dcn_fused": []}
+    # in turns (off, on, on, off): the frame is host-bound, and the host's
+    # speed drifts within a call
+    for fused in (False, True, True, False):
+        _zero_counts()
+        res = run_runtime_bench(preset="1080p", warp_size=WARP, bf16=True, t=t,
+                                repeat_time=repeat_time, warm_up=warm_up,
+                                dcn_fused=fused)
+        launches = _counts()
+        tag = "dcn_fused" if fused else "structured"
+        print(f"[bench] {tag}: {res}")
+        print(f"[bench] {tag}: launches over {frames} frames ({steady} steady): {launches}")
+        expect = (_expect(dcn_fused=3 * steady, dcn_fwd=steady, flow_warp=2 * steady,
+                          emit=frames) if fused else
+                  _expect(dcn_fwd=4 * steady, flow_warp=2 * steady, emit=frames))
+        if launches != expect:
+            fail(f"serving bench ({tag}) launch counts {launches} != expected {expect}")
+        results[tag].append(res.sec_per_frame * 1e3)
+    print(f"[bench] ms/frame in turns: structured {results['structured']}, dcn_fused "
+          f"{results['dcn_fused']}")
+    return results
+
+
+def phase_gate():
+    """Phase 8: the deployment quality gate at full width. Returns the launch
+    counts of the gate's run."""
+    import numpy as np
+    import torch
+
+    from crfp_torch.bench import deploy_gate as dg
+
+    frames, sigmas = GATE_FRAMES, GATE_SIGMAS
+    n_sig, steady = len(sigmas), frames - 1
+    _zero_counts()
+    t0 = time.perf_counter()
+    rows, extras = dg.run_gate(str(GATE_CKPT), sigmas=sigmas, lr_hw=GATE_LR_HW,
+                               frames=frames, mid_channels=MID, dcn_fused=True,
+                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    print(f"[gate] {frames} frames x sigmas {sigmas} at LR {GATE_LR_HW} -> "
+          f"{GATE_LR_HW[0] * 8}x{GATE_LR_HW[1] * 8}, mid {MID}, {GATE_CKPT.name}, "
+          f"EXACT f32 vs DEPLOY bf16 windows 8/32 dcn_fused: {wall:.2f} s (host clock, "
+          "models built and clips generated inside)")
+    print(dg.format_table(rows))
+    worst = max(abs(r.d_psnr) for r in rows)
+    print(f"[gate] worst per-zone |dPSNR| {worst:.4f} dB (limit 0.05); exact-vs-deploy "
+          f"agreement per sigma {[round(a, 2) for a in extras['agree_db']]} dB (limit "
+          f">= {GATE_AGREE_DB:g}); host-clock ms per steady frame: EXACT "
+          f"{extras['exact_ms_per_frame']:.3f}, DEPLOY {extras['deploy_ms_per_frame']:.3f}")
+    print(f"[gate] launches: {launches}")
+    # EXACT: A 4, B 3 per steady frame; DEPLOY: E 3, A 1, B 3; one F per
+    # evaluated frame for each of the two evaluators; the trunk emits no frame
+    expect = _expect(dcn_fwd=5 * steady * n_sig, flow_warp=6 * steady * n_sig,
+                     dcn_fused=3 * steady * n_sig, ssim=2 * frames * n_sig)
+    if launches != expect:
+        fail(f"gate launch counts {launches} != expected {expect}")
+    if len(rows) != 4 * n_sig:
+        fail(f"gate returned {len(rows)} rows, expected {4 * n_sig}")
+    for r in rows:
+        vals = (r.exact_psnr, r.exact_ssim, r.deploy_psnr, r.deploy_ssim)
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"gate row {r} is not finite")
+        if not abs(r.d_psnr) <= 0.05:
+            fail(f"gate sigma {r.sigma} zone {r.zone}: |dPSNR| {abs(r.d_psnr):.4f} > 0.05 dB")
+    if not extras["agree_db_min"] >= GATE_AGREE_DB:
+        fail(f"gate exact-vs-deploy agreement {extras['agree_db']} dB < {GATE_AGREE_DB:g} dB")
+
+    # each path alone over the first sigma's clip: its launch counts, and
+    # DEPLOY with and without dcn_fused against each other
+    lr, hr, gaze = dg.gate_clip(np.random.default_rng(42), sigmas[0], GATE_LR_HW, frames)
+    outs = {}
+    per_path = {
+        "EXACT": (dict(deploy=False), _expect(dcn_fwd=4 * steady, flow_warp=3 * steady)),
+        "DEPLOY dcn_fused": (dict(deploy=True, dcn_fused=True),
+                             _expect(dcn_fused=3 * steady, dcn_fwd=steady,
+                                     flow_warp=3 * steady)),
+        "DEPLOY structured": (dict(deploy=True, dcn_fused=False),
+                              _expect(dcn_fwd=4 * steady, flow_warp=3 * steady)),
+    }
+    for tag, (kw, expect) in per_path.items():
+        runner = dg.build_runner(str(GATE_CKPT), MID, device="cuda", **kw)
+        secs = []
+        _zero_counts()
+        outs[tag] = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze, secs)]
+        got = _counts()
+        print(f"[gate] {tag} alone, {frames} frames: launches {got}; "
+              f"{1e3 * sum(secs[1:]) / steady:.3f} ms per steady frame (host clock)")
+        if got != expect:
+            fail(f"gate path {tag}: launch counts {got} != expected {expect}")
+    mse = float(torch.stack([((a - b).double() ** 2).mean() for a, b in
+                             zip(outs["DEPLOY dcn_fused"], outs["DEPLOY structured"])]).mean())
+    psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
+    print(f"[gate] DEPLOY dcn_fused vs DEPLOY structured over sigma {sigmas[0]:g}: "
+          f"{psnr:.2f} dB (limit >= 60)")
+    if not psnr >= 60.0:
+        fail(f"DEPLOY with and without dcn_fused agree to {psnr:.2f} dB < 60 dB")
+    _gate_vs_plain(lr[:GATE_PLAIN_FRAMES], hr[:GATE_PLAIN_FRAMES], gaze[:GATE_PLAIN_FRAMES])
+    return launches
+
+
+def _gate_vs_plain(lr, hr, gaze):
+    """The gate's paths through the kernels against the same paths through
+    the plain versions, over the first frames of one clip: the streamed
+    frames of each configuration, and the zone evaluation of the kernels'
+    frames with kernel F against the same evaluation with F's plain
+    version. The f32 configurations (DEPLOY's weights upcast from bf16)
+    hold what phase 3 holds; bf16 DEPLOY, where a one-ulp difference of a
+    rounded activation is 2^-8 of it and recurs, holds a looser bound."""
+    import torch
+
+    from crfp_torch.bench import deploy_gate as dg
+    from crfp_torch.eval.zones import OnChipZoneEval
+
+    for tag, kw, f32, db_min, d_max in (
+        ("EXACT f32", dict(deploy=False), False, 80.0, 1e-3),
+        ("DEPLOY f32 dcn_fused", dict(deploy=True, dcn_fused=True), True, 80.0, 1e-3),
+        ("DEPLOY f32 structured", dict(deploy=True, dcn_fused=False), True, 80.0, 1e-3),
+        ("DEPLOY bf16 dcn_fused", dict(deploy=True, dcn_fused=True), False,
+         GATE_PLAIN_BF16_DB, None),
+    ):
+        runner = dg.build_runner(str(GATE_CKPT), MID, device="cuda", **kw)
+        if f32:
+            runner.model.float()
+        ev_kernel = OnChipZoneEval(dg.FV_SIZE, "cuda")
+        ev_plain = OnChipZoneEval(dg.FV_SIZE, "cuda")
+        got = list(dg.stream_clip(runner, lr, hr, gaze))
+        for z, out, gt in got:
+            ev_kernel.update(out, gt, z)
+        with plain_kernels():
+            want = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)]
+            for z, out, gt in got:
+                ev_plain.update(out, gt, z)
+        for i, ((_, g, _), w) in enumerate(zip(got, want)):
+            d = (g - w).abs()
+            mse = float((d.double() ** 2).mean())
+            psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
+            print(f"[gate] {tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB (limit >= "
+                  f"{db_min:g}), max|d| {float(d.max()):.3e}")
+            if not (bool(torch.isfinite(g).all()) and psnr >= db_min
+                    and (d_max is None or float(d.max()) <= d_max)):
+                fail(f"gate {tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
+                     f"max|d| {float(d.max())}")
+        worst = {"psnr": 0.0, "ssim": 0.0}
+        for key, vals in ev_kernel.results.items():
+            other = ev_plain.results[key]
+            if len(vals) != len(other):
+                fail(f"gate {tag}: zone evaluators recorded {len(vals)} and {len(other)} {key}")
+            m = key.split("_")[0]
+            worst[m] = max([worst[m]] + [abs(a - b) for a, b in zip(vals, other)])
+        print(f"[gate] {tag}: zone evaluation of {len(got)} frames, kernel F vs its plain "
+              f"version: max |dPSNR| {worst['psnr']:.3e} dB (limit 1e-4), max |dSSIM| "
+              f"{worst['ssim']:.3e} (limit 1e-5)")
+        if not (worst["psnr"] <= 1e-4 and worst["ssim"] <= 1e-5):
+            fail(f"gate {tag}: zone evaluation with kernel F and with its plain version "
+                 f"differ by {worst}")
 
 
 def _grads(fn, inputs, grad_out):
@@ -534,11 +805,14 @@ def phase_kernels_train(gen):
         record("flow_warp_bwd", mode, n_rec, err, rel, k_ms, p_ms, lib_ms,
                bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"))
 
-    # ---- F: the train step's RGB and luma calls, and a 1080p frame -------
+    # ---- F: the train step's RGB and luma calls, a 1080p frame and the
+    # gate's evaluated frame ----------------------------------------------
     for mode, (n, c, h, w, calls) in {
         f"RGB ({b * t},{gt},{gt},3)": (b * t, 3, gt, gt, 1),
         f"Y ({b * t},{gt},{gt},1)": (b * t, 1, gt, gt, 1),
         "1080p (1,1080,1920,3) (checked, not on the path)": (1, 3, 1080, 1920, 0),
+        f"gate (1,{GATE_LR_HW[0] * 8},{GATE_LR_HW[1] * 8},3)": (
+            1, 3, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, 0),
     }.items():
         # white-noise frames: the map's f32 rounding (<x^2> - mu^2 over
         # C2 = 9e-4) stays far below the limit in both versions
@@ -644,8 +918,9 @@ def main() -> int:
         fail(f"crfp_torch imported from {crfp_torch.__file__}, not from {ROOT}")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    if not CKPT.exists():
-        fail(f"missing {CKPT}")
+    for ckpt in (CKPT, GATE_CKPT):
+        if not ckpt.exists():
+            fail(f"missing {ckpt}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
@@ -663,10 +938,13 @@ def main() -> int:
     modes += phase_kernels_train(gen)
     phase_train()
     train_launches = phase_train_bench()
+    gate_launches = phase_gate()
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
     train = "main-path calls per amp train step (B 2, T 7, GT 192, mid 32), bf16 inputs"
+    gate = ("main-path calls per steady DEPLOY frame of the 720p deployment gate "
+            "(bf16, windows 8/32, dcn_fused)")
     meta = {
         "dcn_fwd": ("crfp_torch/csrc/dcn_fwd.cu", "crfp_tpu/ops/pallas/dcn.py:59",
                     "crfp_tpu/ops/pallas/dcn.py::_dcn_kernel", serve),
@@ -681,9 +959,12 @@ def main() -> int:
                           "crfp_tpu/ops/pallas/dcn.py:219",
                           "crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel at k=1, no mask "
                           "(the windowed warp's backward)", train),
+        "dcn_fused": ("crfp_torch/csrc/dcn_fused.cu", "crfp_tpu/ops/pallas/dcn.py:1468",
+                      "crfp_tpu/ops/pallas/dcn.py::_dcn_kernel_fusedprep", gate),
         "ssim": ("crfp_torch/csrc/ssim.cu", "crfp_tpu/ops/pallas/ssim.py:55",
                  "crfp_tpu/ops/pallas/ssim.py::_ssim_kernel", train),
     }
+    path_launches = {serve: serve_launches, train: train_launches, gate: gate_launches}
     for name, (src, replaces, tpu, per) in meta.items():
         ms = [m for m in modes if m["kernel"] == name]
         on_path = [m for m in ms if m["calls"] > 0]
@@ -694,19 +975,23 @@ def main() -> int:
         lib = (per_unit("library_ms")
                if all(m["library_ms"] is not None for m in on_path) else None)
         serving = per is serve
+        extra = {k: per_unit(k) for k in ("prologue_a_ms",) if all(k in m for m in on_path)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_counterpart": tpu,
             # launches on this kernel's own main path: the 5-frame serving
-            # slice (phase 3) or the 13 amp steps of the train bench (phase 7)
-            "launches": (serve_launches if serving else train_launches)[name],
+            # slice (phase 3), the 13 amp steps of the train bench (phase 7)
+            # or the gate's run (phase 8)
+            "launches": path_launches[per][name],
             **({"launches_train": train_launches[name]} if serving else {}),
+            "launches_gate": gate_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             "ms": per_unit("ms"), "kernel_ms": per_unit("ms"),
             "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
             "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
                          else "operations"),
             "library_ms": lib,
+            **extra,
             "per_unit_of": per,
             "modes": ms,
         })

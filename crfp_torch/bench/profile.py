@@ -1,15 +1,17 @@
 """Where the time of the streaming slice and of the train step goes on
-the GPU.
+the GPU, and of the deployment quality gate's three configurations.
 
     python -m crfp_torch.bench.profile
 
-Streaming: builds the benchmark's chain (crfp_torch.bench.runtime.build_chain:
+Streaming (once with ``dcn_fused`` off and once on): builds the benchmark's chain (crfp_torch.bench.runtime.build_chain:
 1080p, warp 720^2, mid 32, t=5, bf16) and, after a warm-up, times 4 reps
 of it twice in one process: once without the profiler (CUDA events around
 the chain) and once under ``torch.profiler``. Training: the same for 4
 steps of the amp train step at the recipe of record
 (crfp_torch.bench.train: B 2, T 7, GT 192, mid 32, windows 8/32, remat),
-after 3 warm-up steps. Prints, per frame or per step, the device time by
+after 3 warm-up steps. Gate: 8 frames of the 720p clip through the EXACT
+runner, the DEPLOY runner and the DEPLOY runner with kernel E, each with
+its per-frame zone evaluation (crfp_torch.bench.deploy_gate). Prints, per frame or per step, the device time by
 kernel (top 25) and by group (the port's kernels, convolutions, resizes,
 the rest), the device idle share of each chain's wall time, and one JSON
 line each with the same numbers. Fails without a card, or if a trace
@@ -34,6 +36,7 @@ _GROUPS = (
     ("kernel C emit", ("emit_kernel",)),
     ("kernel D dcn_bwd", ("dcn_bwd_kernel",)),
     ("kernel D flow_warp_bwd", ("flow_warp_bwd_kernel",)),
+    ("kernel E dcn_fused", ("dcn_fused_kernel",)),
     ("kernel F ssim", ("ssim_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "cutlass", "sm90", "winograd",
                      "implicit", "fprop", "dgrad", "wgrad")),
@@ -121,14 +124,42 @@ def _profiled(run, units: int) -> dict:
     }
 
 
-def profile_runtime(reps: int = 4, t: int = 5) -> dict:
-    """Per frame of the bf16 streaming slice (1080p, warp 720^2, mid 32)."""
-    chain = build_chain(preset="1080p", t=t, bf16=True)
+def profile_runtime(reps: int = 4, t: int = 5, dcn_fused: bool = False) -> dict:
+    """Per frame of the bf16 streaming slice (1080p, warp 720^2, mid 32);
+    ``dcn_fused``: dcn_0/1/2 through kernel E."""
+    chain = build_chain(preset="1080p", t=t, bf16=True, dcn_fused=dcn_fused)
     with torch.inference_mode():
         chain(3)
         r = _profiled(lambda: chain(reps), reps * t)
-    return {"device": torch.cuda.get_device_name(0), "what": "streaming slice",
+    what = "streaming slice" + (", dcn_fused" if dcn_fused else "")
+    return {"device": torch.cuda.get_device_name(0), "what": what,
             "preset": "1080p", "dtype": "bfloat16", "per": "frame", **r}
+
+
+def profile_gate(frames: int = 8, deploy: bool = True, dcn_fused: bool = True,
+                 ckpt: str = "checkpoints/v18_mid32_procedural.npz") -> dict:
+    """Per frame of one configuration of the deployment quality gate at
+    720p (LR 90x160, mid 32, the trained checkpoint): the streaming batch
+    trunk plus the on-device 4-zone evaluation of each frame. The clip is
+    streamed once to warm up, then once unprofiled and once profiled."""
+    import numpy as np
+
+    from crfp_torch.bench import deploy_gate as dg
+
+    runner = dg.build_runner(ckpt, deploy=deploy, dcn_fused=dcn_fused)
+    lr, hr, gaze = dg.gate_clip(np.random.default_rng(42), 50.0, (90, 160), frames)
+
+    def run():
+        ev = dg.OnChipZoneEval(dg.FV_SIZE)
+        for z, out, gt in dg.stream_clip(runner, lr, hr, gaze):
+            ev.update(out, gt, z)
+
+    run()
+    r = _profiled(run, frames)
+    what = ("gate, DEPLOY bf16 windows 8/32" + (" dcn_fused" if dcn_fused else "")
+            if deploy else "gate, EXACT f32 unclamped")
+    return {"device": torch.cuda.get_device_name(0), "what": what, "preset": "720p",
+            "dtype": "bfloat16" if deploy else "float32", "per": "frame", **r}
 
 
 def profile_train(steps: int = 4, warmup: int = 3) -> dict:
@@ -167,6 +198,10 @@ def _report(r: dict) -> None:
 
 def main() -> int:
     _report(profile_runtime())
+    _report(profile_runtime(dcn_fused=True))
+    _report(profile_gate(deploy=False))
+    _report(profile_gate(deploy=True, dcn_fused=False))
+    _report(profile_gate(deploy=True, dcn_fused=True))
     _report(profile_train())
     return 0
 

@@ -11,11 +11,21 @@ public NHWC entry points and each timed chain ends in
 timed chains is reported, as the JAX harness does. Peak memory is
 ``torch.cuda.max_memory_allocated()`` over the timed chains. Runs on the
 card only: without one it raises.
+
+    python -m crfp_torch.bench.runtime [--pairs 10]
+
+times the bf16 1080p slice with ``dcn_fused`` off and on in alternating
+pairs (the order flips every pair) within one process and prints every
+run, the medians, the quartile distance of the structured runs and the
+pairs each side won: the figures a comparison of the two dispatches needs
+on a host whose speed drifts.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -58,6 +68,7 @@ def build_chain(
     dcn_window_hr: int | None = 32,
     bf16: bool = False,
     params_path: str | None = None,
+    dcn_fused: bool = False,
 ):
     """The benchmark's model and inputs on the GPU. Returns
     ``chain(n_reps)``, which enqueues ``n_reps`` reps of ``t`` frames
@@ -65,7 +76,7 @@ def build_chain(
     if not torch.cuda.is_available():
         raise RuntimeError("the runtime bench measures the GPU; no CUDA device")
     cfg = ModelConfig(mid_channels=mid_channels, dcn_window=dcn_window,
-                      dcn_window_hr=dcn_window_hr)
+                      dcn_window_hr=dcn_window_hr, dcn_fused=dcn_fused)
     model = CRFPRuntimeV18(cfg, warp_size=warp_size, device="cuda", seed=seed)
     if params_path:
         from crfp_torch.params import load_npz, runtime_params_from_batch
@@ -109,15 +120,17 @@ def run_runtime_bench(
     dcn_window_hr: int | None = 32,
     bf16: bool = False,
     params_path: str | None = None,
+    dcn_fused: bool = False,
 ) -> BenchResult:
     """Time the v18 streaming slice on the current CUDA device.
 
     The windows default to the deployment configuration (bench.py's
     ``_DEPLOY``: 8 and 32). ``bf16``: weights and activations in bfloat16
     (the kernels accumulate in f32). ``params_path``: a batch-trunk
-    ``.npz`` checkpoint adapted by ``crfp_torch.params``."""
+    ``.npz`` checkpoint adapted by ``crfp_torch.params``. ``dcn_fused``:
+    dcn_0/1/2 through kernel E instead of a PyTorch prologue and kernel A."""
     chain = build_chain(preset, warp_size, mid_channels, t, fv_hw, seed,
-                        dcn_window, dcn_window_hr, bf16, params_path)
+                        dcn_window, dcn_window_hr, bf16, params_path, dcn_fused)
     with torch.inference_mode():
         chain(max(1, warm_up))
         torch.cuda.synchronize()
@@ -139,3 +152,29 @@ def run_runtime_bench(
         sec_per_frame=spf, frames_per_sec=1.0 / spf,
         peak_bytes=torch.cuda.max_memory_allocated(),
         device=torch.cuda.get_device_name(0))
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--pairs", type=int, default=10)
+    args = p.parse_args(argv)
+    ms = {False: [], True: []}
+    for i in range(args.pairs):
+        for fused in ((False, True) if i % 2 == 0 else (True, False)):
+            res = run_runtime_bench(bf16=True, dcn_fused=fused)
+            ms[fused].append(res.sec_per_frame * 1e3)
+        print(f"pair {i}: structured {ms[False][-1]:.3f} ms/frame, dcn_fused "
+              f"{ms[True][-1]:.3f} ms/frame")
+    q1, q3 = np.percentile(ms[False], [25, 75])
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "pairs": args.pairs,
+        "structured_ms": ms[False], "dcn_fused_ms": ms[True],
+        "structured_median_ms": float(np.median(ms[False])),
+        "dcn_fused_median_ms": float(np.median(ms[True])),
+        "structured_quartile_distance_ms": float(q3 - q1),
+        "pairs_won_by_dcn_fused": sum(f < s for s, f in zip(ms[False], ms[True])),
+        "pairs_won_by_structured": sum(s < f for s, f in zip(ms[False], ms[True]))}))
+
+
+if __name__ == "__main__":
+    main()

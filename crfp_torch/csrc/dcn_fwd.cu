@@ -14,7 +14,9 @@
 // over groups, taps and the group's channels; each sample is four corner
 // loads, and the O output sums stay in registers. The weight is staged
 // once per block in shared memory as ws[(k*C + c)*O + o], so the inner
-// loop over o reads one broadcast address per step.
+// loop over o reads one broadcast address per step. The corner sampling,
+// the clamp and the weight tile live in common.cuh, shared with kernel E
+// (dcn_fused.cu).
 //
 // Bound on the H100 at the main-path shapes (1080p, warp 720^2, mid 32):
 // per-tap (dcn_0/1/2): x (1,32,180,180) bf16 2.1 MB + offset (1,144,180,180)
@@ -42,14 +44,7 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ off,
                int shared_mask) {
   extern __shared__ float ws[];
   const int K2 = KH * KW;
-  const int nw = O * C * K2;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-    const int k = i % K2;
-    const int c = (i / K2) % C;
-    const int o = i / (K2 * C);
-    ws[(k * C + c) * O + o] = weight[i];
-  }
-  __syncthreads();
+  crfp::stage_weight<O>(ws, weight, C, K2);
 
   const long long HW = (long long)H * W;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -74,34 +69,17 @@ dcn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ off,
     for (int o = 0; o < O; ++o) gacc[o] = 0.f;
     for (int k = 0; k < K2; ++k) {
       const int t = shared_taps ? 0 : k;
-      float dy = offn[(long long)((g * taps + t) * 2 + 0) * HW];
-      float dx = offn[(long long)((g * taps + t) * 2 + 1) * HW];
-      if (D >= 0.f) {
-        dy = fminf(fmaxf(dy, -D), D);
-        dx = fminf(fmaxf(dx, -D), D);
-      }
-      const float sy = (float)(py + k / KW - (KH - 1) / 2) + dy;
-      const float sx = (float)(px + k % KW - (KW - 1) / 2) + dx;
-      const float y0f = floorf(sy);
-      const float x0f = floorf(sx);
-      const float fy = sy - y0f;
-      const float fx = sx - x0f;
-      const int y0 = (int)y0f;
-      const int x0 = (int)x0f;
-      const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-      const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-      const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-      const float w10 = fy * (1.f - fx), w11 = fy * fx;
+      const float dy = crfp::clamp_window(
+          offn[(long long)((g * taps + t) * 2 + 0) * HW], D);
+      const float dx = crfp::clamp_window(
+          offn[(long long)((g * taps + t) * 2 + 1) * HW], D);
+      const crfp::Corners cn = crfp::corners_at(
+          (float)(py + k / KW - (KH - 1) / 2) + dy,
+          (float)(px + k % KW - (KW - 1) / 2) + dx, H, W);
       const float m = shared_mask ? 1.f : mn[(long long)(g * K2 + k) * HW];
-      const long long i00 = (long long)y0 * W + x0;
       for (int ci = 0; ci < cpg; ++ci) {
         const int c = g * cpg + ci;
-        const T* xc = xn + (long long)c * HW;
-        float v = 0.f;
-        if (vy0 && vx0) v += w00 * crfp::load_f(xc + i00);
-        if (vy0 && vx1) v += w01 * crfp::load_f(xc + i00 + 1);
-        if (vy1 && vx0) v += w10 * crfp::load_f(xc + i00 + W);
-        if (vy1 && vx1) v += w11 * crfp::load_f(xc + i00 + W + 1);
+        float v = crfp::sample_at(xn + (long long)c * HW, cn, W);
         v *= m;
         const float* wk = ws + (k * C + c) * O;
 #pragma unroll

@@ -2,8 +2,9 @@
 that the logical math reads (crfp_tpu/models/crfp.py:67-154).
 
 The TPU layout switches of the JAX config (``hr_s2d``, ``lv3_s2d``,
-``emit_s2d``, ``dcn_anchor``, ``dcn_fused``) are not carried: the port
-always computes the plain layout and the plain ±window clamp.
+``emit_s2d``, ``dcn_anchor``) are not carried: the port always computes the
+plain layout and the plain ±window clamp. ``dcn_fused`` is carried: it is
+a dispatch knob with the same math and the same parameters.
 """
 
 from __future__ import annotations
@@ -34,8 +35,17 @@ class ModelConfig:
     # (torch.utils.checkpoint, non-reentrant) instead of keeping its
     # activations: the JAX package's nn.remat of the scan body
     remat: bool = False
+    # the 1/4-res alignment stages (dcn_0/1/2) take the offset and mask
+    # heads' raw outputs in one launch (kernel E, crfp_torch/csrc/dcn_fused.cu)
+    # instead of a PyTorch prologue and kernel A. Inference only: a step
+    # that autograd records takes the structured path. Needs dcn_window
+    # (crfp_tpu/models/crfp.py:175-177). The parameter tree is the same.
+    dcn_fused: bool = False
 
     def __post_init__(self):
+        if self.dcn_fused and self.dcn_window is None:
+            raise ValueError("dcn_fused is a windowed-kernel dispatch mode: "
+                             "set dcn_window")
         if self.flow_net == "spynet":
             raise NotImplementedError("flow_net='spynet' is not ported yet; use 'fnet'")
         if self.flow_net != "fnet":

@@ -14,7 +14,8 @@ its mask, and warps three times per step: the HR state at
 ``dcn_window_hr`` (:508), ``lv3_state`` at ``dcn_window`` (:526) and the
 stacked lv states at ``dcn_window`` (:528), all through kernel B forward
 and kernel D backward on the card; the four DCN stages run kernel A
-forward and kernel D backward (crfp_torch/ops/cuda).
+forward and kernel D backward (crfp_torch/ops/cuda), or, with
+``cfg.dcn_fused`` and outside autograd, kernel E for dcn_0/1/2.
 
 Module names follow the flax tree, so a flat ``.npz`` checkpoint of the
 JAX ``CRFP`` loads strictly through ``crfp_torch.params.from_jax``. Inputs
@@ -40,7 +41,7 @@ from crfp_torch.nn.layers import (
 )
 from crfp_torch.nn.lte import LTESimpleHRSingle, LTESimpleLR
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
-from crfp_torch.ops.resize import upsample
+from crfp_torch.ops.resize import resize_bilinear, upsample
 
 
 class CRFP(nn.Module):
@@ -62,11 +63,10 @@ class CRFP(nn.Module):
         m, last, keep = cfg.mid_channels, cfg.last_channels, cfg.keep_channels
         dg, dk, mag = cfg.deform_groups, cfg.dcn_kernel, cfg.max_residue_magnitude
         self.spynet = FNet(3)
-        self.dcn_0 = DCNAlign(m, dg, dk, mag, window=cfg.dcn_window)
-        self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
-                              window=cfg.dcn_window)
-        self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
-                              window=cfg.dcn_window)
+        lv = dict(window=cfg.dcn_window, fused_prep=cfg.dcn_fused)  # 1/4-res stages
+        self.dcn_0 = DCNAlign(m, dg, dk, mag, **lv)
+        self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
+        self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
         self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
                               pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
                               window=cfg.dcn_window_hr, pre_offset_channels=m)
@@ -128,10 +128,17 @@ class CRFP(nn.Module):
         y, out = self._reconstruct(y, x_hr, mk, lr)
         return {"hr": y, "lv": tuple(lvs)}, out
 
-    def step(self, state, lr, x_lr, x_hr, mk, flow):
+    def step(self, state, lr, x_lr, x_hr, mk, flow, fg=None):
         """One recurrent step (:437-574, DSV branch). flow (N, 2, h, w),
-        channels (dx, dy), from this frame to the previous one."""
+        channels (dx, dy), from this frame to the previous one. fg: optional
+        (N, 1, 8h, 8w) regional-computation gate that multiplies the trunk
+        features before resblocks 1-2 (at 1/4 size) and 3 (:452-455,
+        :545-549, :566-571)."""
         cfg = self.cfg
+        fg_lv3 = fg_lv0 = None
+        if fg is not None:
+            fg_lv3 = fg.to(lr.dtype)
+            fg_lv0 = resize_bilinear(fg_lv3, (fg.shape[2] // 4, fg.shape[3] // 4))
         feat_prop_lv0 = self.upsample(x_lr)
         # the warp and DCN kernels take f32 flow whatever the activations' dtype
         flow_lv3 = (upsample(flow, 2) * 2.0).float()
@@ -145,19 +152,26 @@ class CRFP(nn.Module):
 
         offset, lvs = None, []
         x = feat_prop_lv0
-        for dcn, rb, f in ((self.dcn_0, self.forward_resblocks_0, feats[0]),
-                           (self.dcn_1, self.forward_resblocks_1, feats[1]),
-                           (self.dcn_2, self.forward_resblocks_2, feats[2])):
+        for idx, (dcn, rb, f) in enumerate((
+                (self.dcn_0, self.forward_resblocks_0, feats[0]),
+                (self.dcn_1, self.forward_resblocks_1, feats[1]),
+                (self.dcn_2, self.forward_resblocks_2, feats[2]))):
             x = torch.cat([x, f], dim=1)
             aligned, offset = dcn(x, lv3_state, lv3_warped, flow_lv3,
                                   offset if cfg.offset_prop else None)
-            x, carry = self._dsv_chunk(rb(torch.cat([x, aligned], dim=1)))
+            x = torch.cat([x, aligned], dim=1)
+            if fg_lv0 is not None and idx > 0:
+                x = x * fg_lv0
+            x, carry = self._dsv_chunk(rb(x))
             lvs.append(carry)
 
         x = lrelu(self.upsample_post(x))
         aligned, _ = self.dcn_3(x, hr_state, hr_warped, flow_lv0,
                                 offset if cfg.offset_prop else None)
-        y = self.forward_resblocks_3(torch.cat([x, aligned], dim=1))
+        y = torch.cat([x, aligned], dim=1)
+        if fg_lv3 is not None:
+            y = y * fg_lv3
+        y = self.forward_resblocks_3(y)
         y, out = self._reconstruct(y, x_hr, mk, lr)
         return {"hr": y, "lv": tuple(lvs)}, out
 

@@ -103,11 +103,10 @@ class CRFPRuntimeV18(nn.Module):
         dg, dk, mag = cfg.deform_groups, cfg.dcn_kernel, cfg.max_residue_magnitude
         img = 1 if cfg.y_only else 3  # channels of the LR, fovea and output frames
         self.spynet = FNet(img)
-        self.dcn_0 = DCNAlign(m, dg, dk, mag, window=cfg.dcn_window)
-        self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
-                              window=cfg.dcn_window)
-        self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
-                              window=cfg.dcn_window)
+        lv = dict(window=cfg.dcn_window, fused_prep=cfg.dcn_fused)  # 1/4-res stages
+        self.dcn_0 = DCNAlign(m, dg, dk, mag, **lv)
+        self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
+        self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
         self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
                               pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
                               window=cfg.dcn_window_hr, pre_offset_channels=m)

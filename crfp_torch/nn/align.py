@@ -14,9 +14,16 @@ an identity-initialised weight. Plain layout only.
 
 Offsets are (dy, dx) while flow is (dx, dy). The DCN is kernel A's
 dispatcher, with offsets clamped to ±window (``window=None``: no clamp,
-the exact DCN). The JAX package's TPU-only ``anchor``,
-``s2d`` and ``fused_prep`` forms are not carried: off the TPU they compute
-this same plain clamp (crfp_tpu/nn/align.py:42-84).
+the exact DCN). With ``fused_prep`` a per-tap windowed stage hands the two
+heads' raw outputs and the flow to kernel E's dispatcher instead, which
+computes tanh, flow add, clip and sigmoid inside its one launch
+(crfp_tpu/nn/align.py:141-147, :282-306); it is inference only, so a call
+that autograd records takes the structured path (kernel A forward, kernel
+D backward), as does repeat mode. The JAX dispatch is also limited to the
+TPU and to bf16 by its kernel's scratch memory; that is not math, and
+kernel E runs float32 and bfloat16. The JAX package's TPU-only ``anchor``
+and ``s2d`` forms are not carried: off the TPU they compute this same
+plain clamp (crfp_tpu/nn/align.py:42-84).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from torch import nn
 
 from crfp_torch.nn.layers import Conv, PixelShufflePack, lrelu
 from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
+from crfp_torch.ops.cuda.dcn_fused import deform_conv2d_fusedprep
+from crfp_torch.ops.dcn_windowed import fusedprep_offsets_and_mask
 
 
 class DCNAlign(nn.Module):
@@ -42,11 +51,14 @@ class DCNAlign(nn.Module):
         window: int | None = None,
         in_channels: int | None = None,
         pre_offset_channels: int | None = None,
+        fused_prep: bool = False,
     ):
         """``in_channels``: channels of concat(cur, warped_prev, flow),
         default 2*mid + 2. ``pre_offset_channels``: channels of the
         incoming offset feature, default mid (only read with
-        ``interpolate='pixelshuffle'``)."""
+        ``interpolate='pixelshuffle'``). ``fused_prep``: kernel E for a
+        per-tap windowed stage outside autograd; ignored in repeat mode,
+        without a window and under grad. No parameter depends on it."""
         super().__init__()
         m, g, k = mid_channels, deform_groups, kernel
         if repeat and g != 1:
@@ -57,6 +69,7 @@ class DCNAlign(nn.Module):
         self.max_residue_magnitude = max_residue_magnitude
         self.repeat, self.pre_offset = repeat, pre_offset
         self.interpolate, self.window = interpolate, window
+        self.fused_prep = fused_prep
         k2 = k * k
         self.dcn_block_conv1 = Conv(in_channels or 2 * m + 2, m)
         self.dcn_block_conv2 = Conv(m, m)
@@ -101,18 +114,25 @@ class DCNAlign(nn.Module):
 
         n, _, h, w = feat.shape
         g, mag = self.deform_groups, self.max_residue_magnitude
+        if (self.fused_prep and self.window is not None and not self.repeat
+                and not torch.is_grad_enabled()):
+            aligned = deform_conv2d_fusedprep(
+                pre_x.contiguous(), self.dcn_offset(feat).contiguous(),
+                self.dcn_mask(feat).contiguous(), flow.float().contiguous(), self.dcn_weight.float(),
+                self.dcn_bias.float(), max_residue_magnitude=mag,
+                max_displacement=self.window)
+            return aligned, feat
         # the kernel takes f32 offsets/masks/weights whatever x's dtype
-        raw = self.dcn_offset(feat).float()
-        flow = flow.float()
         if self.repeat:
+            raw = self.dcn_offset(feat).float()
+            flow = flow.float()
             off_y = mag * torch.tanh(raw[:, :g]) + flow[:, 1:2]
             off_x = mag * torch.tanh(raw[:, g:]) + flow[:, 0:1]
+            off = torch.stack([off_y, off_x], dim=2).reshape(n, -1, h, w)
+            mask = torch.sigmoid(self.dcn_mask(feat).float())
         else:
-            raw = raw.reshape(n, -1, 2, h, w)  # (n, g*k2, {dy, dx}, h, w)
-            off_y = mag * torch.tanh(raw[:, :, 0]) + flow[:, 1:2]
-            off_x = mag * torch.tanh(raw[:, :, 1]) + flow[:, 0:1]
-        off = torch.stack([off_y, off_x], dim=2).reshape(n, -1, h, w)
-        mask = torch.sigmoid(self.dcn_mask(feat).float())
+            off, mask = fusedprep_offsets_and_mask(
+                self.dcn_offset(feat), self.dcn_mask(feat), flow, mag)
         kw = dict(shared_taps=self.repeat, shared_mask=self.repeat)
         aligned = deform_conv2d_windowed(
             pre_x.contiguous(), off, mask, self.dcn_weight.float(),

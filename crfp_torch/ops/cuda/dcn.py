@@ -6,7 +6,10 @@ Forward: replaces ``crfp_tpu/ops/pallas/dcn.py::_dcn_kernel`` (:59,
 and ``deform_conv2d_pallas_vjp`` :1359) with ``crfp_torch/csrc/dcn_fwd.cu``.
 The TPU kernel builds 2-sparse interpolation matrices per window so that
 its matrix unit does the gathers; Hopper gathers natively, so the CUDA
-kernel samples directly and contracts with the weight in registers.
+kernel samples directly and contracts with the weight in registers. The
+corner sampling, the window clamp and the weight tile in shared memory are
+device code in ``crfp_torch/csrc/common.cuh``, which kernel E
+(``csrc/dcn_fused.cu``, ``ops/cuda/dcn_fused.py``) includes too.
 
 Backward: replaces ``_dcn_bwd_kernel`` (:219, ``pallas_call`` in
 ``_bwd_call`` :593, reached through ``deform_conv2d_pallas_vjp``'s custom

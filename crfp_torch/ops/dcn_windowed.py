@@ -70,3 +70,46 @@ def deform_conv2d_windowed_ref(
     if bias is not None:
         out = out + bias.float().view(1, o, 1, 1)
     return out.to(x.dtype)
+
+
+def fusedprep_offsets_and_mask(
+    raw_offset: torch.Tensor,
+    raw_mask: torch.Tensor,
+    flow: torch.Tensor,
+    max_residue_magnitude: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-tap prologue in plain PyTorch (crfp_tpu/nn/align.py:281,
+    :292-296, before the clip): float32 offsets ``mag * tanh(raw) + flow``
+    in the packed layout (dy takes ``flow[:, 1]``, dx ``flow[:, 0]``) and
+    the sigmoid mask, from the heads' raw outputs (N, G*K2*2, H, W) and
+    (N, G*K2, H, W) and the (N, 2, H, W) flow (dx, dy)."""
+    n, _, h, w = raw_offset.shape
+    raw = raw_offset.float().reshape(n, -1, 2, h, w)  # (n, g*k2, {dy, dx}, h, w)
+    flow = flow.float()
+    off_y = max_residue_magnitude * torch.tanh(raw[:, :, 0]) + flow[:, 1:2]
+    off_x = max_residue_magnitude * torch.tanh(raw[:, :, 1]) + flow[:, 0:1]
+    off = torch.stack([off_y, off_x], dim=2).reshape(n, -1, h, w)
+    return off, torch.sigmoid(raw_mask.float())
+
+
+def deform_conv2d_fusedprep_ref(
+    x: torch.Tensor,
+    raw_offset: torch.Tensor,
+    raw_mask: torch.Tensor,
+    flow: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    max_residue_magnitude: float = 10.0,
+    max_displacement: int | None = None,
+) -> torch.Tensor:
+    """The plain version beside kernel E (``crfp_torch/ops/cuda/dcn_fused.py``):
+    the prologue above, then :func:`deform_conv2d_windowed_ref` per tap,
+    which clamps ``mag * tanh + flow`` once, after the flow is added
+    (crfp_tpu/ops/pallas/dcn.py::deform_conv2d_pallas_fusedprep with its
+    XLA-side epilogue). Returns (N, O, H, W) in x's dtype."""
+    off, mask = fusedprep_offsets_and_mask(raw_offset, raw_mask, flow,
+                                           max_residue_magnitude)
+    return deform_conv2d_windowed_ref(x, off, mask, weight.float(),
+                                      None if bias is None else bias.float(),
+                                      max_displacement=max_displacement)

@@ -8,6 +8,9 @@
   ``mask.sum() * C`` (:64-99). The map is kernel F on CUDA tensors
   (``crfp_torch/ops/cuda/ssim.py``, forward only) and its plain version on
   CPU tensors.
+- ``psnr_and_ssim``: the range heuristic of the reference's
+  ``calc_psnr_and_ssim_cuda`` first (:102-111): a ground truth spanning
+  more than 2 is taken as [0, 255], more than 1 as [-1, 1].
 
 Inputs are NHWC; the mask is (N, H, W, 1), broadcast over channels.
 """
@@ -46,3 +49,14 @@ def masked_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch
                     hr.float().permute(0, 3, 1, 2).contiguous())
     mask = mask.to(smap.dtype).permute(0, 3, 1, 2)
     return (smap * mask).sum() / (mask.sum() * c)
+
+
+def psnr_and_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Range-normalise like the reference, then masked PSNR and SSIM."""
+    rng = float(hr.max() - hr.min())
+    if rng > 2:
+        sr, hr = sr / 255.0, hr / 255.0
+    elif rng > 1:
+        sr, hr = (sr + 1.0) / 2.0, (hr + 1.0) / 2.0
+    return masked_psnr(sr, hr, mask), masked_ssim(sr, hr, mask)

@@ -39,10 +39,13 @@ def test_port_imports_no_jax():
     files = _port_files()
     assert (_ROOT / "chip_smoke.py").exists()
     assert len(files) > 15, files
-    # the training slice's modules are scanned too
+    # the training and evaluation slices' modules are scanned too
     for rel in ("models/crfp.py", "train/loop.py", "train/schedule.py", "ops/metrics.py",
                 "ops/color.py", "ops/cuda/ssim.py", "data/fovea.py", "data/procedural.py",
-                "tools/train_procedural.py", "bench/train.py"):
+                "tools/train_procedural.py", "bench/train.py", "models/streaming.py",
+                "ops/cuda/dcn_fused.py", "eval/__init__.py", "eval/zones.py",
+                "eval/foveated.py", "eval/matlab_metrics.py", "eval/evaluator.py",
+                "bench/deploy_gate.py", "tools/test_video.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
@@ -126,10 +129,31 @@ def test_build_targets_follow_the_sources():
     from crfp_torch.ops.cuda import _build
 
     names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
-    assert names == ["dcn_bwd", "dcn_fwd", "emit", "flow_warp", "flow_warp_bwd", "ssim"]
+    assert names == ["dcn_bwd", "dcn_fused", "dcn_fwd", "emit", "flow_warp",
+                     "flow_warp_bwd", "ssim"]
+    # the header kernels A and E share is part of every library's hash
+    assert (_build.SRC_DIR / "common.cuh").exists()
     t = _build._target(_build.SRC_DIR / "emit.cu")
     assert t.parent == _build.BUILD_DIR and t.name.startswith("libemit-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_every_port_module_imports_without_jax():
+    """Importing every module of the port (the eval package included) in a
+    fresh interpreter loads neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    mods = sorted(".".join(f.relative_to(_ROOT).with_suffix("").parts)
+                  for f in (_ROOT / "crfp_torch").rglob("*.py") if f.name != "__init__.py")
+    assert "crfp_torch.eval.zones" in mods and "crfp_torch.bench.deploy_gate" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
+                       text=True)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 # ---- on the card -------------------------------------------------------
@@ -272,3 +296,62 @@ def test_kernel_f_ssim_matches_plain_on_card():
     assert float((got - ssim.ssim_map_ref(sr, hr)).abs().max()) <= 1e-5
     with pytest.raises(ValueError, match="no backward"):
         ssim.ssim_map(sr.requires_grad_(True), hr)
+
+
+def _fused_args(dtype, n=1, c=32, g=8, hw=(21, 37), seed=6):
+    gen = torch.Generator().manual_seed(seed)
+    h, w = hw
+    x = torch.randn(n, c, h, w, generator=gen)
+    raw = torch.randn(n, g * 18, h, w, generator=gen) * 0.5
+    rawm = torch.randn(n, g * 9, h, w, generator=gen) * 1.5
+    flow = torch.stack([torch.randn(n, h, w, generator=gen) + 2.5,
+                        torch.randn(n, h, w, generator=gen) * 3 - 1.0], dim=1)
+    wt = torch.randn(32, c, 3, 3, generator=gen) * 0.1
+    b = torch.randn(32, generator=gen)
+    return [x.cuda().to(dtype), raw.cuda().to(dtype), rawm.cuda().to(dtype),
+            flow.cuda(), wt.cuda(), b.cuda()]
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("window", [8, None], ids=["clamped", "unclamped"])
+def test_kernel_e_matches_plain_on_card(window):
+    from crfp_torch.ops.cuda import dcn_fused
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
+
+    args = _fused_args(torch.float32, n=2)
+    before = dcn_fused.launches
+    got = dcn_fused.deform_conv2d_fusedprep(*args, max_displacement=window)
+    torch.cuda.synchronize()
+    assert dcn_fused.launches == before + 1
+    want = deform_conv2d_fusedprep_ref(*args, max_displacement=window)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    argsb = _fused_args(torch.bfloat16, n=2)
+    gotb = dcn_fused.deform_conv2d_fusedprep(*argsb, max_displacement=window)
+    torch.cuda.synchronize()
+    assert gotb.dtype == torch.bfloat16
+    assert float((gotb.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    with pytest.raises(ValueError, match="no backward"):
+        dcn_fused.deform_conv2d_fusedprep(args[0].requires_grad_(True), *args[1:],
+                                          max_displacement=window)
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+def test_kernel_e_matches_prologue_then_kernel_a_on_card():
+    """E against the PyTorch prologue followed by kernel A on the same
+    operands, on a smooth field: f32 rounding (1e-5)."""
+    from crfp_torch.ops.cuda import dcn, dcn_fused
+    from crfp_torch.ops.dcn_windowed import fusedprep_offsets_and_mask
+
+    x, raw, rawm, flow, wt, b = _fused_args(torch.float32)
+    h, w = x.shape[-2:]
+    yy = torch.arange(h, device="cuda").view(1, 1, h, 1)
+    xx = torch.arange(w, device="cuda").view(1, 1, 1, w)
+    fr = torch.linspace(-0.3, 0.3, 32, device="cuda").view(1, 32, 1, 1)
+    x = torch.sin(yy * fr + xx * fr.flip(1) + 10 * fr).contiguous()
+    got = dcn_fused.deform_conv2d_fusedprep(x, raw, rawm, flow, wt, b, max_displacement=8)
+    off, mask = fusedprep_offsets_and_mask(raw, rawm, flow, 10.0)
+    want = dcn.deform_conv2d_windowed(x, off, mask, wt, b, max_displacement=8)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
