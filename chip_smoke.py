@@ -1,6 +1,21 @@
 """Smoke run of the PyTorch/CUDA port (crfp_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only    # phases 1, 2 and 5 alone
+
+Two times are read for every kernel mode, its plain version and, where
+there is one, the PyTorch call that computes the same function. The
+**call time** (``call_ms``; also ``ms``, ``plain_ms``, ``library_ms``) is an
+eager Python loop of calls between two CUDA events: it is the larger of
+what the host needs to make a call and what the card needs to run it, so
+for a kernel of a few microseconds it is a reading of the dispatcher and
+the launch path. The **device time** (``device_ms``) is the same calls
+captured in one CUDA graph and replayed between two events: no host in
+it, so it is what the card needs, and it also proves that the call can
+be captured. A kernel whose ``call_ms`` is far above its ``device_ms`` is
+host-bound in an eager loop; one whose two times agree is device-bound.
+Each mode also prints a digest of its (deterministic) results: two trees
+that print the same digests computed the same bits.
 
 Phases, in order; any failure exits non-zero without the final line:
 1. print the card (nvidia-smi name, power limit) and build the kernels of
@@ -9,7 +24,10 @@ Phases, in order; any failure exits non-zero without the final line:
    main-path shapes (1080p, warp 720^2, mid 32): f32 with TF32 off, A to
    1e-4 abs, B and C to 1e-5 abs; bf16 inputs against the f32 plain
    version to 2e-2 of max|ref|; time kernel, plain version and, where one
-   PyTorch call computes the same function, that call. Kernel E
+   PyTorch call computes the same function, that call (device and call
+   time each; for B also a device copy of as many bytes as its bound
+   counts, and a replay of B from a CUDA graph must equal the eager
+   call). Kernel E
    (dcn_fused) at the serving shape (1,32,180,180) and the gate shape
    (1,32,180,320): f32 to 1e-4 of max|ref| on white-noise and smooth heads,
    bf16 x and heads to 2e-2 of max|ref| against the f32 plain version on
@@ -33,7 +51,9 @@ Phases, in order; any failure exits non-zero without the final line:
    bf16 inputs against the f32 plain version to 2e-2 of max|ref|; kernel F
    (ssim) map to 1e-5 abs and masked mean to 1e-6 at (14,192,192,3),
    (14,192,192,1), (1,1080,1920,3) and the gate's (1,720,1280,3); time kernel, plain version and,
-   where one PyTorch call computes the same function, that call;
+   where one PyTorch call computes the same function, that call (device
+   and call time each). The warp's d-flow is reduced without atomics: two
+   runs and a CUDA-graph replay on the same inputs must be bit-equal;
 6. train the batch CRFP from checkpoints/v18_mid32_struct.npz (strict
    load, windows 8/32, remat): 3 f32 steps through the kernels against 3
    through the plain versions from the same state and batches (losses to
@@ -99,6 +119,10 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Call time: ms per call of an eager loop of ``iters`` calls between two
+    CUDA events. It reads the larger of the host's time to make a call and
+    the device's time to run it; for a kernel of a few microseconds that is
+    the host."""
     import torch
 
     for _ in range(warmup):
@@ -112,6 +136,89 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, launches: int = 20, replays: int = 5, stream=None) -> float:
+    """Device time: ms per call of ``launches`` calls of ``fn`` captured in
+    one CUDA graph and replayed between two events (the least of
+    ``replays``). A replay runs everything ``fn`` puts on the card
+    (kernels, memsets, copies) back to back with no host in between, so it
+    reads what the card needs for a call, the gaps between dependent
+    launches included. ``fn`` must have run before (warm) and be
+    capturable: current stream, no synchronisation, PyTorch's allocator.
+    ``stream``: the stream to capture on (autograd runs a backward on the
+    stream its forward ran on, so such a ``fn`` is captured there)."""
+    import torch
+
+    side = torch.cuda.Stream() if stream is None else stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    del graph
+    return best / launches
+
+
+def measure(fn, iters: int = 20, capturable: bool = True) -> tuple[float, float | None]:
+    """(call ms, device ms) of ``fn``: :func:`time_ms`, then
+    :func:`device_time_ms`, one method for kernels, plain versions and
+    library calls alike. ``capturable=False`` (a plain version that copies
+    from the host) leaves the device time out."""
+    return (time_ms(fn, iters=iters),
+            device_time_ms(fn, launches=iters) if capturable else None)
+
+
+def captured(fn):
+    """The result of ``fn()`` replayed from a CUDA graph: ``fn`` is warmed
+    up and captured on a side stream, its output zeroed, the graph replayed.
+    Fails the capture if ``fn`` synchronises or allocates outside PyTorch's
+    allocator."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def digest(*tensors) -> str:
+    """Short SHA-256 of the tensors' bytes: equal digests of two builds on
+    the same seeded inputs mean bit-equal results."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
 
 
 def bound(inputs, outputs, flops: float, dtype: str) -> tuple[float, str, float, float]:
@@ -169,6 +276,9 @@ def phase_build():
     print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s "
           f"({_build.find_nvcc()})")
     for name in sorted(libs):
+        # the file name carries a hash of the source, its headers and the
+        # flags: equal names across two trees mean the same device code
+        print(f"[build] {name}: {libs[name].name}")
         log = _build.BUILD_DIR / f"{name}.log"
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "registers" in line or "spill" in line:
@@ -179,17 +289,30 @@ def _record(modes, kernel, mode, calls, err, bf16_rel, k_ms, p_ms, lib_ms, bnd,
             **extra):
     """Print one (kernel, call shape) line and append its record; ``calls``
     is the number of such calls per unit of the kernel's own main path (a
-    serving frame, a train step, a DEPLOY frame of the gate)."""
+    serving frame, a train step, a DEPLOY frame of the gate). ``k_ms``,
+    ``p_ms`` and ``lib_ms`` (None where no PyTorch call computes the same
+    function) are (call ms, device ms) pairs of :func:`measure`."""
     b_ms, b_by, t_bytes, t_ops = bnd
+    (k_call, k_dev), (p_call, p_dev) = k_ms, p_ms
+    lib_call, lib_dev = lib_ms if lib_ms is not None else (None, None)
+
+    def pair(call, dev):
+        if call is None:
+            return "-"
+        return f"device {'-' if dev is None else f'{dev:.4f}'} call {call:.4f} ms"
+
     print(f"[kernel] {kernel:13s} {mode:34s} f32 max|d| {err:.3e}  bf16 "
           f"max|d|/max|ref| {'-' if bf16_rel is None else f'{bf16_rel:.3e}'}  "
-          f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
-          f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+          f"kernel {pair(k_call, k_dev)}  plain {pair(p_call, p_dev)}  library "
+          f"{pair(lib_call, lib_dev)}  bound "
           f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f}, ops {t_ops:.4f})"
-          + "".join(f"  {k} {v:.4g}" for k, v in extra.items()))
+          + "".join(f"  {k} {v:.4g}" if isinstance(v, float) else f"  {k} {v}"
+                    for k, v in extra.items()))
     modes.append(dict(kernel=kernel, mode=mode, calls=calls, max_abs_err=err,
-                      bf16_rel_err=bf16_rel, ms=k_ms, plain_ms=p_ms,
-                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra))
+                      bf16_rel_err=bf16_rel, ms=k_call, call_ms=k_call, device_ms=k_dev,
+                      plain_ms=p_call, plain_device_ms=p_dev, library_ms=lib_call,
+                      library_call_ms=lib_call, library_device_ms=lib_dev,
+                      bound_ms=b_ms, bound_by=b_by, **extra))
 
 
 def _smooth(gen, c, hw, amp, n=1):
@@ -285,13 +408,14 @@ def phase_kernels(gen):
         gotb = dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw)
         torch.cuda.synchronize()
         rel = check_bf16("kernel A", mode, gotb, ref)
-        k_ms = time_ms(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw))
-        p_ms = time_ms(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, **kw),
+        k_ms = measure(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw))
+        p_ms = measure(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, **kw),
                        iters=5)
         n_px = hw[0] * hw[1]
         flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9  # contraction + samples
         record("dcn_fwd", mode, calls, err, rel, k_ms, p_ms, None,
-               bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16"))
+               bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16"),
+               digest=digest(got, got0, gotb))
 
     # ---- E: dcn_0/1/2 from the raw heads, serving and gate shapes --------
     for mode, (hw, calls) in {
@@ -337,10 +461,10 @@ def phase_kernels(gen):
         gotb = dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b, **kw)
         torch.cuda.synchronize()
         rel = check_bf16("kernel E", mode, gotb, refb)
-        k_ms = time_ms(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b,
+        k_ms = measure(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b,
                                                                  **kw))
-        pa_ms = time_ms(lambda: prologue_a(xb, rb, mb))
-        p_ms = time_ms(lambda: deform_conv2d_fusedprep_ref(xb, rb, mb, flow, wt, b, **kw),
+        pa_ms = measure(lambda: prologue_a(xb, rb, mb))
+        p_ms = measure(lambda: deform_conv2d_fusedprep_ref(xb, rb, mb, flow, wt, b, **kw),
                        iters=5)
         n_px = hw[0] * hw[1]
         # contraction + samples + the prologue (two tanh, a sigmoid, the
@@ -348,7 +472,8 @@ def phase_kernels(gen):
         flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9 + 40 * n_px * g * 9
         record("dcn_fused", mode, calls, err, rel, k_ms, p_ms, None,
                bound([xb, rb, mb, flow, wt, b], [gotb], flops, "bfloat16"),
-               prologue_a_ms=pa_ms, max_abs_err_vs_prologue_a=err_pa)
+               prologue_a_ms=pa_ms[0], prologue_a_device_ms=pa_ms[1],
+               max_abs_err_vs_prologue_a=err_pa, digest=digest(got, gotb))
 
     # ---- B: HR state (D=32) and the concatenated lv states (D=8) -------
     for mode, (c, hw, d, calls) in {
@@ -371,8 +496,10 @@ def phase_kernels(gen):
         gotb = warp.flow_warp_windowed(xb, flow, d)
         torch.cuda.synchronize()
         rel = check_bf16("kernel B", mode, gotb, ref)
-        k_ms = time_ms(lambda: warp.flow_warp_windowed(xb, flow, d))
-        p_ms = time_ms(lambda: flow_warp_windowed_ref(xb, flow, d), iters=5)
+        if not torch.equal(captured(lambda: warp.flow_warp_windowed(xb, flow, d)), gotb):
+            fail(f"kernel B {mode}: replayed from a CUDA graph it differs from the eager call")
+        k_ms = measure(lambda: warp.flow_warp_windowed(xb, flow, d))
+        p_ms = measure(lambda: flow_warp_windowed_ref(xb, flow, d), iters=5)
         # yardstick: grid_sample on a precomputed normalised grid (bf16, as
         # grid_sample takes the grid in x's type)
         h, w = hw
@@ -380,11 +507,18 @@ def phase_kernels(gen):
         gx = (torch.arange(w, device=dev).view(1, 1, w) + fc[:, 0]) * (2.0 / (w - 1)) - 1
         gy = (torch.arange(h, device=dev).view(1, h, 1) + fc[:, 1]) * (2.0 / (h - 1)) - 1
         grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
-        lib_ms = time_ms(lambda: F.grid_sample(xb, grid, mode="bilinear",
+        lib_ms = measure(lambda: F.grid_sample(xb, grid, mode="bilinear",
                                                padding_mode="zeros",
                                                align_corners=True))
+        # what the card does at this size: a device copy that moves as many
+        # bytes as the bound counts (half read, half written)
+        half = (xb.numel() * 2 * 2 + flow.numel() * 4) // 2
+        src = torch.empty(half, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = device_time_ms(lambda: dst.copy_(src))
         record("flow_warp", mode, calls, err, rel, k_ms, p_ms, lib_ms,
-               bound([xb, flow], [gotb], 8 * h * w * c, "bfloat16"))
+               bound([xb, flow], [gotb], 8 * h * w * c, "bfloat16"),
+               copy_device_ms=copy_ms, digest=digest(got, gotb))
 
     # ---- C: r=1 (main path) and r=4 (the s2d frame) --------------------
     for r in (1, 4):
@@ -399,10 +533,11 @@ def phase_kernels(gen):
         gotb = emit.emit_frame(yb, lrb, r)
         torch.cuda.synchronize()
         rel = check_bf16("kernel C", mode, gotb, ref)
-        k_ms = time_ms(lambda: emit.emit_frame(yb, lrb, r))
-        p_ms = time_ms(lambda: emit.emit_frame_ref(yb, lrb, r), iters=5)
+        k_ms = measure(lambda: emit.emit_frame(yb, lrb, r))
+        p_ms = measure(lambda: emit.emit_frame_ref(yb, lrb, r), iters=5)
         record("emit", mode, 1 if r == 1 else 0, err, rel, k_ms, p_ms, None,
-               bound([yb, lrb], [gotb], 10 * HR_HW[0] * HR_HW[1] * 3, "bfloat16"))
+               bound([yb, lrb], [gotb], 10 * HR_HW[0] * HR_HW[1] * 3, "bfloat16"),
+               digest=digest(got, gotb))
     return modes
 
 
@@ -677,15 +812,24 @@ def _grads(fn, inputs, grad_out):
     return out.detach(), grads
 
 
-def _time_backward(fn, inputs, grad_out, iters=20, warmup=3):
-    """ms of autograd's backward through ``fn`` alone (the forward graph is
-    built once and kept)."""
+def _time_backward(fn, inputs, grad_out, iters=20):
+    """(call ms, device ms) of autograd's backward through ``fn`` alone (the
+    forward graph is built once and kept). Forward and backward run on one
+    side stream, which is also the one the device time is captured on."""
     import torch
 
-    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
-    out = fn(*leaves)
-    return time_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True),
-                   iters=iters, warmup=warmup)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+
+        def run():
+            return torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+
+        call_ms = time_ms(run, iters=iters)
+    torch.cuda.current_stream().wait_stream(side)
+    return call_ms, device_time_ms(run, launches=iters, stream=side)
 
 
 def phase_kernels_train(gen):
@@ -753,7 +897,7 @@ def phase_kernels_train(gen):
         _, gotb = _grads(kern, (xb, off, mask, wt, bias), gb)
         torch.cuda.synchronize()
         _, rel = check_grads("kernel D dcn bf16", mode, gotb, want, 2e-2)
-        k_ms = time_ms(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
+        k_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
         p_ms = _time_backward(plain, (xb, off, mask, wt, bias), gb, iters=5)
         n_px = b * hw[0] * hw[1]
         # per (pixel, group, tap, channel): the O-wide contraction for s and
@@ -761,7 +905,10 @@ def phase_kernels_train(gen):
         flops = n_px * g * 9 * (c // g) * (4 * o + 22)
         dxb, doff, dmask, dw = dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
         record("dcn_bwd", mode, calls, err, rel, k_ms, p_ms, None,
-               bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16"))
+               bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16"),
+               # d-offset and d-mask only: dx and dW are summed by atomics,
+               # in an order that changes from run to run
+               digest=digest(got[1], got[2], doff, dmask))
 
     # ---- D at k=1: the HR state, lv3_state and the stacked lv states -----
     for mode, (c, hw, d) in {
@@ -790,7 +937,7 @@ def phase_kernels_train(gen):
         _, gotb = _grads(kern, (xb, flow), gb)
         torch.cuda.synchronize()
         _, rel = check_grads("kernel D warp bf16", mode, gotb, want, 2e-2)
-        k_ms = time_ms(lambda: warp.flow_warp_backward(xb, flow, gb, d))
+        k_ms = measure(lambda: warp.flow_warp_backward(xb, flow, gb, d))
         p_ms = _time_backward(plain, (xb, flow), gb, iters=5)
         # yardstick: grid_sample's backward on a precomputed bf16 grid (the
         # clamp is outside it, as in phase 2's forward yardstick)
@@ -799,11 +946,21 @@ def phase_kernels_train(gen):
         gx = (torch.arange(w, device="cuda").view(1, 1, w) + fc[:, 0]) * (2.0 / (w - 1)) - 1
         gy = (torch.arange(h, device="cuda").view(1, h, 1) + fc[:, 1]) * (2.0 / (h - 1)) - 1
         grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
-        lib_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        lib_ms = measure(lambda: torch.ops.aten.grid_sampler_2d_backward(
             gb, xb, grid, 0, 0, True, [True, True]))
         dxb, dflow = warp.flow_warp_backward(xb, flow, gb, d)
+        # d-flow is reduced in a fixed order (no atomics): two runs on the
+        # same inputs, and a replay from a CUDA graph, give the same bits
+        for f_, x_, g_ in ((noisy, x, gout), (flow, xb, gb)):
+            first = warp.flow_warp_backward(x_, f_, g_, d)[1]
+            again = warp.flow_warp_backward(x_, f_, g_, d)[1]
+            replay = captured(lambda: warp.flow_warp_backward(x_, f_, g_, d)[1])
+            if not (torch.equal(first, again) and torch.equal(first, replay)):
+                fail(f"kernel D warp {mode}: d-flow of two runs on the same inputs "
+                     "(eager, eager, CUDA graph) is not bit-equal")
         record("flow_warp_bwd", mode, n_rec, err, rel, k_ms, p_ms, lib_ms,
-               bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"))
+               bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"),
+               digest=digest(got[1], dflow))
 
     # ---- F: the train step's RGB and luma calls, a 1080p frame and the
     # gate's evaluated frame ----------------------------------------------
@@ -826,13 +983,14 @@ def phase_kernels_train(gen):
         if not (err <= 1e-5 and mean_err <= 1e-6):
             fail(f"kernel F ssim {mode}: map max|d| {err} (limit 1e-5), masked mean "
                  f"|d| {mean_err} (limit 1e-6)")
-        k_ms = time_ms(lambda: ssim.ssim_map(sr, hr))
-        p_ms = time_ms(lambda: ssim.ssim_map_ref(sr, hr), iters=5)
+        k_ms = measure(lambda: ssim.ssim_map(sr, hr))
+        # the plain version builds its window from host values: no capture
+        p_ms = measure(lambda: ssim.ssim_map_ref(sr, hr), iters=5, capturable=False)
         # two 11-tap passes over five moments, the three products x^2, y^2,
         # xy once per pixel, the formula
         flops = n * c * h * w * (2 * 5 * 11 * 2 + 3 + 15)
         record("ssim", mode, calls, err, None, k_ms, p_ms, None,
-               bound([sr, hr], [got], flops, "float32"))
+               bound([sr, hr], [got], flops, "float32"), digest=digest(got))
     return modes
 
 
@@ -906,7 +1064,15 @@ def phase_train_bench():
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1, 2 and 5 only (build, kernels against their plain "
+                         "versions, device and call times), then a {\"modes\": [...]} "
+                         "line; prints no final ok line")
+    args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     try:
         import torch
@@ -933,6 +1099,11 @@ def main() -> int:
     phase_build()
     gen = torch.Generator().manual_seed(0)
     modes = phase_kernels(gen)
+    if args.kernels_only:
+        modes += phase_kernels_train(gen)
+        print(f"[done] kernel phases passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": modes}))
+        return 0
     serve_launches = phase_slice()
     phase_bench()
     modes += phase_kernels_train(gen)
@@ -970,12 +1141,18 @@ def main() -> int:
         on_path = [m for m in ms if m["calls"] > 0]
 
         def per_unit(key):
+            if any(m[key] is None for m in on_path):
+                return None
             return sum(m[key] * m["calls"] for m in on_path)
 
-        lib = (per_unit("library_ms")
-               if all(m["library_ms"] is not None for m in on_path) else None)
+        has_lib = all(m["library_ms"] is not None for m in on_path)
+
+        def lib_unit(key):
+            return per_unit(key) if has_lib else None
+
         serving = per is serve
-        extra = {k: per_unit(k) for k in ("prologue_a_ms",) if all(k in m for m in on_path)}
+        extra = {k: per_unit(k) for k in ("prologue_a_ms", "prologue_a_device_ms")
+                 if all(k in m for m in on_path)}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_counterpart": tpu,
@@ -986,11 +1163,19 @@ def main() -> int:
             **({"launches_train": train_launches[name]} if serving else {}),
             "launches_gate": gate_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
-            "ms": per_unit("ms"), "kernel_ms": per_unit("ms"),
-            "plain_ms": per_unit("plain_ms"), "bound_ms": per_unit("bound_ms"),
+            # ms, plain_ms and library_ms are call times (an eager loop
+            # between two events: the larger of host and device time);
+            # the *device_ms are replays of a CUDA graph of the same calls
+            "ms": per_unit("ms"), "call_ms": per_unit("call_ms"),
+            "device_ms": per_unit("device_ms"),
+            "plain_ms": per_unit("plain_ms"),
+            "plain_device_ms": per_unit("plain_device_ms"),
+            "bound_ms": per_unit("bound_ms"),
             "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
                          else "operations"),
-            "library_ms": lib,
+            "library_ms": lib_unit("library_ms"),
+            "library_call_ms": lib_unit("library_call_ms"),
+            "library_device_ms": lib_unit("library_device_ms"),
             **extra,
             "per_unit_of": per,
             "modes": ms,

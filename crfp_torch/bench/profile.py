@@ -35,7 +35,9 @@ _GROUPS = (
     ("kernel B flow_warp", ("flow_warp_kernel",)),
     ("kernel C emit", ("emit_kernel",)),
     ("kernel D dcn_bwd", ("dcn_bwd_kernel",)),
-    ("kernel D flow_warp_bwd", ("flow_warp_bwd_kernel",)),
+    # the scatter and, for bf16, the cast of its f32 accumulator (the
+    # accumulator's memset is a "Memset" of the last group)
+    ("kernel D flow_warp_bwd", ("flow_warp_bwd_kernel", "cast_bf16_kernel")),
     ("kernel E dcn_fused", ("dcn_fused_kernel",)),
     ("kernel F ssim", ("ssim_kernel",)),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "cutlass", "sm90", "winograd",

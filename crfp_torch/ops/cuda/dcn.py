@@ -98,14 +98,11 @@ def _forward(x, offset, mask, weight, bias, max_displacement, shared_taps,
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
-    fn = _build.function("dcn_fwd", "crfp_dcn_fwd", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(offset), _build.ptr(mask),
-                _build.ptr(weight), _build.ptr(bias), _build.ptr(out),
-                n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                int(shared_taps), int(shared_mask),
-                int(x.dtype == torch.bfloat16), _build.stream(x.device))
-    _build.check(rc, "dcn_fwd", "crfp_dcn_fwd")
+    _build.launch("dcn_fwd", "crfp_dcn_fwd", _ARGTYPES, x.device,
+                  x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
+                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16))
     global launches
     launches += 1
     return out
@@ -136,15 +133,12 @@ def dcn_backward(
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
     dw = torch.zeros_like(weight)
-    fn = _build.function("dcn_bwd", "crfp_dcn_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(offset), _build.ptr(mask),
-                _build.ptr(weight), _build.ptr(grad_out), _build.ptr(dx),
-                _build.ptr(d_off), _build.ptr(d_mask), _build.ptr(dw),
-                n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                int(shared_taps), int(shared_mask),
-                int(x.dtype == torch.bfloat16), _build.stream(x.device))
-    _build.check(rc, "dcn_bwd", "crfp_dcn_bwd")
+    _build.launch("dcn_bwd", "crfp_dcn_bwd", _BWD_ARGTYPES, x.device,
+                  x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                  grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
+                  d_mask.data_ptr(), dw.data_ptr(),
+                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
+                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16))
     global bwd_launches
     bwd_launches += 1
     return dx.to(x.dtype), d_off, d_mask, dw

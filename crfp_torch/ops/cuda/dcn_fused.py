@@ -111,14 +111,12 @@ def deform_conv2d_fusedprep(
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
-    fn = _build.function("dcn_fused", "crfp_dcn_fused", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(raw_offset), _build.ptr(raw_mask),
-                _build.ptr(flow), _build.ptr(weight), _build.ptr(bias),
-                _build.ptr(out), n, c, h, w, o, g, kh, kw,
-                _build.window(max_displacement), float(max_residue_magnitude),
-                int(x.dtype == torch.bfloat16), _build.stream(x.device))
-    _build.check(rc, "dcn_fused", "crfp_dcn_fused")
+    _build.launch("dcn_fused", "crfp_dcn_fused", _ARGTYPES, x.device,
+                  x.data_ptr(), raw_offset.data_ptr(), raw_mask.data_ptr(),
+                  flow.data_ptr(), weight.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
+                  float(max_residue_magnitude), int(x.dtype == torch.bfloat16))
     global launches
     launches += 1
     return out

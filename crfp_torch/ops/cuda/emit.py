@@ -70,12 +70,9 @@ def emit_frame(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
     c, h, w = lr.shape[1:]
     big_h, big_w = hs * r, ws * r
     out = torch.empty((n, big_h, big_w, c), dtype=y.dtype, device=y.device)
-    fn = _build.function("emit", "crfp_emit", _ARGTYPES)
-    with torch.cuda.device(y.device):
-        rc = fn(_build.ptr(y), _build.ptr(lr), _build.ptr(out), n, c, big_h,
-                big_w, r, h, w, int(y.dtype == torch.bfloat16),
-                _build.stream(y.device))
-    _build.check(rc, "emit", "crfp_emit")
+    _build.launch("emit", "crfp_emit", _ARGTYPES, y.device,
+                  y.data_ptr(), lr.data_ptr(), out.data_ptr(), n, c, big_h, big_w,
+                  r, h, w, int(y.dtype == torch.bfloat16))
     global launches
     launches += 1
     return out

@@ -96,11 +96,9 @@ def ssim_map(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n, c, h, w = x.shape
     out = torch.empty_like(x)
     taps = (ctypes.c_float * WINDOW)(*gaussian_1d())
-    fn = _build.function("ssim", "crfp_ssim", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(y), _build.ptr(out), n * c, h, w,
-                ctypes.cast(taps, ctypes.c_void_p), _build.stream(x.device))
-    _build.check(rc, "ssim", "crfp_ssim")
+    _build.launch("ssim", "crfp_ssim", _ARGTYPES, x.device,
+                  x.data_ptr(), y.data_ptr(), out.data_ptr(), n * c, h, w,
+                  ctypes.addressof(taps))
     global launches
     launches += 1
     return out

@@ -13,13 +13,36 @@ differentiates the windowed warp, with ``crfp_torch/csrc/flow_warp_bwd.cu``
 behind a ``torch.autograd.Function``: dx and d-flow, 0 where the flow is
 clamped. No second derivative.
 
-Bound on the H100 at the main-path shapes (bytes, see the source note):
-the HR state (1, 4, 720, 720) bf16 with its f32 flow moves 12.4 MB
-(~3.7 us at 3.35 TB/s); the lv states (1, 24, 180, 180) 3.4 MB (~1.0 us).
-One thread per (pixel, channel block) reads the flow and builds the
-corner weights once for the block. At the training shapes the backward
+What bounds them on the H100 (see the source notes): bytes, and so little
+of them that a launch lasts microseconds. The HR state (1, 4, 720, 720)
+bf16 with its f32 flow moves 12.4 MB (3.7 us at 3.35 TB/s), the lv states
+(1, 24, 180, 180) 3.4 MB (1.0 us); at the training shapes the backward
 moves 2.9 MB for the HR state (2, 4, 192, 192) and 1.0 MB for lv3_state
-(2, 32, 48, 48).
+(2, 32, 48, 48). A call of this module therefore costs what the host
+spends on it, and the dispatcher is written for that:
+
+- outside autograd (no operand requires grad, or grad mode is off, as in
+  serving and in the quality gate) the forward launches kernel B directly,
+  without a ``torch.autograd.Function``;
+- the operands are checked in one boolean pass; only a failed pass walks
+  the single checks to name the fault. Nothing is dropped: a wrong device,
+  type, shape or layout raises ``ValueError``, a CUDA tensor launches the
+  kernel or raises, and there is no fallback to the plain version;
+- one ``torch.empty`` per output (plus the f32 accumulator of a bf16 dx)
+  and one foreign call per direction: the backward's zeroing, scatter and
+  cast back to bf16 are one C entry;
+- the launch itself is ``_build.launch`` (entry configured once, no device
+  context for the current card, plain ints for pointers and stream).
+
+Measured on an NVIDIA H100 80GB HBM3 (700.00 W), ``chip_smoke.py`` phases 2
+and 5 and ``python -m crfp_torch.bench.launch_path``, bf16, before -> after
+in one run: a forward call reads 10-19 us in an eager loop (27-40 before;
+PyTorch's own sampler call 9-23), of which the foreign call is 5-9; through the
+``autograd.Function`` 18-35. The card needs 4.3-17.5 us for it (see
+``csrc/flow_warp.cu``). A backward call reads 21-39 us (40-110 before;
+PyTorch's own sampler backward 26-57, device-bound) and the card needs
+7.5-15.4 us (17.5-24.4 before). The host's speed on a shared machine varies by 1.5x
+between runs; the device times repeat to 2 %.
 
 Layouts: x (N, C, H, W); flow (N, 2, H, W), channels (dx, dy) in pixels.
 """
@@ -41,69 +64,90 @@ bwd_launches = 0
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                           ctypes.c_int,
                                                           ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float,
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                               ctypes.c_int,
                                                               ctypes.c_void_p]
+_F32, _BF16 = torch.float32, torch.bfloat16
 
 
-def _check(x: torch.Tensor, flow: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"flow_warp: x must be a CUDA tensor, got {x.device}")
+def _check(x: torch.Tensor, flow: torch.Tensor) -> torch.Size:
+    """Raise ``ValueError`` unless (x, flow) is what the kernels take;
+    returns x's shape. One pass for a correct caller; :func:`_reject` names
+    the fault otherwise."""
+    shape = x.shape
+    if not (len(shape) == 4 and flow.shape == (shape[0], 2, shape[2], shape[3])
+            and (x.dtype is _F32 or x.dtype is _BF16) and flow.dtype is _F32
+            and x.is_contiguous() and flow.is_contiguous()
+            and x.is_cuda and flow.device == x.device):
+        _reject(x, flow)
+    return shape
+
+
+def _reject(x: torch.Tensor, flow: torch.Tensor) -> None:
     if x.dim() != 4:
         raise ValueError(f"flow_warp: x {tuple(x.shape)} must be (N, C, H, W)")
     n, _, h, w = x.shape
     if flow.shape != (n, 2, h, w):
         raise ValueError(f"flow_warp: flow {tuple(flow.shape)} != {(n, 2, h, w)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in (_F32, _BF16):
         raise ValueError(f"flow_warp: x dtype {x.dtype} (float32 or bfloat16)")
-    if flow.dtype != torch.float32:
+    if flow.dtype != _F32:
         raise ValueError(f"flow_warp: flow must be float32, got {flow.dtype}")
-    if flow.device != x.device:
-        raise ValueError(f"flow_warp: flow on {flow.device}, x on {x.device}")
     if not (x.is_contiguous() and flow.is_contiguous()):
         raise ValueError("flow_warp: x and flow must be contiguous")
+    if flow.device != x.device:
+        raise ValueError(f"flow_warp: flow on {flow.device}, x on {x.device}")
+    raise ValueError(f"flow_warp: x must be a CUDA tensor, got {x.device}")
 
 
 def _forward(x: torch.Tensor, flow: torch.Tensor,
              max_displacement: int | None) -> torch.Tensor:
-    _check(x, flow)
-    n, c, h, w = x.shape
+    n, c, h, w = _check(x, flow)
     out = torch.empty_like(x)
-    fn = _build.function("flow_warp", "crfp_flow_warp", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(flow), _build.ptr(out), n, c, h, w,
-                _build.window(max_displacement), int(x.dtype == torch.bfloat16),
-                _build.stream(x.device))
-    _build.check(rc, "flow_warp", "crfp_flow_warp")
+    _build.launch("flow_warp", "crfp_flow_warp", _ARGTYPES, x.device,
+                  x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
+                  _build.window(max_displacement), int(x.dtype is _BF16))
     global launches
     launches += 1
     return out
+
+
+def _backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
+              max_displacement: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D at k=1 on checked operands. dx is summed in float32 (the
+    scatter adds up to four corner terms per source pixel, and a bf16 sum
+    would round each): for float32 x the accumulator is the result, for
+    bfloat16 x the C entry casts it into ``dx`` after the scatter."""
+    n, c, h, w = x.shape
+    # acc may be freed on return: PyTorch's allocator reuses a block only
+    # after the work queued on this stream before the free
+    if x.dtype is _F32:
+        acc = dx = torch.empty_like(x)
+    else:
+        acc, dx = torch.empty_like(x, dtype=_F32), torch.empty_like(x)
+    d_flow = torch.empty_like(flow)
+    _build.launch("flow_warp_bwd", "crfp_flow_warp_bwd", _BWD_ARGTYPES, x.device,
+                  x.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
+                  dx.data_ptr(), d_flow.data_ptr(), n, c, h, w,
+                  _build.window(max_displacement), int(x.dtype is _BF16))
+    global bwd_launches
+    bwd_launches += 1
+    return dx, d_flow
 
 
 def flow_warp_backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
                        max_displacement: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel D at k=1: (dx in x's dtype, d-flow float32) of
     :func:`flow_warp_windowed` for ``grad_out`` (N, C, H, W) in x's dtype.
-    CUDA tensors only."""
+    CUDA tensors only. d-flow is reduced in a fixed order: the same inputs
+    give the same bits."""
     _check(x, flow)
     if grad_out.shape != x.shape or grad_out.dtype != x.dtype \
             or grad_out.device != x.device or not grad_out.is_contiguous():
         raise ValueError(f"flow_warp_bwd: grad_out {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} must be a contiguous {tuple(x.shape)} "
                          f"{x.dtype} on {x.device}")
-    n, c, h, w = x.shape
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    d_flow = torch.empty_like(flow)
-    fn = _build.function("flow_warp_bwd", "crfp_flow_warp_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(flow), _build.ptr(grad_out),
-                _build.ptr(dx), _build.ptr(d_flow), n, c, h, w,
-                _build.window(max_displacement), int(x.dtype == torch.bfloat16),
-                _build.stream(x.device))
-    _build.check(rc, "flow_warp_bwd", "crfp_flow_warp_bwd")
-    global bwd_launches
-    bwd_launches += 1
-    return dx.to(x.dtype), d_flow
+    return _backward(x, flow, grad_out, max_displacement)
 
 
 class _FlowWarpWindowed(torch.autograd.Function):
@@ -118,9 +162,12 @@ class _FlowWarpWindowed(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
+        # x and flow passed _check in forward; autograd gives grad_out the
+        # output's shape and device
         x, flow = ctx.saved_tensors
-        dx, d_flow = flow_warp_backward(x, flow, grad_out.to(x.dtype).contiguous(),
-                                        ctx.max_displacement)
+        if grad_out.dtype is not x.dtype or not grad_out.is_contiguous():
+            grad_out = grad_out.to(x.dtype).contiguous()
+        dx, d_flow = _backward(x, flow, grad_out, ctx.max_displacement)
         return dx, d_flow, None
 
 
@@ -131,7 +178,10 @@ def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel B forward and kernel D at k=1 backward (x float32
-    or bfloat16, flow float32) or raise."""
-    if x.device.type == "cpu":
+    or bfloat16, flow float32) or raise. Where autograd would record
+    nothing the kernel is launched without the ``autograd.Function``."""
+    if x.is_cpu:
         return flow_warp_windowed_ref(x, flow, max_displacement)
-    return _FlowWarpWindowed.apply(x, flow, max_displacement)
+    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        return _FlowWarpWindowed.apply(x, flow, max_displacement)
+    return _forward(x, flow, max_displacement)
