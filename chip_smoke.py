@@ -33,10 +33,16 @@ Phases, in order; any failure exits non-zero without the final line:
    bf16 x and heads to 2e-2 of max|ref| against the f32 plain version on
    the same (rounded) values, and f32 against the PyTorch prologue followed
    by kernel A on the same operands to 1e-5 on a smooth field; timed beside
-   its plain version and beside prologue + A. Kernels A and B are held
+   its plain version and beside prologue + A; in bf16 E must equal
+   prologue + A bit for bit. Kernels A and B are held
    the same way at the gate's 16:9 shapes too (A per-tap (1,32,180,320)
    and shared (1,4,720,1280), each clamped and unclamped; B (1,4,720,1280),
-   (1,32,180,320) and (1,24,180,320));
+   (1,32,180,320) and (1,24,180,320)), and A at the training shapes
+   ((2,32,48,48) per-tap, 36 calls per amp step; (2,4,192,192) shared, 12).
+   A and E must give the same bits in two runs and replayed from a CUDA
+   graph, and A under shared taps the bits of its per-tap loop on the
+   repeated offset; their records carry the tile plan and
+   ``bound_fraction`` (bound over device time);
 3. drive the slice through its entry points (encode, step0, step) over 5
    frames at 1080p / warp 720^2 / mid 32 with checkpoints/v18_mid32_struct.npz,
    once through the kernels and once through the plain versions, both in
@@ -374,21 +380,30 @@ def phase_kernels(gen):
     # on the smooth ones, which is what the model feeds the kernels.
 
     # ---- A: per-tap (dcn_0/1/2) and shared-tap (dcn_3), at the serving
-    # shapes and at the gate's (each also unclamped, as the gate's EXACT
-    # side runs it) ------------------------------------------------------
-    for mode, (c, o, g, hw, d, shared, calls) in {
-        "per-tap G=8 D=8 (1,32,180,180)": (MID, MID, 8, q, 8, False, 3),
-        "shared G=1 D=32 (1,4,720,720)": (MID // 8, MID // 8, 1, WARP, 32, True, 1),
-        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (MID, MID, 8, gq, 8, False, 0),
-        f"shared G=1 D=32 (1,4,{ghr[0]},{ghr[1]}) gate": (MID // 8, MID // 8, 1, ghr, 32,
-                                                        True, 0),
+    # shapes, at the gate's (each also unclamped, as the gate's EXACT side
+    # runs it) and at the training shapes (calls per amp train step: 2 x 3
+    # x (T-1) per-tap and 2 x (T-1) shared, forward and remat) -------------
+    from crfp_torch.bench.train import RECIPE
+
+    tb, tn_rec, tlv = RECIPE["b"], RECIPE["t"] - 1, (RECIPE["gt"] // 4, RECIPE["gt"] // 4)
+    tgt = (RECIPE["gt"], RECIPE["gt"])
+    for mode, (n, c, o, g, hw, d, shared, calls, per_step) in {
+        "per-tap G=8 D=8 (1,32,180,180)": (1, MID, MID, 8, q, 8, False, 3, 0),
+        "shared G=1 D=32 (1,4,720,720)": (1, MID // 8, MID // 8, 1, WARP, 32, True, 1, 0),
+        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (1, MID, MID, 8, gq, 8, False, 0, 0),
+        f"shared G=1 D=32 (1,4,{ghr[0]},{ghr[1]}) gate": (1, MID // 8, MID // 8, 1, ghr, 32,
+                                                        True, 0, 0),
+        f"per-tap G=8 D=8 ({tb},32,{tlv[0]},{tlv[1]}) train": (tb, MID, MID, 8, tlv, 8, False,
+                                                             0, 6 * tn_rec),
+        f"shared G=1 D=32 ({tb},4,{tgt[0]},{tgt[1]}) train": (tb, MID // 8, MID // 8, 1, tgt, 32,
+                                                            True, 0, 2 * tn_rec),
     }.items():
         taps = 1 if shared else 9
-        x = randn(1, c, *hw)
-        noisy = randn(1, g * taps * 2, *hw, std=0.75 * d)
-        off = (smooth(2, hw, d).repeat(1, g * taps, 1, 1)
-               + randn(1, g * taps * 2, *hw, std=1.0 if shared else 2.0))
-        mask = rand(1, g * taps, *hw)
+        x = randn(n, c, *hw)
+        noisy = randn(n, g * taps * 2, *hw, std=0.75 * d)
+        off = (_smooth(gen, 2, hw, d, n=n).repeat(1, g * taps, 1, 1)
+               + randn(n, g * taps * 2, *hw, std=1.0 if shared else 2.0))
+        mask = rand(n, g * taps, *hw)
         wt = randn(o, c, 3, 3, std=0.1)
         b = randn(o)
         kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
@@ -408,13 +423,30 @@ def phase_kernels(gen):
         gotb = dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw)
         torch.cuda.synchronize()
         rel = check_bf16("kernel A", mode, gotb, ref)
+        # sums in a fixed order: a second run and a replay from a CUDA graph
+        # give the same bits
+        again = dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw)
+        if not torch.equal(again, gotb):
+            fail(f"kernel A {mode}: two runs on the same inputs differ")
+        if not torch.equal(captured(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b,
+                                                                        **kw)), gotb):
+            fail(f"kernel A {mode}: replayed from a CUDA graph it differs from the eager call")
+        # shared taps read one 4x4 patch for all 9 taps: the per-tap loop on
+        # the offset repeated for every tap gives the same bits
+        if shared and not torch.equal(gotb, dcn.deform_conv2d_windowed(
+                xb, off.repeat(1, 9, 1, 1).contiguous(), mask, wt, b,
+                **dict(kw, shared_taps=False))):
+            fail(f"kernel A {mode}: the shared-tap patch differs from the per-tap loop")
         k_ms = measure(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw))
         p_ms = measure(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, **kw),
                        iters=5)
-        n_px = hw[0] * hw[1]
+        n_px = n * hw[0] * hw[1]
         flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9  # contraction + samples
-        record("dcn_fwd", mode, calls, err, rel, k_ms, p_ms, None,
-               bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16"),
+        bnd = bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16")
+        plan = dcn.tile_plan(n, c, *hw, o, g, d, bf16=True, shared_mask=shared)
+        record("dcn_fwd", mode, calls, err, rel, k_ms, p_ms, None, bnd,
+               calls_per_step=per_step, bound_fraction=bnd[0] / k_ms[1],
+               tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}{' mma' if plan.mma else ''}",
                digest=digest(got, got0, gotb))
 
     # ---- E: dcn_0/1/2 from the raw heads, serving and gate shapes --------
@@ -461,6 +493,12 @@ def phase_kernels(gen):
         gotb = dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b, **kw)
         torch.cuda.synchronize()
         rel = check_bf16("kernel E", mode, gotb, refb)
+        # the same rounded offsets through A: the same bits in bf16
+        if not torch.equal(gotb, prologue_a(xb, rb, mb)):
+            fail(f"kernel E {mode}: bf16 differs from the PyTorch prologue + kernel A")
+        if not torch.equal(captured(lambda: dcn_fused.deform_conv2d_fusedprep(
+                xb, rb, mb, flow, wt, b, **kw)), gotb):
+            fail(f"kernel E {mode}: replayed from a CUDA graph it differs from the eager call")
         k_ms = measure(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, mb, flow, wt, b,
                                                                  **kw))
         pa_ms = measure(lambda: prologue_a(xb, rb, mb))
@@ -470,10 +508,11 @@ def phase_kernels(gen):
         # contraction + samples + the prologue (two tanh, a sigmoid, the
         # flow add and the clip per group and tap, ~40 operations)
         flops = 2 * n_px * c * 9 * o + 9 * n_px * c * 9 + 40 * n_px * g * 9
-        record("dcn_fused", mode, calls, err, rel, k_ms, p_ms, None,
-               bound([xb, rb, mb, flow, wt, b], [gotb], flops, "bfloat16"),
+        bnd = bound([xb, rb, mb, flow, wt, b], [gotb], flops, "bfloat16")
+        record("dcn_fused", mode, calls, err, rel, k_ms, p_ms, None, bnd,
                prologue_a_ms=pa_ms[0], prologue_a_device_ms=pa_ms[1],
-               max_abs_err_vs_prologue_a=err_pa, digest=digest(got, gotb))
+               max_abs_err_vs_prologue_a=err_pa, bf16_equal_to_prologue_a=True,
+               bound_fraction=bnd[0] / k_ms[1], digest=digest(got, gotb))
 
     # ---- B: HR state (D=32) and the concatenated lv states (D=8) -------
     for mode, (c, hw, d, calls) in {
@@ -1153,6 +1192,10 @@ def main(argv=None) -> int:
         serving = per is serve
         extra = {k: per_unit(k) for k in ("prologue_a_ms", "prologue_a_device_ms")
                  if all(k in m for m in on_path)}
+        # A at the training shapes: its time per amp train step
+        in_step = [m for m in ms if m.get("calls_per_step")]
+        for key in ("device_ms", "call_ms", "bound_ms") if in_step else ():
+            extra[f"train_step_{key}"] = sum(m[key] * m["calls_per_step"] for m in in_step)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_counterpart": tpu,

@@ -1,0 +1,198 @@
+"""Kernels A and E under every tile plan, at the main paths' shapes.
+
+    python -m crfp_torch.bench.dcn_tiles
+    python -m crfp_torch.bench.dcn_tiles --modes   # public entry points only
+
+For each call shape of kernel A (serving, gate and training; per-tap and
+shared-tap dcn_3) and of kernel E, and each dtype given, the script times
+every tile of ``crfp_torch.ops.cuda.dcn.TILE_SHAPES``, or on the
+tensor-core path every tile of ``MMA_TILE_SHAPES``, and marks the plan that
+``tile_plan`` takes by default. Device time: 20 calls captured in one CUDA
+graph and replayed between two events (the least of 5 replays), on smooth
+flow-like offsets, as ``chip_smoke.py`` times them. Every plan must give
+the default plan's bits (the tile changes which block computes a pixel,
+not the arithmetic); the script fails otherwise.
+
+``--modes`` times, at the same shapes and on the same operands, every mode
+of the public dispatchers (``deform_conv2d_windowed``,
+``deform_conv2d_fusedprep``: bf16 and f32, clamped and unclamped) with the
+default plan. It uses nothing else of the package, so it can time another
+tree's kernels: ``PYTHONPATH=<tree> python <this file> --modes``. Ends with
+one JSON line. Fails without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+# (name, (n, c, h, w), o, g, D, shared, kernel): the calls on the main paths
+SHAPES = [
+    ("A serving per-tap", (1, 32, 180, 180), 32, 8, 8, False, "A"),
+    ("A serving shared", (1, 4, 720, 720), 4, 1, 32, True, "A"),
+    ("A gate per-tap", (1, 32, 180, 320), 32, 8, 8, False, "A"),
+    ("A gate shared", (1, 4, 720, 1280), 4, 1, 32, True, "A"),
+    ("A train per-tap", (2, 32, 48, 48), 32, 8, 8, False, "A"),
+    ("A train shared", (2, 4, 192, 192), 4, 1, 32, True, "A"),
+    ("E serving", (1, 32, 180, 180), 32, 8, 8, False, "E"),
+    ("E gate", (1, 32, 180, 320), 32, 8, 8, False, "E"),
+]
+
+
+def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best / launches
+
+
+def _smooth(gen, n, c, hw, amp):
+    lo = torch.randn(n, c, max(2, hw[0] // 32), max(2, hw[1] // 32), generator=gen)
+    return F.interpolate((lo * amp).cuda(), size=hw, mode="bilinear",
+                         align_corners=False).contiguous()
+
+
+def _operands(gen, shape):
+    """x (f32), weight, bias and A's offsets and mask or E's heads and
+    flow for one entry of SHAPES, on the card."""
+    name, (n, c, h, w), o, g, d, shared, kernel = shape
+    taps = 1 if shared else 9
+    ops = dict(x=torch.randn(n, c, h, w, generator=gen).cuda(),
+               wt=(torch.randn(o, c, 3, 3, generator=gen) * 0.1).cuda(),
+               b=torch.randn(o, generator=gen).cuda())
+    if kernel == "A":
+        ops["off"] = (_smooth(gen, n, 2, (h, w), d).repeat(1, g * taps, 1, 1)
+                      + (torch.randn(n, g * taps * 2, h, w, generator=gen)
+                         * (1.0 if shared else 2.0)).cuda())
+        ops["mask"] = torch.rand(n, g * taps, h, w, generator=gen).cuda()
+    else:
+        ops["raw"] = _smooth(gen, n, g * 18, (h, w), 0.3)
+        ops["rawm"] = _smooth(gen, n, g * 9, (h, w), 1.5)
+        ops["flow"] = _smooth(gen, n, 2, (h, w), 3.0)
+    return ops
+
+
+def run_modes() -> list[dict]:
+    """Device ms of every (shape, dtype, clamp) mode through the public
+    dispatchers and their default plans."""
+    from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
+    from crfp_torch.ops.cuda.dcn_fused import deform_conv2d_fusedprep
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for shape in SHAPES:
+        name, _, _, _, d, shared, kernel = shape
+        ops = _operands(gen, shape)
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            x = ops["x"].to(dtype)
+            for window in (d, None):
+                if kernel == "A":
+                    def call(window=window, x=x):
+                        return deform_conv2d_windowed(
+                            x, ops["off"], ops["mask"], ops["wt"], ops["b"],
+                            max_displacement=window, shared_taps=shared, shared_mask=shared)
+                else:
+                    heads = (ops["raw"].to(dtype), ops["rawm"].to(dtype))
+
+                    def call(window=window, x=x, heads=heads):
+                        return deform_conv2d_fusedprep(x, *heads, ops["flow"], ops["wt"],
+                                                       ops["b"], max_displacement=window)
+                with torch.no_grad():
+                    ms = device_ms(call)
+                mode = "clamped" if window is not None else "unclamped"
+                rows.append(dict(shape=name, dtype=dt, mode=mode, device_ms=ms))
+                print(f"[modes] {name:18s} {dt:4s} {mode:9s} device {ms:.4f} ms")
+    return rows
+
+
+def run(dtypes=("bf16",)) -> list[dict]:
+    from crfp_torch.ops.cuda import dcn, dcn_fused
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for shape in SHAPES:
+        name, (n, c, h, w), o, g, d, shared, kernel = shape
+        ops = _operands(gen, shape)
+        x32, wt, b = ops["x"], ops["wt"], ops["b"]
+        for dt in dtypes:
+            dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+            x = x32.to(dtype)
+            default = dcn.tile_plan(n, c, h, w, o, g, d, bf16=dt == "bf16",
+                                    shared_mask=shared, sm_count=dcn.sm_count(x.device))
+            mma = default.mma
+            for tile in dcn.MMA_TILE_SHAPES if mma else dcn.TILE_SHAPES:
+                plan = dcn.tile_plan(n, c, h, w, o, g, d, bf16=dt == "bf16",
+                                     shared_mask=shared, tile=tile)
+                if kernel == "A":
+                    def call(plan=plan):
+                        return dcn.dcn_forward(x, ops["off"], ops["mask"], wt, b,
+                                               max_displacement=d, shared_taps=shared,
+                                               shared_mask=shared, plan=plan)
+                else:
+                    heads = (ops["raw"].to(dtype), ops["rawm"].to(dtype))
+
+                    def call(plan=plan, heads=heads):
+                        return dcn_fused.deform_conv2d_fusedprep(
+                            x, *heads, ops["flow"], wt, b, max_displacement=d, plan=plan)
+                got = call()
+                want = call(default)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    sys.exit(f"dcn_tiles: {name} {dt} tile {tile}: "
+                             "differs from the default plan's bits")
+                ms = device_ms(call)
+                row = dict(shape=name, dtype=dt, tile=list(tile), smem_bytes=plan.smem_bytes,
+                           tiles=n * plan.tiles_y * plan.tiles_x, device_ms=ms,
+                           default=plan == default)
+                rows.append(row)
+                print(f"[tiles] {name:18s} {dt:4s} tile {tile[0]}x{tile[1]:<3d} "
+                      f"{plan.smem_bytes:7d} B {row['tiles']:5d} tiles  device {ms:.4f} ms"
+                      + ("  (default)" if row["default"] else ""))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtypes", nargs="+", default=["bf16"], choices=["bf16", "f32"])
+    ap.add_argument("--modes", action="store_true",
+                    help="time every mode of the public dispatchers with the default plan")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("dcn_tiles: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}")
+    if args.modes:
+        print(json.dumps({"dcn_modes": run_modes()}))
+        return 0
+    rows = run(tuple(args.dtypes))
+    print(json.dumps({"dcn_tiles": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

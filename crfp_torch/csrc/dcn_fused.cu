@@ -14,14 +14,11 @@
 //   out[o, p] = bias[o] + sum_{g, k, c in g} W[o, c, k] * m *
 //               bilinear(x[c], p + p_k + (dy, dx))        (zeros outside)
 //
-// in one launch, f32 arithmetic and accumulation, written in x's type. The
-// plain version is crfp_torch/ops/dcn_windowed.py::deform_conv2d_fusedprep_ref.
-// The TPU kernel builds its query geometry block by block in fast memory
-// because its matrix unit does the gathers; none of that carries over:
-// Hopper gathers natively, so this is kernel A's loop (common.cuh: corner
-// sampling, clamp, weight tile) with the prologue computed per (pixel,
-// group, tap) in registers instead of read from f32 offset and mask
-// tensors that ~14 elementwise launches would have written first.
+// in one launch, written in x's type. The plain version is
+// crfp_torch/ops/dcn_windowed.py::deform_conv2d_fusedprep_ref. The TPU
+// kernel builds its query geometry block by block in fast memory because
+// its matrix unit does the gathers; none of that carries over: Hopper
+// gathers natively.
 //
 // Precision: heads are upcast to f32 before tanhf/expf (the unfused path's
 // .float()), the product and the sum of mag * tanh + flow are rounded
@@ -30,11 +27,14 @@
 // added, by the same clamp_window as kernel A. The build has no
 // --use_fast_math.
 //
-// Design: one thread per output pixel (and batch image); the thread loops
-// over groups, taps and the group's channels with the O output sums in
-// registers. Neighbouring threads sit on neighbouring pixels, so each of
-// the 3*G*K2 head channels and the two flow channels is read once,
-// coalesced.
+// Design: kernel A's tiled routine (common.cuh: x packed per group and
+// zero-padded by a pre-pass, tiles of pixels on a persistent grid, the
+// weight staged once per block, the bf16 contraction on the tensor cores
+// with a warp per group, f32 on the CUDA cores) with the prologue
+// crfp::ProE, which computes each (pixel, group, tap)'s offsets and mask in
+// registers instead of reading f32 tensors that ~14 elementwise launches
+// would have written first. The same offsets therefore give the same bits
+// as "PyTorch prologue, then kernel A" in f32 and in bf16.
 //
 // Bound on the H100 (bf16 x and heads): at the gate shape (1, 32, 180, 320)
 // x 3.7 MB + offset head (1, 144, ...) 16.6 MB + mask head (1, 72, ...)
@@ -43,125 +43,89 @@
 // bytes bound it. At the serving shape (1, 32, 180, 180) 18.4 MB, ~5.5 us.
 // Against kernel A after the PyTorch prologue the function reads the heads
 // in their own type (half the bytes in bf16) and never writes or re-reads
-// the f32 offsets and masks. The contraction stays on the CUDA cores in
-// f32, as in kernel A.
+// the f32 offsets and masks.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-
-template <typename T, int O>
-__global__ void __launch_bounds__(kThreads)
-dcn_fused_kernel(const T* __restrict__ x, const T* __restrict__ raw_off,
-                 const T* __restrict__ raw_mask, const float* __restrict__ flow,
-                 const float* __restrict__ weight, const float* __restrict__ bias,
-                 T* __restrict__ out, int C, int H, int W, int G, int KH, int KW,
-                 float D, float mag) {
-  extern __shared__ float ws[];
-  const int K2 = KH * KW;
-  crfp::stage_weight<O>(ws, weight, C, K2);
-
-  const long long HW = (long long)H * W;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const int n = blockIdx.y;
-  const int py = (int)(p / W);
-  const int px = (int)(p % W);
-  const int cpg = C / G;
-  const T* xn = x + (long long)n * C * HW;
-  const T* offn = raw_off + (long long)n * G * K2 * 2 * HW + p;
-  const T* mn = raw_mask + (long long)n * G * K2 * HW + p;
-  // flow channels are (dx, dy); offsets are (dy, dx)
-  const float flow_x = flow[(long long)n * 2 * HW + p];
-  const float flow_y = flow[(long long)n * 2 * HW + HW + p];
-
-  float acc[O];
-#pragma unroll
-  for (int o = 0; o < O; ++o) acc[o] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    // per-group partial sums, added group by group: kernel A's order, so
-    // that E and "prologue, then A" round alike
-    float gacc[O];
-#pragma unroll
-    for (int o = 0; o < O; ++o) gacc[o] = 0.f;
-    for (int k = 0; k < K2; ++k) {
-      const long long gk = (long long)(g * K2 + k);
-      const float ry = crfp::load_f(offn + (gk * 2 + 0) * HW);
-      const float rx = crfp::load_f(offn + (gk * 2 + 1) * HW);
-      const float dy = crfp::clamp_window(
-          __fadd_rn(__fmul_rn(mag, tanhf(ry)), flow_y), D);
-      const float dx = crfp::clamp_window(
-          __fadd_rn(__fmul_rn(mag, tanhf(rx)), flow_x), D);
-      const float m = 1.f / (1.f + expf(-crfp::load_f(mn + gk * HW)));
-      const crfp::Corners cn = crfp::corners_at(
-          (float)(py + k / KW - (KH - 1) / 2) + dy,
-          (float)(px + k % KW - (KW - 1) / 2) + dx, H, W);
-      for (int ci = 0; ci < cpg; ++ci) {
-        const int c = g * cpg + ci;
-        const float v = crfp::sample_at(xn + (long long)c * HW, cn, W) * m;
-        const float* wk = ws + (k * C + c) * O;
-#pragma unroll
-        for (int o = 0; o < O; ++o) gacc[o] = fmaf(v, wk[o], gacc[o]);
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < O; ++o) acc[o] += gacc[o];
-  }
-
-  T* outn = out + (long long)n * O * HW + p;
-#pragma unroll
-  for (int o = 0; o < O; ++o) {
-    const float b = bias != nullptr ? bias[o] : 0.f;
-    outn[(long long)o * HW] = crfp::store_f<T>(acc[o] + b);
-  }
+template <typename T, int CPG, bool MMA, int SRC>
+__global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, crfp::kMmaO))
+dcn_fused_kernel(crfp::TileArgs<T> a, crfp::ProE<T> pro) {
+  if constexpr (MMA)
+    crfp::dcn_tiles_mma<CPG, SRC>(a, pro);
+  else
+    crfp::dcn_tiles<crfp::kMmaO, CPG, SRC, false>(a, pro);
 }
 
-template <typename T, int O>
-cudaError_t launch(const void* x, const void* raw_off, const void* raw_mask,
-                   const float* flow, const float* weight, const float* bias,
-                   void* out, int N, int C, int H, int W, int G, int KH, int KW,
-                   float D, float mag, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)O * C * KH * KW;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dcn_fused_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long HW = (long long)H * W;
-  dim3 grid((unsigned)((HW + kThreads - 1) / kThreads), (unsigned)N);
-  dcn_fused_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(raw_off),
-      static_cast<const T*>(raw_mask), flow, weight, bias, static_cast<T*>(out),
-      C, H, W, G, KH, KW, D, mag);
-  return cudaGetLastError();
+// the pre-pass: x packed per group, pixel-major (crfp::pack_x)
+template <typename T, int CPG>
+__global__ void __launch_bounds__(256)
+dcn_fused_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int W, int pad) {
+  crfp::pack_x<T, CPG>(x, xp, H, W, pad);
+}
+
+template <typename T, int CPG>
+cudaError_t launch(crfp::TileArgs<T> a, const crfp::ProE<T>& pro, int smem,
+                   cudaStream_t stream) {
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  int threads = 0, tiles = 0;
+  cudaError_t e = crfp::check_plan(a, kMma, CPG, crfp::kMmaO, smem, &threads, &tiles);
+  if (e != cudaSuccess) return e;
+  void (*fn)(crfp::TileArgs<T>, crfp::ProE<T>) =
+      a.pad > 0 ? dcn_fused_kernel<T, CPG, kMma, crfp::kPadded>
+                : dcn_fused_kernel<T, CPG, kMma, crfp::kChecked>;
+  return crfp::launch_tiles(dcn_fused_kernel_pack_x<T, CPG>, fn, a, pro, threads, smem, tiles,
+                            stream);
+}
+
+template <typename T>
+cudaError_t dispatch(int cpg, const crfp::TileArgs<T>& a, const crfp::ProE<T>& pro,
+                     int smem, cudaStream_t s) {
+  if (cpg == 2) return launch<T, 2>(a, pro, smem, s);
+  if (cpg == 4) return launch<T, 4>(a, pro, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 CRFP_EXPORT_ERROR_STRING
 
-// x: (N, C, H, W), raw_off (N, G*K2*2, H, W) and raw_mask (N, G*K2, H, W),
+// x: (N, C, H, W), raw_off (N, G*9*2, H, W) and raw_mask (N, G*9, H, W),
 // all f32 or all bf16 (x_bf16); flow (N, 2, H, W) f32, channels (dx, dy);
-// weight (O, C, KH, KW) f32; bias (O,) f32 or NULL; out (N, O, H, W) in x's
-// type. All contiguous. D < 0: no clamp. O = 32 (dcn_0/1/2 at mid 32).
+// weight (O, C, 3, 3) f32; bias (O,) f32 or NULL; out (N, O, H, W) in x's
+// type; x_packed: scratch of N*C*padded(H)*padded(W) elements of x's
+// type. All contiguous. D < 0: no clamp. O = 32 (dcn_0/1/2 at mid 32), C/G
+// in {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's (per-tap, no
+// shared mask: the tensor cores take bf16). No synchronisation, no
+// allocation.
 extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
                               const void* raw_mask, const void* flow,
                               const void* weight, const void* bias, void* out,
-                              int N, int C, int H, int W, int O, int G, int KH,
-                              int KW, float D, float mag, int x_bf16,
-                              void* stream) {
-  if (O != 32) return (int)cudaErrorInvalidValue;
+                              void* x_packed, int N, int C, int H, int W, int O, int G, int KH,
+                              int KW, float D, float mag, int x_bf16, int tile_h,
+                              int tile_w, int pad, int smem_bytes, void* stream) {
+  if (O != crfp::kMmaO || KH != 3 || KW != 3 || G < 1 || C % G)
+    return (int)cudaErrorInvalidValue;
   const float* fl = static_cast<const float*>(flow);
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      x_bf16 ? launch<__nv_bfloat16, 32>(x, raw_off, raw_mask, fl, wt, b, out, N,
-                                         C, H, W, G, KH, KW, D, mag, s)
-             : launch<float, 32>(x, raw_off, raw_mask, fl, wt, b, out, N, C, H,
-                                 W, G, KH, KW, D, mag, s);
+  cudaError_t e;
+  if (x_bf16) {
+    using B = __nv_bfloat16;
+    const crfp::ProE<B> pro{static_cast<const B*>(raw_off), static_cast<const B*>(raw_mask),
+                            fl, mag};
+    crfp::TileArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
+                        static_cast<B*>(out), N, C, H, W,
+                        G, D, tile_h, tile_w, pad, 0, 0};
+    e = dispatch(C / G, a, pro, smem_bytes, s);
+  } else {
+    const crfp::ProE<float> pro{static_cast<const float*>(raw_off),
+                                static_cast<const float*>(raw_mask), fl, mag};
+    crfp::TileArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed), wt,
+                            b, static_cast<float*>(out),
+                            N, C, H, W, G, D, tile_h, tile_w, pad, 0, 0};
+    e = dispatch(C / G, a, pro, smem_bytes, s);
+  }
   return (int)e;
 }

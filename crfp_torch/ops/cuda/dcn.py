@@ -5,11 +5,14 @@ Forward: replaces ``crfp_tpu/ops/pallas/dcn.py::_dcn_kernel`` (:59,
 ``pallas_call`` in ``_fwd_call`` :493; entries ``deform_conv2d_pallas`` :716
 and ``deform_conv2d_pallas_vjp`` :1359) with ``crfp_torch/csrc/dcn_fwd.cu``.
 The TPU kernel builds 2-sparse interpolation matrices per window so that
-its matrix unit does the gathers; Hopper gathers natively, so the CUDA
-kernel samples directly and contracts with the weight in registers. The
-corner sampling, the window clamp and the weight tile in shared memory are
-device code in ``crfp_torch/csrc/common.cuh``, which kernel E
-(``csrc/dcn_fused.cu``, ``ops/cuda/dcn_fused.py``) includes too.
+its matrix unit does the gathers; Hopper gathers natively. The CUDA kernel
+is one tiled routine (``crfp_torch/csrc/common.cuh``), shared with kernel E
+(``csrc/dcn_fused.cu``, ``ops/cuda/dcn_fused.py``): a pre-pass packs x per
+group, pixel-major (zero-padded for a clamped call), into scratch that the
+wrapper allocates; then blocks own tiles of pixels with all O outputs on a
+persistent grid, stage the weight once, and contract bf16 x on the tensor
+cores (``mma.sync``), f32 x and dcn_3 on the CUDA cores. :func:`tile_plan`
+picks the tile and the padding; both dispatchers pass it to their C entry.
 
 Backward: replaces ``_dcn_bwd_kernel`` (:219, ``pallas_call`` in
 ``_bwd_call`` :593, reached through ``deform_conv2d_pallas_vjp``'s custom
@@ -23,8 +26,10 @@ derivative.
 Bound on the H100 at the main-path shapes (bytes, see the source notes):
 per-tap dcn_0/1/2 at (1, 32, 180, 180) bf16 with f32 offsets and masks
 moves 32 MB forward (~9.6 us at 3.35 TB/s); shared-tap dcn_3 at (1, 4,
-720, 720) 14.5 MB (~4.3 us). At the training shapes (B 2, GT 192) the
-backward moves 8.8 MB per per-tap call and 3.5 MB per dcn_3 call.
+720, 720) 14.5 MB (~4.3 us). Its contraction, 0.6 GFLOP per per-tap call,
+would take ~9 us on the CUDA cores in f32 and ~0.6 us on the tensor cores
+in bf16. At the training shapes (B 2, GT 192) the backward moves 8.8 MB
+per per-tap call and 3.5 MB per dcn_3 call.
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -32,6 +37,9 @@ Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_r
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -46,8 +54,11 @@ bwd_launches = 0
 # the instantiations of csrc/dcn_fwd.cu and dcn_bwd.cu: dcn_3 (4) and
 # dcn_0/1/2 (32) at mid 32
 SUPPORTED_OUT_CHANNELS = (4, 32)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# kernel A's and E's instantiations: channels per group (dcn_0/1/2 and
+# dcn_3 at mid 32 have 4); 3x3 weights only
+SUPPORTED_CHANNELS_PER_GROUP = (2, 4)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
+    [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -92,17 +103,155 @@ def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
     return g
 
 
-def _forward(x, offset, mask, weight, bias, max_displacement, shared_taps,
-             shared_mask) -> torch.Tensor:
+# ---- the tile plan of kernels A and E ------------------------------------
+
+# CUDA-core path (f32 x, dcn_3, a shared mask): tiles (rows, columns) of
+# output pixels per block, one thread per pixel, largest first; the plan
+# takes the first that fills every SM with its resident blocks
+# (_min_blocks), else the last.
+TILE_SHAPES = ((8, 32), (4, 32), (4, 16), (2, 16))
+# Tensor-core path (bf16 x, O = 32, per-tap mask): 32 pixels a block of 8
+# warps (one per group); the plan takes the shape with the fewest tiles
+# (the least ragged edge), (1, 32) on a tie: 48-wide planes take (2, 16).
+MMA_TILE_SHAPES = ((1, 32), (2, 16))
+SM_COUNT = 132  # H100 SXM
+MAX_SMEM = 232448  # the H100's 227 KB a block
+_TAPS, _MMA_O, _OUT_STRIDE = 9, 32, 36
+
+
+def _min_blocks(mma: bool, o: int) -> int:
+    """Resident blocks an SM (``csrc/common.cuh::min_blocks``): 3 on the
+    tensor-core path and at O = 4, 1 on the f32 path at O = 32."""
+    return 3 if mma or o < _MMA_O else 1
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How kernel A or E covers an (N, C, H, W) call: tiles of ``tile_h``
+    x ``tile_w`` pixels (a block of one thread per pixel, or on the
+    tensor-core path 8 warps on 32 pixels); ``pad`` pixels of zeros around
+    the packed planes of x (a clamped call: ceil(D) + 1, so that no corner
+    needs a frame check; 0: corners checked); ``smem_bytes`` of dynamic
+    shared memory (``csrc/common.cuh::smem_bytes``); ``mma``: the bf16
+    contraction on the tensor cores."""
+
+    tile_h: int
+    tile_w: int
+    pad: int
+    smem_bytes: int
+    mma: bool
+    tiles_y: int
+    tiles_x: int
+
+    def args(self) -> tuple[int, int, int, int]:
+        """The C entries' plan arguments."""
+        return self.tile_h, self.tile_w, self.pad, self.smem_bytes
+
+    def packed_numel(self, n: int, c: int, h: int, w: int) -> int:
+        """Elements of the scratch the pre-pass packs x into: its planes
+        carry ``pad`` pixels of zeros below and ``pad + 1`` above
+        (``csrc/common.cuh::padded``)."""
+        ext = 2 * self.pad + 1 if self.pad else 0
+        return n * c * (h + ext) * (w + ext)
+
+
+def _smem_bytes(mma: bool, c: int, o: int) -> int:
+    """``csrc/common.cuh::smem_bytes``. Tensor-core path: the bf16 weight
+    and U, [32][K + pad] each, and the f32 output tile; CUDA-core path: the
+    f32 weight."""
+    if mma:
+        ks = (_TAPS * c + 15) // 16 * 16 + 8
+        return 2 * 32 * ks * 2 + 32 * _OUT_STRIDE * 4
+    return c * _TAPS * o * 4
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=None):
+    mma = bool(bf16) and o == _MMA_O and not shared_mask
+    if tile is not None:
+        shapes = (tile,)
+    elif mma:
+        shapes = (min(MMA_TILE_SHAPES, key=lambda t: -(-h // t[0]) * -(-w // t[1])),)
+    else:
+        shapes = TILE_SHAPES
+    for th, tw in shapes:
+        ty, tx = -(-h // th), -(-w // tw)
+        if n * ty * tx >= _min_blocks(mma, o) * sm_count:
+            break
+    if mma and th * tw != 32:
+        raise ValueError(f"tile_plan: the tensor-core path takes 32-pixel tiles, not {th}x{tw}")
+    pad = 0 if max_displacement is None else math.ceil(max_displacement) + 1
+    smem = _smem_bytes(mma, c, o)
+    if smem > MAX_SMEM:
+        raise ValueError(f"tile_plan: {smem} bytes of shared memory > {MAX_SMEM}")
+    return TilePlan(th, tw, pad, smem, mma, ty, tx)
+
+
+def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
+              max_displacement: float | None, *, bf16: bool, shared_mask: bool = False,
+              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None) -> TilePlan:
+    """The tile plan of kernel A (or E: per-tap, no shared mask) for x (n, c,
+    h, w), O = ``o`` outputs and ``g`` groups. A clamped call reads its
+    corners from x packed with a zero border of ``pad`` pixels, an unclamped
+    one with frame checks; a tile of a clamped call therefore reads its
+    corners from the tile grown by ``pad`` pixels below and ``pad + 1``
+    above, in the packed plane (through L1). ``tile`` forces a tile (rows,
+    columns) instead of the default one."""
+    return _plan(n, c, h, w, o, g, max_displacement, bool(bf16), bool(shared_mask),
+                 sm_count, tile)
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, asked once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    count = _sm_counts.get(index)
+    if count is None:
+        count = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return count
+
+
+def check_tiled(name: str, c: int, g: int, kh: int, kw: int) -> None:
+    """Kernels A and E take 3x3 weights and 2 or 4 channels per group."""
+    if (kh, kw) != (3, 3) or c // g not in SUPPORTED_CHANNELS_PER_GROUP:
+        raise ValueError(f"{name}: weight {kh}x{kw} with {c // g} channels per group "
+                         f"(3x3 and one of {SUPPORTED_CHANNELS_PER_GROUP})")
+
+
+def dcn_forward(
+    x: torch.Tensor,
+    offset: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    max_displacement: int | None = None,
+    shared_taps: bool = False,
+    shared_mask: bool = False,
+    plan: TilePlan | None = None,
+) -> torch.Tensor:
+    """Kernel A alone (no autograd): (N, O, H, W) in x's dtype. CUDA tensors
+    only. ``plan``: a :func:`tile_plan` other than the default one (other
+    tiles are measured this way)."""
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
+    check_tiled("dcn_fwd", c, g, kh, kw)
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, bool(shared_mask),
+                     sm_count(x.device))
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
+    # the pre-pass's zero-padded, pixel-major copy of x
+    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
     _build.launch("dcn_fwd", "crfp_dcn_fwd", _ARGTYPES, x.device,
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  packed.data_ptr(),
                   n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16))
+                  int(shared_taps), int(shared_mask), int(bf16), *plan.args())
     global launches
     launches += 1
     return out
@@ -155,8 +304,9 @@ class _DeformConv2dWindowed(torch.autograd.Function):
         ctx.kw = dict(max_displacement=max_displacement, shared_taps=shared_taps,
                       shared_mask=shared_mask)
         ctx.has_bias = bias is not None
-        return _forward(x, offset, mask, weight, bias, max_displacement,
-                        shared_taps, shared_mask)
+        return dcn_forward(x, offset, mask, weight, bias,
+                           max_displacement=max_displacement, shared_taps=shared_taps,
+                           shared_mask=shared_mask)
 
     @staticmethod
     @once_differentiable
@@ -185,8 +335,8 @@ def deform_conv2d_windowed(
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
-    bfloat16, offset/mask/weight/bias float32, f32 accumulation) or
-    raise."""
+    bfloat16, offset/mask/weight/bias float32, f32 accumulation; bf16 x at
+    O = 32 contracted on the tensor cores) or raise."""
     if x.device.type == "cpu":
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,

@@ -6,8 +6,10 @@ Replaces ``crfp_tpu/ops/pallas/dcn.py::_dcn_kernel_fusedprep`` (:1468,
 the XLA-side epilogue around it (``crfp_tpu/nn/align.py:281``, :292-296)
 with ``crfp_torch/csrc/dcn_fused.cu``: ``mag * tanh(raw) + flow``, the
 ±window clip and the mask's sigmoid are computed per (pixel, group, tap) in
-registers, then sampled and contracted like kernel A (the two sources share
-``csrc/common.cuh``). Inference only, like the TPU kernel: there is no
+registers, then sampled and contracted by kernel A's tiled routine
+(``csrc/common.cuh``, with the tile plan of
+:func:`crfp_torch.ops.cuda.dcn.tile_plan`); the same offsets give the same
+bits as the PyTorch prologue followed by kernel A. Inference only, like the TPU kernel: there is no
 backward, and the dispatcher raises when autograd would record the call.
 
 Bound on the H100 (bytes, see the source note): x and heads in bf16 at the
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from crfp_torch.ops.cuda import _build
+from crfp_torch.ops.cuda.dcn import TilePlan, _plan, check_tiled, sm_count
 from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
 
 # launches of the CUDA kernel (not of the plain version)
@@ -32,8 +35,8 @@ launches = 0
 
 # the instantiations of csrc/dcn_fused.cu: dcn_0/1/2 at mid 32
 SUPPORTED_OUT_CHANNELS = (32,)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + \
-    [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + \
+    [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(x, raw_offset, raw_mask, flow, weight, bias) -> int:
@@ -89,14 +92,16 @@ def deform_conv2d_fusedprep(
     *,
     max_residue_magnitude: float = 10.0,
     max_displacement: int | None = None,
+    plan: TilePlan | None = None,
 ) -> torch.Tensor:
     """Per-tap windowed DCNv2 from the heads' raw outputs, NCHW; (N, O, H,
     W) in x's dtype. No gradient: raises if an operand requires grad while
-    autograd records.
+    autograd records. ``plan``: a tile plan other than the default one
+    (:func:`crfp_torch.ops.cuda.dcn.tile_plan`, for measurements).
 
     CPU tensors take the plain version; CUDA tensors launch kernel E (x and
-    heads float32 or bfloat16 alike, flow/weight/bias float32, f32
-    arithmetic) or raise."""
+    heads float32 or bfloat16 alike, flow/weight/bias float32; f32 x in f32,
+    bf16 x contracted on the tensor cores with f32 sums) or raise."""
     operands = (x, raw_offset, raw_mask, flow, weight, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in operands):
@@ -110,13 +115,20 @@ def deform_conv2d_fusedprep(
     g = _check(*operands)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
+    check_tiled("dcn_fused", c, g, kh, kw)
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device))
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
+    # the pre-pass's zero-padded, pixel-major copy of x
+    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
     _build.launch("dcn_fused", "crfp_dcn_fused", _ARGTYPES, x.device,
                   x.data_ptr(), raw_offset.data_ptr(), raw_mask.data_ptr(),
                   flow.data_ptr(), weight.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  packed.data_ptr(),
                   n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                  float(max_residue_magnitude), int(x.dtype == torch.bfloat16))
+                  float(max_residue_magnitude), int(bf16), *plan.args())
     global launches
     launches += 1
     return out
