@@ -37,8 +37,10 @@ Phases, in order; any failure exits non-zero without the final line:
    prologue + A bit for bit. Kernels A and B are held
    the same way at the gate's 16:9 shapes too (A per-tap (1,32,180,320)
    and shared (1,4,720,1280), each clamped and unclamped; B (1,4,720,1280),
-   (1,32,180,320) and (1,24,180,320)), and A at the training shapes
-   ((2,32,48,48) per-tap, 36 calls per amp step; (2,4,192,192) shared, 12).
+   (1,32,180,320) and (1,24,180,320)), A at the training shapes
+   ((2,32,48,48) per-tap, 36 calls per amp step; (2,4,192,192) shared, 12),
+   and A and E at the mid-16 widths (A per-tap (1,16,180,180) at O = 16 and
+   shared (1,2,720,720) at O = 2; E (1,16,180,180) at O = 16).
    A and E must give the same bits in two runs and replayed from a CUDA
    graph, and A under shared taps the bits of its per-tap loop on the
    repeated offset; their records carry the tile plan and
@@ -48,13 +50,20 @@ Phases, in order; any failure exits non-zero without the final line:
    once through the kernels and once through the plain versions, both in
    f32; every frame must agree to >= 80 dB PSNR and max|d| <= 1e-3, and
    the launch counters must show A 4, B 2, C 1 per steady-state frame;
+   3b. the same at mid 16 with checkpoints/v18_mid16_procedural.npz (A at
+   O = 16 and O = 2), then 4 frames of a 720p gate clip of that checkpoint
+   through StreamingRunner, EXACT and DEPLOY with dcn_fused (E at O = 16),
+   both in f32, kernels against plain versions as above, launch counts
+   asserted;
 4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench,
    in turns with ModelConfig.dcn_fused off, on, on, off (off: A 4, B 2, C 1
    per steady frame; on: E 3, A 1, B 2, C 1), launch counts asserted;
 5. hold the training kernels against their plain versions at the training
    shapes of the recipe of record (B 2, T 7, GT 192, mid 32; TF32 off):
    kernel D (dcn_bwd, flow_warp_bwd) gradients f32 to 1e-4 of max|ref|,
-   bf16 inputs against the f32 plain version to 2e-2 of max|ref|; kernel F
+   bf16 inputs against the f32 plain version to 2e-2 of max|ref|, at mid 32
+   and at the mid-16 widths (O 16 and 2), d-offset, d-mask and dW
+   bit-equal over two runs and a CUDA-graph replay; kernel F
    (ssim) map to 1e-5 abs and masked mean to 1e-6 at (14,192,192,3),
    (14,192,192,1), (1,1080,1920,3) and the gate's (1,720,1280,3); time kernel, plain version and,
    where one PyTorch call computes the same function, that call (device
@@ -106,6 +115,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "checkpoints" / "v18_mid32_struct.npz"
 GATE_CKPT = ROOT / "checkpoints" / "v18_mid32_procedural.npz"
+# the mid-16 checkpoint: dcn_0/1/2 at O = 16 (2 channels per group), dcn_3 at O = 2
+MID16_CKPT = ROOT / "checkpoints" / "v18_mid16_procedural.npz"
+MID16_FRAMES = 4
 GATE_LR_HW, GATE_FRAMES, GATE_SIGMAS = (90, 160), 20, (10.0, 50.0, 100.0)
 # exact-vs-deploy agreement of the gate, dB; frames of the gate streamed through
 # the plain versions, and the bf16 limit of kernels against plain there, dB
@@ -397,6 +409,9 @@ def phase_kernels(gen):
                                                              0, 6 * tn_rec),
         f"shared G=1 D=32 ({tb},4,{tgt[0]},{tgt[1]}) train": (tb, MID // 8, MID // 8, 1, tgt, 32,
                                                             True, 0, 2 * tn_rec),
+        # the mid-16 widths (checkpoints/v18_mid16_procedural.npz), serving shapes
+        "per-tap G=8 D=8 (1,16,180,180) mid16": (1, 16, 16, 8, q, 8, False, 0, 0),
+        "shared G=1 D=32 (1,2,720,720) mid16": (1, 2, 2, 1, WARP, 32, True, 0, 0),
     }.items():
         taps = 1 if shared else 9
         x = randn(n, c, *hw)
@@ -450,11 +465,12 @@ def phase_kernels(gen):
                digest=digest(got, got0, gotb))
 
     # ---- E: dcn_0/1/2 from the raw heads, serving and gate shapes --------
-    for mode, (hw, calls) in {
-        f"per-tap G=8 D=8 (1,32,{q[0]},{q[1]}) serving, dcn_fused": (q, 0),
-        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (gq, 3),
+    for mode, (c, hw, calls) in {
+        f"per-tap G=8 D=8 (1,32,{q[0]},{q[1]}) serving, dcn_fused": (MID, q, 0),
+        f"per-tap G=8 D=8 (1,32,{gq[0]},{gq[1]}) gate": (MID, gq, 3),
+        f"per-tap G=8 D=8 (1,16,{q[0]},{q[1]}) serving mid16": (16, q, 0),
     }.items():
-        c = o = MID
+        o = c
         g, d, mag = 8, 8, 10.0
         x = randn(1, c, *hw)
         # white-noise heads saturate tanh and the clip; the smooth ones are
@@ -614,8 +630,29 @@ def _train_expect(steps: int) -> dict:
     return {k: v * steps for k, v in per_step.items()}
 
 
-def phase_slice():
-    """Phase 3. Returns the launch counts of the kernel-path run."""
+def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None):
+    """Each frame through the kernels against the same frame through the
+    plain versions: finite, PSNR >= ``db_min`` and max|d| <= ``d_max``
+    (None: not held)."""
+    import torch
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (shape is not None and g.shape != shape) or not bool(torch.isfinite(g).all()):
+            fail(f"{tag} frame {i}: shape {tuple(g.shape)} or non-finite values")
+        d = (g - w).abs()
+        mse = float((d.double() ** 2).mean())
+        psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
+        print(f"{tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB (limit >= {db_min:g}), "
+              f"max|d| {float(d.max()):.3e}, frame range "
+              f"[{float(g.min()):.3f}, {float(g.max()):.3f}]")
+        if not (psnr >= db_min and (d_max is None or float(d.max()) <= d_max)):
+            fail(f"{tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
+                 f"max|d| {float(d.max())}")
+
+
+def phase_slice(mid=MID, ckpt=CKPT):
+    """Phase 3 (and the runtime half of phase 3b at mid 16). Returns the
+    launch counts of the kernel-path run."""
     import numpy as np
     import torch
 
@@ -624,9 +661,9 @@ def phase_slice():
     from crfp_torch.params import load_npz, runtime_params_from_batch
 
     t = 5
-    cfg = ModelConfig(mid_channels=MID, dcn_window=8, dcn_window_hr=32)
+    cfg = ModelConfig(mid_channels=mid, dcn_window=8, dcn_window_hr=32)
     model = CRFPRuntimeV18(cfg, warp_size=WARP, device="cuda", seed=0)
-    sd, n_unmapped = runtime_params_from_batch(load_npz(str(CKPT)), model.state_dict())
+    sd, n_unmapped = runtime_params_from_batch(load_npz(str(ckpt)), model.state_dict())
     if n_unmapped != 5:
         fail(f"checkpoint adapter kept {n_unmapped} leaves at init, expected 5")
     model.load_state_dict(sd)
@@ -656,22 +693,45 @@ def phase_slice():
     wall = time.perf_counter() - t0
     launches = _counts()
     expect = _expect(dcn_fwd=4 * (t - 1), flow_warp=2 * (t - 1), emit=t)
-    print(f"[slice] {t} frames 1080p warp {WARP} mid {MID} f32 via kernels in "
-          f"{wall:.3f} s (first run, host clock); launches {launches}")
+    print(f"[slice] {t} frames 1080p warp {WARP} mid {mid} ({Path(ckpt).name}) f32 via "
+          f"kernels in {wall:.3f} s (first run, host clock); launches {launches}")
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
-    for i, (g, w) in enumerate(zip(got, want)):
-        if g.shape != (1, *HR_HW, 3) or not bool(torch.isfinite(g).all()):
-            fail(f"frame {i}: shape {tuple(g.shape)} or non-finite values")
-        d = (g - w).abs()
-        mse = float((d.double() ** 2).mean())
-        psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
-        print(f"[slice] frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
-              f"max|d| {float(d.max()):.3e}, frame range "
-              f"[{float(g.min()):.3f}, {float(g.max()):.3f}]")
-        if not (psnr >= 80.0 and float(d.max()) <= 1e-3):
-            fail(f"frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
-                 f"max|d| {float(d.max())}")
+    _frames_agree(f"[slice] mid {mid}", got, want, shape=(1, *HR_HW, 3))
+    return launches
+
+
+def phase_mid16():
+    """Phase 3b: checkpoints/v18_mid16_procedural.npz on the card, whose DCN
+    stages run A, D and E at O = 16 (2 channels per group) and O = 2. The
+    runtime slice of phase 3 at mid 16 (A, B, C), then MID16_FRAMES frames
+    of a gate clip through StreamingRunner in f32: EXACT (A 4, B 3 per
+    steady frame) and DEPLOY with dcn_fused (E 3, A 1, B 3), each through
+    the kernels and through the plain versions (>= 80 dB, max|d| <= 1e-3
+    per frame), launch counts asserted."""
+    import numpy as np
+
+    from crfp_torch.bench import deploy_gate as dg
+
+    launches = {"runtime": phase_slice(16, MID16_CKPT)}
+    lr, hr, gaze = dg.gate_clip(np.random.default_rng(16), 50.0, GATE_LR_HW, MID16_FRAMES)
+    steady = MID16_FRAMES - 1
+    for tag, kw, expect in (
+        ("EXACT f32", dict(deploy=False), _expect(dcn_fwd=4 * steady, flow_warp=3 * steady)),
+        ("DEPLOY f32 dcn_fused", dict(deploy=True, dcn_fused=True),
+         _expect(dcn_fused=3 * steady, dcn_fwd=steady, flow_warp=3 * steady)),
+    ):
+        runner = dg.build_runner(str(MID16_CKPT), 16, device="cuda", **kw)
+        runner.model.float()
+        _zero_counts()
+        got = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)]
+        launches[tag] = _counts()
+        print(f"[mid16] {tag}: {MID16_FRAMES} frames of a gate clip, launches {launches[tag]}")
+        if launches[tag] != expect:
+            fail(f"mid-16 {tag}: launch counts {launches[tag]} != expected {expect}")
+        with plain_kernels():
+            want = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)]
+        _frames_agree(f"[mid16] {tag}", got, want, shape=(1, *hr.shape[1:3], 3))
     return launches
 
 
@@ -816,16 +876,7 @@ def _gate_vs_plain(lr, hr, gaze):
             want = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)]
             for z, out, gt in got:
                 ev_plain.update(out, gt, z)
-        for i, ((_, g, _), w) in enumerate(zip(got, want)):
-            d = (g - w).abs()
-            mse = float((d.double() ** 2).mean())
-            psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
-            print(f"[gate] {tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB (limit >= "
-                  f"{db_min:g}), max|d| {float(d.max()):.3e}")
-            if not (bool(torch.isfinite(g).all()) and psnr >= db_min
-                    and (d_max is None or float(d.max()) <= d_max)):
-                fail(f"gate {tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
-                     f"max|d| {float(d.max())}")
+        _frames_agree(f"[gate] {tag}", [g for _, g, _ in got], want, db_min, d_max)
         worst = {"psnr": 0.0, "ssim": 0.0}
         for key, vals in ev_kernel.results.items():
             other = ev_plain.results[key]
@@ -903,11 +954,14 @@ def phase_kernels_train(gen):
             abs_err, rel_err = max(abs_err, d), max(rel_err, rel)
         return abs_err, rel_err
 
-    # ---- D for the DCN stages: per-tap dcn_0/1/2, shared-tap dcn_3 -------
+    # ---- D for the DCN stages: per-tap dcn_0/1/2, shared-tap dcn_3, at the
+    # recipe's mid 32 and at the mid-16 widths -------------------------------
     for mode, (c, o, g, hw, d, shared, calls) in {
         f"per-tap G=8 D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, mid, 8, lv, 8, False, 3 * n_rec),
         f"shared G=1 D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, mid // 8, 1, (gt, gt), 32,
                                                        True, n_rec),
+        f"per-tap G=8 D=8 ({b},16,{lv[0]},{lv[1]}) mid16": (16, 16, 8, lv, 8, False, 0),
+        f"shared G=1 D=32 ({b},2,{gt},{gt}) mid16": (2, 2, 1, (gt, gt), 32, True, 0),
     }.items():
         taps = 1 if shared else 9
         x = randn(b, c, *hw)
@@ -936,6 +990,16 @@ def phase_kernels_train(gen):
         _, gotb = _grads(kern, (xb, off, mask, wt, bias), gb)
         torch.cuda.synchronize()
         _, rel = check_grads("kernel D dcn bf16", mode, gotb, want, 2e-2)
+        # d-offset, d-mask and dW are summed in a fixed order (dx alone by
+        # atomics): two runs and a replay from a CUDA graph give the same bits
+        for o_, x_, g_ in ((noisy, x, gout), (off, xb, gb)):
+            def fixed(o_=o_, x_=x_, g_=g_):
+                return torch.cat([t.flatten() for t in
+                                  dcn.dcn_backward(x_, o_, mask, wt, g_, **kw)[1:]])
+            first, again, replay = fixed(), fixed(), captured(fixed)
+            if not (torch.equal(first, again) and torch.equal(first, replay)):
+                fail(f"kernel D dcn {mode}: d-offset, d-mask and dW of two runs on the same "
+                     "inputs (eager, eager, CUDA graph) are not bit-equal")
         k_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
         p_ms = _time_backward(plain, (xb, off, mask, wt, bias), gb, iters=5)
         n_px = b * hw[0] * hw[1]
@@ -943,11 +1007,14 @@ def phase_kernels_train(gen):
         # for dW, the four-corner sample and its two position derivatives
         flops = n_px * g * 9 * (c // g) * (4 * o + 22)
         dxb, doff, dmask, dw = dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
-        record("dcn_bwd", mode, calls, err, rel, k_ms, p_ms, None,
-               bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16"),
-               # d-offset and d-mask only: dx and dW are summed by atomics,
-               # in an order that changes from run to run
-               digest=digest(got[1], got[2], doff, dmask))
+        plan = dcn.bwd_plan(b, c, *hw, o, g, d, shared_taps=shared)
+        bnd = bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16")
+        record("dcn_bwd", mode, calls, err, rel, k_ms, p_ms, None, bnd,
+               bound_fraction=bnd[0] / k_ms[1], tile=f"{plan.tile_h}x{plan.tile_w} pad "
+               f"{plan.pad} grid {plan.grid}{' patch' if plan.patch else ''}",
+               # d-offset, d-mask and dW: dx alone is summed by atomics, in
+               # an order that changes from run to run
+               digest=digest(got[1], got[2], got[3], doff, dmask, dw))
 
     # ---- D at k=1: the HR state, lv3_state and the stacked lv states -----
     for mode, (c, hw, d) in {
@@ -1123,7 +1190,7 @@ def main(argv=None) -> int:
         fail(f"crfp_torch imported from {crfp_torch.__file__}, not from {ROOT}")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    for ckpt in (CKPT, GATE_CKPT):
+    for ckpt in (CKPT, GATE_CKPT, MID16_CKPT):
         if not ckpt.exists():
             fail(f"missing {ckpt}")
     torch.backends.cudnn.allow_tf32 = False
@@ -1144,6 +1211,7 @@ def main(argv=None) -> int:
         print(json.dumps({"modes": modes}))
         return 0
     serve_launches = phase_slice()
+    phase_mid16()
     phase_bench()
     modes += phase_kernels_train(gen)
     phase_train()

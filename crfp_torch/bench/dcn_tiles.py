@@ -1,7 +1,11 @@
-"""Kernels A and E under every tile plan, at the main paths' shapes.
+"""Kernels A and E under every tile plan, and kernel D, at the main paths'
+shapes.
 
     python -m crfp_torch.bench.dcn_tiles
     python -m crfp_torch.bench.dcn_tiles --modes   # public entry points only
+    python -m crfp_torch.bench.dcn_tiles --bwd     # kernel D, every mode
+    python -m crfp_torch.bench.dcn_tiles --bwd --plans   # and every plan
+    python -m crfp_torch.bench.dcn_tiles --bwd --profile # device us of each launch
 
 For each call shape of kernel A (serving, gate and training; per-tap and
 shared-tap dcn_3) and of kernel E, and each dtype given, the script times
@@ -17,8 +21,22 @@ not the arithmetic); the script fails otherwise.
 of the public dispatchers (``deform_conv2d_windowed``,
 ``deform_conv2d_fusedprep``: bf16 and f32, clamped and unclamped) with the
 default plan. It uses nothing else of the package, so it can time another
-tree's kernels: ``PYTHONPATH=<tree> python <this file> --modes``. Ends with
-one JSON line. Fails without a card.
+tree's kernels: ``PYTHONPATH=<tree> python <this file> --modes``.
+
+``--bwd`` times kernel D (``dcn_backward``, the DCN stages' backward) at the
+training shapes of the recipe at mid 32 and mid 16 (per-tap dcn_0/1/2 and
+shared-tap dcn_3), bf16 and f32, clamped and unclamped, through the public
+dispatcher and its default plan, so it also times another tree's D; a
+width that tree refuses is reported as refused. ``--plans`` adds every
+tile and the shared-tap patch on and off of ``bwd_plan`` for the bf16
+clamped calls: d-offset and d-mask must equal the default plan's bits and
+dW its value to f32 rounding (the blocks' partials change with the grid).
+``--profile`` splits each bf16 clamped call into its three launches under
+``torch.profiler`` (20 calls; no CUDA graph in that process, which would
+cost the profiler its device events). The launches are programmatic
+dependent launches, so a launch's span includes its wait for the one
+before; a build with that attribute off gives disjoint spans.
+Ends with one JSON line. Fails without a card.
 """
 
 from __future__ import annotations
@@ -129,6 +147,118 @@ def run_modes() -> list[dict]:
     return rows
 
 
+# (name, (n, c, h, w), o, g, D, shared): kernel D on the train step of the
+# recipe (B 2, GT 192): 18 per-tap and 6 shared calls a step
+BWD_SHAPES = [
+    ("D mid32 per-tap", (2, 32, 48, 48), 32, 8, 8, False),
+    ("D mid32 shared", (2, 4, 192, 192), 4, 1, 32, True),
+    ("D mid16 per-tap", (2, 16, 48, 48), 16, 8, 8, False),
+    ("D mid16 shared", (2, 2, 192, 192), 2, 1, 32, True),
+]
+
+
+def run_bwd(plans: bool = False) -> list[dict]:
+    """Device ms of kernel D in every (shape, dtype, clamp) mode; with
+    ``plans`` also every tile and patch choice of the bf16 clamped calls."""
+    from crfp_torch.ops.cuda import dcn
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for shape in BWD_SHAPES:
+        name, (n, c, h, w), o, g, d, shared = shape
+        x32, off, mask, wt, g32 = _bwd_operands(gen, shape)
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            x, gout = x32.to(dtype), g32.to(dtype)
+            for window in (d, None):
+                mode = "clamped" if window is not None else "unclamped"
+                kw = dict(max_displacement=window, shared_taps=shared, shared_mask=shared)
+
+                def call(kw=kw, x=x, gout=gout, **extra):
+                    return dcn.dcn_backward(x, off, mask, wt, gout, **kw, **extra)
+                try:
+                    want = call()
+                except ValueError as e:  # a tree without this width
+                    rows.append(dict(shape=name, dtype=dt, mode=mode, refused=str(e)))
+                    print(f"[bwd] {name:16s} {dt:4s} {mode:9s} refused: {e}")
+                    continue
+                ms = device_ms(call)
+                rows.append(dict(shape=name, dtype=dt, mode=mode, device_ms=ms))
+                print(f"[bwd] {name:16s} {dt:4s} {mode:9s} device {ms:.4f} ms")
+                if not (plans and dt == "bf16" and window is not None):
+                    continue
+                default = dcn.bwd_plan(n, c, h, w, o, g, d, shared_taps=shared,
+                                       sm_count=dcn.sm_count(x.device))
+                p = dcn.BWD_THREADS // g
+                for tile in ((p // 32, 32), (p // 16, 16)):
+                    for patch in ((True, False) if shared else (False,)):
+                        plan = dcn.bwd_plan(n, c, h, w, o, g, d, shared_taps=shared,
+                                            sm_count=dcn.sm_count(x.device), tile=tile,
+                                            patch=patch)
+                        got = call(plan=plan)
+                        torch.cuda.synchronize()
+                        dw_err = float((got[3] - want[3]).abs().max() / want[3].abs().max())
+                        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                                and dw_err <= 1e-5):
+                            sys.exit(f"dcn_tiles: {name} tile {tile} patch {patch}: "
+                                     f"differs from the default plan (dW {dw_err})")
+                        pms = device_ms(lambda plan=plan: call(plan=plan))
+                        rows.append(dict(shape=name, dtype=dt, mode=mode, tile=list(tile),
+                                         patch=patch, grid=plan.grid, device_ms=pms,
+                                         default=plan == default))
+                        print(f"[bwd plans] {name:16s} tile {tile[0]}x{tile[1]:<3d} patch "
+                              f"{int(patch)} grid {plan.grid:4d}  device {pms:.4f} ms"
+                              + ("  (default)" if plan == default else ""))
+    return rows
+
+
+def _bwd_operands(gen, shape):
+    """Kernel D's operands for one entry of BWD_SHAPES, on the card: x and
+    the output gradient in f32, offsets (a smooth flow-like field plus
+    noise), mask and weight."""
+    name, (n, c, h, w), o, g, d, shared = shape
+    taps = 1 if shared else 9
+    off = (_smooth(gen, n, 2, (h, w), d).repeat(1, g * taps, 1, 1)
+           + (torch.randn(n, g * taps * 2, h, w, generator=gen)
+              * (1.0 if shared else 2.0)).cuda())
+    mask = torch.rand(n, g * taps, h, w, generator=gen).cuda()
+    wt = (torch.randn(o, c, 3, 3, generator=gen) * 0.1).cuda()
+    x32 = torch.randn(n, c, h, w, generator=gen).cuda()
+    g32 = torch.randn(n, o, h, w, generator=gen).cuda()
+    return x32, off, mask, wt, g32
+
+
+def run_bwd_profile(calls: int = 20) -> list[dict]:
+    """Device us per call of each of kernel D's launches, bf16 clamped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crfp_torch.ops.cuda import dcn
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for shape in BWD_SHAPES:
+        name, _, _, _, d, shared, *_ = shape
+        x32, off, mask, wt, g32 = _bwd_operands(gen, shape)
+        x, gout = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
+        kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
+        for _ in range(3):
+            dcn.dcn_backward(x, off, mask, wt, gout, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                dcn.dcn_backward(x, off, mask, wt, gout, **kw)
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if t and "dcn_bwd_" in e.key:
+                kernel = e.key.split("dcn_bwd_")[1].split("<")[0]
+                spans[kernel] = spans.get(kernel, 0.0) + t / calls
+        rows.append(dict(shape=name, dtype="bf16", mode="clamped", device_us=spans))
+        print(f"[bwd profile] {name:16s} " + "  ".join(f"{k} {v:.1f} us"
+                                                       for k, v in spans.items()))
+    return rows
+
+
 def run(dtypes=("bf16",)) -> list[dict]:
     from crfp_torch.ops.cuda import dcn, dcn_fused
 
@@ -180,6 +310,12 @@ def main(argv=None) -> int:
     ap.add_argument("--dtypes", nargs="+", default=["bf16"], choices=["bf16", "f32"])
     ap.add_argument("--modes", action="store_true",
                     help="time every mode of the public dispatchers with the default plan")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time kernel D in every mode at the training shapes")
+    ap.add_argument("--plans", action="store_true",
+                    help="with --bwd: also every tile and patch choice of bwd_plan")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --bwd: device time of each launch under torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("dcn_tiles: no CUDA device")
@@ -188,6 +324,12 @@ def main(argv=None) -> int:
     print(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}")
     if args.modes:
         print(json.dumps({"dcn_modes": run_modes()}))
+        return 0
+    if args.bwd and args.profile:
+        print(json.dumps({"dcn_bwd_profile": run_bwd_profile()}))
+        return 0
+    if args.bwd:
+        print(json.dumps({"dcn_bwd_modes": run_bwd(args.plans)}))
         return 0
     rows = run(tuple(args.dtypes))
     print(json.dumps({"dcn_tiles": rows}))

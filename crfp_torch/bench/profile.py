@@ -2,6 +2,7 @@
 the GPU, and of the deployment quality gate's three configurations.
 
     python -m crfp_torch.bench.profile
+    python -m crfp_torch.bench.profile --train   # the train step alone
 
 Streaming (once with ``dcn_fused`` off and once on): builds the benchmark's chain (crfp_torch.bench.runtime.build_chain:
 1080p, warp 720^2, mid 32, t=5, bf16) and, after a warm-up, times 4 reps
@@ -34,7 +35,8 @@ _GROUPS = (
     ("kernel A dcn_fwd", ("dcn_fwd_kernel",)),
     ("kernel B flow_warp", ("flow_warp_kernel",)),
     ("kernel C emit", ("emit_kernel",)),
-    ("kernel D dcn_bwd", ("dcn_bwd_kernel",)),
+    # the pre-pass, the tiled kernel and the epilogue of each call
+    ("kernel D dcn_bwd", ("dcn_bwd_",)),
     # the scatter and, for bf16, the cast of its f32 accumulator (the
     # accumulator's memset is a "Memset" of the last group)
     ("kernel D flow_warp_bwd", ("flow_warp_bwd_kernel", "cast_bf16_kernel")),
@@ -198,12 +200,18 @@ def _report(r: dict) -> None:
     print(json.dumps(r))
 
 
-def main() -> int:
-    _report(profile_runtime())
-    _report(profile_runtime(dcn_fused=True))
-    _report(profile_gate(deploy=False))
-    _report(profile_gate(deploy=True, dcn_fused=False))
-    _report(profile_gate(deploy=True, dcn_fused=True))
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train", action="store_true", help="the train step alone")
+    args = ap.parse_args(argv)
+    if not args.train:
+        _report(profile_runtime())
+        _report(profile_runtime(dcn_fused=True))
+        _report(profile_gate(deploy=False))
+        _report(profile_gate(deploy=True, dcn_fused=False))
+        _report(profile_gate(deploy=True, dcn_fused=True))
     _report(profile_train())
     return 0
 

@@ -62,7 +62,7 @@ __device__ __forceinline__ float clamp_pass(float v, float D) {
 //        8 warps, a warp per group, the modulated samples rounded to bf16 as
 //        the TPU kernel rounds them (crfp_tpu/ops/pallas/dcn.py:169), the
 //        contraction over K = 9*C on the tensor cores (mma.sync m16n8k16).
-//      - dcn_tiles (f32 x, O = 4, a shared mask): a thread per pixel walks
+//      - dcn_tiles (f32 x, O < 32, a shared mask): a thread per pixel walks
 //        the groups with the pixel's O sums in registers, f32 FMAs on the
 //        CUDA cores; a shared mask scales each group's sum once
 //        (crfp_tpu/ops/pallas/dcn.py:196-200).
@@ -94,8 +94,8 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 232448;  // the H100's 227 KB per block
 
 // Resident blocks of 256 threads per SM that __launch_bounds__ asks for: 3
-// (at most 85 registers a thread) on the tensor-core path and at O = 4; 1 on
-// the f32 path at O = 32, whose 64 sums a pixel would spill with fewer.
+// (at most 85 registers a thread) on the tensor-core path and at O < 32; 1
+// on the f32 path at O = 32, whose 64 sums a pixel would spill with fewer.
 __host__ __device__ constexpr int min_blocks(bool mma, int o) { return mma || o < 32 ? 3 : 1; }
 
 // Rows (columns) of a packed plane of n rows (columns) with a zero border of

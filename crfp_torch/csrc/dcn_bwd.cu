@@ -9,223 +9,598 @@
 // (zeros outside the frame), m_gk the per-tap mask (1 in shared_mask mode)
 // and gm_g the shared mask (1 otherwise). For s_ck = sum_o W[o,c,k] g[o,p]:
 //   d mask        = sum_c v_ck s_ck        (summed over k in shared_mask mode)
-//   d v_ck        = m_gk gm_g s_ck         -> dx by atomicAdd at the corners
+//   d v_ck        = m_gk gm_g s_ck         -> dx at the sample's corners
 //   d offset      = sum_c d v_ck dv_ck/ds  (summed over k in shared_taps
 //                   mode), times torch's clamp derivative: 1 where
 //                   |off| <= D, else 0
-//   dW[o,c,k]     = sum_p g[o,p] m_gk gm_g v_ck
+//   dW[o,c,k]     = sum_p g[o,p] u_ck(p),  u_ck = m_gk gm_g v_ck
 // The bias gradient is a reduction of grad_out outside the kernel, as on the
-// TPU (crfp_tpu/ops/pallas/dcn.py:1139).
+// TPU (crfp_tpu/ops/pallas/dcn.py:1139). For bf16 x, u is rounded to bf16
+// before the dW product, as the TPU kernel rounds its dot operands
+// (crfp_tpu/ops/pallas/dcn.py:323, :418); grad_out is bf16 already.
 //
-// Design: one thread per output pixel (over N*H*W) and one group per
-// blockIdx.y, so every lane of a warp works on the same (group, tap,
-// channel) at once. The thread keeps its O output gradients in registers;
-// the group's weight slice sits in shared memory. The window cotangents
-// that the TPU kernel overlap-adds (_overlap_add :604) are scattered here
-// with atomicAdd into an f32 dx, which the wrapper casts to x's type. dW
-// is summed across the warp with shuffles, into a per-block partial in
-// shared memory, and added to the global dW with one atomicAdd per
-// element per block.
+// Design. Three launches a call, all on the caller's stream, no
+// allocation, no synchronisation:
+//  1. dcn_bwd_pack: x packed per group, pixel-major, zero-padded by
+//     ceil(D) + 1 below and + 2 above for a clamped call (crfp::pack_x, the
+//     pre-pass of kernels A and E), so that a corner's CPG channels are one
+//     8-16 byte load with no frame check; the same pass zeroes an f32 dx
+//     accumulator of the same packed layout.
+//  2. dcn_bwd_kernel, a programmatic dependent launch on a persistent grid
+//     (at most 2 blocks a SM, see blocks_per_sm). A block of 256 threads
+//     walks tiles of 256 / G pixels, a thread per (pixel, group): warp w of
+//     a per-tap call (G = 8) is group w, its lanes 32 pixels. For each tile:
+//      - the tile's output gradient, gs[O][P], staged in shared memory;
+//      - each thread forms its 9 taps' samples, s = W^T g from its O
+//        gradients in registers and the block's weight in shared memory
+//        (read as broadcasts), d-mask and d-offset (written once,
+//        deterministic), dx as one vector atomic a corner into the packed
+//        accumulator (atomicAdd float4 / float2: one per corner, not one a
+//        channel) and u into us[P][9C + 1];
+//      - dW += gs^T us: thread t owns the 9 taps of rows x 1 of the (O, C)
+//        plane, rows = min(O, 4), sums its pixels of the tile in registers
+//        and adds them to its elements of the block's dW partial (the
+//        registers live only in this phase: held across the pixel phase
+//        they spilled).
+//     Under shared taps on a clamped call (dcn_3) the 9 taps' corners lie
+//     in one 4x4 patch (kernel A's, common.cuh::dcn_tiles); where every tap
+//     keeps its shift there, the thread loads the 16 pixels at once, sums
+//     its 36 corner contributions in 16 patch registers and issues 16 vector
+//     atomics, else the per-tap ones.
+//     Each block leaves one dW partial in scratch.
+//  3. dcn_bwd_epilogue (programmatic dependent launch): unpacks dx into x's
+//     dtype, NCHW, and sums the blocks' dW partials in a fixed order, so dW
+//     is deterministic; only dx's f32 atomics depend on the run's order.
+// The kernel's first design summed dW with a 5-step warp butterfly per
+// (tap, channel, output) and shared atomics, added dx with four scalar
+// global atomics per (pixel, tap, channel), gathered x one channel at a
+// time from NCHW, and ran one thread per pixel for one group.
 //
 // Bound on the H100 at the training shapes (B 2, T 7, GT 192, mid 32, bf16
 // activations): per-tap (dcn_0/1/2) x (2,32,48,48) bf16 0.29 MB + offset
 // (2,144,48,48) f32 2.65 MB + mask 1.33 MB + grad_out 0.29 MB in, dx 0.29 MB
 // + d-offset 2.65 MB + d-mask 1.33 MB out = 8.8 MB, ~2.6 us at 3.35 TB/s;
 // shared (dcn_3) x (2,4,192,192) with one offset pair and mask per pixel
-// moves 3.5 MB, ~1.1 us. The work is ~4*O flops per (pixel, tap, channel)
-// on the CUDA cores in f32; the contraction with the weight is not moved
-// to tensor cores in this version.
+// moves 3.5 MB, ~1.1 us. The arithmetic is ~(4 O + 22) operations per
+// (pixel, tap, channel), 0.19 GFLOP a per-tap call: ~2.8 us at the f32
+// CUDA-core rate. Measured on an H100 (PERF.md): ~0.051 ms a per-tap call
+// and ~0.039 a dcn_3 call; without the dx atomics (1.2-1.3 M a call) 13-18
+// us less, without the s and dW arithmetic at most 5 us less. So the
+// contraction stays on the CUDA cores, where bf16 and f32 share one code
+// path; the atomics are what a next design must cut.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using crfp::kTaps;
+using crfp::Pix;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
+constexpr int kThreads = 256;
+
+// Resident blocks an SM that __launch_bounds__ asks for
+// (ops/cuda/dcn.py::_bwd_blocks_per_sm): 2 (at most 128 registers a
+// thread), 1 at O <= 4 with 4 channels a group (dcn_3 at mid 32), whose 64
+// patch sums spilled ~480 B under 128 registers and ran 20 % slower
+__host__ __device__ constexpr int blocks_per_sm(int o, int cpg) {
+  return o <= 4 && cpg == 4 ? 1 : 2;
 }
 
-template <typename T, int O>
-__global__ void __launch_bounds__(kThreads)
-dcn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ off,
-               const float* __restrict__ mask, const float* __restrict__ weight,
-               const T* __restrict__ gout, float* __restrict__ dx,
-               float* __restrict__ doff, float* __restrict__ dmask,
-               float* __restrict__ dw, int N, int C, int H, int W, int G,
-               int KH, int KW, float D, int shared_taps, int shared_mask) {
-  extern __shared__ float smem[];
-  const int K2 = KH * KW;
-  const int cpg = C / G;
-  const int g = blockIdx.y;
-  const int nws = K2 * cpg * O;
-  float* ws = smem;         // ws[(k*cpg + ci)*O + o] = W[o, g*cpg + ci, k]
-  float* dws = smem + nws;  // the block's partial dW, same layout
-  for (int i = threadIdx.x; i < nws; i += blockDim.x) {
-    const int o = i % O;
-    const int ci = (i / O) % cpg;
-    const int k = i / (O * cpg);
-    ws[i] = weight[((long long)o * C + g * cpg + ci) * K2 + k];
-    dws[i] = 0.f;
-  }
-  __syncthreads();
+// output channels of a thread's dW block (ops/cuda/dcn.py::_dw_rows)
+__host__ __device__ constexpr int dw_rows(int o) { return o < 4 ? o : 4; }
 
-  // Threads past the last pixel stay to the end with zero gradients: every
-  // lane takes part in the warp sums of dW.
-  const long long HW = (long long)H * W;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = q < (long long)N * HW;
-  const int n = valid ? (int)(q / HW) : 0;
-  const long long p = valid ? q % HW : 0;
-  const int py = (int)(p / W);
-  const int px = (int)(p % W);
-  const int lane = threadIdx.x & 31;
-  const int taps = shared_taps ? 1 : K2;
-  const int mtaps = shared_mask ? 1 : K2;
-  const T* xn = x + (long long)n * C * HW;
-  float* dxn = dx + (long long)n * C * HW;
-  const long long off_base = (long long)n * G * taps * 2 * HW + p;
-  const long long mask_base = (long long)n * G * mtaps * HW + p;
-
-  float go[O];
-#pragma unroll
-  for (int o = 0; o < O; ++o)
-    go[o] = valid ? crfp::load_f(gout + ((long long)n * O + o) * HW + p) : 0.f;
-  const float gm = (valid && shared_mask) ? mask[mask_base + (long long)g * HW] : 1.f;
-  float dgm = 0.f;             // shared_mask: d mask summed over taps
-  float sdy = 0.f, sdx = 0.f;  // shared_taps: d sample position over taps
-  float oy = 0.f, ox = 0.f;
-
-  for (int k = 0; k < K2; ++k) {
-    const int t = shared_taps ? 0 : k;
-    const long long oi = off_base + (long long)((g * taps + t) * 2) * HW;
-    oy = valid ? off[oi] : 0.f;
-    ox = valid ? off[oi + HW] : 0.f;
-    float cy = oy, cx = ox;
-    if (D >= 0.f) {
-      cy = fminf(fmaxf(cy, -D), D);
-      cx = fminf(fmaxf(cx, -D), D);
-    }
-    const float sy = (float)(py + k / KW - (KH - 1) / 2) + cy;
-    const float sx = (float)(px + k % KW - (KW - 1) / 2) + cx;
-    const float y0f = floorf(sy);
-    const float x0f = floorf(sx);
-    const float fy = sy - y0f;
-    const float fx = sx - x0f;
-    const int y0 = (int)y0f;
-    const int x0 = (int)x0f;
-    const bool vy0 = valid && y0 >= 0 && y0 < H, vy1 = valid && y0 + 1 >= 0 && y0 + 1 < H;
-    const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-    const bool b00 = vy0 && vx0, b01 = vy0 && vx1, b10 = vy1 && vx0, b11 = vy1 && vx1;
-    const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-    const float w10 = fy * (1.f - fx), w11 = fy * fx;
-    const float m = shared_mask ? 1.f
-                                : (valid ? mask[mask_base + (long long)(g * K2 + k) * HW] : 0.f);
-    const float mult = m * gm;
-    const long long i00 = (long long)y0 * W + x0;
-    float dm = 0.f, dsy = 0.f, dsx = 0.f;
-    for (int ci = 0; ci < cpg; ++ci) {
-      const long long cHW = (long long)(g * cpg + ci) * HW;
-      const T* xc = xn + cHW;
-      const float v00 = b00 ? crfp::load_f(xc + i00) : 0.f;
-      const float v01 = b01 ? crfp::load_f(xc + i00 + 1) : 0.f;
-      const float v10 = b10 ? crfp::load_f(xc + i00 + W) : 0.f;
-      const float v11 = b11 ? crfp::load_f(xc + i00 + W + 1) : 0.f;
-      const float v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11;
-      const float* wk = ws + (k * cpg + ci) * O;
-      float s = 0.f;
-#pragma unroll
-      for (int o = 0; o < O; ++o) s = fmaf(wk[o], go[o], s);
-      dm = fmaf(v, s, dm);
-      const float dv = mult * s;
-      dsy = fmaf(dv, (1.f - fx) * (v10 - v00) + fx * (v11 - v01), dsy);
-      dsx = fmaf(dv, (1.f - fy) * (v01 - v00) + fy * (v11 - v10), dsx);
-      if (dv != 0.f) {
-        float* dxc = dxn + cHW;
-        if (b00) atomicAdd(dxc + i00, dv * w00);
-        if (b01) atomicAdd(dxc + i00 + 1, dv * w01);
-        if (b10) atomicAdd(dxc + i00 + W, dv * w10);
-        if (b11) atomicAdd(dxc + i00 + W + 1, dv * w11);
-      }
-      const float u = mult * v;
-      float* dwk = dws + (k * cpg + ci) * O;
-#pragma unroll
-      for (int o = 0; o < O; ++o) {
-        const float r = warp_sum(go[o] * u);
-        if (lane == 0) atomicAdd(dwk + o, r);
-      }
-    }
-    if (shared_mask) {
-      dgm += dm;
-    } else if (valid) {
-      dmask[mask_base + (long long)(g * K2 + k) * HW] = dm;
-    }
-    if (shared_taps) {
-      sdy += dsy;
-      sdx += dsx;
-    } else if (valid) {
-      const long long di = off_base + (long long)((g * K2 + k) * 2) * HW;
-      doff[di] = crfp::clamp_pass(oy, D) * dsy;
-      doff[di + HW] = crfp::clamp_pass(ox, D) * dsx;
-    }
-  }
-  if (valid) {
-    if (shared_mask) dmask[mask_base + (long long)g * HW] = dgm;
-    if (shared_taps) {  // oy, ox: the one offset pair every tap read
-      const long long di = off_base + (long long)(g * 2) * HW;
-      doff[di] = crfp::clamp_pass(oy, D) * sdy;
-      doff[di + HW] = crfp::clamp_pass(ox, D) * sdx;
-    }
-  }
-
-  __syncthreads();
-  for (int i = threadIdx.x; i < nws; i += blockDim.x) {
-    const int o = i % O;
-    const int ci = (i / O) % cpg;
-    const int k = i / (O * cpg);
-    atomicAdd(dw + ((long long)o * C + g * cpg + ci) * K2 + k, dws[i]);
-  }
-}
-
-template <typename T, int O>
-cudaError_t launch(const void* x, const float* off, const float* mask,
-                   const float* weight, const void* gout, float* dx,
-                   float* doff, float* dmask, float* dw, int N, int C, int H,
-                   int W, int G, int KH, int KW, float D, int shared_taps,
-                   int shared_mask, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * (size_t)KH * KW * (C / G) * O;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dcn_bwd_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const long long NHW = (long long)N * H * W;
-  dim3 grid((unsigned)((NHW + kThreads - 1) / kThreads), (unsigned)G);
-  dcn_bwd_kernel<T, O><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), off, mask, weight, static_cast<const T*>(gout),
-      dx, doff, dmask, dw, N, C, H, W, G, KH, KW, D, shared_taps, shared_mask);
-  return cudaGetLastError();
+// Bytes of dynamic shared memory (ops/cuda/dcn.py::_bwd_smem_bytes): the
+// f32 weight wf[G][9][CPG][O], the tile's output gradient gs[O][P] and its
+// modulated samples us[P][9C + 1] (the + 1 keeps a warp's rows on distinct
+// banks), P = kThreads / G; after a tile's dW products the threads' sums
+// [kThreads][rows * 9] take the place of us.
+__host__ __device__ inline int bwd_smem_bytes(int C, int O, int G) {
+  const int P = kThreads / G;
+  const int u = P * (kTaps * C + 1), red = kThreads * dw_rows(O) * kTaps;
+  return 4 * (C * kTaps * O + O * P + (u > red ? u : red));
 }
 
 template <typename T>
-cudaError_t dispatch(int O, const void* x, const float* off, const float* mask,
-                     const float* weight, const void* gout, float* dx,
-                     float* doff, float* dmask, float* dw, int N, int C, int H,
-                     int W, int G, int KH, int KW, float D, int shared_taps,
-                     int shared_mask, cudaStream_t s) {
-#define CRFP_DCN_BWD_CASE(OO)                                                \
-  case OO:                                                                   \
-    return launch<T, OO>(x, off, mask, weight, gout, dx, doff, dmask, dw, N, \
-                         C, H, W, G, KH, KW, D, shared_taps, shared_mask, s);
-  switch (O) {
-    CRFP_DCN_BWD_CASE(4)   // dcn_3 at mid 32
-    CRFP_DCN_BWD_CASE(32)  // dcn_0/1/2 at mid 32
+struct BwdArgs {
+  const T* x;            // (N, C, H, W)
+  const float* off;      // (N, G*T*2, H, W), T = 1 under shared_taps
+  const float* mask;     // (N, G*M, H, W), M = 1 under shared_mask
+  const float* weight;   // (O, C, 3, 3)
+  const T* gout;         // (N, O, H, W)
+  T* dx;                 // (N, C, H, W)
+  float* doff;           // offset's layout
+  float* dmask;          // mask's layout
+  float* dw;             // (O, C, 3, 3)
+  T* xp;                 // scratch: x packed, [N][G][padded(H)][padded(W)][CPG]
+  float* dxp;            // scratch: the f32 dx accumulator, packed like xp
+  float* dw_part;        // scratch: the blocks' dW partials, [grid][rows x 9][NB]
+  int N, C, H, W, O, G;
+  float D;               // clamp; < 0: none
+  int shared_taps, shared_mask;
+  int tile_h, tile_w, pad, tiles_y, tiles_x, grid;
+};
+
+// dv * w into one corner of the packed f32 accumulator: one vector atomic
+// for the group's CPG channels (sm_90)
+template <int CPG>
+__device__ __forceinline__ void red_pix(float* p, const float (&dv)[CPG], float w) {
+  if constexpr (CPG == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(dv[0] * w, dv[1] * w, dv[2] * w, dv[3] * w));
+  } else {
+    static_assert(CPG == 2, "2 or 4 channels per group");
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(dv[0] * w, dv[1] * w));
+  }
+}
+
+// frame pixel (y, x) of a packed accumulator plane (`pad` pixels of border,
+// `stride` pixels a row); CHECKED: no border, and a corner outside the
+// frame takes nothing
+template <int CPG, bool CHECKED>
+__device__ __forceinline__ void scatter(float* plane, int y, int x, int pad, int stride,
+                                        int H, int W, const float (&dv)[CPG], float w) {
+  if (CHECKED && !(y >= 0 && y < H && x >= 0 && x < W)) return;
+  red_pix<CPG>(plane + ((long long)(y + pad) * stride + (x + pad)) * CPG, dv, w);
+}
+
+// Launch 1: x packed per group (crfp::pack_x) and the dx accumulator
+// zeroed, the same pixel of both per thread.
+template <typename T, int CPG>
+__global__ void __launch_bounds__(256) dcn_bwd_pack(BwdArgs<T> a) {
+  crfp::pack_x<T, CPG>(a.x, a.xp, a.H, a.W, a.pad);
+  const int Hp = crfp::padded(a.H, a.pad), Wp = crfp::padded(a.W, a.pad);
+  const int xq = blockIdx.x * blockDim.x + threadIdx.x;
+  const int yq = blockIdx.y * blockDim.y + threadIdx.y;
+  if (xq >= Wp || yq >= Hp) return;
+  Pix<float, CPG> z;
+#pragma unroll
+  for (int c = 0; c < CPG; ++c) z.v[c] = 0.f;
+  reinterpret_cast<Pix<float, CPG>*>(a.dxp)[((long long)blockIdx.z * Hp + yq) * Wp + xq] = z;
+}
+
+// Launch 2 (see the note at the top). SRC: crfp::kPadded or kChecked;
+// PATCH: shared taps on padded planes, dx summed in the 4x4 patch.
+template <typename T, int O, int CPG, int SRC, bool PATCH>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(O, CPG))
+dcn_bwd_kernel(BwdArgs<T> a) {
+  static_assert(!PATCH || SRC == crfp::kPadded, "the patch reads padded planes");
+  constexpr bool kChk = SRC == crfp::kChecked;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int OB = dw_rows(O);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, P = kThreads / G;
+  const long long HW = (long long)H * W;
+  const int pad = a.pad, Wp = crfp::padded(W, pad);
+  const long long HWp = (long long)crfp::padded(H, pad) * Wp;  // a packed plane
+  const int US = kTaps * C + 1;
+  float* wf = reinterpret_cast<float*>(smem);  // [g][k][ci][o]
+  float* gs = wf + C * kTaps * O;              // [o][P]
+  float* us = gs + O * P;                      // [P][US]
+
+  // the weight, once per block: warp w takes the rows (g, k, ci) of wf
+  // w, w + 8, ..., its lanes over o (O <= 32), so that the stores hit
+  // distinct banks; all of a thread's loads are issued before its first
+  // store (one round trip, where a load-store loop waited for each)
+  {
+    constexpr int kMaxC = 32;  // G <= 8 groups of <= 4 channels
+    constexpr int kRows = kMaxC * kTaps / (kThreads / 32);
+    float v[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int row = warp + u * (kThreads / 32);
+      const int g = row / (kTaps * CPG), k = row / CPG % kTaps, ci = row % CPG;
+      v[u] = row < C * kTaps && lane < O
+                 ? __ldg(a.weight + ((long long)lane * C + g * CPG + ci) * kTaps + k)
+                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int row = warp + u * (kThreads / 32);
+      if (row < C * kTaps && lane < O) wf[row * O + lane] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // this thread's (pixel, group) of a tile, and its dW block
+  const int gi = tid / P, q = tid - gi * P;
+  const int qy = q / a.tile_w, qx = q - qy * a.tile_w;
+  const int NB = O / OB * C, R = kThreads / NB;
+  const int eb = tid % NB, slice = tid / NB, ob = eb / C, ce = eb - ob * C;
+  const float* wg = wf + gi * kTaps * CPG * O;
+  float* urow = us + q * US + gi * CPG * kTaps;  // u[c * 9 + k]
+  const int taps = a.shared_taps ? 1 : kTaps, mtaps = a.shared_mask ? 1 : kTaps;
+  // the block's dW partial: each tile adds its sums, each element by one
+  // thread
+  float* part = a.dw_part + (long long)blockIdx.x * O * C * kTaps;
+
+  crfp::wait_for_packed_x();  // the packed x and the zeroed accumulator
+  crfp::allow_dependent_launch();
+  const Pix<T, CPG>* xp = reinterpret_cast<const Pix<T, CPG>*>(a.xp);
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r = tile / a.tiles_x;
+    const int n = r / a.tiles_y, ty0 = (r % a.tiles_y) * a.tile_h, tx0 = tx * a.tile_w;
+#pragma unroll 4
+    for (int i = tid; i < O * P; i += kThreads) {
+      const int o = i / P, qq = i - o * P;
+      const int yy = ty0 + qq / a.tile_w, xx = tx0 + qq % a.tile_w;
+      gs[i] = yy < H && xx < W ? crfp::load_f(a.gout + ((long long)n * O + o) * HW +
+                                              (long long)yy * W + xx)
+                               : 0.f;
+    }
+    __syncthreads();  // gs complete
+
+    const int py = ty0 + qy, px = tx0 + qx;
+    if (py < H && px < W) {
+      const long long p = (long long)py * W + px, ng = (long long)n * G + gi;
+      const float* offp = a.off + ng * taps * 2 * HW + p;
+      const float* mp = a.mask + ng * mtaps * HW + p;
+      float* doffp = a.doff + ng * taps * 2 * HW + p;
+      float* dmp = a.dmask + ng * mtaps * HW + p;
+      const Pix<T, CPG>* src = xp + ng * HWp;
+      float* dst = a.dxp + ng * HWp * CPG;
+      float go[O];
+#pragma unroll
+      for (int o = 0; o < O; ++o) go[o] = gs[o * P + q];
+      const float gm = a.shared_mask ? __ldg(mp) : 1.f;
+      // every tap's offset pair first (under shared taps one pair; loaded
+      // with each tap's corners instead, it ran up to 3 % slower)
+      float oyk[kTaps], oxk[kTaps];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int t = a.shared_taps ? 0 : k;
+        oyk[k] = __ldg(offp + (2 * t) * HW);
+        oxk[k] = __ldg(offp + (2 * t + 1) * HW);
+      }
+      float dgm = 0.f, sdy = 0.f, sdx = 0.f;
+      float pd[4][4][CPG];  // dx of the patch (unused and removed without PATCH)
+
+      // tap k's sample from its four corners: s, d-mask, d-offset, u, and
+      // dx into the patch registers or by four vector atomics
+      auto tap = [&](int k, float m, const Pix<T, CPG>& p00, const Pix<T, CPG>& p01,
+                     const Pix<T, CPG>& p10, const Pix<T, CPG>& p11, bool in_patch) {
+        const int ky = k / 3, kx = k % 3;
+        const float sy = (float)(py + ky - 1) + crfp::clamp_window(oyk[k], a.D);
+        const float sx = (float)(px + kx - 1) + crfp::clamp_window(oxk[k], a.D);
+        const float y0f = floorf(sy), x0f = floorf(sx);
+        const float fy = sy - y0f, fx = sx - x0f;
+        const int y0 = (int)y0f, x0 = (int)x0f;
+        const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
+        const float w10 = fy * (1.f - fx), w11 = fy * fx;
+        const float mult = m * gm;
+        const float* wk = wg + k * CPG * O;
+        float dm = 0.f, dsy = 0.f, dsx = 0.f, dv[CPG];
+#pragma unroll
+        for (int c = 0; c < CPG; ++c) {
+          const float c00 = crfp::to_f(p00.v[c]), c01 = crfp::to_f(p01.v[c]);
+          const float c10 = crfp::to_f(p10.v[c]), c11 = crfp::to_f(p11.v[c]);
+          const float v = fmaf(w11, c11, fmaf(w10, c10, fmaf(w01, c01, w00 * c00)));
+          float s = 0.f;
+          if constexpr (O % 4 == 0) {  // the weight row as 16-byte broadcasts
+            const float4* w4 = reinterpret_cast<const float4*>(wk + c * O);
+#pragma unroll
+            for (int o = 0; o < O; o += 4) {
+              const float4 wv = w4[o / 4];
+              s = fmaf(wv.w, go[o + 3], fmaf(wv.z, go[o + 2],
+                                             fmaf(wv.y, go[o + 1], fmaf(wv.x, go[o], s))));
+            }
+          } else {
+#pragma unroll
+            for (int o = 0; o < O; ++o) s = fmaf(wk[c * O + o], go[o], s);
+          }
+          dm = fmaf(v, s, dm);
+          dv[c] = mult * s;
+          dsy = fmaf(dv[c], (1.f - fx) * (c10 - c00) + fx * (c11 - c01), dsy);
+          dsx = fmaf(dv[c], (1.f - fy) * (c01 - c00) + fy * (c11 - c10), dsx);
+          float u = mult * v;
+          if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+          urow[c * kTaps + k] = u;
+        }
+        if (PATCH && in_patch) {
+#pragma unroll
+          for (int c = 0; c < CPG; ++c) {
+            pd[ky][kx][c] += dv[c] * w00;
+            pd[ky][kx + 1][c] += dv[c] * w01;
+            pd[ky + 1][kx][c] += dv[c] * w10;
+            pd[ky + 1][kx + 1][c] += dv[c] * w11;
+          }
+        } else {
+          scatter<CPG, kChk>(dst, y0, x0, pad, Wp, H, W, dv, w00);
+          scatter<CPG, kChk>(dst, y0, x0 + 1, pad, Wp, H, W, dv, w01);
+          scatter<CPG, kChk>(dst, y0 + 1, x0, pad, Wp, H, W, dv, w10);
+          scatter<CPG, kChk>(dst, y0 + 1, x0 + 1, pad, Wp, H, W, dv, w11);
+        }
+        if (a.shared_mask) {
+          dgm += dm;
+        } else {
+          dmp[k * HW] = dm;
+        }
+        if (a.shared_taps) {
+          sdy += dsy;
+          sdx += dsx;
+        } else {
+          doffp[(2 * k) * HW] = crfp::clamp_pass(oyk[k], a.D) * dsy;
+          doffp[(2 * k + 1) * HW] = crfp::clamp_pass(oxk[k], a.D) * dsx;
+        }
+      };
+      // tap k's top-left corner
+      auto corner = [&](int k, int& y, int& x) {
+        y = (int)floorf((float)(py + k / 3 - 1) + crfp::clamp_window(oyk[k], a.D));
+        x = (int)floorf((float)(px + k % 3 - 1) + crfp::clamp_window(oxk[k], a.D));
+      };
+
+      // the patch: under shared taps every tap's top-left corner at its
+      // shift from tap 0's; its 16 pixels are loaded at once
+      bool patch = PATCH;
+      int y0p = 0, x0p = 0;
+      if constexpr (PATCH) {
+        corner(0, y0p, x0p);
+#pragma unroll
+        for (int k = 1; k < kTaps; ++k) {
+          int y, x;
+          corner(k, y, x);
+          patch = patch && y == y0p + k / 3 && x == x0p + k % 3;
+        }
+      }
+      if (PATCH && patch) {
+        Pix<T, CPG> qp[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            qp[i][j] = crfp::pixel<T, CPG, false>(src, y0p + i, x0p + j, -pad, -pad, Wp, H, W);
+#pragma unroll
+            for (int c = 0; c < CPG; ++c) pd[i][j][c] = 0.f;
+          }
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) {
+          const int ky = k / 3, kx = k % 3;
+          const float m = a.shared_mask ? 1.f : __ldg(mp + k * HW);
+          tap(k, m, qp[ky][kx], qp[ky][kx + 1], qp[ky + 1][kx], qp[ky + 1][kx + 1], true);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v[CPG];
+#pragma unroll
+            for (int c = 0; c < CPG; ++c) v[c] = pd[i][j][c];
+            scatter<CPG, false>(dst, y0p + i, x0p + j, pad, Wp, H, W, v, 1.f);
+          }
+      } else {
+        // a tap at a time: its mask and corners (the corners of 3 or 9 taps
+        // issued together spilled and ran 2-30 % slower)
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) {
+          int y, x;
+          corner(k, y, x);
+          const float m = a.shared_mask ? 1.f : __ldg(mp + k * HW);
+          tap(k, m, crfp::pixel<T, CPG, kChk>(src, y, x, -pad, -pad, Wp, H, W),
+              crfp::pixel<T, CPG, kChk>(src, y, x + 1, -pad, -pad, Wp, H, W),
+              crfp::pixel<T, CPG, kChk>(src, y + 1, x, -pad, -pad, Wp, H, W),
+              crfp::pixel<T, CPG, kChk>(src, y + 1, x + 1, -pad, -pad, Wp, H, W), false);
+        }
+      }
+      if (a.shared_mask) dmp[0] = dgm;
+      if (a.shared_taps) {  // the one offset pair every tap read
+        doffp[0] = crfp::clamp_pass(oyk[0], a.D) * sdy;
+        doffp[HW] = crfp::clamp_pass(oxk[0], a.D) * sdx;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < CPG * kTaps; ++i) urow[i] = 0.f;
+    }
+    __syncthreads();  // us complete
+
+    // dW += gs^T us over this thread's pixels of the tile, in registers
+    // only here (live through the pixel phase they spilled)
+    float acc[OB][kTaps];
+#pragma unroll
+    for (int j = 0; j < OB; ++j)
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) acc[j][k] = 0.f;
+    for (int pp = slice; pp < P; pp += R) {
+      float gv[OB], uv[kTaps];
+#pragma unroll
+      for (int j = 0; j < OB; ++j) gv[j] = gs[(ob * OB + j) * P + pp];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) uv[k] = us[pp * US + ce * kTaps + k];
+#pragma unroll
+      for (int j = 0; j < OB; ++j)
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) acc[j][k] = fmaf(gv[j], uv[k], acc[j][k]);
+    }
+    const bool first = tile == (int)blockIdx.x;
+    __syncthreads();  // gs and us read
+    // the partial's layout is [rows x 9][NB]: a warp's stores are coalesced
+    if (R == 1) {
+#pragma unroll
+      for (int jk = 0; jk < OB * kTaps; ++jk) {
+        float* e = part + jk * NB + eb;
+        if (first)
+          *e = acc[jk / kTaps][jk % kTaps];
+        else
+          *e += acc[jk / kTaps][jk % kTaps];
+      }
+    } else {  // the R threads of a dW block summed in a fixed order
+      float* red = us;  // [kThreads][OB * 9]
+#pragma unroll
+      for (int jk = 0; jk < OB * kTaps; ++jk)
+        red[tid * OB * kTaps + jk] = acc[jk / kTaps][jk % kTaps];
+      __syncthreads();
+      for (int e = tid; e < NB * OB * kTaps; e += kThreads) {
+        const int b = e % NB, jk = e / NB;
+        float t = 0.f;
+        for (int sl = 0; sl < R; ++sl) t += red[(sl * NB + b) * OB * kTaps + jk];
+        if (first)
+          part[e] = t;
+        else
+          part[e] += t;
+      }
+    }
+    // the next tile writes gs first and us after a barrier: red is free then
+  }
+}
+
+// Launch 3: blocks [0, nb_dx) unpack dx (a thread per (pixel, group)),
+// the rest sum the dW partials: a block per 32 elements, warp w summing
+// the partials w, w + 8, ..., then the 8 warps' sums in order.
+template <typename T, int CPG>
+__global__ void __launch_bounds__(256) dcn_bwd_epilogue(BwdArgs<T> a, int nb_dx) {
+  crfp::wait_for_packed_x();  // the tiled kernel has finished
+  const long long HW = (long long)a.H * a.W;
+  if ((int)blockIdx.x < nb_dx) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)a.N * a.G * HW) return;
+    const long long ng = i / HW, p = i - ng * HW;
+    const int y = (int)(p / a.W), x = (int)(p - (long long)y * a.W);
+    const int Hp = crfp::padded(a.H, a.pad), Wp = crfp::padded(a.W, a.pad);
+    const Pix<float, CPG> v = reinterpret_cast<const Pix<float, CPG>*>(
+        a.dxp)[(ng * Hp + y + a.pad) * Wp + x + a.pad];
+    T* out = a.dx + ng * CPG * HW + p;
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) out[c * HW] = crfp::store_f<T>(v.v[c]);
+    return;
+  }
+  // slot e of a partial ([rows x 9][NB], see dcn_bwd_kernel) holds dW[o,c,k]
+  // for o = (b / C) rows + j, c = b % C, with b = e % NB, (j, k) = e / NB
+  __shared__ float sums[8][32];
+  const int E = a.O * a.C * kTaps, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = dw_rows(a.O), NB = a.O / rows * a.C;
+  const int e = ((int)blockIdx.x - nb_dx) * 32 + lane;
+  float s = 0.f;
+  if (e < E)
+    for (int b = warp; b < a.grid; b += 8) s += a.dw_part[(long long)b * E + e];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && e < E) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += sums[w][lane];
+    const int b = e % NB, j = e / NB / kTaps, k = e / NB % kTaps;
+    a.dw[((b / a.C * rows + j) * a.C + b % a.C) * kTaps + k] = t;
+  }
+}
+
+// a programmatic dependent launch of `fn` on `stream`
+template <typename... Args>
+cudaError_t launch_dependent(void (*fn)(Args...), dim3 grid, dim3 block, int smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T, int O, int CPG>
+cudaError_t launch(BwdArgs<T> a, int smem, int patch, cudaStream_t stream) {
+  void (*const fns[3])(BwdArgs<T>) = {dcn_bwd_kernel<T, O, CPG, crfp::kChecked, false>,
+                                       dcn_bwd_kernel<T, O, CPG, crfp::kPadded, false>,
+                                       dcn_bwd_kernel<T, O, CPG, crfp::kPadded, true>};
+  const int variant = patch ? 2 : a.pad > 0 ? 1 : 0;
+  // the first launch of each instantiation raises its shared memory limit
+  // and asks for the largest shared-memory carveout: with the default one
+  // an SM held one 78 KB block (per-tap at O = 32), and 144 blocks ran in
+  // two waves
+  static bool raised[3] = {false, false, false};
+  if (!raised[variant]) {
+    cudaError_t e = cudaFuncSetAttribute(fns[variant],
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         crfp::kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fns[variant], cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    raised[variant] = true;
+  }
+  const int Hp = crfp::padded(a.H, a.pad), Wp = crfp::padded(a.W, a.pad);
+  dcn_bwd_pack<T, CPG><<<dim3((unsigned)((Wp + 31) / 32), (unsigned)((Hp + 7) / 8),
+                              (unsigned)(a.N * a.G)),
+                         dim3(32, 8), 0, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_dependent(fns[variant], dim3((unsigned)a.grid), dim3(kThreads), smem, stream,
+                       a);
+  if (e != cudaSuccess) return e;
+  const long long pixels = (long long)a.N * a.G * a.H * a.W;
+  const int nb_dx = (int)((pixels + 255) / 256);
+  const int nb_dw = (O * a.C * kTaps + 31) / 32;
+  return launch_dependent(dcn_bwd_epilogue<T, CPG>, dim3((unsigned)(nb_dx + nb_dw)), dim3(256),
+                          0, stream, a, nb_dx);
+}
+
+template <typename T, int O>
+cudaError_t dispatch_cpg(int cpg, const BwdArgs<T>& a, int smem, int patch, cudaStream_t s) {
+  if (cpg == 2) return launch<T, O, 2>(a, smem, patch, s);
+  if (cpg == 4) return launch<T, O, 4>(a, smem, patch, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch(BwdArgs<T> a, int smem, int patch, cudaStream_t s) {
+  const int cpg = a.C / a.G;
+  switch (a.O) {
+    case 2:  // dcn_3 at mid 16
+      return dispatch_cpg<T, 2>(cpg, a, smem, patch, s);
+    case 4:  // dcn_3 at mid 32
+      return dispatch_cpg<T, 4>(cpg, a, smem, patch, s);
+    case 16:  // dcn_0/1/2 at mid 16
+      return dispatch_cpg<T, 16>(cpg, a, smem, patch, s);
+    case 32:  // dcn_0/1/2 at mid 32
+      return dispatch_cpg<T, 32>(cpg, a, smem, patch, s);
     default:
       return cudaErrorInvalidValue;
   }
-#undef CRFP_DCN_BWD_CASE
+}
+
+// The plan checks of ops/cuda/dcn.py::bwd_plan and width_fault:
+// cudaErrorInvalidValue for a plan it would not make.
+template <typename T>
+cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch) {
+  if (a.G != 1 && a.G != 2 && a.G != 4 && a.G != 8) return cudaErrorInvalidValue;
+  const int cpg = a.C / a.G, P = kThreads / a.G;
+  if (a.C != a.G * cpg || (cpg != 2 && cpg != 4)) return cudaErrorInvalidValue;
+  const int NB = a.O / dw_rows(a.O) * a.C;
+  if (kThreads % NB) return cudaErrorInvalidValue;
+  if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != P) return cudaErrorInvalidValue;
+  if (a.pad < 0 || (a.pad > 0 && (a.D < 0.f || (float)(a.pad - 1) < ceilf(a.D))))
+    return cudaErrorInvalidValue;
+  if (patch && !(a.shared_taps && a.pad > 0)) return cudaErrorInvalidValue;
+  if (smem != bwd_smem_bytes(a.C, a.O, a.G) || smem > crfp::kMaxSmem)
+    return cudaErrorInvalidValue;
+  a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
+  a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  return tiles > 0 && a.grid >= 1 && a.grid <= tiles ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t run(const void* x, const void* offset, const void* mask, const void* weight,
+                const void* grad_out, void* dx, void* d_offset, void* d_mask, void* dw,
+                void* x_packed, void* acc, int N, int C, int H, int W, int O, int G, float D,
+                int shared_taps, int shared_mask, int tile_h, int tile_w, int pad, int smem,
+                int grid, int patch, cudaStream_t s) {
+  const int Hp = crfp::padded(H, pad), Wp = crfp::padded(W, pad);
+  float* dxp = static_cast<float*>(acc);
+  BwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(offset),
+               static_cast<const float*>(mask), static_cast<const float*>(weight),
+               static_cast<const T*>(grad_out), static_cast<T*>(dx),
+               static_cast<float*>(d_offset), static_cast<float*>(d_mask),
+               static_cast<float*>(dw), static_cast<T*>(x_packed), dxp,
+               dxp + (long long)N * C * Hp * Wp,
+               N, C, H, W, O, G, D, shared_taps, shared_mask,
+               tile_h, tile_w, pad, 0, 0, grid};
+  cudaError_t e = check_plan(a, smem, patch);
+  if (e != cudaSuccess) return e;
+  return dispatch(a, smem, patch, s);
 }
 
 }  // namespace
@@ -233,32 +608,30 @@ cudaError_t dispatch(int O, const void* x, const float* off, const float* mask,
 CRFP_EXPORT_ERROR_STRING
 
 // x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32; mask
-// (N, G*M, H, W) f32; weight (O, C, KH, KW) f32; grad_out (N, O, H, W) in
-// x's type. Outputs, all f32: dx (N, C, H, W) and dw (O, C, KH, KW), both
-// zeroed by the caller (accumulated with atomics); d_offset and d_mask in
-// the layouts of offset and mask (every element written). All contiguous.
-// O in {4, 32}.
-extern "C" int crfp_dcn_bwd(const void* x, const void* offset,
-                            const void* mask, const void* weight,
-                            const void* grad_out, void* dx, void* d_offset,
-                            void* d_mask, void* dw, int N, int C, int H, int W,
-                            int O, int G, int KH, int KW, float D,
-                            int shared_taps, int shared_mask, int x_bf16,
-                            void* stream) {
-  const float* off = static_cast<const float*>(offset);
-  const float* mk = static_cast<const float*>(mask);
-  const float* wt = static_cast<const float*>(weight);
-  float* gx = static_cast<float*>(dx);
-  float* goff = static_cast<float*>(d_offset);
-  float* gmk = static_cast<float*>(d_mask);
-  float* gw = static_cast<float*>(dw);
+// (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; grad_out (N, O, H, W) in
+// x's type. Outputs, every element written: dx (N, C, H, W) in x's type,
+// d_offset and d_mask in the layouts of offset and mask (f32), dw (O, C,
+// 3, 3) f32. Scratch: x_packed, N*C*padded(H)*padded(W) elements of x's
+// type; acc, f32: the packed dx accumulator (as many elements), then
+// grid*O*C*9 for the blocks' dW partials. All contiguous. O in {2, 4, 16,
+// 32}, C/G in {2, 4}, G in {1, 2, 4, 8}. The plan (tile_h, tile_w, pad,
+// smem_bytes, grid, patch) is ops/cuda/dcn.py::bwd_plan's. Three launches,
+// no synchronisation, no allocation.
+extern "C" int crfp_dcn_bwd(const void* x, const void* offset, const void* mask,
+                            const void* weight, const void* grad_out, void* dx,
+                            void* d_offset, void* d_mask, void* dw, void* x_packed,
+                            void* acc, int N, int C, int H, int W, int O, int G, int KH,
+                            int KW, float D, int shared_taps, int shared_mask, int x_bf16,
+                            int tile_h, int tile_w, int pad, int smem_bytes, int grid,
+                            int patch, void* stream) {
+  if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
-      x_bf16 ? dispatch<__nv_bfloat16>(O, x, off, mk, wt, grad_out, gx, goff,
-                                       gmk, gw, N, C, H, W, G, KH, KW, D,
-                                       shared_taps, shared_mask, s)
-             : dispatch<float>(O, x, off, mk, wt, grad_out, gx, goff, gmk, gw,
-                               N, C, H, W, G, KH, KW, D, shared_taps,
-                               shared_mask, s);
+      x_bf16 ? run<__nv_bfloat16>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask,
+                                  dw, x_packed, acc, N, C, H, W, O, G, D, shared_taps,
+                                  shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch, s)
+             : run<float>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask, dw,
+                          x_packed, acc, N, C, H, W, O, G, D, shared_taps, shared_mask,
+                          tile_h, tile_w, pad, smem_bytes, grid, patch, s);
   return (int)e;
 }

@@ -48,13 +48,13 @@
 
 namespace {
 
-template <typename T, int CPG, bool MMA, int SRC>
-__global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, crfp::kMmaO))
+template <typename T, int O, int CPG, bool MMA, int SRC>
+__global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, O))
 dcn_fused_kernel(crfp::TileArgs<T> a, crfp::ProE<T> pro) {
   if constexpr (MMA)
     crfp::dcn_tiles_mma<CPG, SRC>(a, pro);
   else
-    crfp::dcn_tiles<crfp::kMmaO, CPG, SRC, false>(a, pro);
+    crfp::dcn_tiles<O, CPG, SRC, false>(a, pro);
 }
 
 // the pre-pass: x packed per group, pixel-major (crfp::pack_x)
@@ -64,25 +64,28 @@ dcn_fused_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int 
   crfp::pack_x<T, CPG>(x, xp, H, W, pad);
 }
 
-template <typename T, int CPG>
+// bf16 x at O = 32 on the tensor cores; f32 x and O = 16 on the CUDA cores
+template <typename T, int O, int CPG>
 cudaError_t launch(crfp::TileArgs<T> a, const crfp::ProE<T>& pro, int smem,
                    cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value && O == crfp::kMmaO;
   int threads = 0, tiles = 0;
-  cudaError_t e = crfp::check_plan(a, kMma, CPG, crfp::kMmaO, smem, &threads, &tiles);
+  cudaError_t e = crfp::check_plan(a, kMma, CPG, O, smem, &threads, &tiles);
   if (e != cudaSuccess) return e;
   void (*fn)(crfp::TileArgs<T>, crfp::ProE<T>) =
-      a.pad > 0 ? dcn_fused_kernel<T, CPG, kMma, crfp::kPadded>
-                : dcn_fused_kernel<T, CPG, kMma, crfp::kChecked>;
+      a.pad > 0 ? dcn_fused_kernel<T, O, CPG, kMma, crfp::kPadded>
+                : dcn_fused_kernel<T, O, CPG, kMma, crfp::kChecked>;
   return crfp::launch_tiles(dcn_fused_kernel_pack_x<T, CPG>, fn, a, pro, threads, smem, tiles,
                             stream);
 }
 
 template <typename T>
-cudaError_t dispatch(int cpg, const crfp::TileArgs<T>& a, const crfp::ProE<T>& pro,
+cudaError_t dispatch(int O, int cpg, const crfp::TileArgs<T>& a, const crfp::ProE<T>& pro,
                      int smem, cudaStream_t s) {
-  if (cpg == 2) return launch<T, 2>(a, pro, smem, s);
-  if (cpg == 4) return launch<T, 4>(a, pro, smem, s);
+  if (O == 16 && cpg == 2) return launch<T, 16, 2>(a, pro, smem, s);  // mid 16
+  if (O == 16 && cpg == 4) return launch<T, 16, 4>(a, pro, smem, s);
+  if (O == 32 && cpg == 2) return launch<T, 32, 2>(a, pro, smem, s);
+  if (O == 32 && cpg == 4) return launch<T, 32, 4>(a, pro, smem, s);  // mid 32
   return cudaErrorInvalidValue;
 }
 
@@ -94,18 +97,17 @@ CRFP_EXPORT_ERROR_STRING
 // all f32 or all bf16 (x_bf16); flow (N, 2, H, W) f32, channels (dx, dy);
 // weight (O, C, 3, 3) f32; bias (O,) f32 or NULL; out (N, O, H, W) in x's
 // type; x_packed: scratch of N*C*padded(H)*padded(W) elements of x's
-// type. All contiguous. D < 0: no clamp. O = 32 (dcn_0/1/2 at mid 32), C/G
-// in {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's (per-tap, no
-// shared mask: the tensor cores take bf16). No synchronisation, no
-// allocation.
+// type. All contiguous. D < 0: no clamp. O in {16, 32} (dcn_0/1/2 at mid 16
+// and 32), C/G in {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's
+// (per-tap, no shared mask: the tensor cores take bf16 x at O = 32). No
+// synchronisation, no allocation.
 extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
                               const void* raw_mask, const void* flow,
                               const void* weight, const void* bias, void* out,
                               void* x_packed, int N, int C, int H, int W, int O, int G, int KH,
                               int KW, float D, float mag, int x_bf16, int tile_h,
                               int tile_w, int pad, int smem_bytes, void* stream) {
-  if (O != crfp::kMmaO || KH != 3 || KW != 3 || G < 1 || C % G)
-    return (int)cudaErrorInvalidValue;
+  if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
   const float* fl = static_cast<const float*>(flow);
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
@@ -118,14 +120,14 @@ extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
     crfp::TileArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
                         static_cast<B*>(out), N, C, H, W,
                         G, D, tile_h, tile_w, pad, 0, 0};
-    e = dispatch(C / G, a, pro, smem_bytes, s);
+    e = dispatch(O, C / G, a, pro, smem_bytes, s);
   } else {
     const crfp::ProE<float> pro{static_cast<const float*>(raw_off),
                                 static_cast<const float*>(raw_mask), fl, mag};
     crfp::TileArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed), wt,
                             b, static_cast<float*>(out),
                             N, C, H, W, G, D, tile_h, tile_w, pad, 0, 0};
-    e = dispatch(C / G, a, pro, smem_bytes, s);
+    e = dispatch(O, C / G, a, pro, smem_bytes, s);
   }
   return (int)e;
 }

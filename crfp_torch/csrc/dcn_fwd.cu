@@ -18,8 +18,8 @@
 // weight once. bf16 x at O = 32 with per-tap masks: 32 pixels a block, a
 // warp per group, the contraction over K = 9*C on the tensor cores
 // (mma.sync m16n8k16, the modulated samples rounded to bf16 as the TPU
-// kernel rounds them). f32 x and O = 4 (dcn_3): a thread per pixel, f32
-// FMAs on the CUDA cores; a clamped call on bf16 x under shared_taps loads
+// kernel rounds them). f32 x and the other widths (O = 2, 4 for dcn_3, 16
+// for dcn_0/1/2 at mid 16): a thread per pixel, f32 FMAs on the CUDA cores; a clamped call on bf16 x under shared_taps loads
 // the 9 taps' corners as one 4 x 4 patch. The plan (ops/cuda/dcn.py::tile_plan)
 // picks the tile. A group's window of x staged in shared memory was built
 // and measured slower at every main-path shape (PERF.md) and is gone.
@@ -95,8 +95,12 @@ template <typename T>
 cudaError_t dispatch(int O, int cpg, bool mma, const crfp::TileArgs<T>& a,
                      const crfp::ProA& pro, int smem, cudaStream_t s) {
   switch (O) {
+    case 2:  // dcn_3 at mid 16
+      return dispatch_cpg<T, 2>(cpg, mma, a, pro, smem, s);
     case 4:  // dcn_3 at mid 32
       return dispatch_cpg<T, 4>(cpg, mma, a, pro, smem, s);
+    case 16:  // dcn_0/1/2 at mid 16
+      return dispatch_cpg<T, 16>(cpg, mma, a, pro, smem, s);
     case 32:  // dcn_0/1/2 at mid 32
       return dispatch_cpg<T, 32>(cpg, mma, a, pro, smem, s);
     default:
@@ -112,7 +116,7 @@ CRFP_EXPORT_ERROR_STRING
 // mask (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; bias (O,) f32 or
 // NULL; out (N, O, H, W) in x's type; x_packed: scratch of N*C*padded(H)
 // *padded(W) elements of x's type (the pre-pass writes x there per group,
-// pixel-major, zero-padded). All contiguous. O in {4, 32}, C/G in
+// pixel-major, zero-padded). All contiguous. O in {2, 4, 16, 32}, C/G in
 // {2, 4}. The tile plan (tile_h, tile_w, pad, smem_bytes) is
 // ops/cuda/dcn.py::tile_plan's; the tensor cores take bf16 x at O = 32
 // without shared_mask. No synchronisation, no allocation.

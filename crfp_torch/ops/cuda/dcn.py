@@ -19,7 +19,13 @@ Backward: replaces ``_dcn_bwd_kernel`` (:219, ``pallas_call`` in
 VJP :1412-1418) with ``crfp_torch/csrc/dcn_bwd.cu``, behind a
 ``torch.autograd.Function``: dx, d-offset, d-mask and dW from the kernel,
 db as a reduction of the output gradient (the TPU adds it outside the
-kernel body too, :1139). The Function survives recomputation under
+kernel body too, :1139). Each call launches three kernels: the pre-pass
+that packs x as kernel A's does and zeroes a packed f32 dx accumulator,
+the tiled kernel (a thread per (pixel, group) of a tile, dx by one vector
+atomic per corner, dW summed per block in registers), and an epilogue that
+unpacks dx into x's dtype and sums the blocks' dW partials in a fixed
+order. :func:`bwd_plan` picks the tile, the padding and the grid; the
+wrapper allocates the scratch. The Function survives recomputation under
 ``torch.utils.checkpoint(use_reentrant=False)``; it has no second
 derivative.
 
@@ -30,6 +36,9 @@ moves 32 MB forward (~9.6 us at 3.35 TB/s); shared-tap dcn_3 at (1, 4,
 would take ~9 us on the CUDA cores in f32 and ~0.6 us on the tensor cores
 in bf16. At the training shapes (B 2, GT 192) the backward moves 8.8 MB
 per per-tap call and 3.5 MB per dcn_3 call.
+
+The widths the kernels take are one pure rule, :func:`width_fault`: every
+DCN stage of the v18 models at mid 16 and mid 32.
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -51,16 +60,46 @@ from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 launches = 0
 bwd_launches = 0
 
-# the instantiations of csrc/dcn_fwd.cu and dcn_bwd.cu: dcn_3 (4) and
-# dcn_0/1/2 (32) at mid 32
-SUPPORTED_OUT_CHANNELS = (4, 32)
-# kernel A's and E's instantiations: channels per group (dcn_0/1/2 and
-# dcn_3 at mid 32 have 4); 3x3 weights only
+# The widths of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and dcn_fused.cu (E):
+# every DCN stage of the v18 models at mid 16 and mid 32 (dcn_0/1/2: O =
+# mid, 8 groups; dcn_3: O = mid / 8, one group), 2 or 4 channels per group,
+# 3x3 weights. E runs dcn_0/1/2 only.
+SUPPORTED_OUT_CHANNELS = (2, 4, 16, 32)
 SUPPORTED_CHANNELS_PER_GROUP = (2, 4)
+FUSED_OUT_CHANNELS = (16, 32)
+# D's block takes 256 / G pixels, a thread per (pixel, group)
+BWD_GROUPS = (1, 2, 4, 8)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
+    [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
+                shared: bool = False) -> str | None:
+    """Why ``kernel`` ("dcn_fwd": A, "dcn_bwd": D, "dcn_fused": E) does not
+    take a DCN of ``c`` input and ``o`` output channels in ``g`` groups
+    with a ``kh`` x ``kw`` weight (``shared``: one offset and mask per
+    pixel and group, dcn_3), or None when it does. Pure: it reads no
+    tensor and no device."""
+    if (kh, kw) != (3, 3):
+        return f"weight {kh}x{kw} (3x3 only)"
+    if g < 1 or c % g or c // g not in SUPPORTED_CHANNELS_PER_GROUP:
+        return (f"{c} channels in {g} groups: {c / max(g, 1):g} channels per group "
+                f"(one of {SUPPORTED_CHANNELS_PER_GROUP})")
+    outs = FUSED_OUT_CHANNELS if kernel == "dcn_fused" else SUPPORTED_OUT_CHANNELS
+    if o not in outs:
+        return f"O = {o} output channels (one of {outs})"
+    if kernel == "dcn_fused" and shared:
+        return "per-tap offsets and masks only"
+    if kernel == "dcn_bwd":
+        if g not in BWD_GROUPS:
+            return f"{g} groups (one of {BWD_GROUPS})"
+        if BWD_THREADS % _dw_blocks(c, o):
+            return f"{_dw_blocks(c, o)} dW blocks do not divide {BWD_THREADS} threads"
+        if _bwd_smem_bytes(c, o, g) > MAX_SMEM:
+            return f"{_bwd_smem_bytes(c, o, g)} bytes of shared memory > {MAX_SMEM}"
+    return None
 
 
 def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
@@ -75,9 +114,9 @@ def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
     k2 = kh * kw
     taps = 1 if shared_taps else k2
     mtaps = 1 if shared_mask else k2
-    if wc != c or o not in SUPPORTED_OUT_CHANNELS:
+    if wc != c:
         raise ValueError(f"dcn_fwd: weight {tuple(weight.shape)} does not fit x "
-                         f"{tuple(x.shape)} (O must be one of {SUPPORTED_OUT_CHANNELS})")
+                         f"{tuple(x.shape)}")
     g = offset.shape[1] // (2 * taps) if offset.dim() == 4 else 0
     if g < 1 or c % g or offset.shape != (n, g * taps * 2, h, w):
         raise ValueError(f"dcn_fwd: offset {tuple(offset.shape)} does not fit x "
@@ -121,7 +160,7 @@ _TAPS, _MMA_O, _OUT_STRIDE = 9, 32, 36
 
 def _min_blocks(mma: bool, o: int) -> int:
     """Resident blocks an SM (``csrc/common.cuh::min_blocks``): 3 on the
-    tensor-core path and at O = 4, 1 on the f32 path at O = 32."""
+    tensor-core path and at O < 32, 1 on the f32 path at O = 32."""
     return 3 if mma or o < _MMA_O else 1
 
 
@@ -201,6 +240,107 @@ def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
                  sm_count, tile)
 
 
+# ---- the plan of kernel D -------------------------------------------------
+
+# A block of 256 threads takes a tile of 256 / G pixels, one thread per
+# (pixel, group); the persistent grid is at most _bwd_blocks_per_sm blocks
+# a SM, and each block leaves one dW partial.
+BWD_THREADS = 256
+
+
+def _bwd_blocks_per_sm(o: int, cpg: int) -> int:
+    """Resident blocks an SM (``csrc/dcn_bwd.cu::blocks_per_sm``): 2, or 1
+    at O <= 4 with 4 channels a group, where the 4x4 patch's 64 sums need
+    more than the 128 registers a thread of two blocks."""
+    return 1 if o <= 4 and cpg == 4 else 2
+
+
+def _dw_rows(o: int) -> int:
+    """Output channels of a thread's dW block (``csrc/dcn_bwd.cu::dw_rows``)."""
+    return min(o, 4)
+
+
+def _dw_blocks(c: int, o: int) -> int:
+    """The dW blocks of a block's threads: (O / rows) x C, each rows x 9
+    taps of one input channel."""
+    return o // _dw_rows(o) * c
+
+
+def _bwd_smem_bytes(c: int, o: int, g: int) -> int:
+    """``csrc/dcn_bwd.cu::bwd_smem_bytes``: the f32 weight [G][9][C/G][O],
+    the tile's output gradient [O][P] and its modulated samples [P][9C + 1]
+    (after the last tile the threads' dW sums [256][rows x 9] in their
+    place), P = 256 / G pixels, all f32."""
+    p = BWD_THREADS // g
+    return 4 * (c * _TAPS * o + o * p
+                + max(p * (_TAPS * c + 1), BWD_THREADS * _dw_rows(o) * _TAPS))
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How kernel D covers an (N, C, H, W) call: tiles of ``tile_h`` x
+    ``tile_w`` = 256 / G pixels; ``pad`` pixels of zeros around the packed
+    planes of x and of the f32 dx accumulator (a clamped call: ceil(D) + 1,
+    as :class:`TilePlan`'s); ``smem_bytes`` of dynamic shared memory;
+    ``grid`` persistent blocks, each leaving one dW partial; ``patch``: a
+    clamped call under shared taps sums its 9 taps' dx in one 4x4 patch of
+    registers (16 vector atomics a pixel instead of 36)."""
+
+    tile_h: int
+    tile_w: int
+    pad: int
+    smem_bytes: int
+    grid: int
+    patch: bool
+    tiles_y: int
+    tiles_x: int
+
+    def args(self) -> tuple[int, int, int, int, int, int]:
+        """The C entry's plan arguments."""
+        return self.tile_h, self.tile_w, self.pad, self.smem_bytes, self.grid, int(self.patch)
+
+    def packed_numel(self, n: int, c: int, h: int, w: int) -> int:
+        """Elements of the packed x and of the packed dx accumulator."""
+        ext = 2 * self.pad + 1 if self.pad else 0
+        return n * c * (h + ext) * (w + ext)
+
+    def acc_numel(self, n: int, c: int, h: int, w: int, o: int) -> int:
+        """f32 elements of the accumulator scratch: packed dx, then the
+        blocks' dW partials (``grid`` x O x C x 9)."""
+        return self.packed_numel(n, c, h, w) + self.grid * o * c * _TAPS
+
+
+@functools.lru_cache(maxsize=512)
+def _bwd_plan(n, c, h, w, o, g, max_displacement, shared_taps, sm_count, tile=None,
+              patch=None):
+    p = BWD_THREADS // g
+    shapes = (tile,) if tile is not None else ((p // 32, 32), (p // 16, 16))
+    th, tw = min(shapes, key=lambda t: -(-h // t[0]) * -(-w // t[1]))
+    if th * tw != p:
+        raise ValueError(f"bwd_plan: {g} groups take {p}-pixel tiles, not {th}x{tw}")
+    ty, tx = -(-h // th), -(-w // tw)
+    pad = 0 if max_displacement is None else math.ceil(max_displacement) + 1
+    if patch is None:
+        patch = bool(shared_taps) and pad > 0
+    if patch and not (shared_taps and pad > 0):
+        raise ValueError("bwd_plan: the 4x4 patch needs shared taps and a clamp")
+    grid = min(n * ty * tx, _bwd_blocks_per_sm(o, c // g) * sm_count)
+    return BwdPlan(th, tw, pad, _bwd_smem_bytes(c, o, g), grid, patch, ty, tx)
+
+
+def bwd_plan(n: int, c: int, h: int, w: int, o: int, g: int,
+             max_displacement: float | None, *, shared_taps: bool = False,
+             sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
+             patch: bool | None = None) -> BwdPlan:
+    """The plan of kernel D for x (n, c, h, w), O = ``o`` and ``g`` groups:
+    of the tiles (256 / G / 32, 32) and (256 / G / 16, 16) the one with the
+    fewest tiles, the first on a tie; the padding of :func:`tile_plan`; a
+    grid of at most ``_bwd_blocks_per_sm`` blocks a SM. ``tile`` and
+    ``patch`` force a tile or the patch on or off (for measurements)."""
+    return _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps), sm_count,
+                     tile, patch)
+
+
 _sm_counts: dict[int, int] = {}
 
 
@@ -213,11 +353,13 @@ def sm_count(device: torch.device) -> int:
     return count
 
 
-def check_tiled(name: str, c: int, g: int, kh: int, kw: int) -> None:
-    """Kernels A and E take 3x3 weights and 2 or 4 channels per group."""
-    if (kh, kw) != (3, 3) or c // g not in SUPPORTED_CHANNELS_PER_GROUP:
-        raise ValueError(f"{name}: weight {kh}x{kw} with {c // g} channels per group "
-                         f"(3x3 and one of {SUPPORTED_CHANNELS_PER_GROUP})")
+def check_tiled(name: str, c: int, g: int, kh: int, kw: int, o: int = 32,
+                shared: bool = False) -> None:
+    """Raise ValueError with :func:`width_fault`'s reason when kernel
+    ``name`` does not take these widths."""
+    fault = width_fault(name, c, o, g, kh, kw, shared=shared)
+    if fault is not None:
+        raise ValueError(f"{name}: {fault}")
 
 
 def dcn_forward(
@@ -238,7 +380,7 @@ def dcn_forward(
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
-    check_tiled("dcn_fwd", c, g, kh, kw)
+    check_tiled("dcn_fwd", c, g, kh, kw, o, shared_mask)
     bf16 = x.dtype == torch.bfloat16
     if plan is None:
         plan = _plan(n, c, h, w, o, g, max_displacement, bf16, bool(shared_mask),
@@ -267,30 +409,42 @@ def dcn_backward(
     max_displacement: int | None = None,
     shared_taps: bool = False,
     shared_mask: bool = False,
+    plan: BwdPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel D for the DCN stages: (dx in x's dtype, d-offset, d-mask, dW
     float32) of :func:`deform_conv2d_windowed` for the output gradient
-    ``grad_out`` (N, O, H, W) in x's dtype. CUDA tensors only."""
+    ``grad_out`` (N, O, H, W) in x's dtype. CUDA tensors only. Three
+    launches, no synchronisation; outputs and scratch from ``torch.empty``.
+    ``plan``: a :func:`bwd_plan` other than the default one."""
     g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
+    check_tiled("dcn_bwd", c, g, kh, kw, o, shared_mask)
     if grad_out.shape != (n, o, h, w) or grad_out.dtype != x.dtype \
             or grad_out.device != x.device or not grad_out.is_contiguous():
         raise ValueError(f"dcn_bwd: grad_out {tuple(grad_out.shape)} {grad_out.dtype} "
                          f"must be a contiguous {(n, o, h, w)} {x.dtype} on {x.device}")
-    dx = torch.zeros((n, c, h, w), dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps),
+                         sm_count(x.device))
+    dx = torch.empty_like(x)
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    dw = torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    # scratch: x packed as kernel A packs it, and the f32 packed dx
+    # accumulator followed by the blocks' dW partials
+    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
+    acc = torch.empty(plan.acc_numel(n, c, h, w, o), dtype=torch.float32, device=x.device)
     _build.launch("dcn_bwd", "crfp_dcn_bwd", _BWD_ARGTYPES, x.device,
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
-                  d_mask.data_ptr(), dw.data_ptr(),
+                  d_mask.data_ptr(), dw.data_ptr(), packed.data_ptr(), acc.data_ptr(),
                   n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16))
+                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
+                  *plan.args())
     global bwd_launches
     bwd_launches += 1
-    return dx.to(x.dtype), d_off, d_mask, dw
+    return dx, d_off, d_mask, dw
 
 
 class _DeformConv2dWindowed(torch.autograd.Function):
@@ -336,7 +490,8 @@ def deform_conv2d_windowed(
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
     bfloat16, offset/mask/weight/bias float32, f32 accumulation; bf16 x at
-    O = 32 contracted on the tensor cores) or raise."""
+    O = 32 contracted on the tensor cores) or raise. Widths:
+    :func:`width_fault`."""
     if x.device.type == "cpu":
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,

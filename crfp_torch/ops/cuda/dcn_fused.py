@@ -27,14 +27,15 @@ import ctypes
 import torch
 
 from crfp_torch.ops.cuda import _build
-from crfp_torch.ops.cuda.dcn import TilePlan, _plan, check_tiled, sm_count
+from crfp_torch.ops.cuda.dcn import FUSED_OUT_CHANNELS, TilePlan, _plan, check_tiled, sm_count
 from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
 
-# the instantiations of csrc/dcn_fused.cu: dcn_0/1/2 at mid 32
-SUPPORTED_OUT_CHANNELS = (32,)
+# the instantiations of csrc/dcn_fused.cu: dcn_0/1/2 at mid 16 and mid 32
+# (the widths are ops/cuda/dcn.py::width_fault's)
+SUPPORTED_OUT_CHANNELS = FUSED_OUT_CHANNELS
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + \
     [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -49,9 +50,9 @@ def _check(x, raw_offset, raw_mask, flow, weight, bias) -> int:
     n, c, h, w = x.shape
     o, wc, kh, kw = weight.shape
     k2 = kh * kw
-    if wc != c or o not in SUPPORTED_OUT_CHANNELS:
+    if wc != c:
         raise ValueError(f"dcn_fused: weight {tuple(weight.shape)} does not fit x "
-                         f"{tuple(x.shape)} (O must be one of {SUPPORTED_OUT_CHANNELS})")
+                         f"{tuple(x.shape)}")
     g = raw_offset.shape[1] // (2 * k2) if raw_offset.dim() == 4 else 0
     if g < 1 or c % g or raw_offset.shape != (n, g * k2 * 2, h, w):
         raise ValueError(f"dcn_fused: offset head {tuple(raw_offset.shape)} does not "
@@ -100,8 +101,9 @@ def deform_conv2d_fusedprep(
     (:func:`crfp_torch.ops.cuda.dcn.tile_plan`, for measurements).
 
     CPU tensors take the plain version; CUDA tensors launch kernel E (x and
-    heads float32 or bfloat16 alike, flow/weight/bias float32; f32 x in f32,
-    bf16 x contracted on the tensor cores with f32 sums) or raise."""
+    heads float32 or bfloat16 alike, flow/weight/bias float32; bf16 x at O =
+    32 contracted on the tensor cores with f32 sums, f32 x and O = 16 on the
+    CUDA cores) or raise."""
     operands = (x, raw_offset, raw_mask, flow, weight, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in operands):
@@ -115,7 +117,7 @@ def deform_conv2d_fusedprep(
     g = _check(*operands)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
-    check_tiled("dcn_fused", c, g, kh, kw)
+    check_tiled("dcn_fused", c, g, kh, kw, o)
     bf16 = x.dtype == torch.bfloat16
     if plan is None:
         plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device))

@@ -193,16 +193,16 @@ def _a_args(shared, seed=0, d=8):
     return [t.cuda() for t in (x, off, mask, wt, b)]
 
 
-def _e_args(seed=1):
+def _e_args(seed=1, c=32):
     n, h, w = _RAGGED
     gen = torch.Generator().manual_seed(seed)
-    x = torch.randn(n, 32, h, w, generator=gen)
+    x = torch.randn(n, c, h, w, generator=gen)
     raw = torch.randn(n, 8 * 18, h, w, generator=gen) * 0.5
     rawm = torch.randn(n, 8 * 9, h, w, generator=gen) * 1.5
     flow = torch.stack([torch.randn(n, h, w, generator=gen) + 2.5,
                         torch.randn(n, h, w, generator=gen) * 3 - 1.0], dim=1)
-    wt = torch.randn(32, 32, 3, 3, generator=gen) * 0.1
-    b = torch.randn(32, generator=gen)
+    wt = torch.randn(c, c, 3, 3, generator=gen) * 0.1
+    b = torch.randn(c, generator=gen)
     return [t.cuda() for t in (x, raw, rawm, flow, wt, b)]
 
 
@@ -285,14 +285,53 @@ def test_shared_taps_patch_gives_the_per_tap_bits_on_card(dtype, window, offsets
 @pytest.mark.cuda
 @_NEEDS_CARD
 @pytest.mark.parametrize("window", [8, None], ids=["clamped", "unclamped"])
-def test_kernel_e_tiles_match_plain_and_prologue_a_on_card(window):
+@pytest.mark.parametrize("width", [("O16_cpg2", 16, 16, 8, False), ("O2_cpg2", 2, 2, 1, True)],
+                         ids=["O16_cpg2_per_tap", "O2_cpg2_shared"])
+def test_kernel_a_mid16_widths_match_plain_on_card(width, window):
+    """Kernel A at the mid-16 widths (dcn_0/1/2 at O = 16, 2 channels per
+    group; dcn_3 at O = 2): f32 to 1e-4, bf16 to 2e-2 of max|ref| of the
+    f32 plain version on the same values, two runs the same bits, and under
+    shared taps the per-tap loop's bits on the repeated offset."""
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    _, c, o, g, shared = width
+    taps = 1 if shared else 9
+    n, h, w = _RAGGED
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(n, c, h, w, generator=gen).cuda()
+    off = (torch.randn(n, g * taps * 2, h, w, generator=gen) * 6).cuda()
+    mask = torch.rand(n, g * taps, h, w, generator=gen).cuda()
+    wt = (torch.randn(o, c, 3, 3, generator=gen) * 0.1).cuda()
+    b = torch.randn(o, generator=gen).cuda()
+    kw = dict(max_displacement=window, shared_taps=shared, shared_mask=shared)
+    want = deform_conv2d_windowed_ref(x, off, mask, wt, b, **kw)
+    got = dcn.dcn_forward(x, off, mask, wt, b, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+    xb = x.to(torch.bfloat16)
+    wantb = deform_conv2d_windowed_ref(xb.float(), off, mask, wt, b, **kw)
+    gotb = dcn.dcn_forward(xb, off, mask, wt, b, **kw)
+    torch.cuda.synchronize()
+    assert float((gotb.float() - wantb).abs().max()) <= 2e-2 * float(wantb.abs().max())
+    assert torch.equal(gotb, dcn.dcn_forward(xb, off, mask, wt, b, **kw))
+    if shared:
+        per_tap = dcn.dcn_forward(xb, off.repeat(1, 9, 1, 1).contiguous(), mask, wt, b,
+                                  **dict(kw, shared_taps=False))
+        assert torch.equal(gotb, per_tap)
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("window", [8, None], ids=["clamped", "unclamped"])
+@pytest.mark.parametrize("c", [32, 16], ids=["O32", "O16"])
+def test_kernel_e_tiles_match_plain_and_prologue_a_on_card(window, c):
     from crfp_torch.ops.cuda import dcn_fused
     from crfp_torch.ops.dcn_windowed import (
         deform_conv2d_fusedprep_ref,
         fusedprep_offsets_and_mask,
     )
 
-    x, raw, rawm, flow, wt, b = _e_args()
+    x, raw, rawm, flow, wt, b = _e_args(c=c)
     kw = dict(max_residue_magnitude=10.0, max_displacement=window)
     want = deform_conv2d_fusedprep_ref(x, raw, rawm, flow, wt, b, **kw)
     got = dcn_fused.deform_conv2d_fusedprep(x, raw, rawm, flow, wt, b, **kw)

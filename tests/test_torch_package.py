@@ -230,18 +230,27 @@ def _rel_err(got, want):
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
+# (name, c, o, g, shared): the DCN stages of the v18 models at mid 32 and
+# mid 16 (dcn_0/1/2 per-tap, dcn_3 shared)
+_D_WIDTHS = [("O32_cpg4_per_tap", 32, 32, 8, False), ("O4_cpg4_shared", 4, 4, 1, True),
+             ("O16_cpg2_per_tap", 16, 16, 8, False), ("O2_cpg2_shared", 2, 2, 1, True)]
+
+
 @pytest.mark.cuda
 @_NEEDS_CARD
-@pytest.mark.parametrize("shared", [False, True], ids=["per_tap", "shared"])
-def test_kernel_d_dcn_backward_matches_plain_on_card(shared):
+@pytest.mark.parametrize("window", [2, None], ids=["clamped", "unclamped"])
+@pytest.mark.parametrize("width", _D_WIDTHS, ids=[w[0] for w in _D_WIDTHS])
+def test_kernel_d_dcn_backward_matches_plain_on_card(width, window):
     """Autograd through the DCN dispatcher on CUDA tensors launches kernel
     A forward and kernel D backward; every gradient agrees with autograd
-    of the plain version."""
+    of the plain version: f32 to 1e-4 of max|ref|, bf16 x and output
+    gradient to 2e-2 of max|ref| of the f32 plain version on the same
+    (rounded) values."""
     from crfp_torch.ops.cuda import dcn
     from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 
+    _, c, o, g, shared = width
     gen = torch.Generator().manual_seed(3)
-    g, c, o = (1, 4, 4) if shared else (8, 32, 32)
     taps = 1 if shared else 9
     x = torch.randn(2, c, 13, 17, generator=gen).cuda()
     off = (torch.randn(2, g * taps * 2, 13, 17, generator=gen) * 3).cuda()
@@ -249,7 +258,7 @@ def test_kernel_d_dcn_backward_matches_plain_on_card(shared):
     w = (torch.randn(o, c, 3, 3, generator=gen) * 0.2).cuda()
     b = torch.randn(o, generator=gen).cuda()
     gout = torch.randn(2, o, 13, 17, generator=gen).cuda()
-    kw = dict(max_displacement=2, shared_taps=shared, shared_mask=shared)
+    kw = dict(max_displacement=window, shared_taps=shared, shared_mask=shared)
     before = (dcn.launches, dcn.bwd_launches)
     out, got = _grads(lambda *a: dcn.deform_conv2d_windowed(*a, **kw),
                       (x, off, mask, w, b), gout)
@@ -259,6 +268,13 @@ def test_kernel_d_dcn_backward_matches_plain_on_card(shared):
                      (x, off, mask, w, b), gout)
     for name, gg, ww in zip(("x", "offset", "mask", "weight", "bias"), got, want):
         assert _rel_err(gg, ww) <= 1e-4, name
+    xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+    _, gotb = _grads(lambda *a: dcn.deform_conv2d_windowed(*a, **kw), (xb, off, mask, w, b), gb)
+    _, wantb = _grads(lambda *a: deform_conv2d_windowed_ref(*a, **kw),
+                      (xb.float(), off, mask, w, b), gb.float())
+    torch.cuda.synchronize()
+    for name, gg, ww in zip(("x", "offset", "mask", "weight", "bias"), gotb, wantb):
+        assert _rel_err(gg, ww) <= 2e-2, name
 
 
 @pytest.mark.cuda
