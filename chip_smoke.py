@@ -44,7 +44,13 @@ Phases, in order; any failure exits non-zero without the final line:
    A and E must give the same bits in two runs and replayed from a CUDA
    graph, and A under shared taps the bits of its per-tap loop on the
    repeated offset; their records carry the tile plan and
-   ``bound_fraction`` (bound over device time);
+   ``bound_fraction`` (bound over device time). Kernel C at r=1 and r=4
+   (1080p), at a width that is not a multiple of 8 ((1,3,270,486) from
+   34x61) and on y read through a view offset by one element: the 1080p
+   r=1 frame must take the row route (emit_plan) in bf16 and f32, the
+   offset view the pixel route with the row route's bits; two runs and a
+   CUDA-graph replay bit-equal; its records carry the route and
+   ``bound_fraction``;
 3. drive the slice through its entry points (encode, step0, step) over 5
    frames at 1080p / warp 720^2 / mid 32 with checkpoints/v18_mid32_struct.npz,
    once through the kernels and once through the plain versions, both in
@@ -64,8 +70,15 @@ Phases, in order; any failure exits non-zero without the final line:
    bf16 inputs against the f32 plain version to 2e-2 of max|ref|, at mid 32
    and at the mid-16 widths (O 16 and 2), d-offset, d-mask and dW
    bit-equal over two runs and a CUDA-graph replay; kernel F
-   (ssim) map to 1e-5 abs and masked mean to 1e-6 at (14,192,192,3),
-   (14,192,192,1), (1,1080,1920,3) and the gate's (1,720,1280,3); time kernel, plain version and,
+   (ssim) map to 1e-5 abs and mean to 1e-6 at (14,192,192,3),
+   (14,192,192,1), (1,1080,1920,3), the gate's (1,720,1280,3) and the
+   ragged (1,5,7,1), (2,33,65,1), (1,11,11,3), NCHW-contiguous and as NCHW
+   views of NHWC memory and in the train step's layouts (its output an NHWC
+   view of NCHW memory, its ground truth NHWC), all bit-equal, two runs and
+   a CUDA-graph replay bit-equal, its records carrying its plan and
+   ``bound_fraction``; at the two training shapes also the kernel and the
+   whole masked SSIM on the step's layouts, read in place as the metric
+   reads them; time kernel, plain version and,
    where one PyTorch call computes the same function, that call (device
    and call time each). The warp's d-flow is reduced without atomics: two
    runs and a CUDA-graph replay on the same inputs must be bit-equal;
@@ -575,24 +588,49 @@ def phase_kernels(gen):
                bound([xb, flow], [gotb], 8 * h * w * c, "bfloat16"),
                copy_device_ms=copy_ms, digest=digest(got, gotb))
 
-    # ---- C: r=1 (main path) and r=4 (the s2d frame) --------------------
-    for r in (1, 4):
-        mode = f"r={r} (1,{3 * r * r},{HR_HW[0] // r},{HR_HW[1] // r})"
-        y = randn(1, 3 * r * r, HR_HW[0] // r, HR_HW[1] // r)
-        lr = rand(1, 3, *LR_HW)
+    # ---- C: r=1 (main path) and r=4 (the s2d frame); the pixel route at a
+    # width that is not a multiple of 8 and on y read through a view offset
+    # by one element (misaligned), which must give the row route's bits.
+    # The last two draw from a generator of their own, so that every later
+    # mode gets the operands it got before they were added -----------------
+    own = torch.Generator().manual_seed(7)
+    for mode, (r, hw, lr_hw, offset, calls, g_) in {
+        f"r=1 (1,3,{HR_HW[0]},{HR_HW[1]})": (1, HR_HW, LR_HW, False, 1, gen),
+        f"r=4 (1,48,{HR_HW[0] // 4},{HR_HW[1] // 4})": (4, HR_HW, LR_HW, False, 0, gen),
+        "r=1 W%8=6 (1,3,270,486)": (1, (270, 486), (34, 61), False, 0, own),
+        f"r=1 offset view (1,3,{HR_HW[0]},{HR_HW[1]})": (1, HR_HW, LR_HW, True, 0, own),
+    }.items():
+        y = torch.randn(1, 3 * r * r, hw[0] // r, hw[1] // r, generator=g_).to(dev)
+        lr = torch.rand(1, 3, *lr_hw, generator=g_).to(dev)
+        yb, lrb = y.to(torch.bfloat16), lr.to(torch.bfloat16)
+        if offset:
+            aligned = emit.emit_frame(y, lr), emit.emit_frame(yb, lrb)
+            y, yb = (torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view_as(t)
+                     .copy_(t) for t in (y, yb))
         ref = emit.emit_frame_ref(y, lr, r)
         got = emit.emit_frame(y, lr, r)
         torch.cuda.synchronize()
         err = check("kernel C", mode, 1e-5, got, ref)
-        yb, lrb = y.to(torch.bfloat16), lr.to(torch.bfloat16)
         gotb = emit.emit_frame(yb, lrb, r)
         torch.cuda.synchronize()
         rel = check_bf16("kernel C", mode, gotb, ref)
+        plans = [emit.emit_plan(1, 3, *hw, r, t.dtype, t.data_ptr(), o.data_ptr(), lr_hw[1])
+                 for t, o in ((y, got), (yb, gotb))]
+        # the main path's frame takes the row route in both types
+        if calls and not all(p.vector for p in plans):
+            fail(f"kernel C {mode}: the main path's frame takes the pixel route {plans}")
+        if offset and (any(p.vector for p in plans)
+                       or not (torch.equal(got, aligned[0]) and torch.equal(gotb, aligned[1]))):
+            fail(f"kernel C {mode}: the pixel route {plans} differs from the row route")
+        if not (torch.equal(emit.emit_frame(yb, lrb, r), gotb)
+                and torch.equal(captured(lambda: emit.emit_frame(yb, lrb, r)), gotb)):
+            fail(f"kernel C {mode}: two runs and a CUDA-graph replay are not bit-equal")
         k_ms = measure(lambda: emit.emit_frame(yb, lrb, r))
         p_ms = measure(lambda: emit.emit_frame_ref(yb, lrb, r), iters=5)
-        record("emit", mode, 1 if r == 1 else 0, err, rel, k_ms, p_ms, None,
-               bound([yb, lrb], [gotb], 10 * HR_HW[0] * HR_HW[1] * 3, "bfloat16"),
-               digest=digest(got, gotb))
+        bnd = bound([yb, lrb], [gotb], 10 * hw[0] * hw[1] * 3, "bfloat16")
+        record("emit", mode, calls, err, rel, k_ms, p_ms, None, bnd,
+               bound_fraction=bnd[0] / k_ms[1],
+               route="row" if plans[1].vector else "pixel", digest=digest(got, gotb))
     return modes
 
 
@@ -1068,14 +1106,22 @@ def phase_kernels_train(gen):
                bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"),
                digest=digest(got[1], dflow))
 
-    # ---- F: the train step's RGB and luma calls, a 1080p frame and the
-    # gate's evaluated frame ----------------------------------------------
+    # ---- F: the train step's RGB and luma calls, a 1080p frame, the gate's
+    # evaluated frame and three ragged shapes; NCHW-contiguous operands, NCHW
+    # views of NHWC memory (as the zone evaluator passes them) and the train
+    # step's layouts (its output an NHWC view of NCHW memory, its ground
+    # truth NHWC), which must all give the same bits -------------------------
+    from crfp_torch.ops.metrics import masked_ssim
+
     for mode, (n, c, h, w, calls) in {
         f"RGB ({b * t},{gt},{gt},3)": (b * t, 3, gt, gt, 1),
         f"Y ({b * t},{gt},{gt},1)": (b * t, 1, gt, gt, 1),
         "1080p (1,1080,1920,3) (checked, not on the path)": (1, 3, 1080, 1920, 0),
         f"gate (1,{GATE_LR_HW[0] * 8},{GATE_LR_HW[1] * 8},3)": (
             1, 3, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, 0),
+        "ragged (1,5,7,1)": (1, 1, 5, 7, 0),
+        "ragged (2,33,65,1)": (2, 1, 33, 65, 0),
+        "ragged (1,11,11,3)": (1, 3, 11, 11, 0),
     }.items():
         # white-noise frames: the map's f32 rounding (<x^2> - mu^2 over
         # C2 = 9e-4) stays far below the limit in both versions
@@ -1089,14 +1135,35 @@ def phase_kernels_train(gen):
         if not (err <= 1e-5 and mean_err <= 1e-6):
             fail(f"kernel F ssim {mode}: map max|d| {err} (limit 1e-5), masked mean "
                  f"|d| {mean_err} (limit 1e-6)")
+        sr_h, hr_h = (a.permute(0, 2, 3, 1).contiguous() for a in (sr, hr))
+        x_h, y_h = sr_h.permute(0, 3, 1, 2), hr_h.permute(0, 3, 1, 2)
+        if not (torch.equal(ssim.ssim_map(x_h, y_h), got)
+                and torch.equal(ssim.ssim_map(sr, y_h), got)
+                and torch.equal(ssim.ssim_map(sr, hr), got)
+                and torch.equal(captured(lambda: ssim.ssim_map(sr, hr)), got)):
+            fail(f"kernel F ssim {mode}: NHWC views, the step's layouts, a second run "
+                 "and a CUDA-graph replay are not all bit-equal to the first run")
         k_ms = measure(lambda: ssim.ssim_map(sr, hr))
+        h_ms = measure(lambda: ssim.ssim_map(x_h, y_h))
         # the plain version builds its window from host values: no capture
         p_ms = measure(lambda: ssim.ssim_map_ref(sr, hr), iters=5, capturable=False)
+        extra = {}
+        if calls:
+            # the kernel and the whole masked mean on the train step's layouts
+            s_ms = measure(lambda: ssim.ssim_map(sr, y_h))
+            extra["step_device_ms"], extra["step_call_ms"] = s_ms[1], s_ms[0]
+            sr_step, ones = sr.permute(0, 2, 3, 1), torch.ones_like(hr_h[..., :1])
+            call_ms, dev_ms = measure(lambda: masked_ssim(sr_step, hr_h, ones))
+            extra["masked_ssim_device_ms"], extra["masked_ssim_call_ms"] = dev_ms, call_ms
         # two 11-tap passes over five moments, the three products x^2, y^2,
         # xy once per pixel, the formula
         flops = n * c * h * w * (2 * 5 * 11 * 2 + 3 + 15)
-        record("ssim", mode, calls, err, None, k_ms, p_ms, None,
-               bound([sr, hr], [got], flops, "float32"), digest=digest(got))
+        bnd = bound([sr, hr], [got], flops, "float32")
+        plan = ssim.ssim_plan(n, c, h, w)
+        record("ssim", mode, calls, err, None, k_ms, p_ms, None, bnd,
+               bound_fraction=bnd[0] / k_ms[1], tile=f"{ssim.TILE_W}x{ssim.TILE_H} strip "
+               f"{ssim.STRIP}, {plan.threads} threads, grid {plan.grid}",
+               nhwc_device_ms=h_ms[1], nhwc_call_ms=h_ms[0], **extra, digest=digest(got))
     return modes
 
 
@@ -1258,7 +1325,9 @@ def main(argv=None) -> int:
             return per_unit(key) if has_lib else None
 
         serving = per is serve
-        extra = {k: per_unit(k) for k in ("prologue_a_ms", "prologue_a_device_ms")
+        extra = {k: per_unit(k) for k in ("prologue_a_ms", "prologue_a_device_ms",
+                                          "nhwc_device_ms", "step_device_ms",
+                                          "masked_ssim_device_ms")
                  if all(k in m for m in on_path)}
         # A at the training shapes: its time per amp train step
         in_step = [m for m in ms if m.get("calls_per_step")]

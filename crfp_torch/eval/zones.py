@@ -157,8 +157,7 @@ class OnChipZoneEval:
         den = safe.sum((1, 2)) * c
 
         err = ((sr - gt) ** 2).sum(-1)[0]
-        smap = ssim_map(sr.permute(0, 3, 1, 2).contiguous(),
-                        gt.permute(0, 3, 1, 2).contiguous()).sum(1)[0]
+        smap = ssim_map(sr.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)).sum(1)[0]
         mse = (safe * err).sum((1, 2)) / den
         zero_floor = -20.0 * math.log10(math.sqrt((1.0 / 255.0) ** 2 / math.prod(sr.shape)))
         psnr = torch.where(mse == 0, torch.full_like(mse, zero_floor),

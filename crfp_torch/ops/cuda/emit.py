@@ -6,7 +6,12 @@ Replaces ``crfp_tpu/ops/pallas/emit.py::_emit_kernel`` (:55,
 ``pixel_shuffle(y, r)`` plus the bilinear upsample of the LR frame to the
 output size (the model's x8 base), written NHWC in y's dtype. The TPU
 kernel interleaves the r^2 phase planes with a 0/1 matrix on its matrix
-unit; on Hopper each thread reads its phase directly.
+unit; on Hopper :func:`emit_plan` picks one of two routes of the same
+arithmetic: the main path's call (r = 1, W % 8 == 0, 1 or 3 channels,
+16-byte aligned y and frame) takes a block per output row with 8 columns
+a thread, 16-byte loads, the vertical step done once a row and the row
+stored through shared memory in 512-byte warp stores; every other call
+takes a thread per output pixel.
 
 Bound on the H100 at 1080p (bytes, see the source note): y (1, 3, 1080,
 1920) bf16 in and the frame out move 25 MB (~7.5 us at 3.35 TB/s). The
@@ -16,7 +21,9 @@ kernel reads y and writes the frame once.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from crfp_torch.ops.cuda import _build
@@ -26,7 +33,13 @@ from crfp_torch.ops.shuffle import pixel_shuffle
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+# csrc/emit.cu's geometry: output columns per thread and the largest block
+# of the row route; the pixel route's block
+VEC, MAX_ROW_THREADS, PIXEL_THREADS = 8, 512, 256
+_SMEM_LIMIT = 48 * 1024
 
 
 def emit_frame_ref(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
@@ -39,22 +52,78 @@ def emit_frame_ref(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tenso
     return (frame + base).to(y.dtype).permute(0, 2, 3, 1).contiguous()
 
 
+@dataclass(frozen=True)
+class EmitPlan:
+    """Launch geometry of ``csrc/emit.cu`` for one (height, width) frame.
+    ``vector``: the row route, a block per (output row, image) whose thread
+    t writes columns ``VEC * t`` .. ``VEC * t + VEC - 1``; otherwise the
+    pixel route, a block of ``PIXEL_THREADS`` per run of output pixels of
+    one image."""
+    vector: bool
+    threads: int
+    grid: tuple[int, int]
+    height: int
+    width: int
+
+    def outputs(self, block, t) -> np.ndarray:
+        """Flat pixel indices (Y * width + X) within its image that thread
+        ``t`` of block ``block`` writes (the kernel's index math), -1 where
+        it writes nothing; ``block`` and ``t`` broadcast as numpy arrays,
+        with a last axis of ``VEC`` (row route) or 1 (pixel route)."""
+        block, t = np.asarray(block)[..., None], np.asarray(t)[..., None]
+        if self.vector:
+            x = VEC * t + np.arange(VEC)
+            return np.where(x < self.width, block * self.width + x, -1)
+        p = block * self.threads + t
+        return np.where(p < self.height * self.width, p, -1)
+
+
+def emit_plan(n: int, c: int, h: int, w: int, r: int, dtype: torch.dtype, y_ptr: int,
+              out_ptr: int, lr_w: int) -> EmitPlan:
+    """The route and geometry of kernel C for a frame (n, h, w, c) of
+    ``dtype`` from s2d(r) operands at ``y_ptr`` into ``out_ptr``, from an
+    LR frame ``lr_w`` wide. The row route needs r = 1, w % 8 == 0, c in
+    (1, 3), both pointers 16-byte aligned, at most ``MAX_ROW_THREADS``
+    threads a row, and the row's staged LR values (c * lr_w f32, padded to
+    16 bytes) and output (w * c values) inside 48 KB of shared memory;
+    every other call takes the pixel route."""
+    threads = -(-(w // VEC) // 32) * 32
+    smem = -(-(c * lr_w) // 4) * 16 + w * c * dtype.itemsize
+    if (r == 1 and w % VEC == 0 and c in (1, 3) and y_ptr % 16 == 0
+            and out_ptr % 16 == 0 and 0 < threads <= MAX_ROW_THREADS
+            and smem <= _SMEM_LIMIT):
+        return EmitPlan(True, threads, (h, n), h, w)
+    return EmitPlan(False, PIXEL_THREADS, (-(-(h * w) // PIXEL_THREADS), n), h, w)
+
+
 def _check(y: torch.Tensor, lr: torch.Tensor, r: int) -> None:
-    if y.device.type != "cuda":
-        raise ValueError(f"emit: y must be a CUDA tensor, got {y.device}")
+    """Raise ``ValueError`` unless (y, lr, r) is what kernel C takes. One
+    pass for a correct caller; :func:`_reject` names the fault otherwise,
+    the device last, so that every other fault is named on CPU tensors
+    too."""
+    ys, ls = y.shape, lr.shape
+    if not (len(ys) == 4 and len(ls) == 4 and r >= 1 and ys[1] == ls[1] * r * r
+            and ys[0] == ls[0] and (y.dtype is _F32 or y.dtype is _BF16)
+            and lr.dtype is y.dtype and y.is_contiguous() and lr.is_contiguous()
+            and y.is_cuda and lr.device == y.device):
+        _reject(y, lr, r)
+
+
+def _reject(y: torch.Tensor, lr: torch.Tensor, r: int) -> None:
     if y.dim() != 4 or lr.dim() != 4:
         raise ValueError(f"emit: y {tuple(y.shape)} and lr {tuple(lr.shape)} "
                          "must be 4-D")
     if r < 1 or y.shape[1] != lr.shape[1] * r * r or y.shape[0] != lr.shape[0]:
         raise ValueError(f"emit: y {tuple(y.shape)} is not the s2d({r}) form of "
                          f"a frame with lr's {lr.shape[1]} channels")
-    if y.dtype not in (torch.float32, torch.bfloat16) or lr.dtype != y.dtype:
+    if y.dtype not in (_F32, _BF16) or lr.dtype != y.dtype:
         raise ValueError(f"emit: y {y.dtype} and lr {lr.dtype} must share "
                          "float32 or bfloat16")
-    if lr.device != y.device:
-        raise ValueError(f"emit: lr on {lr.device}, y on {y.device}")
     if not (y.is_contiguous() and lr.is_contiguous()):
         raise ValueError("emit: y and lr must be contiguous")
+    if lr.device != y.device:
+        raise ValueError(f"emit: lr on {lr.device}, y on {y.device}")
+    raise ValueError(f"emit: y must be a CUDA tensor, got {y.device}")
 
 
 def emit_frame(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
@@ -70,9 +139,10 @@ def emit_frame(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
     c, h, w = lr.shape[1:]
     big_h, big_w = hs * r, ws * r
     out = torch.empty((n, big_h, big_w, c), dtype=y.dtype, device=y.device)
+    plan = emit_plan(n, c, big_h, big_w, r, y.dtype, y.data_ptr(), out.data_ptr(), w)
     _build.launch("emit", "crfp_emit", _ARGTYPES, y.device,
                   y.data_ptr(), lr.data_ptr(), out.data_ptr(), n, c, big_h, big_w,
-                  r, h, w, int(y.dtype == torch.bfloat16))
+                  r, h, w, int(y.dtype is _BF16), int(plan.vector), plan.threads)
     global launches
     launches += 1
     return out

@@ -6,8 +6,10 @@
 - masked SSIM: the SSIM map (11x11 Gaussian window, sigma 1.5, zero 'same'
   padding, C1 0.01^2, C2 0.03^2 on [0, 1] images), masked mean over
   ``mask.sum() * C`` (:64-99). The map is kernel F on CUDA tensors
-  (``crfp_torch/ops/cuda/ssim.py``, forward only) and its plain version on
-  CPU tensors.
+  (``crfp_torch/ops/cuda/ssim.py``, forward only), which reads both
+  images in place, each in its own layout (the training step's output is
+  an NHWC view of NCHW memory, its ground truth NHWC), and its plain
+  version on CPU tensors.
 - ``psnr_and_ssim``: the range heuristic of the reference's
   ``calc_psnr_and_ssim_cuda`` first (:102-111): a ground truth spanning
   more than 2 is taken as [0, 255], more than 1 as [-1, 1].
@@ -45,8 +47,7 @@ def masked_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch
     """Masked mean of the SSIM map of [0, 1]-ranged NHWC images. On the card
     the inputs must not require grad (kernel F has no backward)."""
     c = sr.shape[-1]
-    smap = ssim_map(sr.float().permute(0, 3, 1, 2).contiguous(),
-                    hr.float().permute(0, 3, 1, 2).contiguous())
+    smap = ssim_map(sr.float().permute(0, 3, 1, 2), hr.float().permute(0, 3, 1, 2))
     mask = mask.to(smap.dtype).permute(0, 3, 1, 2)
     return (smap * mask).sum() / (mask.sum() * c)
 
