@@ -37,7 +37,9 @@ Phases, in order; any failure exits non-zero without the final line:
    prologue + A bit for bit. Kernels A and B are held
    the same way at the gate's 16:9 shapes too (A per-tap (1,32,180,320)
    and shared (1,4,720,1280), each clamped and unclamped; B (1,4,720,1280),
-   (1,32,180,320) and (1,24,180,320)), A at the training shapes
+   (1,32,180,320) and (1,24,180,320), and unclamped the variants'
+   lv3_state (1,32,180,320) and basic_fvsr's stack (1,128,180,320)), A at
+   the training shapes
    ((2,32,48,48) per-tap, 36 calls per amp step; (2,4,192,192) shared, 12),
    and A and E at the mid-16 widths (A per-tap (1,16,180,180) at O = 16 and
    shared (1,2,720,720) at O = 2; E (1,16,180,180) at O = 16).
@@ -61,6 +63,22 @@ Phases, in order; any failure exits non-zero without the final line:
    through StreamingRunner, EXACT and DEPLOY with dcn_fused (E at O = 16),
    both in f32, kernels against plain versions as above, launch counts
    asserted;
+   3c. the trunk variants beside v18 (``ModelConfig.variant``, ``hr_dcn``,
+   ``y_only``) through StreamingRunner at mid 32, windows 8/32, on that
+   720p clip: checkpoints/basic_fvsr_mid32_struct.npz and
+   no_dcn_mid32_struct.npz (strict loads, hr_dcn=False) over 4 frames, and
+   seeded random weights with random offset/mask heads for v13 and v15
+   (hr_dcn on and off), v18_cra and v18 with y_only over 3, each in f32
+   through the kernels and through the plain versions (>= 80 dB, max|d|
+   <= 1e-3 per frame), launches per steady frame asserted (basic_fvsr A 4,
+   B 1; no_dcn A 0, B 1, both warps unclamped; v13/v15 A 4, B 1; v18_cra
+   and y_only A 4, B 3); basic_fvsr in bf16 with dcn_fused (E 3, A 1, B 1)
+   against bf16 without it (>= 60 dB); the train step of basic_fvsr (3 f32
+   steps) and no_dcn (2) from their checkpoints at the recipe, through the
+   kernels against the plain versions as in phase 6 with launch counts
+   asserted, then 5 amp steps each that must stay finite; last, ms per
+   steady bf16 frame of every variant and of v18 at that shape (CUDA
+   events, every configuration in order and in reverse);
 4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench,
    in turns with ModelConfig.dcn_fused off, on, on, off (off: A 4, B 2, C 1
    per steady frame; on: E 3, A 1, B 2, C 1), launch counts asserted;
@@ -81,7 +99,8 @@ Phases, in order; any failure exits non-zero without the final line:
    reads them; time kernel, plain version and,
    where one PyTorch call computes the same function, that call (device
    and call time each). The warp's d-flow is reduced without atomics: two
-   runs and a CUDA-graph replay on the same inputs must be bit-equal;
+   runs and a CUDA-graph replay on the same inputs must be bit-equal, also
+   unclamped at basic_fvsr's stack of four states (2,128,48,48);
 6. train the batch CRFP from checkpoints/v18_mid32_struct.npz (strict
    load, windows 8/32, remat): 3 f32 steps through the kernels against 3
    through the plain versions from the same state and batches (losses to
@@ -543,17 +562,25 @@ def phase_kernels(gen):
                max_abs_err_vs_prologue_a=err_pa, bf16_equal_to_prologue_a=True,
                bound_fraction=bnd[0] / k_ms[1], digest=digest(got, gotb))
 
-    # ---- B: HR state (D=32) and the concatenated lv states (D=8) -------
+    # ---- B: HR state (D=32) and the concatenated lv states (D=8); with no
+    # clamp (D None) the variants' lv3_state and basic_fvsr's four stacked
+    # states at the gate's shapes, whose flow is drawn at +-8. The unclamped
+    # modes draw from a generator of their own, so that every later mode
+    # gets the operands it got before they were added ----------------------
+    own_b = torch.Generator().manual_seed(8)
     for mode, (c, hw, d, calls) in {
         "HR D=32 (1,4,720,720)": (MID // 8, WARP, 32, 1),
         "lv D=8 (1,24,180,180)": (3 * MID // 4, q, 8, 1),
         f"HR D=32 (1,4,{ghr[0]},{ghr[1]}) gate": (MID // 8, ghr, 32, 0),
         f"lv3_state D=8 (1,32,{gq[0]},{gq[1]}) gate": (MID, gq, 8, 0),
         f"lv D=8 (1,24,{gq[0]},{gq[1]}) gate": (3 * MID // 4, gq, 8, 0),
+        f"lv3_state unclamped (1,32,{gq[0]},{gq[1]}) variants": (MID, gq, None, 0),
+        f"stack unclamped (1,128,{gq[0]},{gq[1]}) basic_fvsr": (4 * MID, gq, None, 0),
     }.items():
-        x = randn(1, c, *hw)
-        noisy = randn(1, 2, *hw, std=0.75 * d)
-        flow = smooth(2, hw, d)
+        amp, g_ = (8, own_b) if d is None else (d, gen)
+        x = torch.randn(1, c, *hw, generator=g_).to(dev)
+        noisy = (torch.randn(1, 2, *hw, generator=g_) * (0.75 * amp)).to(dev)
+        flow = _smooth(g_, 2, hw, amp)
         err = 0.0
         for f_ in (noisy, flow):
             ref = flow_warp_windowed_ref(x, f_, d)
@@ -571,7 +598,7 @@ def phase_kernels(gen):
         # yardstick: grid_sample on a precomputed normalised grid (bf16, as
         # grid_sample takes the grid in x's type)
         h, w = hw
-        fc = flow.clamp(-d, d)
+        fc = flow if d is None else flow.clamp(-d, d)
         gx = (torch.arange(w, device=dev).view(1, 1, w) + fc[:, 0]) * (2.0 / (w - 1)) - 1
         gy = (torch.arange(h, device=dev).view(1, h, 1) + fc[:, 1]) * (2.0 / (h - 1)) - 1
         grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
@@ -655,23 +682,24 @@ def _expect(**counts) -> dict:
     return {**dict.fromkeys(_counts(), 0), **counts}
 
 
-def _train_expect(steps: int) -> dict:
+def _train_expect(steps: int, dcns: int = 4, warps: int = 3) -> dict:
     """Kernel launches of ``steps`` train steps at the recipe: T-1 recurrent
-    steps of 4 DCNs and 3 warps each, run twice forward (remat recomputes
-    each step in the backward pass) and once backward; two SSIM metrics;
-    no frame emission in the batch trunk."""
+    steps of ``dcns`` DCNs and ``warps`` warps each (v18: 4 and 3), run
+    twice forward (remat recomputes each step in the backward pass) and
+    once backward; two SSIM metrics; no frame emission in the batch trunk."""
     from crfp_torch.bench.train import RECIPE
 
     n_rec = RECIPE["t"] - 1
-    per_step = _expect(dcn_fwd=2 * 4 * n_rec, flow_warp=2 * 3 * n_rec,
-                       dcn_bwd=4 * n_rec, flow_warp_bwd=3 * n_rec, ssim=2)
+    per_step = _expect(dcn_fwd=2 * dcns * n_rec, flow_warp=2 * warps * n_rec,
+                       dcn_bwd=dcns * n_rec, flow_warp_bwd=warps * n_rec, ssim=2)
     return {k: v * steps for k, v in per_step.items()}
 
 
-def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None):
+def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None,
+                  versus="kernels vs plain"):
     """Each frame through the kernels against the same frame through the
-    plain versions: finite, PSNR >= ``db_min`` and max|d| <= ``d_max``
-    (None: not held)."""
+    plain versions (or as ``versus`` names them): finite, PSNR >=
+    ``db_min`` and max|d| <= ``d_max`` (None: not held)."""
     import torch
 
     for i, (g, w) in enumerate(zip(got, want)):
@@ -680,11 +708,11 @@ def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None):
         d = (g - w).abs()
         mse = float((d.double() ** 2).mean())
         psnr = math.inf if mse == 0 else 10 * math.log10(1.0 / mse)
-        print(f"{tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB (limit >= {db_min:g}), "
+        print(f"{tag} frame {i}: {versus} PSNR {psnr:.2f} dB (limit >= {db_min:g}), "
               f"max|d| {float(d.max()):.3e}, frame range "
               f"[{float(g.min()):.3f}, {float(g.max()):.3f}]")
         if not (psnr >= db_min and (d_max is None or float(d.max()) <= d_max)):
-            fail(f"{tag} frame {i}: kernels vs plain PSNR {psnr:.2f} dB, "
+            fail(f"{tag} frame {i}: {versus} PSNR {psnr:.2f} dB, "
                  f"max|d| {float(d.max())}")
 
 
@@ -771,6 +799,223 @@ def phase_mid16():
             want = [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)]
         _frames_agree(f"[mid16] {tag}", got, want, shape=(1, *hr.shape[1:3], 3))
     return launches
+
+
+# Phase 3c: the trunk variants beside v18. The two that have trained mid-32
+# weights (hr_dcn=False, their only branch), with the A and B launches of a
+# steady frame; then seeded random weights for the rest.
+VARIANT_CKPTS = {
+    "basic_fvsr": (ROOT / "checkpoints" / "basic_fvsr_mid32_struct.npz", 4, 1),
+    "no_dcn": (ROOT / "checkpoints" / "no_dcn_mid32_struct.npz", 0, 1),
+}
+RANDOM_VARIANTS = [
+    ("v13", dict(variant="v13"), 4, 1),
+    ("v13 hr_dcn=False", dict(variant="v13", hr_dcn=False), 4, 1),
+    ("v15", dict(variant="v15"), 4, 1),
+    ("v15 hr_dcn=False", dict(variant="v15", hr_dcn=False), 4, 1),
+    ("v18_cra", dict(variant="v18_cra"), 4, 3),
+    ("v18 y_only", dict(variant="v18", y_only=True), 4, 3),
+]
+VARIANT_FRAMES, RANDOM_FRAMES, WARM_FRAMES, TIMED_FRAMES = 4, 3, 2, 6
+
+
+@functools.cache
+def _variant_clip(frames: int):
+    """``frames`` frames of phase 3b's 720p gate clip on the card: lr, hr
+    (the fovea frames; the masks gate them) and the masks of its gazes."""
+    import numpy as np
+    import torch
+
+    from crfp_torch.bench import deploy_gate as dg
+    from crfp_torch.eval.zones import zone_masks_step
+
+    lr, hr, gaze = dg.gate_clip(np.random.default_rng(16), 50.0, GATE_LR_HW, frames)
+    masks = np.stack([zone_masks_step(*hr.shape[1:3], tuple(g), dg.FV_SIZE).mask
+                      for g in gaze])
+    return tuple(torch.from_numpy(a).cuda() for a in (lr, hr, masks))
+
+
+def _variant_model(fields, ckpt=None, seed=0, dtype=None, **cfg):
+    """The trunk of ``fields`` at mid 32, windows 8/32, on the card: the
+    checkpoint loaded strictly, or the seeded init with random offset/mask
+    heads and DCN weights (the init's zero heads would leave every DCN at
+    the flow with mask 0.5)."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.params import from_jax, load_npz
+
+    model = CRFP(ModelConfig(mid_channels=MID, dcn_window=8, dcn_window_hr=32, **fields,
+                             **cfg), device="cuda", seed=seed)
+    if ckpt is not None:
+        model.load_state_dict(from_jax(load_npz(str(ckpt))), strict=True)
+    else:
+        gen = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if any(k in name for k in (".dcn_offset.", ".dcn_mask.", ".dcn_weight",
+                                           ".dcn_bias")):
+                    std = 0.05 if ".dcn_offset." in name else 0.2
+                    p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return model.to(dtype or torch.float32).eval()
+
+
+def _stream_variant(model, frames: int):
+    """The first ``frames`` frames of the variants' clip through
+    StreamingRunner as float32 tensors on the card (the model's windows,
+    8/32, and the JAX trunk's unclamped warps where the variant has them)."""
+    import torch
+
+    from crfp_torch.models.streaming import StreamingRunner
+
+    lr, hr, masks = _variant_clip(VARIANT_FRAMES if frames <= VARIANT_FRAMES else frames)
+    runner = StreamingRunner(model)
+    outs = [runner(lr[i][None], hr[i][None], masks[i][None]).float() for i in range(frames)]
+    torch.cuda.synchronize()
+    return outs
+
+
+def _variant_vs_plain(tag, model, frames, a_per, b_per, total):
+    """Stream through the kernels, assert the launches (``a_per`` A and
+    ``b_per`` B per steady frame), then through the plain versions: >= 80
+    dB and max|d| <= 1e-3 per frame. Adds the kernel run's launches to
+    ``total``."""
+    steady = frames - 1
+    _zero_counts()
+    got = _stream_variant(model, frames)
+    launches = _counts()
+    want_counts = _expect(dcn_fwd=a_per * steady, flow_warp=b_per * steady)
+    print(f"[variants] {tag}: {frames} frames, launches {launches}")
+    if launches != want_counts:
+        fail(f"variants {tag}: launch counts {launches} != expected {want_counts}")
+    for k, v in launches.items():
+        total[k] += v
+    with plain_kernels():
+        want = _stream_variant(model, frames)
+    out_c = model.conv_last.conv.out_channels
+    _frames_agree(f"[variants] {tag}", got, want,
+                  shape=(1, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, out_c))
+
+
+def _time_variants(configs) -> dict:
+    """ms per steady bf16 frame of each (tag, model) of ``configs`` over
+    TIMED_FRAMES frames after a cold start and WARM_FRAMES steady frames,
+    CUDA events; every configuration twice, in order and in reverse, as the
+    host's speed drifts within a call (the first frames of a new shape
+    also load its convolution kernels)."""
+    import torch
+
+    from crfp_torch.models.streaming import StreamingRunner
+
+    warm = 1 + WARM_FRAMES
+    n = warm + TIMED_FRAMES
+    lr, hr, masks = _variant_clip(n)
+    ms = {tag: [] for tag, _ in configs}
+    for tag, model in list(configs) + list(reversed(configs)):
+        runner = StreamingRunner(model)
+        for i in range(warm):
+            runner(lr[i][None], hr[i][None], masks[i][None])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for i in range(warm, n):
+            runner(lr[i][None], hr[i][None], masks[i][None])
+        end.record()
+        torch.cuda.synchronize()
+        ms[tag].append(start.elapsed_time(end) / TIMED_FRAMES)
+    return ms
+
+
+def phase_variants():
+    """Phase 3c. Returns the launch counts over the phase's kernel runs."""
+    import torch
+
+    from crfp_torch.bench.train import build_trainer
+
+    total = _expect()
+    steady = VARIANT_FRAMES - 1
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+
+    def lap(block):
+        nonlocal t0
+        print(f"[variants] {block} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    # serving, on the trained weights: f32 kernels against plain versions,
+    # then basic_fvsr in bf16 with dcn_fused against bf16 without it
+    for variant, (ckpt, a_per, b_per) in VARIANT_CKPTS.items():
+        fields = dict(variant=variant, hr_dcn=False)
+        _variant_vs_plain(f"{variant} ({ckpt.name}) f32", _variant_model(fields, ckpt),
+                          VARIANT_FRAMES, a_per, b_per, total)
+    fields, (ckpt, _, _) = dict(variant="basic_fvsr", hr_dcn=False), VARIANT_CKPTS["basic_fvsr"]
+    runs = {}
+    for fused, expect in ((True, _expect(dcn_fused=3 * steady, dcn_fwd=steady,
+                                         flow_warp=steady)),
+                          (False, _expect(dcn_fwd=4 * steady, flow_warp=steady))):
+        _zero_counts()
+        runs[fused] = _stream_variant(_variant_model(fields, ckpt, dtype=bf16,
+                                                     dcn_fused=fused), VARIANT_FRAMES)
+        launches = _counts()
+        print(f"[variants] basic_fvsr bf16 dcn_fused={fused}: launches {launches}")
+        if launches != expect:
+            fail(f"variants basic_fvsr bf16 dcn_fused={fused}: launch counts {launches} "
+                 f"!= expected {expect}")
+        for k, v in launches.items():
+            total[k] += v
+    _frames_agree("[variants] basic_fvsr bf16", runs[True], runs[False], db_min=60.0,
+                  d_max=None, versus="dcn_fused vs structured")
+    lap("serving on the checkpoints")
+
+    # serving, on seeded random weights
+    for i, (tag, fields, a_per, b_per) in enumerate(RANDOM_VARIANTS):
+        _variant_vs_plain(f"{tag} (seeded) f32", _variant_model(fields, seed=100 + i),
+                          RANDOM_FRAMES, a_per, b_per, total)
+    lap("serving on seeded weights")
+
+    # training at the recipe from the checkpoints: f32 kernels against
+    # plain versions (launches asserted), then amp steps that must stay finite
+    lr = 2e-4
+    for variant, steps, (dcns, warps) in (("basic_fvsr", 3, (4, 1)), ("no_dcn", 2, (0, 1))):
+        ckpt = str(VARIANT_CKPTS[variant][0])
+        batches = _train_batches()
+        got = _train_vs_plain(f"[variants] {variant} train", steps, lr,
+                              _train_expect(steps, dcns, warps), batches, ckpt=ckpt,
+                              variant=variant)
+        _zero_counts()
+        _, opt, step = build_trainer(amp=True, ckpt=ckpt, lr_rate=lr, variant=variant)
+        amp_losses = [float(step(opt, batches[0], i)["loss"]) for i in range(5)]
+        launches = _counts()
+        print(f"[variants] {variant} amp losses on one batch from the checkpoint: {amp_losses}; "
+              f"launches {launches}")
+        if not all(math.isfinite(v) for v in amp_losses):
+            fail(f"variants {variant}: amp steps gave non-finite losses {amp_losses}")
+        if launches != _train_expect(5, dcns, warps):
+            fail(f"variants {variant}: amp launch counts {launches} != "
+                 f"{_train_expect(5, dcns, warps)}")
+        for k in total:
+            total[k] += got[k] + launches[k]
+    lap("training")
+
+    # ms per steady bf16 frame of every variant and of v18, in one call
+    configs = [("v18", _variant_model(dict(variant="v18"), GATE_CKPT, dtype=bf16))]
+    configs += [(tag, _variant_model(fields, seed=100 + i, dtype=bf16))
+                for i, (tag, fields, _, _) in enumerate(RANDOM_VARIANTS)]
+    configs += [(variant, _variant_model(dict(variant=variant, hr_dcn=False), ckpt,
+                                         dtype=bf16))
+                for variant, (ckpt, _, _) in VARIANT_CKPTS.items()]
+    configs.append(("basic_fvsr dcn_fused", _variant_model(
+        dict(variant="basic_fvsr", hr_dcn=False), VARIANT_CKPTS["basic_fvsr"][0],
+        dtype=bf16, dcn_fused=True)))
+    ms = _time_variants(configs)
+    lap("timing")
+    print(f"[variants] ms per steady bf16 frame at LR {GATE_LR_HW} -> "
+          f"{GATE_LR_HW[0] * 8}x{GATE_LR_HW[1] * 8}, mid {MID}, windows 8/32, "
+          f"{TIMED_FRAMES} frames, CUDA events, in order, reversed: "
+          f"{json.dumps(ms)}")
+    print(f"[variants] launches over the phase's kernel runs: {total}")
+    return total
 
 
 def phase_bench():
@@ -1054,16 +1299,21 @@ def phase_kernels_train(gen):
                # an order that changes from run to run
                digest=digest(got[1], got[2], got[3], doff, dmask, dw))
 
-    # ---- D at k=1: the HR state, lv3_state and the stacked lv states -----
-    for mode, (c, hw, d) in {
-        f"HR D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, (gt, gt), 32),
-        f"lv3_state D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, lv, 8),
-        f"lv D=8 ({b},{3 * mid // 4},{lv[0]},{lv[1]})": (3 * mid // 4, lv, 8),
+    # ---- D at k=1: the HR state, lv3_state and the stacked lv states; with
+    # no clamp basic_fvsr's four stacked states (flow drawn at +-8, from a
+    # generator of its own, so that F's modes get the operands they got) ---
+    own_d = torch.Generator().manual_seed(9)
+    for mode, (c, hw, d, calls) in {
+        f"HR D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, (gt, gt), 32, n_rec),
+        f"lv3_state D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, lv, 8, n_rec),
+        f"lv D=8 ({b},{3 * mid // 4},{lv[0]},{lv[1]})": (3 * mid // 4, lv, 8, n_rec),
+        f"stack unclamped ({b},{4 * mid},{lv[0]},{lv[1]}) basic_fvsr": (4 * mid, lv, None, 0),
     }.items():
-        x = randn(b, c, *hw)
-        noisy = randn(b, 2, *hw, std=0.75 * d)
-        flow = _smooth(gen, 2, hw, d, n=b)
-        gout = randn(b, c, *hw)
+        amp, g_ = (8, own_d) if d is None else (d, gen)
+        x = (torch.randn(b, c, *hw, generator=g_)).cuda()
+        noisy = (torch.randn(b, 2, *hw, generator=g_) * (0.75 * amp)).cuda()
+        flow = _smooth(g_, 2, hw, amp, n=b)
+        gout = (torch.randn(b, c, *hw, generator=g_)).cuda()
 
         def kern(x_, f_):
             return warp.flow_warp_windowed(x_, f_, d)
@@ -1086,7 +1336,7 @@ def phase_kernels_train(gen):
         # yardstick: grid_sample's backward on a precomputed bf16 grid (the
         # clamp is outside it, as in phase 2's forward yardstick)
         h, w = hw
-        fc = flow.clamp(-d, d)
+        fc = flow if d is None else flow.clamp(-d, d)
         gx = (torch.arange(w, device="cuda").view(1, 1, w) + fc[:, 0]) * (2.0 / (w - 1)) - 1
         gy = (torch.arange(h, device="cuda").view(1, h, 1) + fc[:, 1]) * (2.0 / (h - 1)) - 1
         grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
@@ -1102,7 +1352,7 @@ def phase_kernels_train(gen):
             if not (torch.equal(first, again) and torch.equal(first, replay)):
                 fail(f"kernel D warp {mode}: d-flow of two runs on the same inputs "
                      "(eager, eager, CUDA graph) is not bit-equal")
-        record("flow_warp_bwd", mode, n_rec, err, rel, k_ms, p_ms, lib_ms,
+        record("flow_warp_bwd", mode, calls, err, rel, k_ms, p_ms, lib_ms,
                bound([xb, flow, gb], [dxb, dflow], 20 * b * h * w * c, "bfloat16"),
                digest=digest(got[1], dflow))
 
@@ -1167,23 +1417,32 @@ def phase_kernels_train(gen):
     return modes
 
 
-def phase_train():
-    """Phase 6."""
-    from crfp_torch.bench.train import build_trainer, device_batches
+@functools.cache
+def _train_batches():
+    """The 3 recipe batches of phases 3c and 6 (seed 0), made once."""
+    from crfp_torch.bench.train import device_batches
 
-    steps, lr = 3, 2e-4
-    batches = device_batches(steps, seed=0)
+    return device_batches(3, seed=0)
 
-    def run(tag):
-        model, opt, step = build_trainer(amp=False, ckpt=str(CKPT), lr_rate=lr)
+
+def _train_vs_plain(tag, steps, lr, expect, batches, **build_kw):
+    """``steps`` f32 train steps of ``build_trainer(**build_kw)`` through the
+    kernels against the same steps through the plain versions, from the
+    same state and batches: losses to 1e-4 relative, every parameter to
+    2*lr*steps, the kernel path's launch counts equal to ``expect``.
+    Returns those counts."""
+    from crfp_torch.bench.train import build_trainer
+
+    def run(path):
+        model, opt, step = build_trainer(amp=False, lr_rate=lr, **build_kw)
         t0 = time.perf_counter()
         losses = []
         for i in range(steps):
             m = step(opt, batches[i], i)
             losses.append(float(m["loss"]))
-            print(f"[train] {tag} f32 step {i}: " + ", ".join(
+            print(f"{tag} {path} f32 step {i}: " + ", ".join(
                 f"{k} {float(v):.6f}" for k, v in m.items()))
-        print(f"[train] {tag}: {steps} f32 steps in {time.perf_counter() - t0:.2f} s "
+        print(f"{tag} {path}: {steps} f32 steps in {time.perf_counter() - t0:.2f} s "
               "(host clock, first steps)")
         return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -1192,18 +1451,27 @@ def phase_train():
     _zero_counts()
     got_losses, got_params = run("kernels")
     launches = _counts()
-    expect = _train_expect(steps)
-    print(f"[train] launches in {steps} kernel steps: {launches}")
+    print(f"{tag} launches in {steps} kernel steps: {launches}")
     if launches != expect:
-        fail(f"train launch counts {launches} != expected {expect}")
+        fail(f"{tag}: launch counts {launches} != expected {expect}")
     for i, (g, w) in enumerate(zip(got_losses, want_losses)):
         if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
-            fail(f"train step {i}: loss {g} through the kernels, {w} plain")
+            fail(f"{tag} train step {i}: loss {g} through the kernels, {w} plain")
     worst = max(float((got_params[k] - want_params[k]).abs().max()) for k in want_params)
-    print(f"[train] losses kernels {got_losses} plain {want_losses}; max param "
+    print(f"{tag} losses kernels {got_losses} plain {want_losses}; max param "
           f"|d| after {steps} steps {worst:.3e} (limit {2 * lr * steps:.1e})")
     if not worst <= 2 * lr * steps:
-        fail(f"parameters differ by {worst} > {2 * lr * steps} after {steps} steps")
+        fail(f"{tag} parameters differ by {worst} > {2 * lr * steps} after {steps} steps")
+    return launches
+
+
+def phase_train():
+    """Phase 6."""
+    from crfp_torch.bench.train import build_trainer
+
+    steps, lr = 3, 2e-4
+    batches = _train_batches()
+    _train_vs_plain("[train]", steps, lr, _train_expect(steps), batches, ckpt=str(CKPT))
 
     # amp: 10 steps on one batch from the checkpoint must stay finite; 10
     # from the seeded init must descend. (From the trained weights, Adam's
@@ -1235,6 +1503,14 @@ def phase_train_bench():
     if launches != expect:
         fail(f"amp train launch counts {launches} != expected {expect}")
     return launches
+
+
+def timed(name, phase, *args):
+    """Run ``phase(*args)`` and print its wall time (host clock)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1271,19 +1547,20 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}; python {sys.version.split()[0]}")
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    modes = phase_kernels(gen)
+    modes = timed("2 kernels", phase_kernels, gen)
     if args.kernels_only:
         modes += phase_kernels_train(gen)
         print(f"[done] kernel phases passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"modes": modes}))
         return 0
-    serve_launches = phase_slice()
-    phase_mid16()
-    phase_bench()
-    modes += phase_kernels_train(gen)
-    phase_train()
-    train_launches = phase_train_bench()
-    gate_launches = phase_gate()
+    serve_launches = timed("3 slice", phase_slice)
+    timed("3b mid16", phase_mid16)
+    variant_launches = timed("3c variants", phase_variants)
+    timed("4 bench", phase_bench)
+    modes += timed("5 train kernels", phase_kernels_train, gen)
+    timed("6 train", phase_train)
+    train_launches = timed("7 train bench", phase_train_bench)
+    gate_launches = timed("8 gate", phase_gate)
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
@@ -1342,6 +1619,8 @@ def main(argv=None) -> int:
             "launches": path_launches[per][name],
             **({"launches_train": train_launches[name]} if serving else {}),
             "launches_gate": gate_launches[name],
+            # over the trunk variants' kernel runs (phase 3c)
+            "launches_variants": variant_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);

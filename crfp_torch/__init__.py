@@ -3,16 +3,20 @@
 The port of ``crfp_tpu`` (JAX/Pallas), module for module: ``crfp_torch/X``
 mirrors ``crfp_tpu/X``. It computes the logical math of the JAX package;
 the TPU layout devices (space-to-depth operand forms, per-cell window
-anchoring, the fused-prep DCN kernel) are not carried.
+anchoring) are not carried. The fused-prep DCN is: kernel E, behind
+``ModelConfig.dcn_fused``.
 
 Public entry points take and return NHWC tensors like the JAX models;
 inside, tensors are NCHW. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``. Two paths are ported: the v18 streaming runtime
-(``CRFPRuntimeV18``) and the v18 training step (the batch trunk ``CRFP``
-with ``crfp_torch.train``). Their kernels live in ``crfp_torch/csrc`` and
-are built with ``nvcc`` at first use (``crfp_torch.ops.cuda``); the DCN
-and warp dispatchers are autograd Functions whose backward is a kernel
-too. On CPU tensors every op runs its plain PyTorch version.
+passes ``device="cpu"``. Three paths are ported: the v18 streaming runtime
+(``CRFPRuntimeV18``), the training step (the batch trunk ``CRFP`` with
+``crfp_torch.train``) and evaluation (``StreamingRunner``, ``eval/``, the
+deployment quality gate). The batch trunk takes every variant of the JAX
+trunk (v13, v15, v18, v18_cra, no_dcn, basic_fvsr; ``hr_dcn``,
+``y_only``). The kernels live in ``crfp_torch/csrc`` and are built with
+``nvcc`` at first use (``crfp_torch.ops.cuda``); the DCN and warp
+dispatchers are autograd Functions whose backward is a kernel too. On CPU
+tensors every op runs its plain PyTorch version.
 """
 
 from crfp_torch.models.config import ModelConfig

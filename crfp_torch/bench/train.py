@@ -21,7 +21,7 @@ import torch
 from crfp_torch.models.config import ModelConfig
 from crfp_torch.models.crfp import CRFP
 from crfp_torch.params import from_jax, load_npz
-from crfp_torch.tools.train_procedural import make_batch
+from crfp_torch.tools.train_procedural import make_batch, variant_hr_dcn
 from crfp_torch.train.loop import TrainConfig, make_optimizer, make_train_step
 
 RECIPE = dict(b=2, t=7, gt=192, mid=32, dcn_window=8, dcn_window_hr=32)
@@ -73,11 +73,14 @@ def device_batches(n: int, seed: int) -> list[dict[str, torch.Tensor]]:
              for k, v in make_batch(clips, b, t, gt, rng).items()} for _ in range(n)]
 
 
-def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0, **tcfg):
-    """(model, optimizer, train_step) of the recipe's CRFP on the card;
-    weights from ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides
-    fields of TrainConfig (the flow net is not frozen by default)."""
-    cfg = ModelConfig(mid_channels=RECIPE["mid"], dcn_window=RECIPE["dcn_window"],
+def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
+                  variant: str = "v18", **tcfg):
+    """(model, optimizer, train_step) of the recipe's CRFP of ``variant`` on
+    the card (``hr_dcn`` as train_procedural sets it); weights from
+    ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides fields of
+    TrainConfig (the flow net is not frozen by default)."""
+    cfg = ModelConfig(variant=variant, hr_dcn=variant_hr_dcn(variant),
+                      mid_channels=RECIPE["mid"], dcn_window=RECIPE["dcn_window"],
                       dcn_window_hr=RECIPE["dcn_window_hr"], remat=True)
     model = CRFP(cfg, device="cuda", seed=seed)
     if ckpt is not None:

@@ -3,9 +3,11 @@ trained on (checkpoints/v18_mid32_struct_curve.json).
 
 A copy of the corpus half of crfp_tpu/data/procedural.py (numpy, scipy and
 Pillow; the port imports nothing of the JAX package): ``make_canvas``,
-``make_clip``, ``make_clip_pool`` and ``lr_box``, unchanged. The
-REDS-shaped ``TrainSet``/``EvalSet``/``TestSet`` of that module serve the
-JAX package's ``main.py`` and are not copied.
+``make_clip``, ``make_clip_pool`` and ``lr_box``, unchanged, and
+``clip_sample``, the sample dict of one clip that the REDS-shaped
+``TrainSet``/``EvalSet``/``TestSet`` of that module return (:236-260),
+with ``LR_sr`` only for a ``y_only`` model (:270). Those dataset classes
+serve the JAX package's ``main.py`` and are not copied.
 
 - **dead leaves**: overlapping random disks/rectangles with radii drawn
   from a power-law (the classic natural-image-statistics model) — sharp
@@ -198,3 +200,37 @@ def lr_box(hr: np.ndarray, scale: int = 8) -> np.ndarray:
     LR formation model, shared by training and every procedural eval)."""
     t, h, w, c = hr.shape
     return hr.reshape(t, h // scale, scale, w // scale, scale, c).mean((2, 4))
+
+
+def bicubic_lr(lr: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """(T, h, w, 3) LR in [0, 1] -> (T, oh, ow, 3) float32 ``LR_sr``: its
+    8-bit frames resized bicubic with Pillow
+    (crfp_tpu/data/reds.py::_bicubic_upsample, Pillow branch), over 255."""
+    import PIL.Image
+
+    frames = (lr * 255).round().astype(np.uint8)
+    return np.stack([
+        np.array(PIL.Image.fromarray(im).resize((ow, oh), PIL.Image.BICUBIC))
+        for im in frames]).astype(np.float32) / 255.0
+
+
+def clip_sample(hr: np.ndarray, fv_size: int, scan: str = "Evenscan",
+                rng: np.random.Generator | None = None, *, scale: int = 8,
+                y_only: bool = False) -> dict[str, np.ndarray]:
+    """The sample of the clip ``hr`` (T, H, W, 3) as the JAX package's
+    procedural datasets give it (crfp_tpu/data/procedural.py:236-260):
+    ``LR`` its box mean, ``HR``, ``Ref`` / ``Ref_sp`` the fovea frames and
+    masks of ``fovea_generator(method=scan)`` (``rng`` for Nanascan), and
+    with ``y_only`` also ``LR_sr``, the bicubic x8 upsample of the 8-bit LR
+    frames, whose UV the ``y_only`` evaluation puts beside the model's Y."""
+    from crfp_torch.data.fovea import fovea_generator
+
+    _, h, w, _ = hr.shape
+    lr = lr_box(hr, scale).astype(np.float32)
+    ref, ref_sp, _ = fovea_generator(hr, method=scan, fv_hw=(fv_size, fv_size),
+                                     rng=rng if scan == "Nanascan" else None)
+    sample = {"LR": lr, "HR": hr, "Ref": ref.astype(np.float32),
+              "Ref_sp": ref_sp.astype(np.float32)}
+    if y_only:
+        sample["LR_sr"] = bicubic_lr(lr, h, w)
+    return sample

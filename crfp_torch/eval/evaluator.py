@@ -2,9 +2,9 @@
 
 Per-frame masked PSNR/SSIM in RGB and in the (mis-ordered-coefficient) Y
 domain with a full-ones mask, skipping frame 0 of every 50th window (the
-reference's clip-boundary reset rule), averaged over all frames. The
-``y_only`` reconstruction (the model's Y beside bicubic-upsampled UV) is
-not ported: the port's ``CRFP`` runs RGB frames only.
+reference's clip-boundary reset rule), averaged over all frames. With
+``y_only`` the model's Y goes beside the UV of the batch's bicubic-upsampled
+LR frames (``LR_sr``) and back to RGB (crfp_tpu/eval/evaluator.py:78-83).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from crfp_torch.ops.color import bgr2ycbcr_y
+from crfp_torch.ops.color import bgr2ycbcr_y, y_beside_uv
 from crfp_torch.ops.metrics import masked_psnr, masked_ssim
 
 
@@ -54,10 +54,9 @@ def evaluate_clips(model, loader, y_only: bool = False, log=None,
                    save_dir: str | None = None) -> EvalResult:
     """``model``: a ``crfp_torch.models.crfp.CRFP`` with its weights loaded,
     on its device. ``loader``: any iterable of ``{"LR", "Ref", "Ref_sp",
-    "HR"}`` batches of (B, T, H, W, C) arrays. ``save_dir``: when set, SR
-    frames are written there as PNGs."""
-    if y_only:
-        raise NotImplementedError("y_only evaluation waits for the y_only model variant")
+    "HR"}`` batches of (B, T, H, W, C) arrays, with ``"LR_sr"`` (B, T, H,
+    W, 3) too for a ``y_only`` model. ``save_dir``: when set, SR frames are
+    written there as PNGs."""
     p = next(model.parameters())
     model.eval()
     cols = []
@@ -67,6 +66,9 @@ def evaluate_clips(model, loader, y_only: bool = False, log=None,
         lr, fv, mk, hr = (torch.as_tensor(np.asarray(batch[k])).to(p.device, p.dtype)
                           for k in ("LR", "Ref", "Ref_sp", "HR"))
         sr = model(lr, fv, mk).float()
+        if y_only:
+            lrsr = torch.as_tensor(np.asarray(batch["LR_sr"])).to(p.device)
+            sr = y_beside_uv(sr[..., :1], lrsr)
         b, t = sr.shape[:2]
         if save_dir is not None:
             import PIL.Image

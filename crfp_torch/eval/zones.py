@@ -57,7 +57,7 @@ def zone_masks_step(
     y0, x0 = max(cy, 0), max(cx, 0)
     mk_fv[y0 : cy + fv_size, x0 : cx + fv_size] = 1.0
 
-    dil = ndimage.binary_dilation(mk_fv[..., 0] > 0, np.ones((3, 3), bool), iterations=10)
+    dil = _dilate(mk_fv[..., 0] > 0, 10)
     outskirt = (dil & ~(mask[..., 0] > 0)).astype(np.float32)[..., None]
 
     if regional_dcn:
@@ -70,6 +70,21 @@ def zone_masks_step(
     else:
         fg = np.ones((h, w, 1), np.float32)
     return ZoneMasks(fovea=mk_fv, mask=mask, outskirt=outskirt, fg=fg, top_left=(cy, cx))
+
+
+def _dilate(m: np.ndarray, r: int) -> np.ndarray:
+    """``ndimage.binary_dilation(m, 3x3, iterations=r)``, computed over the
+    bounding box of ``m`` grown by ``r``, which the dilation does not pass
+    (at 720p with a 96-pixel fovea, ~70x fewer pixels than the frame)."""
+    out = np.zeros_like(m)
+    rows, cols = np.flatnonzero(m.any(1)), np.flatnonzero(m.any(0))
+    if rows.size == 0:
+        return out
+    y0, y1 = max(rows[0] - r, 0), min(rows[-1] + r + 1, m.shape[0])
+    x0, x1 = max(cols[0] - r, 0), min(cols[-1] + r + 1, m.shape[1])
+    out[y0:y1, x0:x1] = ndimage.binary_dilation(m[y0:y1, x0:x1], np.ones((3, 3), bool),
+                                                iterations=r)
+    return out
 
 
 def _rect_bounds(c0: int, size: int, n: int) -> tuple[int, int]:

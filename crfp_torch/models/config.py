@@ -1,5 +1,6 @@
 """Model configuration: the fields of ``crfp_tpu.models.crfp.ModelConfig``
-that the logical math reads (crfp_tpu/models/crfp.py:67-154).
+that the logical math reads (crfp_tpu/models/crfp.py:67-154), and the
+rules that the JAX trunk asserts on them (:160-187).
 
 The TPU layout switches of the JAX config (``hr_s2d``, ``lv3_s2d``,
 ``emit_s2d``, ``dcn_anchor``) are not carried: the port always computes the
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 
+VARIANTS = ("v13", "v15", "v18", "v18_cra", "no_dcn", "basic_fvsr")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -18,6 +21,10 @@ class ModelConfig:
     mid_channels: int = 32
     scale: int = 8
     y_only: bool = False
+    # the HR-level cascade: dcn_3 in repeat mode on the 8x state. Without it
+    # (v13/v15, and the only path of no_dcn and basic_fvsr) dcn_3 is a
+    # per-tap stage at 1/4 size and the trunk upsamples after it
+    hr_dcn: bool = True
     offset_prop: bool = True
     split_ratio: int = 3
     deform_groups: int = 8
@@ -43,6 +50,15 @@ class ModelConfig:
     dcn_fused: bool = False
 
     def __post_init__(self):
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant={self.variant!r} (one of {VARIANTS})")
+        if self.is_dsv and not self.hr_dcn:
+            raise ValueError("the DSV trunk (v18, v18_cra) always runs the HR-level "
+                             "DCN (hr_dcn=True)")
+        if self.variant in ("no_dcn", "basic_fvsr") and self.hr_dcn:
+            # the reference's hr_dcn=True branches of these two read undefined
+            # locals; only hr_dcn=False ever ran (crfp_tpu/models/crfp.py:183-187)
+            raise ValueError(f"{self.variant} only supports hr_dcn=False")
         if self.dcn_fused and self.dcn_window is None:
             raise ValueError("dcn_fused is a windowed-kernel dispatch mode: "
                              "set dcn_window")
@@ -50,6 +66,11 @@ class ModelConfig:
             raise NotImplementedError("flow_net='spynet' is not ported yet; use 'fnet'")
         if self.flow_net != "fnet":
             raise ValueError(f"flow_net={self.flow_net!r} (expected 'fnet')")
+
+    @property
+    def is_dsv(self) -> bool:
+        """The channel-split (DSV) trunk with per-level persistent states."""
+        return self.variant in ("v18", "v18_cra")
 
     @property
     def last_channels(self) -> int:

@@ -3,7 +3,11 @@
 
 The runner holds the model and the per-clip recurrent state; the compute
 is the same ``encode_frame`` / ``step0`` / ``step`` the batch forward
-loops over, so batch and streaming cannot drift apart. The first call
+loops over, so batch and streaming cannot drift apart. It takes every
+variant of ``CRFP``: the state is the variant's dict of tensors and
+tuples of tensors (``{"p": 4 states}`` for basic_fvsr, ``{"hr", "lv"}``
+for the DSV trunk), and v18_cra's encoder output is a tuple; the runner
+only hands them on. The first call
 after ``clear_states()`` takes the cold-start path. The JAX runner jits
 its two programs and donates the state; here PyTorch runs eagerly under
 ``torch.no_grad()`` and the previous state is simply dropped.
@@ -23,7 +27,7 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
 class StreamingRunner:
     """``runner(lr, fv, mk, fg=None)``: one frame in, one 8x frame out, all
     NHWC with the batch dimension: lr (N, h, w, 3), fv (N, 8h, 8w, 3), mk
-    and fg (N, 8h, 8w, 1) -> (N, 8h, 8w, 3).
+    and fg (N, 8h, 8w, 1) -> (N, 8h, 8w, 3), or 1 channel with ``y_only``.
 
     ``model`` carries its own parameters, device and dtype; inputs are
     moved to them (``device="cuda"`` is the model's default). ``use_fg``:

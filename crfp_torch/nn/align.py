@@ -1,4 +1,7 @@
-"""Flow-guided deformable alignment, NCHW (crfp_tpu/nn/align.py:107-337).
+"""Flow-guided deformable alignment, NCHW (crfp_tpu/nn/align.py:94-337).
+
+:class:`PlainAlign` is the no-DCN ablation block of the ``no_dcn`` trunk
+(:94-104): two conv + lrelu over concat(cur, warped, flow), no sampling.
 
 concat(cur, warped_prev, flow) -> two conv+lrelu -> [fuse the previous
 stage's offset feature] -> zero-init offset head ``mag * tanh(raw)`` plus
@@ -35,6 +38,19 @@ from crfp_torch.nn.layers import Conv, PixelShufflePack, lrelu
 from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
 from crfp_torch.ops.cuda.dcn_fused import deform_conv2d_fusedprep
 from crfp_torch.ops.dcn_windowed import fusedprep_offsets_and_mask
+
+
+class PlainAlign(nn.Module):
+    """conv1 + lrelu, conv2 + lrelu: 2*mid + 2 channels (the concat of cur,
+    warped and flow) -> mid."""
+
+    def __init__(self, mid_channels: int):
+        super().__init__()
+        self.conv1 = Conv(2 * mid_channels + 2, mid_channels)
+        self.conv2 = Conv(mid_channels, mid_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return lrelu(self.conv2(lrelu(self.conv1(x))))
 
 
 class DCNAlign(nn.Module):

@@ -1,8 +1,8 @@
 """Color conversions with the reference's coefficients (crfp_tpu/ops/color.py).
 
 - ``rgb2y``: the in-model luma of ``y_only`` mode, Y = .299R + .587G + .114B.
-- ``rgb2yuv`` / ``yuv2rgb``: the trainer's pair, which evaluation uses to
-  put a model's Y beside bicubic-upsampled UV.
+- ``rgb2yuv`` / ``yuv2rgb``: the trainer's pair; ``y_beside_uv`` uses them
+  to put a ``y_only`` model's Y beside bicubic-upsampled UV.
 - ``bgr2ycbcr_y``: the BT.601 "Y-channel metric" transform. The reference
   feeds RGB tensors into a function written for BGR, so the effective luma
   is ``24.966*R + 128.553*G + 65.481*B + 16``; the JAX package keeps that
@@ -38,6 +38,14 @@ def yuv2rgb(yuv: torch.Tensor) -> torch.Tensor:
     g = y - 0.39 * u - 0.58 * v
     b = y + 2.03 * u
     return torch.stack([r, g, b], dim=-1)
+
+
+def y_beside_uv(y: torch.Tensor, rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 1) Y and (..., 3) RGB -> the RGB of ``y`` beside ``rgb``'s UV:
+    the frame a ``y_only`` model is scored on, with ``rgb`` the bicubic
+    upsample of its LR input (crfp_tpu/eval/evaluator.py:78-83)."""
+    yuv = rgb2yuv(rgb.to(y.dtype))
+    return yuv2rgb(torch.cat([y, yuv[..., 1:]], dim=-1))
 
 
 def bgr2ycbcr_y(img: torch.Tensor) -> torch.Tensor:

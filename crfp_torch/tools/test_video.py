@@ -12,8 +12,9 @@ streams generated structured-content clips (crfp_torch/data/procedural.py);
 the root script's REDS-frames-on-disk branch is not ported yet, so without
 ``--procedural`` the tool raises ``NotImplementedError`` (``--dataset_dir``
 and ``--video_set`` are parsed for it). Runs on the card unless ``--cpu`` is
-given. The port's trunk is v18 on RGB frames:
-other ``--variant`` values and ``--y_only`` are refused.
+given. Every ``--variant`` of the trunk runs, with ``--hr_dcn`` as the
+trunk's rules allow (``ModelConfig`` raises otherwise) and ``--y_only``,
+whose Y goes beside the bicubic LR's UV before the metrics.
 """
 
 from __future__ import annotations
@@ -59,17 +60,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _bicubic_upsample(frames, oh: int, ow: int):
-    """(T, H, W, C) uint8 bicubic resize with Pillow
-    (crfp_tpu/data/reds.py::_bicubic_upsample, Pillow branch)."""
-    import numpy as np
-    import PIL.Image
-
-    return np.stack([
-        np.array(PIL.Image.fromarray(im).resize((ow, oh), PIL.Image.BICUBIC))
-        for im in frames])
-
-
 def frames_to_gif(frames, out_path: str, fps: int = 7) -> None:
     """frames: list of (H, W, 3) uint8 RGB arrays
     (crfp_tpu/tools/video.py::frames_to_gif, written with Pillow)."""
@@ -86,23 +76,21 @@ def main(argv=None):
     import PIL.Image
     import torch
 
-    from crfp_torch.data.procedural import lr_box, make_clip
+    from crfp_torch.data.procedural import bicubic_lr, lr_box, make_clip
     from crfp_torch.eval.foveated import foveated_metric
     from crfp_torch.eval.zones import ZONES, StreamingZoneEval, zone_masks_step
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.crfp import CRFP
     from crfp_torch.models.streaming import StreamingRunner
+    from crfp_torch.ops.color import y_beside_uv
 
     if not args.procedural:
         raise NotImplementedError(
             "REDS frames on disk (--dataset_dir, --video_set) are not ported yet; "
             "pass --procedural")
-    if args.y_only:
-        raise NotImplementedError("the port's CRFP runs RGB frames (y_only is not ported)")
-    if not args.hr_dcn:
-        raise ValueError("the v18 trunk always runs the HR-level DCN (hr_dcn)")
     device = "cpu" if args.cpu else "cuda"
     cfg = ModelConfig(variant=args.variant, mid_channels=args.mid_channels,
+                      y_only=args.y_only, hr_dcn=args.hr_dcn,
                       offset_prop=args.offset_prop, split_ratio=args.split_ratio)
     model = CRFP(cfg, device=device, seed=0)
     if args.model_path:
@@ -127,8 +115,7 @@ def main(argv=None):
         clip_rng = np.random.default_rng(5000 + v)  # held out from training
         gts = make_clip(clip_rng, args.n_frames, gh)
         lrs = lr_box(gts).astype(np.float32)
-        lrsrs = _bicubic_upsample((lrs * 255).round().astype(np.uint8), gh, gw
-                                  ).astype(np.float32) / 255.0
+        lrsrs = bicubic_lr(lrs, gh, gw)
         print(f"clip {v:03d}: procedural seed {5000 + v} ({gh}x{gw})")
         n, h, w, _ = gts.shape
 
@@ -144,6 +131,8 @@ def main(argv=None):
                                     dcn_size=args.dcn_size)
             sr = runner(lrs[i : i + 1], (gts[i] * zones.mask)[None], zones.mask[None],
                         zones.fg[None] if use_fg else None).float()
+            if args.y_only:
+                sr = y_beside_uv(sr[..., :1], torch.from_numpy(lrsrs[i : i + 1]).to(sr.device))
             zone_eval.update(sr, gts[i : i + 1], zones)
             sr_frames.append((sr[0].clamp(0, 1) * 255).round().to(torch.uint8)
                              .cpu().numpy())

@@ -8,7 +8,10 @@ checkpoints/v18_mid32_struct.npz (its _curve.json holds the flags).
 The flags are those of crfp_tpu/tools/train_procedural.py without its
 TPU-only ``--dcn_anchor`` and ``--no_cache``: Charbonnier loss, two-group
 Adam with the flow net at its own rate, cosine schedule over ``--iters``,
-flow freeze, windows 8/32 and remat. Runs on the card unless ``--cpu``.
+flow freeze, windows 8/32 and remat. ``--variant`` takes every trunk
+variant; no_dcn and basic_fvsr run without the HR-level cascade
+(``hr_dcn=False``), as their checkpoints were trained. Runs on the card
+unless ``--cpu``.
 
 The corpus (crfp_torch/data/procedural.py) draws its clips with Pillow.
 The clip pool is cached in ``runs/pool_<pool>x<t>x<gt>_s<seed>.npz``; where
@@ -26,6 +29,12 @@ import os
 import time
 
 import numpy as np
+
+
+def variant_hr_dcn(variant: str) -> bool:
+    """The HR-level cascade of ``variant``: off for no_dcn and basic_fvsr,
+    which run only without it (crfp_tpu/tools/train_procedural.py:110-114)."""
+    return variant not in ("no_dcn", "basic_fvsr")
 
 
 def make_batch(clips, b: int, t: int, gt: int, rng: np.random.Generator,
@@ -103,8 +112,8 @@ def main(argv: list[str] | None = None) -> None:
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --cpu to train on the CPU")
     cfg = ModelConfig(variant=args.variant, mid_channels=args.mid,
-                      dcn_window=args.dcn_window, dcn_window_hr=args.dcn_window_hr,
-                      remat=True)
+                      hr_dcn=variant_hr_dcn(args.variant), dcn_window=args.dcn_window,
+                      dcn_window_hr=args.dcn_window_hr, remat=True)
     model = CRFP(cfg, device=device, seed=args.seed)
     tcfg = TrainConfig(lr_rate=args.lr, flow_freeze_iters=args.flow_freeze,
                        periods=(max(args.iters, 1),), amp=args.amp)

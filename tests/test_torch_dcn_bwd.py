@@ -1,8 +1,10 @@
 """The DCN kernels' widths and kernel D's host-side arithmetic, on the CPU.
 
-Every ``DCNAlign`` of ``CRFP`` and ``CRFPRuntimeV18`` at mid 16 and mid 32
-(the widths of ``checkpoints/v18_mid16_procedural.npz`` and
-``v18_mid32_struct.npz``) passes the pure width rule of kernels A, D and
+Every ``DCNAlign`` of ``CRFP`` (v18 and every other variant with DCN
+stages, ``hr_dcn`` on and off) and ``CRFPRuntimeV18`` at mid 16 and mid 32
+(the widths of ``checkpoints/v18_mid16_procedural.npz``,
+``v18_mid32_struct.npz`` and ``basic_fvsr_mid32_struct.npz``) passes the
+pure width rule of kernels A, D and
 (per-tap, windowed) E, ``crfp_torch.ops.cuda.dcn.width_fault``: a width the
 kernels do not take shows here, not first on a card. Kernel D's plan
 (``bwd_plan``) at the training shapes: the tiles cover every pixel once,
@@ -49,27 +51,39 @@ def _plan(shape, clamped=True, **kw):
 _MODELS = [("CRFP", 16, "v18_mid16_procedural.npz"), ("CRFP", 32, "v18_mid32_struct.npz"),
            ("CRFPRuntimeV18", 16, "v18_mid16_procedural.npz"),
            ("CRFPRuntimeV18", 32, "v18_mid32_struct.npz")]
+# (variant, hr_dcn, checkpoint at mid 32 or None): every other trunk variant
+# with DCN stages, at mid 16 and 32 (no_dcn has none)
+_VARIANTS = [("v13", True, None), ("v13", False, None), ("v15", True, None),
+             ("v15", False, None), ("v18_cra", True, None),
+             ("basic_fvsr", False, "basic_fvsr_mid32_struct.npz")]
+_ROWS = ([(m, mid, ckpt, "v18", True) for m, mid, ckpt in _MODELS]
+         + [("CRFP", mid, ckpt if mid == 32 else None, v, hr)
+            for v, hr, ckpt in _VARIANTS for mid in (16, 32)])
+_ROW_IDS = ([f"{m}_mid{mid}" for m, mid, _ in _MODELS]
+            + [f"CRFP_{v}{'' if hr else '_lr_dcn'}_mid{mid}"
+               for v, hr, _ in _VARIANTS for mid in (16, 32)])
 
 
-@pytest.mark.parametrize("model,mid,ckpt", _MODELS,
-                         ids=[f"{m}_mid{mid}" for m, mid, _ in _MODELS])
-def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt):
+@pytest.mark.parametrize("model,mid,ckpt,variant,hr_dcn", _ROWS, ids=_ROW_IDS)
+def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt, variant, hr_dcn):
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.crfp import CRFP
     from crfp_torch.models.runtime import CRFPRuntimeV18
     from crfp_torch.nn.align import DCNAlign
     from crfp_torch.params import load_npz
 
-    cfg = ModelConfig(mid_channels=mid, dcn_window=8, dcn_window_hr=32)
+    cfg = ModelConfig(variant=variant, hr_dcn=hr_dcn, mid_channels=mid, dcn_window=8,
+                      dcn_window_hr=32)
     net = (CRFP(cfg, device="cpu") if model == "CRFP"
            else CRFPRuntimeV18(cfg, warp_size=(64, 64), device="cpu"))
-    leaves = load_npz(str(_ROOT / "checkpoints" / ckpt))
+    leaves = load_npz(str(_ROOT / "checkpoints" / ckpt)) if ckpt else None
     stages = [(name, m) for name, m in net.named_modules() if isinstance(m, DCNAlign)]
     assert [name for name, _ in stages] == ["dcn_0", "dcn_1", "dcn_2", "dcn_3"]
     for name, m in stages:
         o, c, kh, kw = m.dcn_weight.shape
         # the checkpoint of this width holds the same DCN: (kh, kw, C, O)
-        assert leaves[f"params/{name}/dcn_weight"].shape == (kh, kw, c, o), name
+        if leaves is not None:
+            assert leaves[f"params/{name}/dcn_weight"].shape == (kh, kw, c, o), name
         g, shared = m.deform_groups, m.repeat
         for kernel in ("dcn_fwd", "dcn_bwd"):
             assert dcn.width_fault(kernel, c, o, g, kh, kw, shared=shared) is None, \
@@ -77,9 +91,12 @@ def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt):
         if not shared and m.window is not None:  # where DCNAlign takes kernel E
             assert dcn.width_fault("dcn_fused", c, o, g, kh, kw) is None, name
         assert o in dcn.SUPPORTED_OUT_CHANNELS
-    # mid 16: dcn_0/1/2 at O = 16 with 2 channels per group, dcn_3 at O = 2
+    # dcn_0/1/2 at O = mid with mid/8 channels per group; dcn_3 shared at
+    # O = mid/8 with the HR-level cascade, per-tap at O = mid without it
     widths = {name: tuple(m.dcn_weight.shape[:2]) + (m.deform_groups,) for name, m in stages}
-    assert widths["dcn_0"] == (mid, mid, 8) and widths["dcn_3"] == (mid // 8, mid // 8, 1)
+    assert widths["dcn_0"] == (mid, mid, 8)
+    assert widths["dcn_3"] == ((mid // 8, mid // 8, 1) if hr_dcn else (mid, mid, 8))
+    assert stages[3][1].repeat == hr_dcn
 
 
 @pytest.mark.parametrize("kernel,args,fault", [

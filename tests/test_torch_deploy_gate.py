@@ -96,7 +96,15 @@ def test_test_video_procedural_demo(tmp_path, regional):
     assert len(list((tmp_path / "000").glob("sr_*.png"))) == 3
     for name in ("sr", "bicubic", "gt", "psnr_heat"):
         assert (tmp_path / f"{name}_000.gif").stat().st_size > 0
-    with pytest.raises(NotImplementedError):
-        test_video.main(["--cpu", "--procedural", "--y_only"])
+    # y_only and every variant are ported: a y_only demo on seeded weights
+    # (its Y beside the bicubic LR's UV), and hr_dcn=False refused for v18
+    # as the JAX trunk refuses it
+    small = ["--cpu", "--procedural", "--procedural_hw", "64", "64", "--n_frames", "2",
+             "--video_num", "0", "--mid_channels", "16", "--fv_size", "16",
+             "--save_dir", str(tmp_path / "y_only")]
+    summary = test_video.main(small + ["--y_only"])
+    assert all(np.isfinite(v) for v in summary.values()), summary
+    with pytest.raises(ValueError, match="hr_dcn"):
+        test_video.main(small + ["--hr_dcn", "false"])
     with pytest.raises(NotImplementedError, match="REDS"):
         test_video.main(["--cpu", "--dataset_dir", str(tmp_path)])

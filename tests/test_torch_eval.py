@@ -43,6 +43,26 @@ def test_zone_masks_and_rect_bounds_equal_jax_exactly():
             assert jz._rect_bounds(c0, size, 72) == tz._rect_bounds(c0, size, 72)
 
 
+@pytest.mark.parametrize("density", [0.0, 0.002, 0.05], ids=["empty", "sparse", "dense"])
+def test_cropped_dilation_equals_full_frame_dilation(density):
+    """The outskirt's dilation over the mask's grown bounding box equals
+    scipy's over the whole frame, for scattered points and for rectangles
+    cut by every edge."""
+    from scipy import ndimage
+
+    from crfp_torch.eval.zones import _dilate
+
+    rng = np.random.default_rng(7)
+    for i in range(40):
+        h, w = (int(v) for v in rng.integers(3, 90, 2))
+        m = rng.uniform(0, 1, (h, w)) < density
+        if i % 2 and density:
+            y, x, s = int(rng.integers(-15, h + 15)), int(rng.integers(-15, w + 15)), 1 + i
+            m[max(y, 0):max(y + s, 0), max(x, 0):max(x + s, 0)] = True
+        want = ndimage.binary_dilation(m, np.ones((3, 3), bool), iterations=10)
+        np.testing.assert_array_equal(_dilate(m, 10), want, err_msg=f"case {i}")
+
+
 def _zone_clip(seed=1, t=6, h=64, w=96, fv=16):
     from crfp_torch.eval.zones import zone_masks_step
 
@@ -186,8 +206,8 @@ def test_evaluate_clips_matches_jax(tmp_path):
     flat = tp.perturb_heads(tp.flat_params(params), seed=1)
     want = jeval(jmodel, tp.unflatten(flat), loader)
     logs = []
-    got = teval(tt.torch_crfp(flat, dcn_window=8, dcn_window_hr=32), loader,
-                log=logs.append, save_dir=str(tmp_path / "sr"))
+    tmodel = tt.torch_crfp(flat, dcn_window=8, dcn_window_hr=32)
+    got = teval(tmodel, loader, log=logs.append, save_dir=str(tmp_path / "sr"))
     assert got.n_frames == want.n_frames == 3 * tt.T - 1
     np.testing.assert_allclose(got.psnr, want.psnr, atol=1e-3, rtol=0)
     np.testing.assert_allclose(got.psnr_y, want.psnr_y, atol=1e-3, rtol=0)
@@ -195,5 +215,7 @@ def test_evaluate_clips_matches_jax(tmp_path):
     np.testing.assert_allclose(got.ssim_y, want.ssim_y, atol=1e-5, rtol=0)
     assert len(logs) == 1 and "PSNR" in str(got)
     assert len(list((tmp_path / "sr").glob("sr_*.png"))) == 3 * tt.T
-    with pytest.raises(NotImplementedError):
-        teval(None, loader, y_only=True)
+    # the y_only evaluation reads the UV of LR_sr, which these batches lack
+    # (tests/test_torch_variants_stream.py holds it against JAX)
+    with pytest.raises(KeyError, match="LR_sr"):
+        teval(tmodel, loader[:1], y_only=True)

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                 "tools/train_procedural.py", "bench/train.py", "models/streaming.py",
                 "ops/cuda/dcn_fused.py", "eval/__init__.py", "eval/zones.py",
                 "eval/foveated.py", "eval/matlab_metrics.py", "eval/evaluator.py",
-                "bench/deploy_gate.py", "tools/test_video.py"):
+                "bench/deploy_gate.py", "tools/test_video.py", "models/config.py",
+                "nn/lte.py", "nn/align.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
@@ -295,6 +296,48 @@ def test_kernel_d_warp_backward_matches_plain_on_card(window):
     _, want = _grads(lambda *a: flow_warp_windowed_ref(*a, window), (x, flow), gout)
     for name, gg, ww in zip(("x", "flow"), got, want):
         assert _rel_err(gg, ww) <= 1e-4, name
+
+
+# the unclamped warps of the trunk variants without the HR-level cascade:
+# lv3_state of no_dcn and hr_dcn=False, basic_fvsr's four stacked states, at
+# the 720p clip (LR 90x160) and at the recipe's training shapes (B 2, GT 192)
+_UNCLAMPED = [("lv3_720p", (1, 32, 180, 320), False),
+              ("stack_720p", (1, 128, 180, 320), False),
+              ("stack_train", (2, 128, 48, 48), True)]
+
+
+@pytest.mark.cuda
+@_NEEDS_CARD
+@pytest.mark.parametrize("shape,backward", [u[1:] for u in _UNCLAMPED],
+                         ids=[u[0] for u in _UNCLAMPED])
+def test_kernel_b_and_d_unclamped_at_the_variant_shapes_match_plain_on_card(shape, backward):
+    """Kernel B with no clamp (window None) against the plain warp to 1e-5;
+    at the training shape kernel D at k=1 against autograd of the plain
+    warp to 1e-4 of max|ref|, d-flow bit-equal over two runs."""
+    from crfp_torch.ops.cuda import warp
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    gen = torch.Generator().manual_seed(5)
+    n, _, h, w = shape
+    x = torch.randn(*shape, generator=gen).cuda()
+    flow = (torch.randn(n, 2, h, w, generator=gen) * 12).cuda()
+    before = warp.launches
+    got = warp.flow_warp_windowed(x, flow, None)
+    torch.cuda.synchronize()
+    assert warp.launches == before + 1
+    assert float((got - flow_warp_windowed_ref(x, flow, None)).abs().max()) <= 1e-5
+    if not backward:
+        return
+    gout = torch.randn(*shape, generator=gen).cuda()
+    before = warp.bwd_launches
+    _, grads = _grads(lambda *a: warp.flow_warp_windowed(*a, None), (x, flow), gout)
+    torch.cuda.synchronize()
+    assert warp.bwd_launches == before + 1
+    _, want = _grads(lambda *a: flow_warp_windowed_ref(*a, None), (x, flow), gout)
+    for name, gg, ww in zip(("x", "flow"), grads, want):
+        assert _rel_err(gg, ww) <= 1e-4, name
+    first = warp.flow_warp_backward(x, flow, gout, None)[1]
+    assert torch.equal(first, warp.flow_warp_backward(x, flow, gout, None)[1])
 
 
 @pytest.mark.cuda

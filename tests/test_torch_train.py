@@ -3,8 +3,8 @@ on the same numpy clip and weights (mid 16, T 3, LR 8x8, B 1, random
 offset/mask heads and DCN weights): the clip forward with windows 8/32
 and unclamped, to 1e-4; every parameter's gradient of the Charbonnier
 loss, to 1e-4 of the leaf's max|ref|, with remat on the port's side. Also
-the strict load of the trained checkpoint, the config's rules and the
-port's copies of the data modules."""
+the strict load of the trained checkpoint, the config's rules (the JAX
+trunk's asserts) and the port's copies of the data modules."""
 
 import sys
 
@@ -149,8 +149,13 @@ def test_config_rules():
         ModelConfig(flow_net="spynet")
     with pytest.raises(ValueError):
         ModelConfig(flow_net="raft")
-    with pytest.raises(ValueError, match="v18"):
-        CRFP(ModelConfig(variant="v13", mid_channels=MID), device="cpu")
+    # the JAX trunk's asserts (crfp_tpu/models/crfp.py:162-187)
+    with pytest.raises(ValueError, match="hr_dcn"):
+        CRFP(ModelConfig(variant="v18", hr_dcn=False, mid_channels=MID), device="cpu")
+    with pytest.raises(ValueError, match="hr_dcn=False"):
+        CRFP(ModelConfig(variant="basic_fvsr", mid_channels=MID), device="cpu")
+    with pytest.raises(ValueError, match="variant"):
+        CRFP(ModelConfig(variant="v19", mid_channels=MID), device="cpu")
 
 
 @pytest.mark.parametrize("method", ["Nanascan", "Rscan", "Cscan", "Zscan", "Evenscan"])
