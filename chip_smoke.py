@@ -38,16 +38,25 @@ Phases, in order; any failure exits non-zero without the final line:
    the same way at the gate's 16:9 shapes too (A per-tap (1,32,180,320)
    and shared (1,4,720,1280), each clamped and unclamped; B (1,4,720,1280),
    (1,32,180,320) and (1,24,180,320), and unclamped the variants'
-   lv3_state (1,32,180,320) and basic_fvsr's stack (1,128,180,320)), A at
+   lv3_state (1,32,180,320), basic_fvsr's stack (1,128,180,320), the gen-1
+   pyramids' level states (1,64,360,640) and (1,64,720,1280) and a frame of
+   the flow-warp evaluation (1,3,720,1280)), A at
    the training shapes
    ((2,32,48,48) per-tap, 36 calls per amp step; (2,4,192,192) shared, 12),
    and A and E at the mid-16 widths (A per-tap (1,16,180,180) at O = 16 and
-   shared (1,2,720,720) at O = 2; E (1,16,180,180) at O = 16).
+   shared (1,2,720,720) at O = 2; E (1,16,180,180) at O = 16), and A at O = 64
+   (the pyramids' and PCD's widths: 4 channels a group at (1,64,180,320), 8
+   at (1,64,180,320), 16 at (1,64,360,640), 64 at (1,64,720,1280)), each
+   clamped at D = 8 and unclamped, f32 and bf16, timed unclamped in bf16
+   with the f32 device time beside it, its bound the larger of the bytes and
+   the contraction at the bf16 tensor-core peak (``f32_ops_ms``: at the f32
+   CUDA-core peak).
    A and E must give the same bits in two runs and replayed from a CUDA
    graph, and A under shared taps the bits of its per-tap loop on the
    repeated offset; their records carry the tile plan and
    ``bound_fraction`` (bound over device time). Kernel C at r=1 and r=4
-   (1080p), at a width that is not a multiple of 8 ((1,3,270,486) from
+   (1080p), at the pyramids' frames (1,3,720,1280) and (1,3,360,640) from LR
+   90x160, at a width that is not a multiple of 8 ((1,3,270,486) from
    34x61) and on y read through a view offset by one element: the 1080p
    r=1 frame must take the row route (emit_plan) in bf16 and f32, the
    offset view the pixel route with the row route's bits; two runs and a
@@ -79,6 +88,24 @@ Phases, in order; any failure exits non-zero without the final line:
    asserted, then 5 amp steps each that must stay finite; last, ms per
    steady bf16 frame of every variant and of v18 at that shape (CUDA
    events, every configuration in order and in reverse);
+   3d. the models beside the trunk, each in f32 through the kernels and
+   through the plain versions (>= 80 dB, max|d| <= 1e-3 per frame), launches
+   asserted: CRFPRuntimeSimple v13 and v15 (seeded, random heads) and
+   CRFPRuntimeV18(nofv=True) (checkpoints/v18_mid32_struct.npz through
+   runtime_params_from_batch) over 4 frames at 1080p / warp 720^2 / mid 32,
+   windows 8/32 (A 4, B 1 or, nofv, 2, C 1 a steady frame); the v18 trunk
+   with flow_net="spynet" (seeded) through StreamingRunner on the 720p clip
+   (A 4, B 3), 2 f32 train steps at the recipe against plain versions and 3
+   amp steps that must stay finite; flow_warp_propagation_eval with SPyNet
+   and FNet on 6 frames of the 720p clip (B 1, F 5 a call; PSNR within 1e-3
+   dB and SSIM within 1e-5 of the plain versions'); CRFPPyramidX8 and
+   CRFPPyramidX4, plain and CRA, at mid 64, dg 16, on 3 frames of the 720p
+   clip, dcn_window None (and X8 plain at 8) (X8 A 4, B 4, C 1 a steady
+   frame, X4 A 4, B 3, C 1, the cold frame C 1); a DCN at O = 64 that
+   autograd records must raise (kernel D does not take it); PCDAlign at nf
+   64, 8 groups on (1,64,180,320) (A 4); then ms per steady bf16 frame of
+   the runtime models beside seeded v18 at 1080p and of the four pyramids
+   (CUDA events, in order and reversed);
 4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench,
    in turns with ModelConfig.dcn_fused off, on, on, off (off: A 4, B 2, C 1
    per steady frame; on: E 3, A 1, B 2, C 1), launch counts asserted;
@@ -288,8 +315,10 @@ def plain_kernels():
     """Route the models', the metric's and the zone evaluator's kernel call sites to the plain
     versions (they call the dispatchers by these module-level names); on
     the plain versions autograd of plain PyTorch applies."""
+    import crfp_torch.eval.flow_warp_eval as fw
     import crfp_torch.eval.zones as zn
     import crfp_torch.models.crfp as cr
+    import crfp_torch.models.pyramid as py
     import crfp_torch.models.runtime as rt
     import crfp_torch.nn.align as al
     import crfp_torch.ops.metrics as mt
@@ -306,6 +335,10 @@ def plain_kernels():
              (rt, "flow_warp_windowed", flow_warp_windowed_ref),
              (rt, "emit_frame", emit_frame_ref),
              (cr, "flow_warp_windowed", flow_warp_windowed_ref),
+             (py, "deform_conv2d_windowed", deform_conv2d_windowed_ref),
+             (py, "flow_warp_windowed", flow_warp_windowed_ref),
+             (py, "emit_frame", emit_frame_ref),
+             (fw, "flow_warp_windowed", flow_warp_windowed_ref),
              (mt, "ssim_map", ssim_map_ref),
              (zn, "ssim_map", ssim_map_ref)]
     saved = [getattr(m, name) for m, name, _ in sites]
@@ -496,6 +529,12 @@ def phase_kernels(gen):
                tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}{' mma' if plan.mma else ''}",
                digest=digest(got, got0, gotb))
 
+    # ---- A at O = 64 (the pyramids' and PCD's per-tap DCNs at mid / nf 64),
+    # 4, 8, 16 and 64 channels a group, each clamped at D = 8 and unclamped
+    # (the pyramids' default, dcn_window=None). Operands from a generator of
+    # their own, so that every later mode gets the operands it got before ---
+    modes += _wide_modes(torch.Generator().manual_seed(64), check, check_bf16)
+
     # ---- E: dcn_0/1/2 from the raw heads, serving and gate shapes --------
     for mode, (c, hw, calls) in {
         f"per-tap G=8 D=8 (1,32,{q[0]},{q[1]}) serving, dcn_fused": (MID, q, 0),
@@ -576,6 +615,13 @@ def phase_kernels(gen):
         f"lv D=8 (1,24,{gq[0]},{gq[1]}) gate": (3 * MID // 4, gq, 8, 0),
         f"lv3_state unclamped (1,32,{gq[0]},{gq[1]}) variants": (MID, gq, None, 0),
         f"stack unclamped (1,128,{gq[0]},{gq[1]}) basic_fvsr": (4 * MID, gq, None, 0),
+        # the gen-1 pyramids' level states (X8's lv2 and lv3, X4's lv2 and
+        # lv3 a level down) and a frame of the flow-warp evaluation's call
+        # (5 of them a call), all unclamped
+        f"pyramid lv2 unclamped (1,64,{ghr[0] // 2},{ghr[1] // 2})": (64, (ghr[0] // 2,
+                                                                        ghr[1] // 2), None, 0),
+        f"pyramid lv3 unclamped (1,64,{ghr[0]},{ghr[1]})": (64, ghr, None, 0),
+        f"flow_warp_eval unclamped (1,3,{ghr[0]},{ghr[1]})": (3, ghr, None, 0),
     }.items():
         amp, g_ = (8, own_b) if d is None else (d, gen)
         x = torch.randn(1, c, *hw, generator=g_).to(dev)
@@ -626,6 +672,10 @@ def phase_kernels(gen):
         f"r=4 (1,48,{HR_HW[0] // 4},{HR_HW[1] // 4})": (4, HR_HW, LR_HW, False, 0, gen),
         "r=1 W%8=6 (1,3,270,486)": (1, (270, 486), (34, 61), False, 0, own),
         f"r=1 offset view (1,3,{HR_HW[0]},{HR_HW[1]})": (1, HR_HW, LR_HW, True, 0, own),
+        # the gen-1 pyramids' frames from LR 90x160: X8 and X4
+        f"r=1 (1,3,{ghr[0]},{ghr[1]}) pyramid X8": (1, ghr, GATE_LR_HW, False, 0, own),
+        f"r=1 (1,3,{ghr[0] // 2},{ghr[1] // 2}) pyramid X4": (1, (ghr[0] // 2, ghr[1] // 2),
+                                                              GATE_LR_HW, False, 0, own),
     }.items():
         y = torch.randn(1, 3 * r * r, hw[0] // r, hw[1] // r, generator=g_).to(dev)
         lr = torch.rand(1, 3, *lr_hw, generator=g_).to(dev)
@@ -659,6 +709,90 @@ def phase_kernels(gen):
                bound_fraction=bnd[0] / k_ms[1],
                route="row" if plans[1].vector else "pixel", digest=digest(got, gotb))
     return modes
+
+
+# A at O = 64: (mode, (channels a group, plane, calls per steady frame of
+# the X8 plain pyramid at phase 3d's 720p clip)). X8 plain runs CPG 4 at
+# (1,64,90,160) and (1,64,180,320), 16 at (1,64,360,640), 64 at
+# (1,64,720,1280); X8 CRA CPG 64 at all four; X4 CPG 4 x2, 16, 64 a level
+# down; PCD CPG 8 at (1,64,180,320), /2, /4 and its cascade.
+WIDE_MODES = {
+    "per-tap G=16 (1,64,180,320) cpg4": (4, (180, 320), 1),
+    "per-tap G=8 (1,64,180,320) cpg8 pcd": (8, (180, 320), 0),
+    "per-tap G=4 (1,64,360,640) cpg16": (16, (360, 640), 1),
+    "per-tap G=1 (1,64,720,1280) cpg64": (64, (720, 1280), 1),
+}
+
+
+def _wide_modes(gen, check, check_bf16):
+    """Phase 2's records of kernel A at O = 64: f32 to 1e-4 abs against the
+    plain version (white-noise and smooth offsets at D = 8, white noise
+    unclamped), bf16 to 2e-2 of max|ref| clamped and unclamped, the same
+    bits in two runs and from a CUDA-graph replay; timed in bf16 unclamped
+    (the pyramids' default), with the f32 kernel's device time beside it.
+    The bound takes the larger of the bytes at 3.35 TB/s and the
+    contraction's 2 * 9 * C * O FLOP a pixel at the bf16 tensor-core peak;
+    ``f32_ops_ms`` is the same FLOP at the f32 CUDA-core peak, the rate of
+    the path this first design runs."""
+    import torch
+
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    out = []
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    c = o = 64
+    d = 8
+    for mode, (cpg, hw, calls) in WIDE_MODES.items():
+        g = c // cpg
+        x = randn(1, c, *hw)
+        noisy = randn(1, g * 18, *hw, std=0.75 * d)
+        off = _smooth(gen, 2, hw, d).repeat(1, g * 9, 1, 1) + randn(1, g * 18, *hw, std=2.0)
+        mask = torch.rand(1, g * 9, *hw, generator=gen).cuda()
+        wt = randn(o, c, 3, 3, std=0.05)
+        b = randn(o)
+        xb = x.to(torch.bfloat16)
+        err, rel, bits = 0.0, 0.0, []
+        for md in (d, None):
+            kw = dict(max_displacement=md)
+            for o_ in ((noisy, off) if md is not None else (noisy,)):
+                ref = deform_conv2d_windowed_ref(x, o_, mask, wt, b, **kw)
+                got = dcn.deform_conv2d_windowed(x, o_, mask, wt, b, **kw)
+                torch.cuda.synchronize()
+                err = max(err, check("kernel A", f"{mode} D={md}", 1e-4, got, ref))
+                bits.append(got)
+            refb = deform_conv2d_windowed_ref(xb.float(), off, mask, wt, b, **kw)
+            gotb = dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw)
+            torch.cuda.synchronize()
+            rel = max(rel, check_bf16("kernel A", f"{mode} D={md}", gotb, refb))
+            for fn_x in (x, xb):
+                first = dcn.deform_conv2d_windowed(fn_x, off, mask, wt, b, **kw)
+                if not torch.equal(first, dcn.deform_conv2d_windowed(fn_x, off, mask, wt, b,
+                                                                      **kw)):
+                    fail(f"kernel A {mode} D={md}: two runs on the same inputs differ")
+                if not torch.equal(captured(lambda: dcn.deform_conv2d_windowed(
+                        fn_x, off, mask, wt, b, **kw)), first):
+                    fail(f"kernel A {mode} D={md}: replayed from a CUDA graph it differs")
+            bits.append(gotb)
+        k_ms = measure(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b))
+        f32_dev = device_time_ms(lambda: dcn.deform_conv2d_windowed(x, off, mask, wt, b),
+                                 launches=5)
+        p_ms = measure(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b), iters=3)
+        n_px = hw[0] * hw[1]
+        flops = 2 * n_px * 9 * c * o
+        bnd = bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16")
+        f32_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        plan = dcn.tile_plan(1, c, *hw, o, g, None, bf16=True)
+        _record(out, "dcn_fwd", mode, 0, err, rel, k_ms, p_ms, None, bnd,
+                calls_per_x8_frame=calls, f32_device_ms=f32_dev, f32_ops_ms=f32_ops,
+                bound_fraction=bnd[0] / k_ms[1], f32_ops_fraction=f32_ops / f32_dev,
+                tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}",
+                digest=digest(*bits))
+    return out
+
 
 
 def _zero_counts() -> None:
@@ -1016,6 +1150,319 @@ def phase_variants():
           f"{json.dumps(ms)}")
     print(f"[variants] launches over the phase's kernel runs: {total}")
     return total
+
+
+# Phase 3d: the models beside the trunk: the runtime variants, the trunk
+# with SPyNet, the flow-warp evaluation, the gen-1 pyramids and PCD.
+MODEL_FRAMES, PYR_FRAMES, PYR_MID = 4, 3, 64
+PYR_TIMED = (3, 5)  # clip lengths: their time difference over 2 is a steady frame
+RUNTIME_SIMPLE = ("v13", "v15")
+
+
+def _perturb_dcn(model, seed: int, offset_std: float = 0.05):
+    """Random offset/mask heads and DCN weights, biases from ``seed``: every
+    parameter whose path has a part starting dcn_offset (std
+    ``offset_std``), dcn_mask, dcn_weight or dcn_bias (std 0.2); the init's
+    zero heads would leave every DCN at the flow with mask 0.5."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            parts = name.split(".")
+            if any(q.startswith("dcn_offset") for q in parts):
+                std = offset_std
+            elif any(q.startswith(("dcn_mask", "dcn_weight", "dcn_bias")) for q in parts):
+                std = 0.2
+            else:
+                continue
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return model
+
+
+def _runtime_model(kind: str, dtype=None):
+    """A runtime model at mid 32, windows 8/32, warp 720^2 on the card:
+    CRFPRuntimeSimple v13/v15 and v18 from seeds with random heads, v18
+    nofv from checkpoints/v18_mid32_struct.npz."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.runtime import CRFPRuntimeSimple, CRFPRuntimeV18
+    from crfp_torch.params import load_npz, runtime_params_from_batch
+
+    win = dict(mid_channels=MID, dcn_window=8, dcn_window_hr=32)
+    if kind in RUNTIME_SIMPLE:
+        model = _perturb_dcn(CRFPRuntimeSimple(ModelConfig(variant=kind, **win), WARP,
+                                               device="cuda", seed=30), 31)
+    elif kind == "v18 nofv":
+        model = CRFPRuntimeV18(ModelConfig(**win), WARP, nofv=True, device="cuda")
+        sd, n_unmapped = runtime_params_from_batch(load_npz(str(CKPT)), model.state_dict())
+        if n_unmapped != 5:
+            fail(f"nofv: the checkpoint adapter kept {n_unmapped} leaves at init, expected 5")
+        model.load_state_dict(sd, strict=True)
+    else:
+        model = _perturb_dcn(CRFPRuntimeV18(ModelConfig(**win), WARP, device="cuda", seed=30),
+                             31)
+    return model.to(dtype or torch.float32).eval()
+
+
+def _runtime_frames(model, lrs, fvs, frames):
+    """``frames`` frames through encode / step0 / step; fvs None: nofv."""
+    import torch
+
+    outs = []
+    with torch.inference_mode():
+        for i in range(frames):
+            x_lr, x_hr = model.encode(lrs[i], None if fvs is None else fvs[i])
+            if i == 0:
+                state, out = model.step0(lrs[i], x_lr, x_hr)
+            else:
+                state, out = model.step(state, lrs[i], lrs[i - 1], x_lr, x_hr)
+            outs.append(out.float())
+    torch.cuda.synchronize()
+    return outs
+
+
+def _runtime_clip(frames: int, dtype=None):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(30)
+    lrs = torch.from_numpy(rng.uniform(0, 1, (frames, 1, *LR_HW, 3)).astype(np.float32))
+    fvs = torch.from_numpy(rng.uniform(0, 1, (frames, 1, FV, FV, 3)).astype(np.float32))
+    dtype = dtype or torch.float32
+    return lrs.to("cuda", dtype), fvs.to("cuda", dtype)
+
+
+def _pyramid(kind: str, cra: bool, window=None, dtype=None):
+    """X8 or X4 at mid 64, dg 16 on the card, seeded, with random heads."""
+    import torch
+
+    from crfp_torch.models.pyramid import CRFPPyramidX4, CRFPPyramidX8
+
+    cls = CRFPPyramidX8 if kind == "X8" else CRFPPyramidX4
+    model = cls(PYR_MID, cra=cra, dg_num=16, dcn_window=window, device="cuda", seed=40)
+    # offset heads of std 0.5: 10 tanh(raw) + flow passes D = 8 for 3-11 % of
+    # the offsets (0.05 leaves them within +-7), so that the clamped X8
+    # differs from the unclamped one
+    return _perturb_dcn(model, 41, offset_std=0.5).to(dtype or torch.float32).eval()
+
+
+def _pyramid_inputs(kind: str, cra: bool, frames: int, dtype=None):
+    """(lrs, fvs[, mks]) NHWC clips of phase 3c's 720p clip: X8 the 720x1280
+    frames and masks (CRA: the top-left 96x96 fovea patch, no masks); X4
+    the frames resized to 360x640 and the masks taken every other pixel."""
+    import torch
+    import torch.nn.functional as F
+
+    # phase 3c's timing clip, made once (its first frames are every shorter clip)
+    lr, hr, masks = _variant_clip(max(frames, 1 + WARM_FRAMES + TIMED_FRAMES))
+    lr, hr, masks = lr[:frames], hr[:frames], masks[:frames].float()
+    if kind == "X8":
+        args = (lr, hr[:, :FV, :FV]) if cra else (lr, hr, masks)
+    else:
+        hr4 = F.interpolate(hr.permute(0, 3, 1, 2), size=(hr.shape[1] // 2, hr.shape[2] // 2),
+                            mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+        args = (lr, hr4, masks[:, ::2, ::2])
+    return tuple(a[None].to(dtype or torch.float32).contiguous() for a in args)
+
+
+def _models_vs_plain(tag, run, expect, total, shape):
+    """``run()`` through the kernels (launch counts equal to ``expect``),
+    then through the plain versions: >= 80 dB and max|d| <= 1e-3 per frame.
+    Adds the kernel run's launches to ``total``; returns the kernels' frames."""
+    _zero_counts()
+    got = run()
+    launches = _counts()
+    print(f"[models] {tag}: launches {launches}")
+    if launches != expect:
+        fail(f"models {tag}: launch counts {launches} != expected {expect}")
+    for k, v in launches.items():
+        total[k] += v
+    with plain_kernels():
+        want = run()
+    _frames_agree(f"[models] {tag}", got, want, shape=shape)
+    return got
+
+
+def phase_models():
+    """Phase 3d. Returns the launch counts over the phase's kernel runs."""
+    import numpy as np
+    import torch
+
+    from crfp_torch.bench import deploy_gate as dg
+    from crfp_torch.bench.train import build_trainer
+    from crfp_torch.eval.flow_warp_eval import flow_warp_propagation_eval
+    from crfp_torch.nn.pcd import PCDAlign
+    from crfp_torch.ops.cuda import dcn
+
+    total = _expect()
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+
+    def lap(block):
+        nonlocal t0
+        print(f"[models] {block} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    # the runtime variants at 1080p / warp 720^2, f32: A 4 a steady frame,
+    # B 1 (CRFPRuntimeSimple: the HR state only) or 2 (nofv), C 1 a frame
+    steady = MODEL_FRAMES - 1
+    lrs, fvs = _runtime_clip(MODEL_FRAMES)
+    for kind, b_per in (("v13", 1), ("v15", 1), ("v18 nofv", 2)):
+        model = _runtime_model(kind)
+        clip_fv = None if kind == "v18 nofv" else fvs
+        _models_vs_plain(f"runtime {kind} f32",
+                         lambda: _runtime_frames(model, lrs, clip_fv, MODEL_FRAMES),
+                         _expect(dcn_fwd=4 * steady, flow_warp=b_per * steady,
+                                 emit=MODEL_FRAMES), total, (1, *HR_HW, 3))
+    lap("runtime variants")
+
+    # the v18 trunk with flow_net="spynet": streamed, then trained
+    model = _variant_model(dict(variant="v18", flow_net="spynet"), seed=50)
+    _variant_vs_plain("v18 spynet (seeded) f32", model, RANDOM_FRAMES, 4, 3, total)
+    lr_rate = 2e-4
+    batches = _train_batches()
+    got = _train_vs_plain("[models] v18 spynet train", 2, lr_rate, _train_expect(2), batches,
+                          flow_net="spynet")
+    _zero_counts()
+    _, opt, step = build_trainer(amp=True, lr_rate=lr_rate, flow_net="spynet")
+    amp_losses = [float(step(opt, batches[i], i)["loss"]) for i in range(3)]
+    launches = _counts()
+    print(f"[models] v18 spynet amp losses from the seeded init: {amp_losses}; "
+          f"launches {launches}")
+    if not all(math.isfinite(v) for v in amp_losses):
+        fail(f"models v18 spynet: amp steps gave non-finite losses {amp_losses}")
+    if launches != _train_expect(3):
+        fail(f"models v18 spynet: amp launch counts {launches} != {_train_expect(3)}")
+    for k in total:
+        total[k] += got[k] + launches[k]
+    lap("spynet trunk")
+
+    # BASELINE config 1 on 6 frames of the 720p clip: B 1, F 5 a call
+    lr_np, hr_np, _ = dg.gate_clip(np.random.default_rng(16), 50.0, GATE_LR_HW, 6)
+    for net in ("spynet", "fnet"):
+        _zero_counts()
+        got = flow_warp_propagation_eval(lr_np, hr_np, flow_net=net, device="cuda",
+                                         generator=torch.Generator().manual_seed(60))
+        launches = _counts()
+        if launches != _expect(flow_warp=1, ssim=5):
+            fail(f"flow_warp_eval {net}: launch counts {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        with plain_kernels():
+            want = flow_warp_propagation_eval(lr_np, hr_np, flow_net=net, device="cuda",
+                                              params=got["params"])
+        dp = max(abs(a - b) for a, b in zip(got["psnr"], want["psnr"]))
+        ds = max(abs(a - b) for a, b in zip(got["ssim"], want["ssim"]))
+        print(f"[models] flow_warp_eval {net}: PSNR {got['psnr']} SSIM {got['ssim']}; "
+              f"kernels vs plain max|dPSNR| {dp:.3e} dB, max|dSSIM| {ds:.3e}; "
+              f"launches {launches}")
+        if not (dp <= 1e-3 and ds <= 1e-5 and len(got["psnr"]) == 5):
+            fail(f"flow_warp_eval {net}: kernels vs plain dPSNR {dp}, dSSIM {ds}")
+    lap("flow-warp eval")
+
+    # the gen-1 pyramids at mid 64, dg 16: X8 A 4, B 4, C 1 a steady frame,
+    # X4 A 4, B 3, C 1; the cold frame C 1
+    steady = PYR_FRAMES - 1
+    frames = {}
+    for kind, cra, window in (("X8", False, None), ("X8", False, 8), ("X8", True, None),
+                              ("X4", False, None), ("X4", True, None)):
+        model = _pyramid(kind, cra, window)
+        args = _pyramid_inputs(kind, cra, PYR_FRAMES)
+        b_per = 4 if kind == "X8" else 3
+        s = 8 if kind == "X8" else 4
+
+        def run(model=model, args=args):
+            out = model(*args)  # forward runs under no_grad itself
+            torch.cuda.synchronize()
+            return list(out.float().unbind(1))
+
+        frames[kind, cra, window] = _models_vs_plain(
+            f"{kind}{' CRA' if cra else ''} dcn_window={window} f32", run,
+            _expect(dcn_fwd=4 * steady, flow_warp=b_per * steady, emit=PYR_FRAMES), total,
+            (1, GATE_LR_HW[0] * s, GATE_LR_HW[1] * s, 3))
+        del model
+    clamp_d = float((frames["X8", False, 8][-1] - frames["X8", False, None][-1]).abs().max())
+    print(f"[models] X8 dcn_window=8 against None, last frame: max|d| {clamp_d:.3e}")
+    if not clamp_d > 1e-4:
+        fail("X8 dcn_window=8 gave the unclamped frames: the window clamped nothing")
+    # the models run under no_grad; a DCN at their width that autograd
+    # records raises (kernel D does not take O = 64)
+    xg = torch.randn(1, PYR_MID, 16, 16, device="cuda", requires_grad=True)
+    try:
+        dcn.deform_conv2d_windowed(xg, torch.zeros(1, 18 * 16, 16, 16, device="cuda"),
+                                   torch.ones(1, 9 * 16, 16, 16, device="cuda"),
+                                   torch.zeros(PYR_MID, PYR_MID, 3, 3, device="cuda"))
+        fail("a recorded O = 64 DCN did not raise")
+    except ValueError as e:
+        if "dcn_bwd" not in str(e):
+            raise
+        print(f"[models] a recorded O = 64 DCN raises: {e}")
+    lap("pyramids")
+
+    # PCD at nf 64, 8 groups: A 4 a call
+    pcd = _perturb_dcn(PCDAlign(64, 8, device="cuda", seed=70), 71)
+    gen = torch.Generator().manual_seed(72)
+    feats = [torch.randn(1, 64, 180, 320, generator=gen).cuda() for _ in range(3)]
+    flow = _smooth(gen, 2, (180, 320), 3.0)
+
+    def run_pcd():
+        out = pcd(*feats, flow)  # forward runs under no_grad itself
+        torch.cuda.synchronize()
+        return [out]
+
+    _models_vs_plain("PCD nf 64 groups 8 (1,64,180,320) f32", run_pcd, _expect(dcn_fwd=4),
+                     total, (1, 64, 180, 320))
+    lap("PCD")
+
+    # ms per steady bf16 frame, CUDA events, every model in order and reversed
+    ms = {}
+    lrs, fvs = _runtime_clip(3 + TIMED_FRAMES, bf16)
+    runtime = [(k, _runtime_model(k, bf16)) for k in ("v18", "v13", "v15", "v18 nofv")]
+    for tag, model in runtime + runtime[::-1]:
+        clip_fv = fvs if tag != "v18 nofv" else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.inference_mode():
+            for i in range(3 + TIMED_FRAMES):  # a cold frame, 2 warm, then timed
+                if i == 3:
+                    start.record()
+                x_lr, x_hr = model.encode(lrs[i], None if clip_fv is None else clip_fv[i])
+                if i == 0:
+                    state, _ = model.step0(lrs[i], x_lr, x_hr)
+                else:
+                    state, _ = model.step(state, lrs[i], lrs[i - 1], x_lr, x_hr)
+            end.record()
+        torch.cuda.synchronize()
+        ms.setdefault(f"runtime {tag} 1080p", []).append(
+            start.elapsed_time(end) / TIMED_FRAMES)
+    del runtime
+    pyramids = [(f"{k}{' CRA' if c else ''}", k, c, _pyramid(k, c, dtype=bf16))
+                for k, c in (("X8", False), ("X8", True), ("X4", False), ("X4", True))]
+    for tag, kind, cra, model in pyramids + pyramids[::-1]:
+        spans = []
+        for frames in PYR_TIMED:
+            args = _pyramid_inputs(kind, cra, frames, bf16)
+            with torch.inference_mode():
+                model(*args)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                model(*args)
+                end.record()
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
+        ms.setdefault(f"pyramid {tag} 720p-LR", []).append(
+            (spans[1] - spans[0]) / (PYR_TIMED[1] - PYR_TIMED[0]))
+    lap("timing")
+    print(f"[models] ms per steady bf16 frame (runtime: 1080p, warp 720^2, mid 32, "
+          f"windows 8/32, {TIMED_FRAMES} frames after 3; pyramids: LR {GATE_LR_HW}, mid "
+          f"{PYR_MID}, dcn_window None, clip of {PYR_TIMED[1]} frames less clip of "
+          f"{PYR_TIMED[0]}, over the difference), CUDA events, in order, reversed: "
+          f"{json.dumps(ms)}")
+    print(f"[models] launches over the phase's kernel runs: {total}")
+    return total
+
 
 
 def phase_bench():
@@ -1556,6 +2003,7 @@ def main(argv=None) -> int:
     serve_launches = timed("3 slice", phase_slice)
     timed("3b mid16", phase_mid16)
     variant_launches = timed("3c variants", phase_variants)
+    model_launches = timed("3d models", phase_models)
     timed("4 bench", phase_bench)
     modes += timed("5 train kernels", phase_kernels_train, gen)
     timed("6 train", phase_train)
@@ -1619,8 +2067,10 @@ def main(argv=None) -> int:
             "launches": path_launches[per][name],
             **({"launches_train": train_launches[name]} if serving else {}),
             "launches_gate": gate_launches[name],
-            # over the trunk variants' kernel runs (phase 3c)
+            # over the trunk variants' kernel runs (phase 3c) and over the
+            # other models' (phase 3d)
             "launches_variants": variant_launches[name],
+            "launches_models": model_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);

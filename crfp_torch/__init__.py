@@ -13,7 +13,13 @@ passes ``device="cpu"``. Three paths are ported: the v18 streaming runtime
 ``crfp_torch.train``) and evaluation (``StreamingRunner``, ``eval/``, the
 deployment quality gate). The batch trunk takes every variant of the JAX
 trunk (v13, v15, v18, v18_cra, no_dcn, basic_fvsr; ``hr_dcn``,
-``y_only``). The kernels live in ``crfp_torch/csrc`` and are built with
+``y_only``) and either flow net (FNet, SPyNet). The other models of the
+JAX package run too, inference only: the runtime variants
+(``CRFPRuntimeSimple`` for v13/v15, ``CRFPRuntimeV18(nofv=True)``), the
+first-generation pyramids (``CRFPPyramidX8``, ``CRFPPyramidX4``, plain or
+CRA) with their ``PyramidLevelAlign``, ``nn.pcd.PCDAlign`` and the
+flow-warp evaluation (``eval.flow_warp_eval``). The kernels live in
+``crfp_torch/csrc`` and are built with
 ``nvcc`` at first use (``crfp_torch.ops.cuda``); the DCN and warp
 dispatchers are autograd Functions whose backward is a kernel too. On CPU
 tensors every op runs its plain PyTorch version.
@@ -21,6 +27,8 @@ tensors every op runs its plain PyTorch version.
 
 from crfp_torch.models.config import ModelConfig
 from crfp_torch.models.crfp import CRFP
-from crfp_torch.models.runtime import CRFPRuntimeV18
+from crfp_torch.models.pyramid import CRFPPyramidX4, CRFPPyramidX8
+from crfp_torch.models.runtime import CRFPRuntimeSimple, CRFPRuntimeV18
 
-__all__ = ["ModelConfig", "CRFP", "CRFPRuntimeV18"]
+__all__ = ["ModelConfig", "CRFP", "CRFPRuntimeV18", "CRFPRuntimeSimple", "CRFPPyramidX8",
+           "CRFPPyramidX4"]

@@ -74,14 +74,14 @@ def device_batches(n: int, seed: int) -> list[dict[str, torch.Tensor]]:
 
 
 def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
-                  variant: str = "v18", **tcfg):
-    """(model, optimizer, train_step) of the recipe's CRFP of ``variant`` on
-    the card (``hr_dcn`` as train_procedural sets it); weights from
-    ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides fields of
-    TrainConfig (the flow net is not frozen by default)."""
+                  variant: str = "v18", flow_net: str = "fnet", **tcfg):
+    """(model, optimizer, train_step) of the recipe's CRFP of ``variant`` and
+    ``flow_net`` on the card (``hr_dcn`` as train_procedural sets it);
+    weights from ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides
+    fields of TrainConfig (the flow net is not frozen by default)."""
     cfg = ModelConfig(variant=variant, hr_dcn=variant_hr_dcn(variant),
                       mid_channels=RECIPE["mid"], dcn_window=RECIPE["dcn_window"],
-                      dcn_window_hr=RECIPE["dcn_window_hr"], remat=True)
+                      dcn_window_hr=RECIPE["dcn_window_hr"], remat=True, flow_net=flow_net)
     model = CRFP(cfg, device="cuda", seed=seed)
     if ckpt is not None:
         model.load_state_dict(from_jax(load_npz(ckpt)), strict=True)

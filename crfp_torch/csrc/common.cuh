@@ -66,6 +66,8 @@ __device__ __forceinline__ float clamp_pass(float v, float D) {
 //        the groups with the pixel's O sums in registers, f32 FMAs on the
 //        CUDA cores; a shared mask scales each group's sum once
 //        (crfp_tpu/ops/pallas/dcn.py:196-200).
+//      - dcn_tiles_wide (O = 64, per-tap, f32 and bf16 x): the same on the
+//        CUDA cores with the group's channels walked in 16-byte chunks.
 // The corners come from the packed planes through L1. Staging each group's
 // window of x in shared memory (cp.async, double-buffered) was built and
 // measured slower at every shape of the main paths (PERF.md).
@@ -277,14 +279,23 @@ __device__ __forceinline__ void allow_dependent_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
 }
 
+// Channels of one packed load: the group's CPG channels in at most 16 bytes
+// (CPG 2 and 4 fit whole; at 8, 16 and 64 channels a pixel is read and
+// written in 16-byte chunks).
+template <typename T, int CPG>
+__host__ __device__ constexpr int chunk_of() {
+  return CPG * (int)sizeof(T) <= 16 ? CPG : 16 / (int)sizeof(T);
+}
+
 // The pre-pass of every call: x (N, C, H, W) -> xp [N][G][padded(H, pad)]
 // [padded(W, pad)][CPG], zeros in the border, so that a corner of a sample
-// is one load of the group's CPG channels.
+// is one load of the group's CPG channels (a chunk of them at CPG > 4).
 // Blocks of 32 x 8 threads over (column, row) of the padded plane;
 // blockIdx.z: image x group.
 template <typename T, int CPG>
 __device__ __forceinline__ void pack_x(const T* __restrict__ x, T* __restrict__ xp, int H,
                                        int W, int pad) {
+  constexpr int CH = chunk_of<T, CPG>();
   allow_dependent_launch();
   const int Hp = padded(H, pad), Wp = padded(W, pad);
   const int xq = blockIdx.x * blockDim.x + threadIdx.x;
@@ -292,16 +303,21 @@ __device__ __forceinline__ void pack_x(const T* __restrict__ x, T* __restrict__ 
   if (xq >= Wp || yq >= Hp) return;
   const long long ng = blockIdx.z, HW = (long long)H * W;
   const int y = yq - pad, xx = xq - pad;
-  Pix<T, CPG> v;
-  if (y >= 0 && y < H && xx >= 0 && xx < W) {
-    const T* src = x + ng * CPG * HW + (long long)y * W + xx;
+  const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
+  const T* src = x + ng * CPG * HW + (long long)(inside ? y : 0) * W + (inside ? xx : 0);
+  Pix<T, CH>* dst = reinterpret_cast<Pix<T, CH>*>(xp) + ((ng * Hp + yq) * Wp + xq) * (CPG / CH);
 #pragma unroll
-    for (int c = 0; c < CPG; ++c) v.v[c] = __ldg(src + c * HW);
-  } else {
+  for (int j = 0; j < CPG / CH; ++j) {
+    Pix<T, CH> v;
+    if (inside) {
 #pragma unroll
-    for (int c = 0; c < CPG; ++c) v.v[c] = store_f<T>(0.f);
+      for (int c = 0; c < CH; ++c) v.v[c] = __ldg(src + (j * CH + c) * HW);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) v.v[c] = store_f<T>(0.f);
+    }
+    dst[j] = v;
   }
-  reinterpret_cast<Pix<T, CPG>*>(xp)[(ng * Hp + yq) * Wp + xq] = v;
 }
 
 // D += A x B, m16n8k16, bf16 in, f32 accumulate
@@ -422,6 +438,124 @@ __device__ __forceinline__ void dcn_tiles(const TileArgs<T>& a, const Prologue& 
       }
 #pragma unroll
       for (int o = 0; o < O; ++o) acc[o] = fmaf(t.gm, gacc[o], acc[o]);
+    }
+    T* op = a.out + (long long)n * O * HW + p;
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+      const float b = a.bias != nullptr ? __ldg(a.bias + o) : 0.f;
+      op[o * HW] = store_f<T>(acc[o] + b);
+    }
+  }
+}
+
+// The CUDA-core path at O = 64 (kWideO: the pyramids' and PCD's per-tap
+// DCNs, 4, 8, 16 or 64 channels a group; kernel A's prologue only): a
+// thread per pixel keeps the pixel's 64 sums in registers, reads each tap's
+// (dy, dx, m) and forms its bilinear geometry once, and walks the group's
+// channels in chunks of 16 bytes (4 f32 or 8 bf16 channels, chunk_of): a
+// chunk's four corners are blended, scaled by the tap's mask and
+// contracted into the 64 sums (the weight row read from shared memory as
+// float4, the same address in every lane) while the next chunk's corners
+// load. dcn_tiles' float v[CPG] per tap and its per-group sums would hold
+// 128 + CPG live floats a thread here. Where a group is more than one chunk
+// the taps are a loop, not unrolled, so that the body stays in the
+// instruction cache; at one chunk (4 channels) the 9 taps are unrolled, so
+// that their loads overlap. The weight, f32
+// [g][k][ci][o] as dcn_tiles stages it, is C x 9 x 64 x 4 bytes (147,456 at
+// C = 64): one block of 256 threads an SM.
+constexpr int kWideO = 64;
+
+template <int CPG, int SRC, typename T>
+__device__ __forceinline__ void dcn_tiles_wide(const TileArgs<T>& a, const ProA& pro) {
+  constexpr int O = kWideO, CH = chunk_of<T, CPG>(), NCH = CPG / CH;
+  constexpr bool kChk = SRC == kChecked;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int C = a.C, G = a.G, H = a.H, W = a.W;
+  const long long HW = (long long)H * W;
+  const int pad = a.pad, Hp = padded(H, pad), Wp = padded(W, pad);
+  const long long HWp = (long long)Hp * Wp;  // a packed plane, in pixels
+
+  float* wf = reinterpret_cast<float*>(smem);
+  for (int o = warp; o < O; o += nwarps) {
+    for (int c = lane; c < C; c += 32) {
+      const int g = c / CPG, ci = c % CPG;
+      const float* src = a.weight + ((long long)o * C + c) * kTaps;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k)
+        wf[((g * kTaps + k) * CPG + ci) * O + o] = __ldg(src + k);
+    }
+  }
+  __syncthreads();
+
+  const Pix<T, CH>* xp = reinterpret_cast<const Pix<T, CH>*>(a.xp);
+  const int qy = tid / a.tile_w, qx = tid - qy * a.tile_w;
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r = tile / a.tiles_x;
+    const int n = r / a.tiles_y, py = (r % a.tiles_y) * a.tile_h + qy;
+    const int px = tx * a.tile_w + qx;
+    if (py >= H || px >= W) continue;
+    const long long p = (long long)py * W + px;
+    float acc[O];
+#pragma unroll
+    for (int o = 0; o < O; ++o) acc[o] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const long long ng = (long long)n * G + g;
+      const float* off = pro.off + ng * kTaps * 2 * HW + p;
+      const float* mk = pro.mask + ng * kTaps * HW + p;
+      wait_for_packed_x();
+      const Pix<T, CH>* src = xp + ng * HWp * NCH;
+#pragma unroll(NCH == 1 ? kTaps : 1)
+      for (int k = 0; k < kTaps; ++k) {
+        const float dy = clamp_window(__ldg(off + (2 * k) * HW), a.D);
+        const float dx = clamp_window(__ldg(off + (2 * k + 1) * HW), a.D);
+        const float m = __ldg(mk + k * HW);
+        const Bilinear b = bilinear((float)(py + k / 3 - 1) + dy, (float)(px + k % 3 - 1) + dx);
+        // the corners' chunk indices in the packed plane and their weights
+        // (a checked corner outside the frame: weight 0, pixel 0 read)
+        long long q[4];
+        float wq[4] = {b.w00, b.w01, b.w10, b.w11};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int y = b.y0 + i / 2, x = b.x0 + i % 2;
+          if constexpr (kChk) {
+            const bool in = y >= 0 && y < H && x >= 0 && x < W;
+            q[i] = in ? ((long long)y * W + x) * NCH : 0;
+            wq[i] = in ? wq[i] : 0.f;
+          } else {
+            q[i] = ((long long)(y + pad) * Wp + (x + pad)) * NCH;
+          }
+        }
+        const float* wk = wf + (g * kTaps + k) * CPG * O;
+        Pix<T, CH> c[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[i] = src[q[i]];
+#pragma unroll 1
+        for (int j = 0; j < NCH; ++j) {
+          const Pix<T, CH> p00 = c[0], p01 = c[1], p10 = c[2], p11 = c[3];
+          if (j + 1 < NCH) {  // the next chunk loads while this one is contracted
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c[i] = src[q[i] + j + 1];
+          }
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc) {
+            const float v = fmaf(wq[3], to_f(p11.v[cc]),
+                                 fmaf(wq[2], to_f(p10.v[cc]),
+                                      fmaf(wq[1], to_f(p01.v[cc]), wq[0] * to_f(p00.v[cc]))));
+            const float vm = v * m;
+            const float4* w4 = reinterpret_cast<const float4*>(wk + (j * CH + cc) * O);
+#pragma unroll
+            for (int o4 = 0; o4 < O / 4; ++o4) {
+              const float4 w = w4[o4];
+              acc[4 * o4] = fmaf(vm, w.x, acc[4 * o4]);
+              acc[4 * o4 + 1] = fmaf(vm, w.y, acc[4 * o4 + 1]);
+              acc[4 * o4 + 2] = fmaf(vm, w.z, acc[4 * o4 + 2]);
+              acc[4 * o4 + 3] = fmaf(vm, w.w, acc[4 * o4 + 3]);
+            }
+          }
+        }
+      }
     }
     T* op = a.out + (long long)n * O * HW + p;
 #pragma unroll

@@ -34,7 +34,10 @@
 // bytes again. Offsets, masks and outputs are read and written once,
 // coalesced (neighbouring lanes on neighbouring pixels of a tile row); the
 // pre-pass adds one read and one write of x (+20-25 % with the border),
-// ~2 MB a per-tap call.
+// ~2 MB a per-tap call. At O = 64 the contraction bounds it: 2 * 9 * 64 * 64
+// = 73,728 FLOP a pixel, 68 GFLOP for the X8 pyramid's lv3 (1, 64, 720,
+// 1280), ~1 ms at the f32 CUDA-core rate, against 0.26 GB (~0.08 ms) of
+// f32 operands.
 #include "common.cuh"
 
 namespace {
@@ -44,6 +47,8 @@ __global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, O))
 dcn_fwd_kernel(crfp::TileArgs<T> a, crfp::ProA pro) {
   if constexpr (MMA)
     crfp::dcn_tiles_mma<CPG, SRC>(a, pro);
+  else if constexpr (O == crfp::kWideO)
+    crfp::dcn_tiles_wide<CPG, SRC>(a, pro);
   else
     crfp::dcn_tiles<O, CPG, SRC, SHARED_TAPS>(a, pro);
 }
@@ -67,7 +72,7 @@ cudaError_t launch(crfp::TileArgs<T> a, const crfp::ProA& pro, int smem,
              : dcn_fwd_kernel<T, O, CPG, MMA, crfp::kChecked>;
   // bf16 x, clamped, under shared taps: the 9 taps' 4 x 4 patch
   // (common.cuh::dcn_tiles); its checked form spills and is slower
-  if constexpr (!MMA && std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!MMA && O != crfp::kWideO && std::is_same<T, __nv_bfloat16>::value) {
     if (pro.shared_taps && padded) fn = dcn_fwd_kernel<T, O, CPG, false, crfp::kPadded, true>;
   }
   return crfp::launch_tiles(dcn_fwd_kernel_pack_x<T, CPG>, fn, a, pro, threads, smem, tiles,
@@ -86,8 +91,16 @@ cudaError_t dispatch_cpg(int cpg, bool mma, const crfp::TileArgs<T>& a,
   } else {
     if (mma) return cudaErrorInvalidValue;
   }
-  if (cpg == 2) return launch<T, O, 2, false>(a, pro, smem, s);
-  if (cpg == 4) return launch<T, O, 4, false>(a, pro, smem, s);
+  if constexpr (O == crfp::kWideO) {
+    // the pyramids' groups (16, 4, 1 at mid 64) and PCD's (8 at nf 64)
+    if (cpg == 4) return launch<T, O, 4, false>(a, pro, smem, s);
+    if (cpg == 8) return launch<T, O, 8, false>(a, pro, smem, s);
+    if (cpg == 16) return launch<T, O, 16, false>(a, pro, smem, s);
+    if (cpg == 64) return launch<T, O, 64, false>(a, pro, smem, s);
+  } else {
+    if (cpg == 2) return launch<T, O, 2, false>(a, pro, smem, s);
+    if (cpg == 4) return launch<T, O, 4, false>(a, pro, smem, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -103,6 +116,8 @@ cudaError_t dispatch(int O, int cpg, bool mma, const crfp::TileArgs<T>& a,
       return dispatch_cpg<T, 16>(cpg, mma, a, pro, smem, s);
     case 32:  // dcn_0/1/2 at mid 32
       return dispatch_cpg<T, 32>(cpg, mma, a, pro, smem, s);
+    case crfp::kWideO:  // the pyramids' levels at mid 64, PCD at nf 64
+      return dispatch_cpg<T, crfp::kWideO>(cpg, mma, a, pro, smem, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -116,8 +131,8 @@ CRFP_EXPORT_ERROR_STRING
 // mask (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; bias (O,) f32 or
 // NULL; out (N, O, H, W) in x's type; x_packed: scratch of N*C*padded(H)
 // *padded(W) elements of x's type (the pre-pass writes x there per group,
-// pixel-major, zero-padded). All contiguous. O in {2, 4, 16, 32}, C/G in
-// {2, 4}. The tile plan (tile_h, tile_w, pad, smem_bytes) is
+// pixel-major, zero-padded). All contiguous. O in {2, 4, 16, 32} with C/G
+// in {2, 4}, or O = 64 with C/G in {4, 8, 16, 64}, per-tap. The tile plan (tile_h, tile_w, pad, smem_bytes) is
 // ops/cuda/dcn.py::tile_plan's; the tensor cores take bf16 x at O = 32
 // without shared_mask. No synchronisation, no allocation.
 extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
@@ -129,6 +144,7 @@ extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
                             int tile_h, int tile_w, int pad, int smem_bytes,
                             void* stream) {
   if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
+  if (O == crfp::kWideO && (shared_taps || shared_mask)) return (int)cudaErrorInvalidValue;
   const crfp::ProA pro{static_cast<const float*>(offset),
                        static_cast<const float*>(mask), shared_taps, shared_mask};
   const bool mma = x_bf16 && O == crfp::kMmaO && !shared_mask;

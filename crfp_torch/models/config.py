@@ -36,7 +36,7 @@ class ModelConfig:
     dcn_window: int | None = None
     # the same for the HR-level dcn_3 and the HR state warp
     dcn_window_hr: int | None = None
-    # the batch trunk's flow net; only 'fnet' is ported ('spynet' raises)
+    # the batch trunk's flow net, 'fnet' or 'spynet' (crfp_tpu/models/crfp.py:78)
     flow_net: str = "fnet"
     # recompute each recurrent step of the batch trunk in the backward pass
     # (torch.utils.checkpoint, non-reentrant) instead of keeping its
@@ -62,10 +62,8 @@ class ModelConfig:
         if self.dcn_fused and self.dcn_window is None:
             raise ValueError("dcn_fused is a windowed-kernel dispatch mode: "
                              "set dcn_window")
-        if self.flow_net == "spynet":
-            raise NotImplementedError("flow_net='spynet' is not ported yet; use 'fnet'")
-        if self.flow_net != "fnet":
-            raise ValueError(f"flow_net={self.flow_net!r} (expected 'fnet')")
+        if self.flow_net not in ("fnet", "spynet"):
+            raise ValueError(f"flow_net={self.flow_net!r} (expected 'fnet' or 'spynet')")
 
     @property
     def is_dsv(self) -> bool:

@@ -51,7 +51,7 @@ from torch import nn
 
 from crfp_torch.models.config import ModelConfig
 from crfp_torch.nn.align import DCNAlign, PlainAlign
-from crfp_torch.nn.flow import FNet
+from crfp_torch.nn.flow import FNet, SPyNet
 from crfp_torch.nn.layers import (
     Conv,
     PixelShufflePack,
@@ -87,7 +87,8 @@ class CRFP(nn.Module):
         v = cfg.variant
         m, last = cfg.mid_channels, cfg.last_channels
         dg, dk, mag = cfg.deform_groups, cfg.dcn_kernel, cfg.max_residue_magnitude
-        self.spynet = FNet(3)
+        # the flow net reads the RGB LR frames, with y_only too (:191)
+        self.spynet = FNet(3) if cfg.flow_net == "fnet" else SPyNet()
         if v == "no_dcn":
             self.dcn_0, self.dcn_1, self.dcn_2, self.dcn_3 = (PlainAlign(m) for _ in range(4))
         else:

@@ -1,4 +1,9 @@
-"""Latency-oriented v18 streaming model (crfp_tpu/models/runtime.py:47-278).
+"""Latency-oriented streaming models (crfp_tpu/models/runtime.py).
+
+``CRFPRuntimeV18`` (:47-278), with ``nofv`` (:85, the reference's
+MRCF_simple_v18_nofv: no fovea branch, so no ``encoder_hr`` and no
+``conv_tttf`` in its tree), and ``CRFPRuntimeSimple`` (:281-445), the
+v13/v15 counterpart, whose only state is the HR feature at the ROI.
 
 The reference benchmark model MRCF_simple_v18: flow is estimated only on
 the warp_size/8 crop of the LR frame, the alignment cascade runs on ROI
@@ -11,8 +16,8 @@ This is the JAX model's ``hr_s2d=False`` branch: the port computes the
 logical math in plain NCHW layout (the JAX package's space-to-depth forms
 are bit-equivalent TPU layouts, tests/test_models.py). Three kernels run
 per frame: kernel A for the four DCNs (dcn_0/1/2 per-tap, dcn_3
-shared-tap), kernel B for the HR and lv state warps, kernel C for the
-output frame (crfp_torch/ops/cuda).
+shared-tap), kernel B for the HR and lv state warps (the HR warp only in
+``CRFPRuntimeSimple``), kernel C for the output frame (crfp_torch/ops/cuda).
 
 Public entry points (``encode``, ``step0``, ``step``) take and return NHWC
 tensors like the JAX model — frames, encoder features and the state
@@ -51,6 +56,10 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
+def _nchw_or_none(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else _nchw(t)
+
+
 class ResidualBlocksWithInputConvV2(nn.Module):
     """Two input convs: the ROI result of ``conv1`` is patched into the
     top-left corner of ``conv2``'s full-frame result before the residual
@@ -83,23 +92,17 @@ class ResidualBlocksWithInputConvV2(nn.Module):
         return x
 
 
-class CRFPRuntimeV18(nn.Module):
-    """Streaming step API: ``encode``, then ``step0`` on the first frame and
-    ``step`` on every later one.
+class _Runtime(nn.Module):
+    """What the runtime models share: the NHWC entry points, the encoders,
+    the flow on the warp_size/8 crop and the frame's finish (kernel C)."""
 
-    ``device``: where the model lives (default ``cuda``; tests pass
-    ``cpu``). ``seed``: seeds the ``torch.Generator`` that initialises the
-    parameters (the JAX package's init distributions)."""
-
-    def __init__(self, cfg: ModelConfig, warp_size: tuple[int, int] = (720, 720),
-                 *, device: str | torch.device = "cuda", seed: int = 0):
-        super().__init__()
-        if cfg.variant != "v18":
-            raise ValueError(f"CRFPRuntimeV18 needs variant 'v18', got {cfg.variant!r}")
-        self.cfg = cfg
+    def _build_front(self, cfg: ModelConfig, warp_size, nofv: bool) -> None:
+        """The flow net, the four DCNs, the encoders and the head convs, in
+        the registration order that seeds the parameters (as before the
+        split into two models); ``nofv`` leaves out the fovea branch."""
+        self.cfg, self.nofv = cfg, nofv
         self.warp_size = tuple(warp_size)
-        m, last, keep = cfg.mid_channels, cfg.last_channels, cfg.keep_channels
-        st = cfg.state_channels
+        m, last = cfg.mid_channels, cfg.last_channels
         dg, dk, mag = cfg.deform_groups, cfg.dcn_kernel, cfg.max_residue_magnitude
         img = 1 if cfg.y_only else 3  # channels of the LR, fovea and output frames
         self.spynet = FNet(img)
@@ -107,13 +110,85 @@ class CRFPRuntimeV18(nn.Module):
         self.dcn_0 = DCNAlign(m, dg, dk, mag, **lv)
         self.dcn_1 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
         self.dcn_2 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop, **lv)
-        self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
-                              pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
-                              window=cfg.dcn_window_hr, pre_offset_channels=m)
+        # the HR level: shared taps on the ROI at dcn_window_hr
+        self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True, pre_offset=cfg.offset_prop,
+                              interpolate="pixelshuffle", window=cfg.dcn_window_hr,
+                              pre_offset_channels=m)
         self.encoder_lr = LTESimpleLR(m, img)
-        self.encoder_hr = LTESimpleHRSingle(last, 2 * img)
-        self.conv_tttf = Conv(2 * last, last)
+        if not nofv:
+            self.encoder_hr = LTESimpleHRSingle(last, 2 * img)
+            self.conv_tttf = Conv(2 * last, last)
         self.conv_last = Conv(last, img)
+
+    # ---- public NHWC entry points -------------------------------------
+
+    def encode(self, lr: torch.Tensor, fv: torch.Tensor | None):
+        """lr (N, h, w, c), fv (N, fh, fw, c) -> (x_lr, x_hr), NHWC; c is 3,
+        or 1 with ``cfg.y_only``. x_hr is None without a fovea branch."""
+        x_lr, x_hr = self._encode(_nchw(lr), _nchw_or_none(fv))
+        return _nhwc(x_lr), None if x_hr is None else _nhwc(x_hr)
+
+    def step0(self, lr, x_lr, x_hr):
+        """Cold start. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
+        state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw_or_none(x_hr))
+        return self._state_nhwc(state), out
+
+    def step(self, state, lr, pre_lr, x_lr, x_hr):
+        """Steady state. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
+        state = {k: tuple(_nchw(f) for f in v) if k == "lv" else _nchw(v)
+                 for k, v in state.items()}
+        state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
+                                _nchw_or_none(x_hr))
+        return self._state_nhwc(state), out
+
+    @staticmethod
+    def _state_nhwc(state):
+        return {k: tuple(_nhwc(f) for f in v) if k == "lv" else _nhwc(v)
+                for k, v in state.items()}
+
+    # ---- NCHW internals -----------------------------------------------
+
+    def _encode(self, lr, fv):
+        if self.nofv:
+            return self.encoder_lr(lr), None
+        return self.encoder_lr(lr), self.encoder_hr(torch.cat([fv, fv], dim=1))
+
+    def _compute_flow(self, lr_cur, lr_prev):
+        wph, wpw = self.warp_size
+        return self.spynet(lr_cur[:, :, : wph // 8, : wpw // 8],
+                           lr_prev[:, :, : wph // 8, : wpw // 8])
+
+    def _finish(self, lv3, x_hr, lr):
+        """Blend the fovea into the top-left corner (unless x_hr is None),
+        reconstruct, and emit the NHWC frame ``conv_last(lv3) +
+        upsample(lr, scale)`` (kernel C). Returns (lv3 NCHW, frame NHWC)."""
+        if x_hr is not None:
+            fh, fw = x_hr.shape[-2:]
+            blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
+            lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
+        lv3 = lrelu(lv3)
+        return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)
+
+
+class CRFPRuntimeV18(_Runtime):
+    """Streaming step API: ``encode``, then ``step0`` on the first frame and
+    ``step`` on every later one.
+
+    ``nofv``: drop the HR/fovea branch (``encode`` returns x_hr None and
+    the frame has no fovea blend; ``fv`` may be None). ``device``: where
+    the model lives (default ``cuda``; tests pass ``cpu``). ``seed``:
+    seeds the ``torch.Generator`` that initialises the parameters (the JAX
+    package's init distributions)."""
+
+    def __init__(self, cfg: ModelConfig, warp_size: tuple[int, int] = (720, 720),
+                 *, nofv: bool = False, device: str | torch.device = "cuda",
+                 seed: int = 0):
+        super().__init__()
+        if cfg.variant != "v18":
+            raise ValueError(f"CRFPRuntimeV18 needs variant 'v18', got {cfg.variant!r}")
+        self._build_front(cfg, warp_size, nofv)
+        m, last, keep = cfg.mid_channels, cfg.last_channels, cfg.keep_channels
+        st = cfg.state_channels
         # cold-start resblocks (plain) and steady-state stitching resblocks
         self.forward_resblocks_0_ = ResidualBlocksWithInputConv(keep, m)
         self.forward_resblocks_1_ = ResidualBlocksWithInputConv(keep, m)
@@ -131,40 +206,6 @@ class CRFPRuntimeV18(nn.Module):
         assert m == keep + st
         init_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
-
-    # ---- public NHWC entry points -------------------------------------
-
-    def encode(self, lr: torch.Tensor, fv: torch.Tensor):
-        """lr (N, h, w, c), fv (N, fh, fw, c) -> (x_lr, x_hr), NHWC; c is 3,
-        or 1 with ``cfg.y_only``."""
-        x_lr, x_hr = self._encode(_nchw(lr), _nchw(fv))
-        return _nhwc(x_lr), _nhwc(x_hr)
-
-    def step0(self, lr, x_lr, x_hr):
-        """Cold start. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
-        state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw(x_hr))
-        return self._state_nhwc(state), out
-
-    def step(self, state, lr, pre_lr, x_lr, x_hr):
-        """Steady state. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
-        state = {"hr": _nchw(state["hr"]), "lv": tuple(_nchw(f) for f in state["lv"])}
-        state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
-                                _nchw(x_hr))
-        return self._state_nhwc(state), out
-
-    @staticmethod
-    def _state_nhwc(state):
-        return {"hr": _nhwc(state["hr"]), "lv": tuple(_nhwc(f) for f in state["lv"])}
-
-    # ---- NCHW internals -----------------------------------------------
-
-    def _encode(self, lr, fv):
-        return self.encoder_lr(lr), self.encoder_hr(torch.cat([fv, fv], dim=1))
-
-    def _compute_flow(self, lr_cur, lr_prev):
-        wph, wpw = self.warp_size
-        return self.spynet(lr_cur[:, :, : wph // 8, : wpw // 8],
-                           lr_prev[:, :, : wph // 8, : wpw // 8])
 
     def _step0(self, lr, x_lr, x_hr):
         sr = self.cfg.split_ratio
@@ -220,12 +261,86 @@ class CRFPRuntimeV18(nn.Module):
         lv3, out = self._finish(lv3, x_hr, lr)
         return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
 
-    def _finish(self, lv3, x_hr, lr):
-        """Blend the fovea into the top-left corner, reconstruct, and emit
-        the NHWC frame ``conv_last(lv3) + upsample(lr, scale)`` (kernel C).
-        Returns (lv3 NCHW, frame NHWC)."""
-        fh, fw = x_hr.shape[-2:]
-        blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
-        lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
-        lv3 = lrelu(lv3)
-        return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)
+
+class CRFPRuntimeSimple(_Runtime):
+    """The runtime (warp_size ROI) counterpart of the v13/v15 trunks
+    (crfp_tpu/models/runtime.py:281-445): the only state is the HR feature
+    at the ROI. Every alignment level's DCN consumes the original upsampled
+    ROI ``roi_lv0`` (levels chain only through the offset feature), every
+    steady-state block stitches its ROI result into a full-frame conv of
+    the upsampled feature, and v15 adds the warped state as a third input.
+    Each block's full-frame ``conv2`` is sized by what it takes (the JAX
+    divergence note, :293-297). Per steady frame: kernel A 4 (dcn_0/1/2
+    per-tap at ``dcn_window``, dcn_3 shared-tap at ``dcn_window_hr``), B 1
+    (the HR state at ``dcn_window_hr``), C 1. Same entry points and
+    arguments as :class:`CRFPRuntimeV18`."""
+
+    def __init__(self, cfg: ModelConfig, warp_size: tuple[int, int] = (720, 720),
+                 *, device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        if cfg.variant not in ("v13", "v15"):
+            raise ValueError(f"CRFPRuntimeSimple needs variant 'v13' or 'v15', "
+                             f"got {cfg.variant!r}")
+        self._build_front(cfg, warp_size, nofv=False)
+        m, last = cfg.mid_channels, cfg.last_channels
+        self.forward_resblocks_0_ = ResidualBlocksWithInputConv(m, m)
+        self.forward_resblocks_1_ = ResidualBlocksWithInputConv(m, m)
+        self.forward_resblocks_2_ = ResidualBlocksWithInputConv(m, m)
+        self.forward_resblocks_3_ = ResidualBlocksWithInputConv(last, last)
+        reps = 3 if cfg.variant == "v15" else 2
+        self.forward_resblocks_0 = ResidualBlocksWithInputConvV2(reps * m, m, m)
+        self.forward_resblocks_1 = ResidualBlocksWithInputConvV2(reps * m, m, m)
+        self.forward_resblocks_2 = ResidualBlocksWithInputConvV2(reps * m, m, m)
+        self.forward_resblocks_3 = ResidualBlocksWithInputConvV2(reps * last, last, last)
+        self.downsample = PixelUnShufflePackV2(last, m, 4)
+        self.upsample = PixelShufflePack(m, m, 2)
+        self.upsample_post = PixelShufflePack(m, last, 4)
+        init_parameters(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def _roi(self, lv3):
+        wph, wpw = self.warp_size
+        return lv3[:, :, :wph, :wpw]
+
+    def _step0(self, lr, x_lr, x_hr):
+        x = self.upsample(x_lr)
+        x = self.forward_resblocks_0_(x)
+        x = self.forward_resblocks_1_(x)
+        x = self.forward_resblocks_2_(x)
+        lv3 = self.forward_resblocks_3_(lrelu(self.upsample_post(x)))
+        lv3, out = self._finish(lv3, x_hr, lr)
+        return {"hr": self._roi(lv3).contiguous()}, out
+
+    def _step(self, state, lr, pre_lr, x_lr, x_hr):
+        cfg = self.cfg
+        wph, wpw = self.warp_size
+        three_way = cfg.variant == "v15"
+        flow = self._compute_flow(lr, pre_lr)
+        feat_prop_lv0 = self.upsample(x_lr)  # mid @ 2h x 2w, full frame
+        flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
+        flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
+
+        hr_state = state["hr"]  # last @ ROI
+        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+        lv3_warped = self.downsample(hr_warped)
+        lv3_state = self.downsample(hr_state)
+
+        roi_lv0 = feat_prop_lv0[:, :, : wph // 4, : wpw // 4]
+        offset = None
+        x = roi_lv0
+        for dcn, rb in ((self.dcn_0, self.forward_resblocks_0),
+                        (self.dcn_1, self.forward_resblocks_1),
+                        (self.dcn_2, self.forward_resblocks_2)):
+            aligned, offset = dcn(roi_lv0, lv3_state, lv3_warped, flow_lv3,
+                                  offset if cfg.offset_prop else None)
+            parts = [roi_lv0, aligned] + ([lv3_warped] if three_way else [])
+            x = rb(torch.cat(parts, dim=1), feat_prop_lv0)
+
+        full_lv3 = lrelu(self.upsample_post(x))
+        roi_lv3 = self._roi(full_lv3)
+        aligned, _ = self.dcn_3(roi_lv3, hr_state, hr_warped, flow_lv0,
+                                offset if cfg.offset_prop else None)
+        parts3 = [roi_lv3, aligned] + ([hr_warped] if three_way else [])
+        lv3 = self.forward_resblocks_3(torch.cat(parts3, dim=1), full_lv3)
+        lv3, out = self._finish(lv3, x_hr, lr)
+        return {"hr": self._roi(lv3).contiguous()}, out

@@ -28,16 +28,17 @@ def lrelu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """k x k 'same' conv (stride 1) holding an ``nn.Conv2d`` named ``conv``.
+    """k x k conv padded by k // 2 on each side (stride 1: 'same'; PCD's
+    pyramid takes stride 2), holding an ``nn.Conv2d`` named ``conv``.
 
     ``init``: 'torch' (U(±1/sqrt(fan_in)) for weight and bias), 'kaiming'
     (normal, std sqrt(2/fan_in)*init_scale; torch's bias init) or 'zeros'."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 init: str = "torch", init_scale: float = 1.0):
+                 init: str = "torch", init_scale: float = 1.0, stride: int = 1):
         super().__init__()
         assert init in ("torch", "kaiming", "zeros"), init
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
                               padding=kernel_size // 2)
         self.init = init
         self.init_scale = init_scale

@@ -6,6 +6,10 @@
   ``F.max_pool2d(x, 2, 2)``.
 - ``LTESimpleHRPS``: the 4-level pyramid of ``v18_cra`` through
   ``pixel_unshuffle(4)`` (:108-130).
+- ``LTESimpleHRV1``: the 3-level pyramid widening mid/4 -> mid/2 -> mid
+  (:68-88), and ``LTESimpleHRX8``: four max-pooled levels of 64 channels
+  whose ``conv_lv`` names run in reverse (:91-105). No shipped model uses
+  either; the JAX package defines both.
 """
 
 from __future__ import annotations
@@ -109,3 +113,57 @@ class LTESimpleHRPS(nn.Module):
         x_lv1 = lrelu(self.conv_lv1(x))
         x = _lrelu_convs(x, self.slice4_conv1, self.slice4_conv2)
         return lrelu(self.conv_lv0(x)), x_lv1, x_lv2, x_lv3
+
+
+class LTESimpleHRV1(nn.Module):
+    """``forward(x)`` -> (x_lv1, x_lv2, x_lv3) with mid, mid/2 and mid/4
+    channels at 1/4, 1/2 and full size of x. The input is the 6-channel
+    HR frame pair."""
+
+    def __init__(self, mid_channels: int):
+        super().__init__()
+        m1, m2, m = mid_channels // 4, mid_channels // 2, mid_channels
+        self.slice1_conv1 = Conv(6, m1)
+        self.slice1_conv2 = Conv(m1, m1)
+        self.conv_lv3 = Conv(m1, m1)
+        self.slice2_conv1 = Conv(m1, m2)
+        self.slice2_conv2 = Conv(m2, m2)
+        self.conv_lv2 = Conv(m2, m2)
+        self.slice3_conv1 = Conv(m2, m)
+        self.slice3_conv2 = Conv(m, m)
+        self.conv_lv1 = Conv(m, m)
+
+    def forward(self, x: torch.Tensor):
+        x = _lrelu_convs(x, self.slice1_conv1, self.slice1_conv2)
+        x_lv3 = lrelu(self.conv_lv3(x))
+        x = _lrelu_convs(F.max_pool2d(x, 2, 2), self.slice2_conv1, self.slice2_conv2)
+        x_lv2 = lrelu(self.conv_lv2(x))
+        x = _lrelu_convs(F.max_pool2d(x, 2, 2), self.slice3_conv1, self.slice3_conv2)
+        return lrelu(self.conv_lv1(x)), x_lv2, x_lv3
+
+
+class LTESimpleHRX8(nn.Module):
+    """``forward(x)`` -> (x_lv0, x_lv1, x_lv2, x_lv3), 64 channels each, at
+    1/8, 1/4, 1/2 and full size of x; level ``k`` of the loop (k max pools
+    in) ends in ``conv_lv{3-k}``. The input is the 6-channel HR frame
+    pair."""
+
+    def __init__(self):
+        super().__init__()
+        cin = 6
+        for level in range(4):
+            self.add_module(f"slice{level + 1}_conv1", Conv(cin, 64))
+            self.add_module(f"slice{level + 1}_conv2", Conv(64, 64))
+            self.add_module(f"conv_lv{3 - level}", Conv(64, 64))
+            cin = 64
+
+    def forward(self, x: torch.Tensor):
+        outs = []
+        for level in range(4):
+            if level > 0:
+                x = F.max_pool2d(x, 2, 2)
+            x = _lrelu_convs(x, getattr(self, f"slice{level + 1}_conv1"),
+                             getattr(self, f"slice{level + 1}_conv2"))
+            outs.append(lrelu(getattr(self, f"conv_lv{3 - level}")(x)))
+        x_lv3, x_lv2, x_lv1, x_lv0 = outs
+        return x_lv0, x_lv1, x_lv2, x_lv3

@@ -38,7 +38,11 @@ in bf16. At the training shapes (B 2, GT 192) the backward moves 8.8 MB
 per per-tap call and 3.5 MB per dcn_3 call.
 
 The widths the kernels take are one pure rule, :func:`width_fault`: every
-DCN stage of the v18 models at mid 16 and mid 32.
+DCN stage of the v18 models at mid 16 and mid 32 (A, D, E), and the
+pyramids' and PCD's per-tap DCNs at O = 64 (A only, on the CUDA cores:
+the pixel's 64 sums in registers, each tap's corners read 16 bytes of
+channels at a time; one block of 256 threads an SM, its f32 weight of
+C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory).
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -60,13 +64,24 @@ from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 launches = 0
 bwd_launches = 0
 
-# The widths of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and dcn_fused.cu (E):
-# every DCN stage of the v18 models at mid 16 and mid 32 (dcn_0/1/2: O =
-# mid, 8 groups; dcn_3: O = mid / 8, one group), 2 or 4 channels per group,
-# 3x3 weights. E runs dcn_0/1/2 only.
+# The widths of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and dcn_fused.cu (E),
+# each {O: channels a group}, 3x3 weights. Every DCN stage of the v18 models
+# at mid 16 and mid 32 (dcn_0/1/2: O = mid, 8 groups; dcn_3: O = mid / 8,
+# one group), 2 or 4 channels a group, in A, D and E (E runs dcn_0/1/2
+# only); and in A alone, per-tap, the pyramids' and PCD's DCNs at mid / nf
+# 64: O = 64 with 4, 16 and 64 channels a group (deformable groups 16, 4
+# and 1) and 8 (PCD's 8 groups). They run inference only: D has no O = 64.
 SUPPORTED_OUT_CHANNELS = (2, 4, 16, 32)
 SUPPORTED_CHANNELS_PER_GROUP = (2, 4)
 FUSED_OUT_CHANNELS = (16, 32)
+WIDE_OUT_CHANNELS = 64
+WIDE_CHANNELS_PER_GROUP = (4, 8, 16, 64)
+_WIDTHS = {
+    "dcn_fwd": {**{o: SUPPORTED_CHANNELS_PER_GROUP for o in SUPPORTED_OUT_CHANNELS},
+                WIDE_OUT_CHANNELS: WIDE_CHANNELS_PER_GROUP},
+    "dcn_bwd": {o: SUPPORTED_CHANNELS_PER_GROUP for o in SUPPORTED_OUT_CHANNELS},
+    "dcn_fused": {o: SUPPORTED_CHANNELS_PER_GROUP for o in FUSED_OUT_CHANNELS},
+}
 # D's block takes 256 / G pixels, a thread per (pixel, group)
 BWD_GROUPS = (1, 2, 4, 8)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
@@ -75,23 +90,24 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] +
     [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=256)
 def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
                 shared: bool = False) -> str | None:
     """Why ``kernel`` ("dcn_fwd": A, "dcn_bwd": D, "dcn_fused": E) does not
     take a DCN of ``c`` input and ``o`` output channels in ``g`` groups
     with a ``kh`` x ``kw`` weight (``shared``: one offset and mask per
     pixel and group, dcn_3), or None when it does. Pure: it reads no
-    tensor and no device."""
+    tensor and no device, so its answers are cached."""
     if (kh, kw) != (3, 3):
         return f"weight {kh}x{kw} (3x3 only)"
-    if g < 1 or c % g or c // g not in SUPPORTED_CHANNELS_PER_GROUP:
+    widths = _WIDTHS[kernel]
+    if o not in widths:
+        return f"O = {o} output channels (one of {tuple(widths)})"
+    if g < 1 or c % g or c // g not in widths[o]:
         return (f"{c} channels in {g} groups: {c / max(g, 1):g} channels per group "
-                f"(one of {SUPPORTED_CHANNELS_PER_GROUP})")
-    outs = FUSED_OUT_CHANNELS if kernel == "dcn_fused" else SUPPORTED_OUT_CHANNELS
-    if o not in outs:
-        return f"O = {o} output channels (one of {outs})"
-    if kernel == "dcn_fused" and shared:
-        return "per-tap offsets and masks only"
+                f"(one of {widths[o]} at O = {o})")
+    if shared and (kernel == "dcn_fused" or o == WIDE_OUT_CHANNELS):
+        return f"per-tap offsets and masks only (at O = {o})"
     if kernel == "dcn_bwd":
         if g not in BWD_GROUPS:
             return f"{g} groups (one of {BWD_GROUPS})"
@@ -496,5 +512,12 @@ def deform_conv2d_windowed(
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,
             shared_taps=shared_taps, shared_mask=shared_mask)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, offset, mask, weight, bias)):
+        # a width that kernel D does not take (O = 64) raises here, where
+        # autograd records the call, not first in the backward pass
+        o, c, kh, kw = weight.shape
+        taps = 1 if shared_taps else kh * kw
+        check_tiled("dcn_bwd", c, offset.shape[1] // (2 * taps), kh, kw, o, shared_mask)
     return _DeformConv2dWindowed.apply(x, offset, mask, weight, bias,
                                        max_displacement, shared_taps, shared_mask)

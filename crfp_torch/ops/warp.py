@@ -2,7 +2,10 @@
 
 The sample position of output pixel ``(y, x)`` is ``(y + dy, x + dx)`` in
 pixel units (``grid_sample`` with ``align_corners=True``); bilinear, zeros
-outside the frame. Flow channels are ``(dx, dy)``.
+outside the frame, or with ``padding_mode="border"`` (SPyNet's warp,
+crfp_tpu/ops/warp.py:38-41) the position clamped into the frame first.
+Flow channels are ``(dx, dy)``. The border mode has no kernel: it runs in
+SPyNet's LR flow pyramid, in plain PyTorch.
 
 :func:`flow_warp_windowed_ref` is the plain version beside kernel B
 (``crfp_torch/ops/cuda/warp.py``): the same warp with the flow clamped to
@@ -45,17 +48,46 @@ def bilinear_sample_zeros(x: torch.Tensor, sy: torch.Tensor,
     return out.reshape(b, c, *spatial)
 
 
-def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def bilinear_sample_border(x: torch.Tensor, sy: torch.Tensor,
+                           sx: torch.Tensor) -> torch.Tensor:
+    """:func:`bilinear_sample_zeros` with ``padding_mode="border"``: the
+    coordinates clamped to [0, H-1] x [0, W-1], then blended from the
+    clipped corners (crfp_tpu/ops/warp.py::bilinear_sample, :38-41)."""
+    b, c, h, w = x.shape
+    spatial = sy.shape[1:]
+    sy = sy.reshape(b, 1, -1).float().clamp(0.0, h - 1)
+    sx = sx.reshape(b, 1, -1).float().clamp(0.0, w - 1)
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    fy = sy - y0
+    fx = sx - x0
+    y0i = y0.long()
+    x0i = x0.long()
+    flat = x.reshape(b, c, h * w).float()
+    out = None
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            idx = ((y0i + dy).clamp(0, h - 1) * w + (x0i + dx).clamp(0, w - 1))
+            term = torch.gather(flat, 2, idx.expand(b, c, -1)) * (wy * wx)
+            out = term if out is None else out + term
+    return out.reshape(b, c, *spatial)
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor,
+              padding_mode: str = "zeros") -> torch.Tensor:
     """Warp ``x`` (N, C, H, W) by ``flow`` (N, 2, H, W), channels (dx, dy)
-    in pixels, zeros padding. Returns x's dtype."""
+    in pixels, ``padding_mode`` "zeros" or "border". Returns x's dtype."""
     n, _, h, w = x.shape
     assert flow.shape == (n, 2, h, w), (x.shape, flow.shape)
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
     gy = torch.arange(h, device=x.device, dtype=torch.float32).view(1, h, 1)
     gx = torch.arange(w, device=x.device, dtype=torch.float32).view(1, 1, w)
     flow = flow.float()
     sx = gx + flow[:, 0]
     sy = gy + flow[:, 1]
-    return bilinear_sample_zeros(x, sy, sx).to(x.dtype)
+    sample = bilinear_sample_zeros if padding_mode == "zeros" else bilinear_sample_border
+    return sample(x, sy, sx).to(x.dtype)
 
 
 def flow_warp_windowed_ref(x: torch.Tensor, flow: torch.Tensor,

@@ -5,7 +5,8 @@ The ``.npz`` format is that of crfp_tpu/utils/params_io.py::save_params_npz
 port's module tree follows the flax names, so the mapping is mechanical:
 
 - ``a/b/conv/kernel`` (HWIO) -> ``a.b.conv.weight`` (OIHW);
-- ``a/dcn_weight`` (kh, kw, C, O) -> ``a.dcn_weight`` (O, C, kh, kw);
+- ``a/dcn_weight`` and the pyramid's ``a/dcn_weight_lv{k}`` (kh, kw, C, O)
+  -> (O, C, kh, kw);
 - every other leaf (biases, ``dcn_bias``) passes through.
 
 :func:`to_jax` is the inverse, and :func:`save_npz` writes the flat format,
@@ -19,6 +20,10 @@ import re
 
 import numpy as np
 import torch
+
+
+# the DCN weight leaves: the trunk's and the pyramid levels' (models/pyramid.py)
+_DCN_WEIGHT = re.compile(r"^dcn_weight(_lv\d+)?$")
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:
@@ -38,7 +43,7 @@ def from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         if parts[-1] == "kernel":
             parts[-1] = "weight"
             a = a.transpose(3, 2, 0, 1)
-        elif parts[-1] == "dcn_weight":
+        elif _DCN_WEIGHT.match(parts[-1]):
             a = a.transpose(3, 2, 0, 1)
         out[".".join(parts)] = torch.tensor(np.ascontiguousarray(a))
     return out
@@ -47,8 +52,8 @@ def from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
 def to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The port's state_dict -> flat flax leaves ``params/<path>/<leaf>``, as
     numpy copies: ``a.b.conv.weight`` (OIHW) -> ``a/b/conv/kernel`` (HWIO),
-    ``a.dcn_weight`` (O, C, kh, kw) -> (kh, kw, C, O), every other leaf as
-    it is."""
+    ``a.dcn_weight`` and ``a.dcn_weight_lv{k}`` (O, C, kh, kw) -> (kh, kw,
+    C, O), every other leaf as it is."""
     out = {}
     for key, value in state_dict.items():
         parts = key.split(".")
@@ -56,7 +61,7 @@ def to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         if parts[-1] == "weight":
             parts[-1] = "kernel"
             a = a.transpose(2, 3, 1, 0)
-        elif parts[-1] == "dcn_weight":
+        elif _DCN_WEIGHT.match(parts[-1]):
             a = a.transpose(2, 3, 1, 0)
         # a copy: .numpy() shares the parameter's storage
         out["/".join(["params", *parts])] = np.array(a, order="C")

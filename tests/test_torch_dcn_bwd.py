@@ -5,8 +5,10 @@ stages, ``hr_dcn`` on and off) and ``CRFPRuntimeV18`` at mid 16 and mid 32
 (the widths of ``checkpoints/v18_mid16_procedural.npz``,
 ``v18_mid32_struct.npz`` and ``basic_fvsr_mid32_struct.npz``) passes the
 pure width rule of kernels A, D and
-(per-tap, windowed) E, ``crfp_torch.ops.cuda.dcn.width_fault``: a width the
-kernels do not take shows here, not first on a card. Kernel D's plan
+(per-tap, windowed) E, ``crfp_torch.ops.cuda.dcn.width_fault``, and every
+DCN of the gen-1 pyramids at mid 64 and of PCD at nf 64 passes A's and is
+refused by D's: a width the kernels do not take shows here, not first on a
+card. Kernel D's plan
 (``bwd_plan``) at the training shapes: the tiles cover every pixel once,
 the packed planes and the f32 accumulator hold every corner, the shared
 memory is ``csrc/dcn_bwd.cu``'s and fits the H100, and one call of the
@@ -62,6 +64,37 @@ _ROWS = ([(m, mid, ckpt, "v18", True) for m, mid, ckpt in _MODELS]
 _ROW_IDS = ([f"{m}_mid{mid}" for m, mid, _ in _MODELS]
             + [f"CRFP_{v}{'' if hr else '_lr_dcn'}_mid{mid}"
                for v, hr, _ in _VARIANTS for mid in (16, 32)])
+# the gen-1 pyramids at their published mid 64 (variant: "cra" or "plain")
+# and PCD at nf 64: kernel A only (inference), D refuses O = 64
+_WIDE = [("CRFPPyramidX8", 64, None, "plain", True), ("CRFPPyramidX8", 64, None, "cra", True),
+         ("CRFPPyramidX4", 64, None, "plain", True), ("CRFPPyramidX4", 64, None, "cra", True),
+         ("PCDAlign", 64, None, "plain", True)]
+_ROWS += _WIDE
+_ROW_IDS += [f"{m}{'_cra' if v == 'cra' else ''}_mid{mid}" for m, mid, _, v, _ in _WIDE]
+# deformable groups of each level (models/pyramid.py) and of PCD's four stages
+_WIDE_GROUPS = {("CRFPPyramidX8", "plain"): (16, 16, 4, 1), ("CRFPPyramidX8", "cra"): (1,) * 4,
+                ("CRFPPyramidX4", "plain"): (16, 16, 4, 1),
+                ("CRFPPyramidX4", "cra"): (16, 16, 4, 1), ("PCDAlign", "plain"): (8,) * 4}
+
+
+def _wide_stages(model, mid, variant):
+    """(name, C, O, G) of every DCN of a pyramid or of PCD, on the CPU."""
+    from crfp_torch.models.pyramid import CRFPPyramidX4, CRFPPyramidX8, PyramidLevelAlign
+    from crfp_torch.nn.align import DCNAlign
+    from crfp_torch.nn.pcd import PCDAlign
+
+    if model == "PCDAlign":
+        net = PCDAlign(mid, 8, device="cpu")
+        return [(name, *m.dcn_weight.shape[1::-1], m.deform_groups)
+                for name, m in net.named_modules() if isinstance(m, DCNAlign)]
+    cls = CRFPPyramidX8 if model == "CRFPPyramidX8" else CRFPPyramidX4
+    net = cls(mid, cra=variant == "cra", device="cpu")
+    out = []
+    for name, m in net.named_modules():
+        if isinstance(m, PyramidLevelAlign):
+            o, c = getattr(m, f"dcn_weight_{m.lv}").shape[:2]
+            out.append((name, c, o, getattr(m, f"dcn_offset_{m.lv}").conv.out_channels // 18))
+    return out
 
 
 @pytest.mark.parametrize("model,mid,ckpt,variant,hr_dcn", _ROWS, ids=_ROW_IDS)
@@ -72,6 +105,16 @@ def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt, variant, hr_dcn
     from crfp_torch.nn.align import DCNAlign
     from crfp_torch.params import load_npz
 
+    if model in ("CRFPPyramidX8", "CRFPPyramidX4", "PCDAlign"):
+        # per-tap at O = 64: A takes every stage; D refuses O = 64 (inference only)
+        stages = _wide_stages(model, mid, variant)
+        assert [g for *_, g in stages] == list(_WIDE_GROUPS[model, variant])
+        for name, c, o, g in stages:
+            assert (c, o) == (mid, mid), name
+            assert dcn.width_fault("dcn_fwd", c, o, g, 3, 3) is None, name
+            assert "O = 64" in dcn.width_fault("dcn_bwd", c, o, g, 3, 3), name
+            assert "per-tap" in dcn.width_fault("dcn_fwd", c, o, g, 3, 3, shared=True), name
+        return
     cfg = ModelConfig(variant=variant, hr_dcn=hr_dcn, mid_channels=mid, dcn_window=8,
                       dcn_window_hr=32)
     net = (CRFP(cfg, device="cpu") if model == "CRFP"

@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
                 "ops/cuda/dcn_fused.py", "eval/__init__.py", "eval/zones.py",
                 "eval/foveated.py", "eval/matlab_metrics.py", "eval/evaluator.py",
                 "bench/deploy_gate.py", "tools/test_video.py", "models/config.py",
-                "nn/lte.py", "nn/align.py"):
+                "nn/lte.py", "nn/align.py", "nn/flow.py", "nn/pcd.py", "models/runtime.py",
+                "models/pyramid.py", "eval/flow_warp_eval.py", "ops/warp.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
@@ -94,6 +95,64 @@ def test_warp_and_emit_dispatchers_take_plain_version_on_cpu():
     assert frame.shape == (1, 8, 12, 3)
     assert torch.equal(frame, emit.emit_frame_ref(y, lr, r=4))
     assert (warp.launches, emit.launches) == before
+
+
+def _launch_counts():
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, ssim, warp
+
+    return (dcn.launches, dcn.bwd_launches, warp.launches, warp.bwd_launches,
+            emit.launches, dcn_fused.launches, ssim.launches)
+
+
+def _run_model(name):
+    """One small call of a model of the models slice on CPU tensors."""
+    from crfp_torch.models.config import ModelConfig
+
+    gen = torch.Generator().manual_seed(2)
+    lr = torch.rand(1, 2, 8, 8, 3, generator=gen)
+    if name.startswith("pyramid"):
+        from crfp_torch.models.pyramid import CRFPPyramidX4, CRFPPyramidX8
+
+        if name == "pyramid_x8_cra":
+            return CRFPPyramidX8(16, cra=True, device="cpu")(lr, torch.rand(1, 2, 16, 16, 3))
+        cls, s = (CRFPPyramidX8, 8) if name == "pyramid_x8" else (CRFPPyramidX4, 4)
+        hw = (8 * s, 8 * s)
+        return cls(16, device="cpu")(lr, torch.rand(1, 2, *hw, 3), torch.ones(1, 2, *hw, 1))
+    if name == "pcd":
+        from crfp_torch.nn.pcd import PCDAlign
+
+        x = torch.rand(1, 16, 12, 12, generator=gen)
+        return PCDAlign(16, 2, device="cpu")(x, x, x, torch.zeros(1, 2, 12, 12))
+    if name == "flow_warp_eval":
+        import numpy as np
+
+        from crfp_torch.eval.flow_warp_eval import flow_warp_propagation_eval
+
+        rng = np.random.default_rng(0)
+        return flow_warp_propagation_eval(rng.uniform(0, 1, (3, 8, 8, 3)),
+                                          rng.uniform(0, 1, (3, 64, 64, 3)), device="cpu")
+    from crfp_torch.models.runtime import CRFPRuntimeSimple, CRFPRuntimeV18
+
+    if name == "runtime_nofv":
+        model = CRFPRuntimeV18(ModelConfig(mid_channels=16), (64, 64), nofv=True,
+                               device="cpu")
+    else:
+        model = CRFPRuntimeSimple(ModelConfig(variant="v15", mid_channels=16), (64, 64),
+                                  device="cpu")
+    lr, fv = torch.rand(1, 8, 8, 3, generator=gen), torch.rand(1, 32, 32, 3, generator=gen)
+    x_lr, x_hr = model.encode(lr, None if name == "runtime_nofv" else fv)
+    state, _ = model.step0(lr, x_lr, x_hr)
+    return model.step(state, lr, lr, x_lr, x_hr)
+
+
+@pytest.mark.parametrize("name", ["pyramid_x8", "pyramid_x8_cra", "pyramid_x4", "pcd",
+                                  "flow_warp_eval", "runtime_simple", "runtime_nofv"])
+def test_models_take_plain_versions_on_cpu(name):
+    """The models slice's entry points on CPU tensors launch no kernel."""
+    before = _launch_counts()
+    with torch.no_grad():
+        _run_model(name)
+    assert _launch_counts() == before
 
 
 def test_dispatchers_raise_for_non_cuda_devices():

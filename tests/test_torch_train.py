@@ -144,9 +144,11 @@ def test_trained_checkpoint_loads_strictly():
 def test_config_rules():
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.crfp import CRFP
+    from crfp_torch.nn.flow import SPyNet
 
-    with pytest.raises(NotImplementedError, match="spynet"):
-        ModelConfig(flow_net="spynet")
+    # flow_net="spynet" builds the trunk around SPyNet (crfp_tpu/models/crfp.py:191)
+    model = CRFP(ModelConfig(flow_net="spynet", mid_channels=MID), device="cpu")
+    assert isinstance(model.spynet, SPyNet)
     with pytest.raises(ValueError):
         ModelConfig(flow_net="raft")
     # the JAX trunk's asserts (crfp_tpu/models/crfp.py:162-187)
