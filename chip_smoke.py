@@ -154,7 +154,30 @@ Phases, in order; any failure exits non-zero without the final line:
    through bf16 DEPLOY with dcn_fused (>= 60 dB per frame); the zone
    evaluation of the kernels' frames with kernel F must equal the one with
    F's plain version to 1e-4 dB and 1e-5 SSIM;
-9. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+9. drive the reference's own entry point, ``python -m crfp_torch.main``
+   (``crfp_torch.main.main(argv)``), on a REDS-shaped tree written from a
+   seed under a temporary directory (GT 720x1280, LR 90x160 in
+   ``REDS_sharp_BI_x8``, smooth content moving a whole number of HR pixels
+   a frame; one held-out clip of 15 frames symlinked under the four train
+   and four val held-out names; two training clips of 26 frames, 24
+   windows): train with train.sh's flags (v18, mid 32, scale 8, batch 8,
+   FV 128, GT 256, N_frames 15, rates 2e-4 / 2.5e-5, 9 loader threads, the
+   frame cache, f32, the exact unclamped DCN) with only ``--num_gpu 1
+   --num_epochs 1 --save_every 3 --viz_every 3`` changed: 3 steps, the
+   dashboard dump and the validation at 720p, launches of A, B, D and F
+   asserted, every loss finite, the checkpoint, metrics.jsonl and the viz
+   PNGs on disk; ``CheckpointManager.restore`` must give back the model,
+   both Adam groups and the step bit for bit; the loader alone (ms a
+   batch) and the train step at the full recipe (ms, peak memory); two f32
+   steps from one loader batch through the kernels against two through
+   the plain versions (losses to 1e-4 relative, parameters to
+   2*lr*steps, launches asserted); eval.sh (over the model directory;
+   PSNR within 1e-3 dB and SSIM within 1e-5 of the same evaluation through
+   the plain versions, launches asserted) and test.sh; ms a 720p eval
+   frame; the held-out clip on disk through ``crfp_torch.tools.test_video``
+   (kernels against plain versions, >= 80 dB a frame, launches asserted).
+   Phase 5 also holds kernel D unclamped at train.sh's shapes;
+10. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -188,6 +211,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 LR_HW, HR_HW, WARP, FV, MID = (135, 240), (1080, 1920), (720, 720), 96, 32
+# train.sh's batch and GT crop (phases 5 and 9)
+MAIN_B, MAIN_GT = 8, 256
 
 
 def fail(msg: str) -> None:
@@ -1685,23 +1710,38 @@ def phase_kernels_train(gen):
         return abs_err, rel_err
 
     # ---- D for the DCN stages: per-tap dcn_0/1/2, shared-tap dcn_3, at the
-    # recipe's mid 32 and at the mid-16 widths -------------------------------
-    for mode, (c, o, g, hw, d, shared, calls) in {
-        f"per-tap G=8 D=8 ({b},{mid},{lv[0]},{lv[1]})": (mid, mid, 8, lv, 8, False, 3 * n_rec),
-        f"shared G=1 D=32 ({b},{mid // 8},{gt},{gt})": (mid // 8, mid // 8, 1, (gt, gt), 32,
-                                                       True, n_rec),
-        f"per-tap G=8 D=8 ({b},16,{lv[0]},{lv[1]}) mid16": (16, 16, 8, lv, 8, False, 0),
-        f"shared G=1 D=32 ({b},2,{gt},{gt}) mid16": (2, 2, 1, (gt, gt), 32, True, 0),
+    # recipe's mid 32 and at the mid-16 widths; then unclamped (pad 0) at the
+    # shapes of train.sh (B 8, GT 256), from a generator of their own so that
+    # the modes after them get the operands they got --------------------------
+    gb_, mb_ = MAIN_B, MAIN_GT // 4
+    own_u = torch.Generator().manual_seed(10)
+    for mode, (b_, c, o, g, hw, d, amp, shared, calls, gen_) in {
+        f"per-tap G=8 D=8 ({b},{mid},{lv[0]},{lv[1]})": (
+            b, mid, mid, 8, lv, 8, 8, False, 3 * n_rec, gen),
+        f"shared G=1 D=32 ({b},{mid // 8},{gt},{gt})": (
+            b, mid // 8, mid // 8, 1, (gt, gt), 32, 32, True, n_rec, gen),
+        f"per-tap G=8 D=8 ({b},16,{lv[0]},{lv[1]}) mid16": (
+            b, 16, 16, 8, lv, 8, 8, False, 0, gen),
+        f"shared G=1 D=32 ({b},2,{gt},{gt}) mid16": (
+            b, 2, 2, 1, (gt, gt), 32, 32, True, 0, gen),
+        f"per-tap G=8 unclamped ({gb_},{mid},{mb_},{mb_}) train.sh": (
+            gb_, mid, mid, 8, (mb_, mb_), None, 8, False, 0, own_u),
+        f"shared G=1 unclamped ({gb_},{mid // 8},{MAIN_GT},{MAIN_GT}) train.sh": (
+            gb_, mid // 8, mid // 8, 1, (MAIN_GT, MAIN_GT), None, 32, True, 0, own_u),
     }.items():
         taps = 1 if shared else 9
-        x = randn(b, c, *hw)
-        noisy = randn(b, g * taps * 2, *hw, std=0.75 * d)
-        off = (_smooth(gen, 2, hw, d, n=b).repeat(1, g * taps, 1, 1)
-               + randn(b, g * taps * 2, *hw, std=1.0 if shared else 2.0))
-        mask = torch.rand(b, g * taps, *hw, generator=gen).cuda()
-        wt = randn(o, c, 3, 3, std=0.1)
-        bias = randn(o)
-        gout = randn(b, o, *hw)
+
+        def rn(*shape, std=1.0, gen_=gen_):
+            return (torch.randn(*shape, generator=gen_) * std).cuda()
+
+        x = rn(b_, c, *hw)
+        noisy = rn(b_, g * taps * 2, *hw, std=0.75 * amp)
+        off = (_smooth(gen_, 2, hw, amp, n=b_).repeat(1, g * taps, 1, 1)
+               + rn(b_, g * taps * 2, *hw, std=1.0 if shared else 2.0))
+        mask = torch.rand(b_, g * taps, *hw, generator=gen_).cuda()
+        wt = rn(o, c, 3, 3, std=0.1)
+        bias = rn(o)
+        gout = rn(b_, o, *hw)
         kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
 
         def kern(*a):
@@ -1732,12 +1772,12 @@ def phase_kernels_train(gen):
                      "inputs (eager, eager, CUDA graph) are not bit-equal")
         k_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
         p_ms = _time_backward(plain, (xb, off, mask, wt, bias), gb, iters=5)
-        n_px = b * hw[0] * hw[1]
+        n_px = b_ * hw[0] * hw[1]
         # per (pixel, group, tap, channel): the O-wide contraction for s and
         # for dW, the four-corner sample and its two position derivatives
         flops = n_px * g * 9 * (c // g) * (4 * o + 22)
         dxb, doff, dmask, dw = dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
-        plan = dcn.bwd_plan(b, c, *hw, o, g, d, shared_taps=shared)
+        plan = dcn.bwd_plan(b_, c, *hw, o, g, d, shared_taps=shared)
         bnd = bound([xb, off, mask, wt, gb], [dxb, doff, dmask, dw], flops, "bfloat16")
         record("dcn_bwd", mode, calls, err, rel, k_ms, p_ms, None, bnd,
                bound_fraction=bnd[0] / k_ms[1], tile=f"{plan.tile_h}x{plan.tile_w} pad "
@@ -1952,6 +1992,299 @@ def phase_train_bench():
     return launches
 
 
+# Phase 9: the reference's own entry point, python -m crfp_torch.main, over a
+# REDS-shaped tree on disk at the train.sh recipe (v18, mid 32, scale 8, batch
+# 8, FV 128, GT 256, N_frames 15, f32, unclamped DCN: no --dcn_window flags).
+MAIN_GT_HW, MAIN_T = (720, 1280), 15
+# two training clips of 26 frames: 12 windows of 15 each, 3 steps at batch 8
+MAIN_TRAIN_CLIPS, MAIN_TRAIN_FRAMES = ("100", "101"), 26
+MAIN_HELDOUT = (("train", ("000", "011", "015", "020")),
+                ("val", ("000", "001", "006", "017")))
+TRAIN_SH = ["--reset", "true", "--log_file_name", "train.log", "--num_gpu", "1",
+            "--num_workers", "9", "--dataset", "Reds", "--variant", "v18",
+            "--mid_channels", "32", "--lr_rate", "2e-4", "--lr_rate_flow", "2.5e-5",
+            "--rec_w", "1", "--scale", "8", "--batch_size", "8", "--FV_size", "128",
+            "--GT_size", "256", "--N_frames", "15", "--y_only", "false",
+            "--num_epochs", "1", "--print_every", "200", "--save_every", "3",
+            "--val_every", "1", "--viz_every", "3"]
+EVAL_SH = ["--reset", "true", "--dataset", "Reds", "--variant", "v18",
+           "--mid_channels", "32", "--scale", "8", "--FV_size", "128", "--GT_size", "256",
+           "--N_frames", "15"]
+
+
+def _write_reds_tree(root: Path, seed: int = 0) -> Path:
+    """A REDS-shaped tree of smooth moving content: GT 720x1280 under
+    ``REDS_sharp``, LR 90x160 (the GT's 8x8 box means) under
+    ``REDS_sharp_BI_x8``. One held-out clip of MAIN_T frames, symlinked under
+    the four train and four val held-out names; MAIN_TRAIN_CLIPS training
+    clips of MAIN_TRAIN_FRAMES frames. Returns the ``--dataset_dir``."""
+    import numpy as np
+    import PIL.Image
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    h, w = MAIN_GT_HW
+
+    def clip(n):
+        v = (torch.randint(-8, 9, (2,), generator=gen)).tolist()  # HR px a frame
+        pad = 8 * n + 8
+        ch, cw = h + 2 * pad, w + 2 * pad
+        canvas = sum(a * F.interpolate(torch.rand(1, 3, ch // s + 2, cw // s + 2,
+                                                  generator=gen), size=(ch, cw),
+                                       mode="bicubic", align_corners=False)
+                     for s, a in ((64, 0.6), (16, 0.3), (4, 0.1)))
+        canvas = (canvas[0].clamp(0, 1) * 255).round().to(torch.uint8).permute(1, 2, 0)
+        canvas = canvas.numpy()
+        for k in range(n):
+            y0, x0 = pad + k * v[0], pad + k * v[1]
+            gt = canvas[y0:y0 + h, x0:x0 + w]
+            lr = gt.reshape(h // 8, 8, w // 8, 8, 3).mean((1, 3)).round().astype(np.uint8)
+            yield k, np.ascontiguousarray(gt), lr
+
+    def write(name, split, n):
+        dirs = []
+        for tree in ("REDS_sharp", "REDS_sharp_BI_x8"):
+            d = root / tree / split / split / f"{split}_sharp" / name
+            d.mkdir(parents=True)
+            dirs.append(d)
+        for k, gt, lr in clip(n):
+            PIL.Image.fromarray(gt).save(dirs[0] / f"{k:08d}.png", compress_level=1)
+            PIL.Image.fromarray(lr).save(dirs[1] / f"{k:08d}.png", compress_level=1)
+        return dirs
+
+    held = write("000", "train", MAIN_T)
+    for split, names in MAIN_HELDOUT:
+        for name in names:
+            if (split, name) == ("train", "000"):
+                continue
+            for tree, src in zip(("REDS_sharp", "REDS_sharp_BI_x8"), held):
+                link = root / tree / split / split / f"{split}_sharp" / name
+                link.parent.mkdir(parents=True, exist_ok=True)
+                link.symlink_to(src)
+    for name in MAIN_TRAIN_CLIPS:
+        write(name, "train", MAIN_TRAIN_FRAMES)
+    return root / "REDS_sharp"
+
+
+def _main_expect(train_steps=0, windows=0, viz=0) -> dict:
+    """Kernel launches of the v18 batch trunk at N_frames MAIN_T: each
+    recurrent step runs 4 DCNs (A) and 3 warps (B); a train step runs them
+    twice (remat recomputes in the backward) plus kernel D once each and two
+    SSIMs (F); an evaluated window (a forward without gradients) runs them
+    once and two SSIMs a frame; a dashboard dump one forward without F."""
+    n = MAIN_T - 1
+    fwd = 2 * train_steps + windows + viz
+    return _expect(dcn_fwd=4 * n * fwd, flow_warp=3 * n * fwd,
+                   dcn_bwd=4 * n * train_steps, flow_warp_bwd=3 * n * train_steps,
+                   ssim=2 * train_steps + 2 * MAIN_T * windows)
+
+
+def phase_main():
+    """Phase 9. Returns the launch counts of the train run."""
+    import tempfile
+
+    import torch
+
+    from crfp_torch import main as cli
+    from crfp_torch.config import model_config, parse_args, train_config
+    from crfp_torch.data.loader import get_dataloader
+    from crfp_torch.data.reds import preprocess_path
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.tools import test_video
+    from crfp_torch.train.checkpoint import CheckpointManager
+    from crfp_torch.train.loop import make_optimizer, make_train_step
+    from crfp_torch.utils.params_io import load_params
+
+    t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"[time] phase 9 {what}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
+        tmp = Path(tmp)
+        data = str(_write_reds_tree(tmp)) + "/"
+        lap("REDS-shaped tree written")
+        run = str(tmp / "train")
+        argv = TRAIN_SH + ["--save_dir", run, "--dataset_dir", data,
+                           "--frame_cache", str(tmp / "cache")]
+        windows = len(MAIN_TRAIN_CLIPS) * (MAIN_TRAIN_FRAMES - MAIN_T + 1)
+        steps = windows // MAIN_B
+        n_eval = len(MAIN_HELDOUT[1][1])
+
+        # ---- train through the entry point, train.sh's flags -----------------
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = [m["loss"] for m in out["metrics"]]
+        print(f"[main] train {steps} steps (B {MAIN_B}, T {MAIN_T}, GT 256, mid 32, f32, "
+              f"unclamped) + dashboard + val over {n_eval} windows at 720p: {wall:.2f} s "
+              f"(host clock, loader and kernel builds warm); losses {losses}; peak "
+              f"{peak:.1f} MiB; launches {launches}; host preprocess {preprocess_path()}")
+        expect = _main_expect(train_steps=steps, windows=n_eval, viz=1)
+        if launches != expect:
+            fail(f"main train launch counts {launches} != expected {expect}")
+        if out["step"] != steps or not all(math.isfinite(v) for v in losses):
+            fail(f"main train: {out['step']} steps (expected {steps}), losses {losses}")
+        for rel in ("model/3/state.pt", "metrics.jsonl", "dashboard.html", "train.log",
+                    "viz/latest_sr.png", "viz/latest_ssim_map_discrete.png",
+                    "viz/sr_iter0000003.png"):
+            if not (Path(run) / rel).is_file():
+                fail(f"main train wrote no {rel}")
+        lap("train")
+
+        # ---- restore: the saved model, both Adam groups and the step --------
+        args = parse_args(argv)
+        model = CRFP(model_config(args), device="cuda", seed=1)
+        opt = make_optimizer(model, train_config(args))
+        step = CheckpointManager(str(Path(run) / "model")).restore(model, opt)
+        a, b = opt.state_dict(), out["optimizer"].state_dict()
+        same = (step == steps and a["param_groups"] == b["param_groups"]
+                and all(torch.equal(v, out["model"].state_dict()[k])
+                        for k, v in model.state_dict().items())
+                and a["state"].keys() == b["state"].keys()
+                and all(torch.equal(v, b["state"][i][k]) for i in a["state"]
+                        for k, v in a["state"][i].items()))
+        groups = [len(g["params"]) for g in a["param_groups"]]
+        print(f"[main] restore of step {step}: model, Adam groups {groups} "
+              f"({len(a['state'])} parameters with state) bit-equal: {same}")
+        if not same:
+            fail("main: CheckpointManager.restore did not give back the saved state")
+
+        # ---- the loader alone, and the train step at the full recipe ---------
+        loader = get_dataloader(args)["train"]
+        t0 = time.perf_counter()
+        batches = list(loader)
+        loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        first = batches[0]
+        batch = {"lr": first["LR"], "fv": first["HR"], "hr": first["HR"],
+                 "mk": first["Ref_sp"]}
+        train_step = make_train_step(model, train_config(args))
+        dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        for i in range(2):
+            train_step(opt, dev, steps + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_timed = 3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n_timed):
+            train_step(opt, dev, steps + 2 + i)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / n_timed
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"[main] loader alone (9 threads, frame cache warm): {loader_ms:.1f} ms a "
+              f"batch of {MAIN_B} windows over {len(batches)} batches (host clock); train "
+              f"step at the full recipe (f32, unclamped, batch on the card): "
+              f"{step_ms:.1f} ms (CUDA events, {n_timed} steps), peak {step_peak:.1f} MiB")
+        lap("restore, loader and step timing")
+
+        # ---- two unclamped f32 steps from one loader batch: kernels vs plain --
+        def two_steps():
+            m = CRFP(model_config(args), device="cuda", seed=0)
+            m.load_state_dict(load_params(str(Path(run) / "model" / str(steps))))
+            o = make_optimizer(m, train_config(args))
+            st = make_train_step(m, train_config(args))
+            ls = [float(st(o, batch, i)["loss"]) for i in range(2)]
+            return ls, {n: p.detach().clone() for n, p in m.named_parameters()}
+
+        with plain_kernels():
+            want_l, want_p = two_steps()
+        _zero_counts()
+        got_l, got_p = two_steps()
+        launches2 = _counts()
+        lr = train_config(args).lr_rate
+        worst = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
+        print(f"[main] unclamped f32 steps from one loader batch: losses kernels {got_l} "
+              f"plain {want_l}; max param |d| {worst:.3e} (limit {2 * lr * 2:.1e}); "
+              f"launches {launches2}")
+        if launches2 != _main_expect(train_steps=2):
+            fail(f"main unclamped steps: launch counts {launches2} != "
+                 f"{_main_expect(train_steps=2)}")
+        for i, (g, w) in enumerate(zip(got_l, want_l)):
+            if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+                fail(f"main unclamped step {i}: loss {g} through the kernels, {w} plain")
+        if not worst <= 2 * lr * 2:
+            fail(f"main unclamped steps: parameters differ by {worst} > {2 * lr * 2}")
+        lap("unclamped steps against plain versions")
+
+        # ---- eval.sh and test.sh: the model directory, kernels vs plain -------
+        ev = EVAL_SH + ["--dataset_dir", data, "--model_path", str(Path(run) / "model")]
+        results = {}
+        for tag, path in (("kernels", None), ("plain", plain_kernels)):
+            with (path() if path else contextlib.nullcontext()):
+                _zero_counts()
+                results[tag] = cli.main(ev + ["--save_dir", str(tmp / f"eval_{tag}"),
+                                              "--log_file_name", "eval.log", "--eval",
+                                              "true"])
+                if tag == "kernels":
+                    launches3 = _counts()
+        log = (tmp / "eval_kernels" / "eval.log").read_text()
+        line = next((ln for ln in log.splitlines() if "Ref  PSNR (max)" in ln), None)
+        print(f"[main] eval over {Path(run, 'model')}: {line}; plain versions "
+              f"{results['plain']}; launches {launches3}")
+        if line is None:
+            fail("main eval: no 'Ref  PSNR (max)' line in eval.log")
+        if launches3 != _main_expect(windows=n_eval):
+            fail(f"main eval launch counts {launches3} != {_main_expect(windows=n_eval)}")
+        for k, tol in (("psnr", 1e-3), ("psnr_y", 1e-3), ("ssim", 1e-5), ("ssim_y", 1e-5)):
+            g, w = results["kernels"][k], results["plain"][k]
+            if not (math.isfinite(g) and abs(g - w) <= tol):
+                fail(f"main eval {k}: {g} through the kernels, {w} plain (limit {tol})")
+        res = cli.main(ev + ["--save_dir", str(tmp / "test"), "--log_file_name", "test.log",
+                             "--test", "true"])
+        print(f"[main] test over the REDS4 names: {res}")
+        if not (res.n_frames == n_eval * MAIN_T - 1 and math.isfinite(res.psnr)):
+            fail(f"main test: {res}")
+        lap("eval.sh and test.sh")
+
+        # ms per 720p eval frame: one window of MAIN_T frames, CUDA events
+        window = next(iter(get_dataloader(args)["eval"]))
+        lr_, fv_, mk_ = (torch.from_numpy(window[k]).cuda() for k in ("LR", "Ref", "Ref_sp"))
+        with torch.no_grad():
+            model(lr_, fv_, mk_)
+            start.record()
+            model(lr_, fv_, mk_)
+            end.record()
+        torch.cuda.synchronize()
+        eval_ms = start.elapsed_time(end) / MAIN_T
+        print(f"[main] eval forward: {eval_ms:.2f} ms a 720p frame (one window of "
+              f"{MAIN_T} frames, f32, unclamped, CUDA events)")
+
+        # ---- the held-out clip on disk through tools/test_video.py -----------
+        frames = {"kernels": [], "plain": []}
+        tv = ["--dataset_dir", data, "--video_set", "train", "--video_num", "0",
+              "--mid_channels", "32", "--model_path", str(Path(run) / "model" / str(steps)),
+              "--n_frames", str(MAIN_T)]
+        for tag, path in (("plain", plain_kernels), ("kernels", None)):
+            with (path() if path else contextlib.nullcontext()):
+                _zero_counts()
+                summary = test_video.main(
+                    tv + ["--save_dir", str(tmp / f"video_{tag}")],
+                    on_frame=lambda v, i, sr, tag=tag: frames[tag].append(sr.clone()))
+                launches4 = _counts()
+        n = MAIN_T - 1
+        # StreamingRunner: 4 DCNs and 3 warps a steady frame; the zone
+        # evaluator's masked SSIM per zone (3 on the first frame, then 4)
+        expect4 = _expect(dcn_fwd=4 * n, flow_warp=3 * n, ssim=3 + 4 * n)
+        print(f"[main] test_video on the held-out clip: {summary}; launches {launches4}")
+        if launches4 != expect4:
+            fail(f"main test_video launch counts {launches4} != {expect4}")
+        _frames_agree("[main] test_video", frames["kernels"], frames["plain"], d_max=None,
+                      shape=(1, *MAIN_GT_HW, 3))
+        lap("test_video")
+    return launches
+
+
 def timed(name, phase, *args):
     """Run ``phase(*args)`` and print its wall time (host clock)."""
     t0 = time.perf_counter()
@@ -2009,6 +2342,7 @@ def main(argv=None) -> int:
     timed("6 train", phase_train)
     train_launches = timed("7 train bench", phase_train_bench)
     gate_launches = timed("8 gate", phase_gate)
+    main_launches = timed("9 main", phase_main)
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
@@ -2067,6 +2401,9 @@ def main(argv=None) -> int:
             "launches": path_launches[per][name],
             **({"launches_train": train_launches[name]} if serving else {}),
             "launches_gate": gate_launches[name],
+            # over the train run of python -m crfp_torch.main at train.sh's
+            # recipe, its dashboard dump and its validation (phase 9)
+            "launches_main": main_launches[name],
             # over the trunk variants' kernel runs (phase 3c) and over the
             # other models' (phase 3d)
             "launches_variants": variant_launches[name],

@@ -1,13 +1,13 @@
 """Procedural structured-content corpus: the clips the v18 recipe of record
 trained on (checkpoints/v18_mid32_struct_curve.json).
 
-A copy of the corpus half of crfp_tpu/data/procedural.py (numpy, scipy and
-Pillow; the port imports nothing of the JAX package): ``make_canvas``,
-``make_clip``, ``make_clip_pool`` and ``lr_box``, unchanged, and
-``clip_sample``, the sample dict of one clip that the REDS-shaped
-``TrainSet``/``EvalSet``/``TestSet`` of that module return (:236-260),
-with ``LR_sr`` only for a ``y_only`` model (:270). Those dataset classes
-serve the JAX package's ``main.py`` and are not copied.
+A copy of crfp_tpu/data/procedural.py (numpy, scipy and Pillow; the port
+imports nothing of the JAX package): ``make_canvas``, ``make_clip``,
+``make_clip_pool`` and ``lr_box``, unchanged; the REDS-shaped
+``TrainSet``/``EvalSet``/``TestSet`` that ``python -m crfp_torch.main
+--dataset procedural`` reads (:207-294; seeds 1000/2000/3000 + i); and
+``clip_sample``, the sample dict of one clip that those datasets return,
+with ``LR_sr`` only for a ``y_only`` model (:270).
 
 - **dead leaves**: overlapping random disks/rectangles with radii drawn
   from a power-law (the classic natural-image-statistics model) — sharp
@@ -204,14 +204,12 @@ def lr_box(hr: np.ndarray, scale: int = 8) -> np.ndarray:
 
 def bicubic_lr(lr: np.ndarray, oh: int, ow: int) -> np.ndarray:
     """(T, h, w, 3) LR in [0, 1] -> (T, oh, ow, 3) float32 ``LR_sr``: its
-    8-bit frames resized bicubic with Pillow
-    (crfp_tpu/data/reds.py::_bicubic_upsample, Pillow branch), over 255."""
-    import PIL.Image
+    8-bit frames resized bicubic by the readers' resize
+    (``crfp_torch.data.reds._bicubic_upsample``: native or Pillow), over 255."""
+    from crfp_torch.data.reds import _bicubic_upsample
 
     frames = (lr * 255).round().astype(np.uint8)
-    return np.stack([
-        np.array(PIL.Image.fromarray(im).resize((ow, oh), PIL.Image.BICUBIC))
-        for im in frames]).astype(np.float32) / 255.0
+    return _bicubic_upsample(frames, oh, ow).astype(np.float32) / 255.0
 
 
 def clip_sample(hr: np.ndarray, fv_size: int, scan: str = "Evenscan",
@@ -219,18 +217,89 @@ def clip_sample(hr: np.ndarray, fv_size: int, scan: str = "Evenscan",
                 y_only: bool = False) -> dict[str, np.ndarray]:
     """The sample of the clip ``hr`` (T, H, W, 3) as the JAX package's
     procedural datasets give it (crfp_tpu/data/procedural.py:236-260):
-    ``LR`` its box mean, ``HR``, ``Ref`` / ``Ref_sp`` the fovea frames and
-    masks of ``fovea_generator(method=scan)`` (``rng`` for Nanascan), and
-    with ``y_only`` also ``LR_sr``, the bicubic x8 upsample of the 8-bit LR
-    frames, whose UV the ``y_only`` evaluation puts beside the model's Y."""
+    ``LR`` its box mean, ``HR``, ``Ref`` / ``Ref_sp`` / ``FV_sp`` the fovea
+    frames, masks and top-left corners of ``fovea_generator(method=scan)``
+    (``rng`` for Nanascan), and with ``y_only`` also ``LR_sr``, the bicubic
+    x8 upsample of the 8-bit LR frames, whose UV the ``y_only`` evaluation
+    puts beside the model's Y."""
     from crfp_torch.data.fovea import fovea_generator
 
     _, h, w, _ = hr.shape
     lr = lr_box(hr, scale).astype(np.float32)
-    ref, ref_sp, _ = fovea_generator(hr, method=scan, fv_hw=(fv_size, fv_size),
-                                     rng=rng if scan == "Nanascan" else None)
+    ref, ref_sp, fv_sp = fovea_generator(hr, method=scan, fv_hw=(fv_size, fv_size),
+                                         rng=rng if scan == "Nanascan" else None)
     sample = {"LR": lr, "HR": hr, "Ref": ref.astype(np.float32),
-              "Ref_sp": ref_sp.astype(np.float32)}
+              "Ref_sp": ref_sp.astype(np.float32), "FV_sp": fv_sp}
     if y_only:
         sample["LR_sr"] = bicubic_lr(lr, h, w)
     return sample
+
+
+class _ProceduralBase:
+    """REDS-shaped sample dicts from generated clips.
+
+    Splits are disjoint by seed: train=1000+i, eval=2000+i, test=3000+i —
+    eval/test clips are held out from training by construction.
+    """
+
+    seed_base: int
+    n_clips: int
+    scan: str
+
+    def __init__(self, args):
+        self.scale = args.scale
+        self.gt_size = args.GT_size
+        self.fv_size = args.FV_size
+        self.n_frames = args.N_frames
+        self.n_clips = int(getattr(args, "procedural_clips", 0)) or self.n_clips
+        self.rng = np.random.default_rng(self.seed_base)
+        self._clips: dict[int, np.ndarray] = {}
+
+    def __len__(self):
+        return self.n_clips
+
+    def _clip(self, index: int) -> np.ndarray:
+        if index not in self._clips:
+            rng = np.random.default_rng(self.seed_base + index)
+            self._clips[index] = make_clip(rng, self.n_frames, self.gt_size, self.scale)
+        return self._clips[index]
+
+    def __getitem__(self, index):
+        return clip_sample(self._clip(index), self.fv_size, self.scan, self.rng,
+                           scale=self.scale, y_only=True)
+
+
+class TrainSet(_ProceduralBase):
+    seed_base = 1000
+    n_clips = 256
+    scan = "Nanascan"
+
+    def __init__(self, args, rng=None, minimal: bool = False):
+        super().__init__(args)
+        if rng is not None:
+            self.rng = rng
+        self.minimal = minimal and not getattr(args, "y_only", False)
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        if self.minimal:
+            sample = {k: sample[k] for k in ("LR", "HR", "Ref_sp")}
+        else:
+            sample.pop("FV_sp")
+        if self.rng.random() < 0.5:  # hflip
+            sample = {k: v[:, :, ::-1].copy() for k, v in sample.items()}
+        if self.rng.random() < 0.5:  # vflip
+            sample = {k: v[:, ::-1].copy() for k, v in sample.items()}
+        return sample
+
+
+class EvalSet(_ProceduralBase):
+    seed_base = 2000
+    n_clips = 8
+    scan = "Evenscan"
+
+
+class TestSet(_ProceduralBase):
+    seed_base = 3000
+    n_clips = 8
+    scan = "Evenscan"

@@ -380,8 +380,12 @@ class CRFP(nn.Module):
         b, t, h, w, c = lrs.shape
         s = self.cfg.scale
 
-        def nchw(a):  # (B, T, H, W, C) -> (B, T, C, H, W)
-            return a.permute(0, 1, 4, 2, 3)
+        def nchw(a):
+            # (B, T, H, W, C) -> (B, T, C, H, W), NCHW-contiguous. A permuted
+            # view of a batch-1 clip is channels-last-dense: cuDNN then keeps
+            # channels-last through the recurrent step, and the kernels take
+            # NCHW-contiguous operands only
+            return a.permute(0, 1, 4, 2, 3).contiguous()
 
         lrs, fvs, mks = nchw(lrs), nchw(fvs), nchw(mks)
         # flow from each frame to its predecessor, all pairs in one batch

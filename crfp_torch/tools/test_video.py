@@ -4,16 +4,20 @@
     python -m crfp_torch.tools.test_video --procedural --model_path \\
         checkpoints/v18_mid32_procedural.npz --video_num 0 --n_frames 20
 
+    python -m crfp_torch.tools.test_video --dataset_dir /DATA/REDS_sharp \\
+        --video_set train --video_num 0,11,15,20 --model_path <checkpoint>
+
 Per clip: frame-by-frame streaming through the batch trunk's step with a
 Gaussian eye-tracker gaze model (x = sigma*randn + centre), 4-zone
 PSNR/SSIM (whole / fovea / outskirt / past), optional foveated patch
-heat-maps, and PNG/GIF export of SR / bicubic / GT. ``--procedural``
-streams generated structured-content clips (crfp_torch/data/procedural.py);
-the root script's REDS-frames-on-disk branch is not ported yet, so without
-``--procedural`` the tool raises ``NotImplementedError`` (``--dataset_dir``
-and ``--video_set`` are parsed for it). Runs on the card unless ``--cpu`` is
-given. Every ``--variant`` of the trunk runs, with ``--hr_dcn`` as the
-trunk's rules allow (``ModelConfig`` raises otherwise) and ``--y_only``,
+heat-maps, and PNG/GIF export of SR / bicubic / GT. The clips are REDS
+frames on disk (``<dataset_dir>/<set>/<set>/<set>_sharp/<NNN>`` and its
+``_sharp_BI_x8`` LR tree, read by :func:`load_clip`), or with
+``--procedural`` generated structured-content clips
+(crfp_torch/data/procedural.py). ``--model_path`` is any checkpoint
+``crfp_torch.utils.params_io.load_params`` reads. Runs on the card unless
+``--cpu`` is given. Every ``--variant`` of the trunk runs, with ``--hr_dcn``
+as the trunk's rules allow (``ModelConfig`` raises otherwise) and ``--y_only``,
 whose Y goes beside the bicubic LR's UV before the metrics.
 """
 
@@ -70,7 +74,46 @@ def frames_to_gif(frames, out_path: str, fps: int = 7) -> None:
                  duration=int(round(1000 / fps)), loop=0)
 
 
-def main(argv=None):
+def load_clip(gt_dir: str, lr_dir: str, n_frames: int):
+    """The first ``n_frames`` frames of a clip on disk as float32 arrays in
+    [0, 1]: GT (cropped to 1072x1920), LR (cropped to 134x240) and the
+    bicubic upsample of each whole LR frame to the GT size (root
+    ``test_video.py::load_clip``, decoded with Pillow: for 8-bit PNGs the
+    same bytes as OpenCV's BGR read flipped to RGB)."""
+    import numpy as np
+    import PIL.Image
+
+    def read(path):
+        with PIL.Image.open(path) as im:
+            return np.array(im.convert("RGB"))
+
+    gt_files = sorted(os.listdir(gt_dir))[:n_frames]
+    lr_files = sorted(os.listdir(lr_dir))[:n_frames]
+    gts, lrs, lrsrs = [], [], []
+    for gf, lf in zip(gt_files, lr_files):
+        gt = read(os.path.join(gt_dir, gf))[:1072, :1920]
+        lr_full = read(os.path.join(lr_dir, lf))
+        h, w = gt.shape[:2]
+        gts.append(gt)
+        lrs.append(lr_full[:134, :240])
+        lrsrs.append(np.array(PIL.Image.fromarray(lr_full).resize((w, h), PIL.Image.BICUBIC)))
+
+    def f(x):
+        return np.stack(x).astype(np.float32) / 255.0
+
+    return f(gts), f(lrs), f(lrsrs)
+
+
+def clip_dirs(dataset_dir: str, video_set: str, v: int) -> tuple[str, str]:
+    """(GT, LR) directories of REDS clip ``v`` of ``video_set``."""
+    sub = os.path.join(video_set, video_set, f"{video_set}_sharp", f"{v:03d}")
+    return (os.path.join(dataset_dir, sub),
+            os.path.join(dataset_dir.replace("_sharp", "_sharp_BI_x8"), sub))
+
+
+def main(argv=None, on_frame=None):
+    """Returns the 4-zone summary. ``on_frame(clip, i, sr)``, when given, is
+    called with every SR frame (1, H, W, 3), a tensor on the model's device."""
     args = parse_args(argv)
     import numpy as np
     import PIL.Image
@@ -84,19 +127,15 @@ def main(argv=None):
     from crfp_torch.models.streaming import StreamingRunner
     from crfp_torch.ops.color import y_beside_uv
 
-    if not args.procedural:
-        raise NotImplementedError(
-            "REDS frames on disk (--dataset_dir, --video_set) are not ported yet; "
-            "pass --procedural")
     device = "cpu" if args.cpu else "cuda"
     cfg = ModelConfig(variant=args.variant, mid_channels=args.mid_channels,
                       y_only=args.y_only, hr_dcn=args.hr_dcn,
                       offset_prop=args.offset_prop, split_ratio=args.split_ratio)
     model = CRFP(cfg, device=device, seed=0)
     if args.model_path:
-        from crfp_torch.params import from_jax, load_npz
+        from crfp_torch.utils.params_io import load_params
 
-        model.load_state_dict(from_jax(load_npz(args.model_path)), strict=True)
+        model.load_state_dict(load_params(args.model_path), strict=True)
     else:
         print("WARNING: no --model_path given; using random weights")
     rng = np.random.default_rng(args.seed)
@@ -110,13 +149,18 @@ def main(argv=None):
         return (np.clip(x, 0, 1) * 255).astype(np.uint8)
 
     for v in (int(x) for x in args.video_num.split(",")):
-        gh, gw = args.procedural_hw
-        assert gh == gw, "make_clip generates square frames"
-        clip_rng = np.random.default_rng(5000 + v)  # held out from training
-        gts = make_clip(clip_rng, args.n_frames, gh)
-        lrs = lr_box(gts).astype(np.float32)
-        lrsrs = bicubic_lr(lrs, gh, gw)
-        print(f"clip {v:03d}: procedural seed {5000 + v} ({gh}x{gw})")
+        if args.procedural:
+            gh, gw = args.procedural_hw
+            assert gh == gw, "make_clip generates square frames"
+            clip_rng = np.random.default_rng(5000 + v)  # held out from training
+            gts = make_clip(clip_rng, args.n_frames, gh)
+            lrs = lr_box(gts).astype(np.float32)
+            lrsrs = bicubic_lr(lrs, gh, gw)
+            print(f"clip {v:03d}: procedural seed {5000 + v} ({gh}x{gw})")
+        else:
+            gt_dir, lr_dir = clip_dirs(args.dataset_dir, args.video_set, v)
+            print(f"clip {v:03d}: {gt_dir}")
+            gts, lrs, lrsrs = load_clip(gt_dir, lr_dir, args.n_frames)
         n, h, w, _ = gts.shape
 
         runner.clear_states()
@@ -134,6 +178,8 @@ def main(argv=None):
             if args.y_only:
                 sr = y_beside_uv(sr[..., :1], torch.from_numpy(lrsrs[i : i + 1]).to(sr.device))
             zone_eval.update(sr, gts[i : i + 1], zones)
+            if on_frame is not None:
+                on_frame(v, i, sr)
             sr_frames.append((sr[0].clamp(0, 1) * 255).round().to(torch.uint8)
                              .cpu().numpy())
             if args.heatmaps:

@@ -106,5 +106,6 @@ def test_test_video_procedural_demo(tmp_path, regional):
     assert all(np.isfinite(v) for v in summary.values()), summary
     with pytest.raises(ValueError, match="hr_dcn"):
         test_video.main(small + ["--hr_dcn", "false"])
-    with pytest.raises(NotImplementedError, match="REDS"):
+    # without --procedural the clips are REDS frames on disk: none here
+    with pytest.raises(FileNotFoundError):
         test_video.main(["--cpu", "--dataset_dir", str(tmp_path)])

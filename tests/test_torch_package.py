@@ -47,7 +47,12 @@ def test_port_imports_no_jax():
                 "eval/foveated.py", "eval/matlab_metrics.py", "eval/evaluator.py",
                 "bench/deploy_gate.py", "tools/test_video.py", "models/config.py",
                 "nn/lte.py", "nn/align.py", "nn/flow.py", "nn/pcd.py", "models/runtime.py",
-                "models/pyramid.py", "eval/flow_warp_eval.py", "ops/warp.py"):
+                "models/pyramid.py", "eval/flow_warp_eval.py", "ops/warp.py",
+                # the entry point and its host data path
+                "main.py", "config.py", "data/loader.py", "data/reds.py", "data/vimeo.py",
+                "data/cache.py", "native/__init__.py", "native/bindings.py",
+                "train/checkpoint.py", "train/viz.py", "utils/__init__.py",
+                "utils/logging.py", "utils/params_io.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}

@@ -151,8 +151,8 @@ def test_trained_checkpoint_loads_strictly_and_matches_jax(variant, clip):
 
 
 def test_clip_sample_equals_jax_dataset_sample():
-    """``clip_sample`` is the JAX EvalSet's sample of the same clip, with
-    LR_sr only for y_only."""
+    """``clip_sample`` is the JAX EvalSet's sample of the same clip (the
+    port's EvalSet returns it), with LR_sr only for y_only."""
     from types import SimpleNamespace
 
     from crfp_tpu.data.procedural import EvalSet
@@ -162,7 +162,7 @@ def test_clip_sample_equals_jax_dataset_sample():
     want = EvalSet(args)[1]
     hr = make_clip(np.random.default_rng(EvalSet.seed_base + 1), 3, 64, S)
     got = clip_sample(hr, 16, EvalSet.scan, y_only=True)
-    assert sorted(got) == sorted(k for k in want if k != "FV_sp")
+    assert sorted(got) == sorted(want)
     for k, v in got.items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
     assert "LR_sr" not in clip_sample(hr, 16, EvalSet.scan)
