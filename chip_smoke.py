@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1, 2 and 5 alone
+    python3 chip_smoke.py --parallel-only   # phases 1 and 10 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -162,8 +163,9 @@ Phases, in order; any failure exits non-zero without the final line:
    and four val held-out names; two training clips of 26 frames, 24
    windows): train with train.sh's flags (v18, mid 32, scale 8, batch 8,
    FV 128, GT 256, N_frames 15, rates 2e-4 / 2.5e-5, 9 loader threads, the
-   frame cache, f32, the exact unclamped DCN) with only ``--num_gpu 1
-   --num_epochs 1 --save_every 3 --viz_every 3`` changed: 3 steps, the
+   frame cache, f32, the exact unclamped DCN, ``--num_gpu 4`` as train.sh
+   has it: a world of 1 on this one card, which the log must say) with
+   only ``--num_epochs 1 --save_every 3 --viz_every 3`` changed: 3 steps, the
    dashboard dump and the validation at 720p, launches of A, B, D and F
    asserted, every loss finite, the checkpoint, metrics.jsonl and the viz
    PNGs on disk; ``CheckpointManager.restore`` must give back the model,
@@ -177,7 +179,29 @@ Phases, in order; any failure exits non-zero without the final line:
    frame; the held-out clip on disk through ``crfp_torch.tools.test_video``
    (kernels against plain versions, >= 80 dB a frame, launches asserted).
    Phase 5 also holds kernel D unclamped at train.sh's shapes;
-10. print one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+10. the parallel paths (crfp_torch.parallel) on the one card, each rank a
+   spawned process (the kernels built once, in phase 1, before any starts;
+   every rank joined with a timeout and its exit code checked): a one-rank
+   NCCL group through ``initialize_distributed`` (an all-reduce of a CUDA
+   tensor, a barrier, destroyed); then two ranks sharing cuda:0 over gloo
+   (NCCL refuses two ranks on one device): 2 f32 data-parallel steps of
+   the batch CRFP from checkpoints/v18_mid32_struct.npz (strict, windows
+   8/32, remat) at the recipe's shapes (global B 2, T 7, GT 192) against
+   the one-process step on the same batches (losses to 1e-4 relative,
+   parameters to 2*lr*steps, the ranks' parameters bit-equal by digest,
+   launches of A, B, D and F per rank asserted), and
+   ``SpatialStreamingRunner`` over 3 frames of phase 3b's 720p clip (LR
+   90x160, v18 mid 32 from that checkpoint, f32) with windows 8/32 and
+   unclamped against ``StreamingRunner`` (>= 80 dB and max|d| <= 1e-3 a
+   frame; A 4 and B 3 launches a steady frame per rank); ms a step and a
+   frame of the two ranks beside one process (the halo and collective
+   overhead on one card, not scaling); last, one step of ``python -m
+   crfp_torch.main --cpu false`` with train.sh's flags (``--num_gpu 4``;
+   batch 24, the tree's 24 windows, no validation) on phase 9's tree,
+   whose log must say world 1;
+11. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
+   launches over phase 10's checked runs) and, last, the {"ok": true, ...}
+   line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -191,6 +215,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2000,7 +2025,7 @@ MAIN_GT_HW, MAIN_T = (720, 1280), 15
 MAIN_TRAIN_CLIPS, MAIN_TRAIN_FRAMES = ("100", "101"), 26
 MAIN_HELDOUT = (("train", ("000", "011", "015", "020")),
                 ("val", ("000", "001", "006", "017")))
-TRAIN_SH = ["--reset", "true", "--log_file_name", "train.log", "--num_gpu", "1",
+TRAIN_SH = ["--reset", "true", "--log_file_name", "train.log", "--num_gpu", "4",
             "--num_workers", "9", "--dataset", "Reds", "--variant", "v18",
             "--mid_channels", "32", "--lr_rate", "2e-4", "--lr_rate_flow", "2.5e-5",
             "--rec_w", "1", "--scale", "8", "--batch_size", "8", "--FV_size", "128",
@@ -2080,10 +2105,9 @@ def _main_expect(train_steps=0, windows=0, viz=0) -> dict:
                    ssim=2 * train_steps + 2 * MAIN_T * windows)
 
 
-def phase_main():
-    """Phase 9. Returns the launch counts of the train run."""
-    import tempfile
-
+def phase_main(tmp: Path):
+    """Phase 9, on a tree it writes under ``tmp``. Returns the launch counts
+    of the train run."""
     import torch
 
     from crfp_torch import main as cli
@@ -2104,185 +2128,521 @@ def phase_main():
         print(f"[time] phase 9 {what}: {now - t_lap:.1f} s")
         t_lap = now
 
-    with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
-        tmp = Path(tmp)
-        data = str(_write_reds_tree(tmp)) + "/"
-        lap("REDS-shaped tree written")
-        run = str(tmp / "train")
-        argv = TRAIN_SH + ["--save_dir", run, "--dataset_dir", data,
-                           "--frame_cache", str(tmp / "cache")]
-        windows = len(MAIN_TRAIN_CLIPS) * (MAIN_TRAIN_FRAMES - MAIN_T + 1)
-        steps = windows // MAIN_B
-        n_eval = len(MAIN_HELDOUT[1][1])
+    data = str(_write_reds_tree(tmp)) + "/"
+    lap("REDS-shaped tree written")
+    run = str(tmp / "train")
+    argv = TRAIN_SH + ["--save_dir", run, "--dataset_dir", data,
+                       "--frame_cache", str(tmp / "cache")]
+    windows = len(MAIN_TRAIN_CLIPS) * (MAIN_TRAIN_FRAMES - MAIN_T + 1)
+    steps = windows // MAIN_B
+    n_eval = len(MAIN_HELDOUT[1][1])
 
-        # ---- train through the entry point, train.sh's flags -----------------
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        t0 = time.perf_counter()
-        out = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        losses = [m["loss"] for m in out["metrics"]]
-        print(f"[main] train {steps} steps (B {MAIN_B}, T {MAIN_T}, GT 256, mid 32, f32, "
-              f"unclamped) + dashboard + val over {n_eval} windows at 720p: {wall:.2f} s "
-              f"(host clock, loader and kernel builds warm); losses {losses}; peak "
-              f"{peak:.1f} MiB; launches {launches}; host preprocess {preprocess_path()}")
-        expect = _main_expect(train_steps=steps, windows=n_eval, viz=1)
-        if launches != expect:
-            fail(f"main train launch counts {launches} != expected {expect}")
-        if out["step"] != steps or not all(math.isfinite(v) for v in losses):
-            fail(f"main train: {out['step']} steps (expected {steps}), losses {losses}")
-        for rel in ("model/3/state.pt", "metrics.jsonl", "dashboard.html", "train.log",
-                    "viz/latest_sr.png", "viz/latest_ssim_map_discrete.png",
-                    "viz/sr_iter0000003.png"):
-            if not (Path(run) / rel).is_file():
-                fail(f"main train wrote no {rel}")
-        lap("train")
+    # ---- train through the entry point, train.sh's flags -----------------
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [m["loss"] for m in out["metrics"]]
+    print(f"[main] train {steps} steps (B {MAIN_B}, T {MAIN_T}, GT 256, mid 32, f32, "
+          f"unclamped) + dashboard + val over {n_eval} windows at 720p: {wall:.2f} s "
+          f"(host clock, loader and kernel builds warm); losses {losses}; peak "
+          f"{peak:.1f} MiB; launches {launches}; host preprocess {preprocess_path()}")
+    expect = _main_expect(train_steps=steps, windows=n_eval, viz=1)
+    if launches != expect:
+        fail(f"main train launch counts {launches} != expected {expect}")
+    if out["step"] != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"main train: {out['step']} steps (expected {steps}), losses {losses}")
+    for rel in ("model/3/state.pt", "metrics.jsonl", "dashboard.html", "train.log",
+                "viz/latest_sr.png", "viz/latest_ssim_map_discrete.png",
+                "viz/sr_iter0000003.png"):
+        if not (Path(run) / rel).is_file():
+            fail(f"main train wrote no {rel}")
+    _expect_world_1(Path(run) / "train.log", "main train")
+    lap("train")
 
-        # ---- restore: the saved model, both Adam groups and the step --------
-        args = parse_args(argv)
-        model = CRFP(model_config(args), device="cuda", seed=1)
-        opt = make_optimizer(model, train_config(args))
-        step = CheckpointManager(str(Path(run) / "model")).restore(model, opt)
-        a, b = opt.state_dict(), out["optimizer"].state_dict()
-        same = (step == steps and a["param_groups"] == b["param_groups"]
-                and all(torch.equal(v, out["model"].state_dict()[k])
-                        for k, v in model.state_dict().items())
-                and a["state"].keys() == b["state"].keys()
-                and all(torch.equal(v, b["state"][i][k]) for i in a["state"]
-                        for k, v in a["state"][i].items()))
-        groups = [len(g["params"]) for g in a["param_groups"]]
-        print(f"[main] restore of step {step}: model, Adam groups {groups} "
-              f"({len(a['state'])} parameters with state) bit-equal: {same}")
-        if not same:
-            fail("main: CheckpointManager.restore did not give back the saved state")
+    # ---- restore: the saved model, both Adam groups and the step --------
+    args = parse_args(argv)
+    model = CRFP(model_config(args), device="cuda", seed=1)
+    opt = make_optimizer(model, train_config(args))
+    step = CheckpointManager(str(Path(run) / "model")).restore(model, opt)
+    a, b = opt.state_dict(), out["optimizer"].state_dict()
+    same = (step == steps and a["param_groups"] == b["param_groups"]
+            and all(torch.equal(v, out["model"].state_dict()[k])
+                    for k, v in model.state_dict().items())
+            and a["state"].keys() == b["state"].keys()
+            and all(torch.equal(v, b["state"][i][k]) for i in a["state"]
+                    for k, v in a["state"][i].items()))
+    groups = [len(g["params"]) for g in a["param_groups"]]
+    print(f"[main] restore of step {step}: model, Adam groups {groups} "
+          f"({len(a['state'])} parameters with state) bit-equal: {same}")
+    if not same:
+        fail("main: CheckpointManager.restore did not give back the saved state")
 
-        # ---- the loader alone, and the train step at the full recipe ---------
-        loader = get_dataloader(args)["train"]
-        t0 = time.perf_counter()
-        batches = list(loader)
-        loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-        first = batches[0]
-        batch = {"lr": first["LR"], "fv": first["HR"], "hr": first["HR"],
-                 "mk": first["Ref_sp"]}
-        train_step = make_train_step(model, train_config(args))
-        dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-        for i in range(2):
-            train_step(opt, dev, steps + i)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n_timed = 3
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # ---- the loader alone, and the train step at the full recipe ---------
+    loader = get_dataloader(args)["train"]
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    first = batches[0]
+    batch = {"lr": first["LR"], "fv": first["HR"], "hr": first["HR"],
+             "mk": first["Ref_sp"]}
+    train_step = make_train_step(model, train_config(args))
+    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for i in range(2):
+        train_step(opt, dev, steps + i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = 3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n_timed):
+        train_step(opt, dev, steps + 2 + i)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n_timed
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"[main] loader alone (9 threads, frame cache warm): {loader_ms:.1f} ms a "
+          f"batch of {MAIN_B} windows over {len(batches)} batches (host clock); train "
+          f"step at the full recipe (f32, unclamped, batch on the card): "
+          f"{step_ms:.1f} ms (CUDA events, {n_timed} steps), peak {step_peak:.1f} MiB")
+    lap("restore, loader and step timing")
+
+    # ---- two unclamped f32 steps from one loader batch: kernels vs plain --
+    def two_steps():
+        m = CRFP(model_config(args), device="cuda", seed=0)
+        m.load_state_dict(load_params(str(Path(run) / "model" / str(steps))))
+        o = make_optimizer(m, train_config(args))
+        st = make_train_step(m, train_config(args))
+        ls = [float(st(o, batch, i)["loss"]) for i in range(2)]
+        return ls, {n: p.detach().clone() for n, p in m.named_parameters()}
+
+    with plain_kernels():
+        want_l, want_p = two_steps()
+    _zero_counts()
+    got_l, got_p = two_steps()
+    launches2 = _counts()
+    lr = train_config(args).lr_rate
+    worst = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
+    print(f"[main] unclamped f32 steps from one loader batch: losses kernels {got_l} "
+          f"plain {want_l}; max param |d| {worst:.3e} (limit {2 * lr * 2:.1e}); "
+          f"launches {launches2}")
+    if launches2 != _main_expect(train_steps=2):
+        fail(f"main unclamped steps: launch counts {launches2} != "
+             f"{_main_expect(train_steps=2)}")
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+            fail(f"main unclamped step {i}: loss {g} through the kernels, {w} plain")
+    if not worst <= 2 * lr * 2:
+        fail(f"main unclamped steps: parameters differ by {worst} > {2 * lr * 2}")
+    lap("unclamped steps against plain versions")
+
+    # ---- eval.sh and test.sh: the model directory, kernels vs plain -------
+    ev = EVAL_SH + ["--dataset_dir", data, "--model_path", str(Path(run) / "model")]
+    results = {}
+    for tag, path in (("kernels", None), ("plain", plain_kernels)):
+        with (path() if path else contextlib.nullcontext()):
+            _zero_counts()
+            results[tag] = cli.main(ev + ["--save_dir", str(tmp / f"eval_{tag}"),
+                                          "--log_file_name", "eval.log", "--eval",
+                                          "true"])
+            if tag == "kernels":
+                launches3 = _counts()
+    log = (tmp / "eval_kernels" / "eval.log").read_text()
+    line = next((ln for ln in log.splitlines() if "Ref  PSNR (max)" in ln), None)
+    print(f"[main] eval over {Path(run, 'model')}: {line}; plain versions "
+          f"{results['plain']}; launches {launches3}")
+    if line is None:
+        fail("main eval: no 'Ref  PSNR (max)' line in eval.log")
+    if launches3 != _main_expect(windows=n_eval):
+        fail(f"main eval launch counts {launches3} != {_main_expect(windows=n_eval)}")
+    for k, tol in (("psnr", 1e-3), ("psnr_y", 1e-3), ("ssim", 1e-5), ("ssim_y", 1e-5)):
+        g, w = results["kernels"][k], results["plain"][k]
+        if not (math.isfinite(g) and abs(g - w) <= tol):
+            fail(f"main eval {k}: {g} through the kernels, {w} plain (limit {tol})")
+    res = cli.main(ev + ["--save_dir", str(tmp / "test"), "--log_file_name", "test.log",
+                         "--test", "true"])
+    print(f"[main] test over the REDS4 names: {res}")
+    if not (res.n_frames == n_eval * MAIN_T - 1 and math.isfinite(res.psnr)):
+        fail(f"main test: {res}")
+    lap("eval.sh and test.sh")
+
+    # ms per 720p eval frame: one window of MAIN_T frames, CUDA events
+    window = next(iter(get_dataloader(args)["eval"]))
+    lr_, fv_, mk_ = (torch.from_numpy(window[k]).cuda() for k in ("LR", "Ref", "Ref_sp"))
+    with torch.no_grad():
+        model(lr_, fv_, mk_)
         start.record()
-        for i in range(n_timed):
-            train_step(opt, dev, steps + 2 + i)
+        model(lr_, fv_, mk_)
         end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / n_timed
-        step_peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        print(f"[main] loader alone (9 threads, frame cache warm): {loader_ms:.1f} ms a "
-              f"batch of {MAIN_B} windows over {len(batches)} batches (host clock); train "
-              f"step at the full recipe (f32, unclamped, batch on the card): "
-              f"{step_ms:.1f} ms (CUDA events, {n_timed} steps), peak {step_peak:.1f} MiB")
-        lap("restore, loader and step timing")
+    torch.cuda.synchronize()
+    eval_ms = start.elapsed_time(end) / MAIN_T
+    print(f"[main] eval forward: {eval_ms:.2f} ms a 720p frame (one window of "
+          f"{MAIN_T} frames, f32, unclamped, CUDA events)")
 
-        # ---- two unclamped f32 steps from one loader batch: kernels vs plain --
-        def two_steps():
-            m = CRFP(model_config(args), device="cuda", seed=0)
-            m.load_state_dict(load_params(str(Path(run) / "model" / str(steps))))
-            o = make_optimizer(m, train_config(args))
-            st = make_train_step(m, train_config(args))
-            ls = [float(st(o, batch, i)["loss"]) for i in range(2)]
-            return ls, {n: p.detach().clone() for n, p in m.named_parameters()}
-
-        with plain_kernels():
-            want_l, want_p = two_steps()
-        _zero_counts()
-        got_l, got_p = two_steps()
-        launches2 = _counts()
-        lr = train_config(args).lr_rate
-        worst = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
-        print(f"[main] unclamped f32 steps from one loader batch: losses kernels {got_l} "
-              f"plain {want_l}; max param |d| {worst:.3e} (limit {2 * lr * 2:.1e}); "
-              f"launches {launches2}")
-        if launches2 != _main_expect(train_steps=2):
-            fail(f"main unclamped steps: launch counts {launches2} != "
-                 f"{_main_expect(train_steps=2)}")
-        for i, (g, w) in enumerate(zip(got_l, want_l)):
-            if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
-                fail(f"main unclamped step {i}: loss {g} through the kernels, {w} plain")
-        if not worst <= 2 * lr * 2:
-            fail(f"main unclamped steps: parameters differ by {worst} > {2 * lr * 2}")
-        lap("unclamped steps against plain versions")
-
-        # ---- eval.sh and test.sh: the model directory, kernels vs plain -------
-        ev = EVAL_SH + ["--dataset_dir", data, "--model_path", str(Path(run) / "model")]
-        results = {}
-        for tag, path in (("kernels", None), ("plain", plain_kernels)):
-            with (path() if path else contextlib.nullcontext()):
-                _zero_counts()
-                results[tag] = cli.main(ev + ["--save_dir", str(tmp / f"eval_{tag}"),
-                                              "--log_file_name", "eval.log", "--eval",
-                                              "true"])
-                if tag == "kernels":
-                    launches3 = _counts()
-        log = (tmp / "eval_kernels" / "eval.log").read_text()
-        line = next((ln for ln in log.splitlines() if "Ref  PSNR (max)" in ln), None)
-        print(f"[main] eval over {Path(run, 'model')}: {line}; plain versions "
-              f"{results['plain']}; launches {launches3}")
-        if line is None:
-            fail("main eval: no 'Ref  PSNR (max)' line in eval.log")
-        if launches3 != _main_expect(windows=n_eval):
-            fail(f"main eval launch counts {launches3} != {_main_expect(windows=n_eval)}")
-        for k, tol in (("psnr", 1e-3), ("psnr_y", 1e-3), ("ssim", 1e-5), ("ssim_y", 1e-5)):
-            g, w = results["kernels"][k], results["plain"][k]
-            if not (math.isfinite(g) and abs(g - w) <= tol):
-                fail(f"main eval {k}: {g} through the kernels, {w} plain (limit {tol})")
-        res = cli.main(ev + ["--save_dir", str(tmp / "test"), "--log_file_name", "test.log",
-                             "--test", "true"])
-        print(f"[main] test over the REDS4 names: {res}")
-        if not (res.n_frames == n_eval * MAIN_T - 1 and math.isfinite(res.psnr)):
-            fail(f"main test: {res}")
-        lap("eval.sh and test.sh")
-
-        # ms per 720p eval frame: one window of MAIN_T frames, CUDA events
-        window = next(iter(get_dataloader(args)["eval"]))
-        lr_, fv_, mk_ = (torch.from_numpy(window[k]).cuda() for k in ("LR", "Ref", "Ref_sp"))
-        with torch.no_grad():
-            model(lr_, fv_, mk_)
-            start.record()
-            model(lr_, fv_, mk_)
-            end.record()
-        torch.cuda.synchronize()
-        eval_ms = start.elapsed_time(end) / MAIN_T
-        print(f"[main] eval forward: {eval_ms:.2f} ms a 720p frame (one window of "
-              f"{MAIN_T} frames, f32, unclamped, CUDA events)")
-
-        # ---- the held-out clip on disk through tools/test_video.py -----------
-        frames = {"kernels": [], "plain": []}
-        tv = ["--dataset_dir", data, "--video_set", "train", "--video_num", "0",
-              "--mid_channels", "32", "--model_path", str(Path(run) / "model" / str(steps)),
-              "--n_frames", str(MAIN_T)]
-        for tag, path in (("plain", plain_kernels), ("kernels", None)):
-            with (path() if path else contextlib.nullcontext()):
-                _zero_counts()
-                summary = test_video.main(
-                    tv + ["--save_dir", str(tmp / f"video_{tag}")],
-                    on_frame=lambda v, i, sr, tag=tag: frames[tag].append(sr.clone()))
-                launches4 = _counts()
-        n = MAIN_T - 1
-        # StreamingRunner: 4 DCNs and 3 warps a steady frame; the zone
-        # evaluator's masked SSIM per zone (3 on the first frame, then 4)
-        expect4 = _expect(dcn_fwd=4 * n, flow_warp=3 * n, ssim=3 + 4 * n)
-        print(f"[main] test_video on the held-out clip: {summary}; launches {launches4}")
-        if launches4 != expect4:
-            fail(f"main test_video launch counts {launches4} != {expect4}")
-        _frames_agree("[main] test_video", frames["kernels"], frames["plain"], d_max=None,
-                      shape=(1, *MAIN_GT_HW, 3))
-        lap("test_video")
+    # ---- the held-out clip on disk through tools/test_video.py -----------
+    frames = {"kernels": [], "plain": []}
+    tv = ["--dataset_dir", data, "--video_set", "train", "--video_num", "0",
+          "--mid_channels", "32", "--model_path", str(Path(run) / "model" / str(steps)),
+          "--n_frames", str(MAIN_T)]
+    for tag, path in (("plain", plain_kernels), ("kernels", None)):
+        with (path() if path else contextlib.nullcontext()):
+            _zero_counts()
+            summary = test_video.main(
+                tv + ["--save_dir", str(tmp / f"video_{tag}")],
+                on_frame=lambda v, i, sr, tag=tag: frames[tag].append(sr.clone()))
+            launches4 = _counts()
+    n = MAIN_T - 1
+    # StreamingRunner: 4 DCNs and 3 warps a steady frame; the zone
+    # evaluator's masked SSIM per zone (3 on the first frame, then 4)
+    expect4 = _expect(dcn_fwd=4 * n, flow_warp=3 * n, ssim=3 + 4 * n)
+    print(f"[main] test_video on the held-out clip: {summary}; launches {launches4}")
+    if launches4 != expect4:
+        fail(f"main test_video launch counts {launches4} != {expect4}")
+    _frames_agree("[main] test_video", frames["kernels"], frames["plain"], d_max=None,
+                  shape=(1, *MAIN_GT_HW, 3))
+    lap("test_video")
     return launches
+
+
+def _expect_world_1(log: Path, tag: str) -> None:
+    """The log of a train run with --num_gpu 4 on this one-card machine names
+    a world of 1, below the 4 asked for."""
+    import torch
+
+    n = torch.cuda.device_count()
+    want = (f"data parallel: world {min(4, n)} (--num_gpu 4, {n} card(s))"
+            + ("; below --num_gpu 4" if n < 4 else ""))
+    line = next((ln for ln in log.read_text().splitlines() if "data parallel: world" in ln),
+                "")
+    print(f"{tag}: {line.split(' - INFO: ')[-1]}")
+    if want not in line:
+        fail(f"{tag}: the log does not say '{want}': {line!r}")
+
+
+# Phase 10: the parallel paths on the one card. Two ranks share cuda:0 over gloo
+# (NCCL refuses two ranks on one device; gloo takes CUDA tensors for the
+# collectives the paths use); they measure the halo and collective overhead,
+# not scaling. NCCL itself is held on a group of one rank.
+PAR_WORLD, PAR_STEPS, PAR_TIMED_STEPS, PAR_FRAMES = 2, 2, 3, 3
+PAR_LR = 2e-4
+PAR_WINDOWS = (("windows 8/32", dict(dcn_window=8, dcn_window_hr=32)),
+               ("unclamped", dict(dcn_window=None, dcn_window_hr=None)))
+PAR_JOIN_S = 300
+
+
+def _par_trainer(group=None):
+    """The batch CRFP of phase 6 (checkpoint, strict, windows 8/32, remat) and
+    its f32 step at PAR_LR, data-parallel over ``group``."""
+    from crfp_torch.bench.train import build_trainer
+
+    return build_trainer(amp=False, ckpt=str(CKPT), lr_rate=PAR_LR, group=group)
+
+
+def _par_stream(runner, frames):
+    """The frames of phase 3b's 720p clip through ``runner`` and the host ms
+    of each (synchronised)."""
+    import torch
+
+    lr, hr, masks = _variant_clip(VARIANT_FRAMES)
+    outs, ms = [], []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        outs.append(runner(lr[i][None], hr[i][None], masks[i][None]).float())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _par_model(cfg):
+    """v18 mid 32 from the checkpoint at the windows of ``cfg``, f32."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.params import from_jax, load_npz
+
+    model = CRFP(ModelConfig(mid_channels=MID, **cfg), device="cuda")
+    model.load_state_dict(from_jax(load_npz(str(CKPT))), strict=True)
+    return model.to(torch.float32).eval()
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """Count the sharded runner's halo exchanges and whole-frame gathers and
+    their host ms (the card synchronised before and after each) while the
+    block runs; yields the dict it fills."""
+    import torch
+
+    from crfp_torch.parallel import spatial
+
+    out = {"halo_exchange": 0, "gather_rows": 0, "ms": 0.0}
+    saved = {n: getattr(spatial, n) for n in ("halo_exchange", "gather_rows")}
+
+    def timed_call(name):
+        fn = saved[name]
+
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out["ms"] += (time.perf_counter() - t0) * 1e3
+            out[name] += 1
+            return r
+        return call
+
+    for n in saved:
+        setattr(spatial, n, timed_call(n))
+    try:
+        yield out
+    finally:
+        for n, fn in saved.items():
+            setattr(spatial, n, fn)
+
+
+def _parallel_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One gloo rank on cuda:0: PAR_STEPS data-parallel f32 steps of the
+    recipe (then PAR_TIMED_STEPS timed), and the height-sharded runner over
+    PAR_FRAMES frames at each of PAR_WINDOWS, with the launch counts of
+    each. Writes its results to ``out_dir/rank<rank>.pt``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from crfp_torch.bench.train import device_batches
+    from crfp_torch.parallel import (
+        SpatialStreamingRunner,
+        data_parallel_mesh,
+        initialize_distributed,
+        replicate,
+        shard_batch,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(f"tcp://localhost:{port}", world, rank, backend="gloo",
+                           device="cuda")
+    res = {}
+    try:
+        mesh = data_parallel_mesh(world)
+        model, opt, step = _par_trainer(mesh)
+        replicate(model, mesh)
+        batches = device_batches(PAR_STEPS + PAR_TIMED_STEPS, seed=0)
+        _zero_counts()
+        losses = [float(step(opt, shard_batch(batches[i], mesh), i)["loss"])
+                  for i in range(PAR_STEPS)]
+        res["train_launches"] = _counts()
+        res["losses"] = losses
+        res["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        h = hashlib.sha256()
+        for p in res["params"].values():
+            h.update(p.numpy().tobytes())
+        res["digest"] = h.hexdigest()[:16]
+        dist.barrier()
+        t0 = time.perf_counter()
+        for i in range(PAR_STEPS, PAR_STEPS + PAR_TIMED_STEPS):
+            step(opt, shard_batch(batches[i], mesh), i)
+        torch.cuda.synchronize()
+        dist.barrier()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+        del model, opt, step
+        for tag, cfg in PAR_WINDOWS:
+            runner = SpatialStreamingRunner(_par_model(cfg), mesh)
+            dist.barrier()
+            # a warm pass that counts and times the collectives (synchronised
+            # around each), then the checked and timed pass from a clear state
+            with _timed_collectives() as coll:
+                _par_stream(runner, PAR_FRAMES)
+            res[f"{tag} collectives"] = coll
+            runner.clear_states()
+            dist.barrier()
+            _zero_counts()
+            outs, ms = _par_stream(runner, PAR_FRAMES)
+            res[f"{tag} launches"] = _counts()
+            res[f"{tag} ms"] = ms
+            res[f"{tag} digest"] = digest(*outs)
+            if rank == 0:
+                res[f"{tag} frames"] = [o.cpu() for o in outs]
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _nccl_rank(port: int, out_dir: str) -> None:
+    """A one-rank NCCL group through initialize_distributed: an all-reduce of
+    a CUDA tensor, a barrier, destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from crfp_torch.parallel import initialize_distributed
+
+    initialize_distributed(f"tcp://localhost:{port}", 1, 0, device="cuda")
+    backend = dist.get_backend()
+    t = torch.arange(4, dtype=torch.float32, device="cuda")
+    dist.all_reduce(t)
+    dist.barrier(device_ids=[torch.cuda.current_device()])
+    dist.destroy_process_group()
+    torch.save({"backend": backend, "sum": t.cpu(), "destroyed": not dist.is_initialized()},
+               os.path.join(out_dir, "nccl.pt"))
+
+
+def _spawn_ranks(target, args_of, n: int) -> None:
+    """Start ``n`` processes of ``target(*args_of(rank))`` (spawn) and join
+    each with a timeout; a rank that fails or hangs fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_JOIN_S
+    while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+           and all(p.exitcode in (None, 0) for p in procs)):
+        time.sleep(0.05)
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+        codes.append(p.exitcode)
+    if any(c != 0 for c in codes):
+        fail(f"parallel: ranks of {target.__name__} exited with codes {codes} "
+             f"(timeout {PAR_JOIN_S} s)")
+
+
+def phase_parallel(tmp: Path) -> dict:
+    """Phase 10, with phase 9's tree under ``tmp``. Returns rank 0's launch
+    counts over its checked runs (the data-parallel steps and the sharded
+    frames)."""
+    import torch
+
+    from crfp_torch.models.streaming import StreamingRunner
+    from crfp_torch.parallel.sharding import free_port
+
+    n_cards = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown card"
+
+    # ---- NCCL: a group of one rank -----------------------------------------
+    with tempfile.TemporaryDirectory(prefix="crfp_par_") as out:
+        port = free_port()
+        _spawn_ranks(_nccl_rank, lambda r: (port, out), 1)
+        nccl = torch.load(os.path.join(out, "nccl.pt"))
+    print(f"[parallel] NCCL one-rank group: backend {nccl['backend']}, all-reduce "
+          f"{nccl['sum'].tolist()}, barrier passed, destroyed {nccl['destroyed']}")
+    if not (nccl["backend"] == "nccl" and nccl["sum"].tolist() == [0.0, 1.0, 2.0, 3.0]
+            and nccl["destroyed"]):
+        fail(f"parallel: NCCL one-rank group {nccl}")
+
+    # ---- the one-process references ------------------------------------------
+    from crfp_torch.bench.train import device_batches
+
+    batches = device_batches(PAR_STEPS + PAR_TIMED_STEPS, seed=0)
+    model, opt, step = _par_trainer()
+    want_losses = [float(step(opt, batches[i], i)["loss"]) for i in range(PAR_STEPS)]
+    want_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PAR_STEPS, PAR_STEPS + PAR_TIMED_STEPS):
+        step(opt, batches[i], i)
+    torch.cuda.synchronize()
+    one_step_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED_STEPS
+    del model, opt, step
+    want_frames, one_frame_ms = {}, {}
+    for tag, cfg in PAR_WINDOWS:
+        runner = StreamingRunner(_par_model(cfg))
+        _par_stream(runner, PAR_FRAMES)  # warm
+        runner.clear_states()
+        want_frames[tag], one_frame_ms[tag] = _par_stream(runner, PAR_FRAMES)
+
+    # ---- two ranks on cuda:0 over gloo -----------------------------------------
+    with tempfile.TemporaryDirectory(prefix="crfp_par_") as out:
+        port = free_port()
+        _spawn_ranks(_parallel_rank, lambda r: (r, PAR_WORLD, port, out), PAR_WORLD)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(PAR_WORLD)]
+
+    train_expect = _train_expect(PAR_STEPS)
+    worst = max(float((ranks[0]["params"][k] - want_params[k].cpu()).abs().max())
+                for k in want_params)
+    print(f"[parallel] data parallel, {PAR_WORLD} ranks on one card (gloo), global B 2 "
+          f"(1 a rank), T 7, GT 192, f32, windows 8/32, remat: losses {ranks[0]['losses']} "
+          f"against one process {want_losses}; max param |d| after {PAR_STEPS} steps "
+          f"{worst:.3e} (limit {2 * PAR_LR * PAR_STEPS:.1e}); digests "
+          f"{[r['digest'] for r in ranks]}")
+    for r, res in enumerate(ranks):
+        print(f"[parallel] rank {r} launches in {PAR_STEPS} steps: {res['train_launches']}")
+        if res["train_launches"] != train_expect:
+            fail(f"parallel rank {r}: train launch counts {res['train_launches']} != "
+                 f"{train_expect}")
+        for i, (g, w) in enumerate(zip(res["losses"], want_losses)):
+            if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+                fail(f"parallel rank {r} step {i}: loss {g}, one process {w}")
+    if len({r["digest"] for r in ranks}) != 1:
+        fail(f"parallel: the ranks' parameters differ: {[r['digest'] for r in ranks]}")
+    if not worst <= 2 * PAR_LR * PAR_STEPS:
+        fail(f"parallel: parameters differ from one process by {worst}")
+
+    steady = PAR_FRAMES - 1
+    frame_expect = _expect(dcn_fwd=4 * steady, flow_warp=3 * steady)
+    for tag, _ in PAR_WINDOWS:
+        for r, res in enumerate(ranks):
+            print(f"[parallel] spatial {tag}: rank {r} launches over {PAR_FRAMES} frames "
+                  f"{res[f'{tag} launches']} (A {4} and B {3} a steady frame, one launch "
+                  "a call on its slab)")
+            if res[f"{tag} launches"] != frame_expect:
+                fail(f"parallel spatial {tag} rank {r}: launches {res[f'{tag} launches']} "
+                     f"!= {frame_expect}")
+        if len({res[f"{tag} digest"] for res in ranks}) != 1:
+            fail(f"parallel spatial {tag}: the ranks returned different frames")
+        _frames_agree(f"[parallel] spatial {tag}", [f.cuda() for f in ranks[0][f"{tag} frames"]],
+                      want_frames[tag], versus="2 ranks vs StreamingRunner",
+                      shape=(1, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, 3))
+
+    # ---- the entry point with --num_gpu 4 on this machine --------------------------
+    run = tmp / "train_dp"
+    argv = [a if a != "8" or TRAIN_SH[i - 1] != "--batch_size" else "24"
+            for i, a in enumerate(TRAIN_SH)]
+    argv += ["--save_dir", str(run), "--dataset_dir", str(tmp / "REDS_sharp") + "/",
+             "--frame_cache", str(tmp / "cache"), "--val_every", "2", "--viz_every", "0",
+             "--save_every", "999999"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "crfp_torch.main", "--cpu", "false", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=PAR_JOIN_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"parallel: python -m crfp_torch.main --num_gpu 4 exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    _expect_world_1(run / "train.log", "[parallel] python -m crfp_torch.main")
+    if not (run / "model" / "1" / "state.pt").is_file():
+        fail("parallel: python -m crfp_torch.main --num_gpu 4 took no step")
+    print(f"[parallel] python -m crfp_torch.main --cpu false --num_gpu 4 (train.sh's flags, "
+          f"one step of B 24 = the tree's 24 windows, no validation): {wall:.1f} s host clock")
+
+    # ---- times: overhead of halos and collectives on one card, not scaling ------
+    frame_ms = {tag: [sum(r[f"{tag} ms"][1:]) / steady for r in ranks] for tag, _ in PAR_WINDOWS}
+    for tag, _ in PAR_WINDOWS:
+        c = ranks[0][f"{tag} collectives"]
+        print(f"[parallel] spatial {tag}, rank 0's warm pass of {PAR_FRAMES} frames: "
+              f"{c['halo_exchange']} halo exchanges and {c['gather_rows']} whole-frame "
+              f"gathers, {c['ms']:.1f} ms in them (host clock, synchronised)")
+    print(f"[parallel] times on {card} ({n_cards} card(s)); two ranks sharing one card "
+          "measure the halo and collective overhead, not scaling: ms a step (f32, host "
+          f"clock, {PAR_TIMED_STEPS} steps) one process {one_step_ms:.1f}, two ranks "
+          f"{[round(r['step_ms'], 1) for r in ranks]}; ms a steady 720p frame (f32, host "
+          "clock) " + "; ".join(
+              f"{tag}: one process {sum(one_frame_ms[tag][1:]) / steady:.1f}, two ranks "
+              f"{[round(v, 1) for v in frame_ms[tag]]}" for tag, _ in PAR_WINDOWS))
+    total = dict(ranks[0]["train_launches"])
+    for tag, _ in PAR_WINDOWS:
+        for k, v in ranks[0][f"{tag} launches"].items():
+            total[k] += v
+    return total
 
 
 def timed(name, phase, *args):
@@ -2301,6 +2661,9 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 5 only (build, kernels against their plain "
                          "versions, device and call times), then a {\"modes\": [...]} "
                          "line; prints no final ok line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1 and 10 only (build, phase 9's tree, the parallel "
+                         "paths); prints no final ok line")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     try:
@@ -2326,6 +2689,12 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}; python {sys.version.split()[0]}")
     phase_build()
+    if args.parallel_only:
+        with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
+            _write_reds_tree(Path(tmp))
+            timed("10 parallel", phase_parallel, Path(tmp))
+        print(f"[done] parallel phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     gen = torch.Generator().manual_seed(0)
     modes = timed("2 kernels", phase_kernels, gen)
     if args.kernels_only:
@@ -2342,7 +2711,9 @@ def main(argv=None) -> int:
     timed("6 train", phase_train)
     train_launches = timed("7 train bench", phase_train_bench)
     gate_launches = timed("8 gate", phase_gate)
-    main_launches = timed("9 main", phase_main)
+    with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
+        main_launches = timed("9 main", phase_main, Path(tmp))
+        par_launches = timed("10 parallel", phase_parallel, Path(tmp))
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
@@ -2408,6 +2779,9 @@ def main(argv=None) -> int:
             # other models' (phase 3d)
             "launches_variants": variant_launches[name],
             "launches_models": model_launches[name],
+            # rank 0 of phase 10: its 2 data-parallel steps and its bands of
+            # the height-sharded runner's 3 + 3 frames
+            "launches_parallel": par_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);

@@ -23,6 +23,13 @@ flow-warp evaluation (``eval.flow_warp_eval``). The kernels live in
 ``nvcc`` at first use (``crfp_torch.ops.cuda``); the DCN and warp
 dispatchers are autograd Functions whose backward is a kernel too. On CPU
 tensors every op runs its plain PyTorch version.
+
+Parallelism (``crfp_torch.parallel``): data-parallel training over
+``torch.distributed`` ranks (``initialize_distributed``,
+``data_parallel_mesh``, ``shard_batch``, ``replicate`` and
+``make_train_step(model, cfg, group)``; ``python -m crfp_torch.main
+--num_gpu N``), and height-sharded streaming inference
+(``SpatialStreamingRunner``, ``halo_exchange``, ``sharded_conv3x3``).
 """
 
 from crfp_torch.models.config import ModelConfig

@@ -74,11 +74,13 @@ def device_batches(n: int, seed: int) -> list[dict[str, torch.Tensor]]:
 
 
 def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
-                  variant: str = "v18", flow_net: str = "fnet", **tcfg):
+                  variant: str = "v18", flow_net: str = "fnet", group=None, **tcfg):
     """(model, optimizer, train_step) of the recipe's CRFP of ``variant`` and
     ``flow_net`` on the card (``hr_dcn`` as train_procedural sets it);
     weights from ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides
-    fields of TrainConfig (the flow net is not frozen by default)."""
+    fields of TrainConfig (the flow net is not frozen by default).
+    ``group``: the data-parallel step over a group or mesh of ranks
+    (``make_train_step``); the caller makes the weights equal on every rank."""
     cfg = ModelConfig(variant=variant, hr_dcn=variant_hr_dcn(variant),
                       mid_channels=RECIPE["mid"], dcn_window=RECIPE["dcn_window"],
                       dcn_window_hr=RECIPE["dcn_window_hr"], remat=True, flow_net=flow_net)
@@ -86,7 +88,7 @@ def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
     if ckpt is not None:
         model.load_state_dict(from_jax(load_npz(ckpt)), strict=True)
     tc = TrainConfig(amp=amp, **{"flow_freeze_iters": 0, **tcfg})
-    return model, make_optimizer(model, tc), make_train_step(model, tc)
+    return model, make_optimizer(model, tc), make_train_step(model, tc, group)
 
 
 def warmed_trainer(warmup: int, steps: int, seed: int = 0):

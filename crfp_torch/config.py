@@ -9,8 +9,10 @@ layout flags carry none here:
   (pinned by tests/test_models.py::test_hr_s2d_bit_equivalence_v18); they
   are accepted, and ``main`` logs that they have no effect;
 - ``--dcn_anchor true`` changes which pixels the HR windows sample, so
-  :func:`model_config` refuses it;
-- ``--num_gpu`` above 1 (data parallelism) is not ported yet.
+  :func:`model_config` refuses it.
+
+``--num_gpu N`` trains data-parallel over ``min(N, cards)`` ranks
+(``crfp_torch/main.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     ### device settings
     p.add_argument("--cpu", type=str2bool, default=False)
     p.add_argument("--num_gpu", type=int, default=1,
-                   help="number of devices for data parallelism (only 1 is ported)")
+                   help="ranks of data-parallel training: min(N, cards) on the "
+                        "card, N gloo processes with --cpu true")
     p.add_argument("--gpu_id", type=int, default=0)
 
     ### dataset settings

@@ -56,6 +56,7 @@ from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.overrides import handle_torch_function, has_torch_function
 
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
@@ -507,7 +508,13 @@ def deform_conv2d_windowed(
     tensors launch kernel A forward and kernel D backward (x float32 or
     bfloat16, offset/mask/weight/bias float32, f32 accumulation; bf16 x at
     O = 32 contracted on the tensor cores) or raise. Widths:
-    :func:`width_fault`."""
+    :func:`width_fault`. Overridable (``torch.overrides``), as the warp's
+    dispatcher."""
+    if has_torch_function((x, offset, mask)):
+        return handle_torch_function(
+            deform_conv2d_windowed, (x, offset, mask), x, offset, mask, weight, bias,
+            max_displacement=max_displacement, shared_taps=shared_taps,
+            shared_mask=shared_mask)
     if x.device.type == "cpu":
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.cuda.dcn import FUSED_OUT_CHANNELS, TilePlan, _plan, check_tiled, sm_count
@@ -103,7 +104,13 @@ def deform_conv2d_fusedprep(
     CPU tensors take the plain version; CUDA tensors launch kernel E (x and
     heads float32 or bfloat16 alike, flow/weight/bias float32; bf16 x at O =
     32 contracted on the tensor cores with f32 sums, f32 x and O = 16 on the
-    CUDA cores) or raise."""
+    CUDA cores) or raise. Overridable (``torch.overrides``), as the warp's
+    dispatcher."""
+    if has_torch_function((x, raw_offset, raw_mask, flow)):
+        return handle_torch_function(
+            deform_conv2d_fusedprep, (x, raw_offset, raw_mask, flow), x, raw_offset,
+            raw_mask, flow, weight, bias, max_residue_magnitude=max_residue_magnitude,
+            max_displacement=max_displacement, plan=plan)
     operands = (x, raw_offset, raw_mask, flow, weight, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in operands):

@@ -53,6 +53,7 @@ import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.overrides import handle_torch_function, has_torch_function
 
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.warp import flow_warp_windowed_ref
@@ -179,7 +180,12 @@ def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel B forward and kernel D at k=1 backward (x float32
     or bfloat16, flow float32) or raise. Where autograd would record
-    nothing the kernel is launched without the ``autograd.Function``."""
+    nothing the kernel is launched without the ``autograd.Function``.
+    Overridable (``torch.overrides``): a ``TorchFunctionMode`` such as the
+    height-sharded runner's sees the call whole."""
+    if has_torch_function((x, flow)):
+        return handle_torch_function(flow_warp_windowed, (x, flow), x, flow,
+                                     max_displacement)
     if x.is_cpu:
         return flow_warp_windowed_ref(x, flow, max_displacement)
     if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):

@@ -23,6 +23,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crfp_torch.ops.cuda.ssim import gaussian_1d, ssim_map
 
@@ -33,23 +34,45 @@ def _gaussian_window() -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-def masked_psnr(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """PSNR over the masked region of [0, 1]-ranged NHWC images."""
+def _global(num: torch.Tensor, den: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """(num, den) summed over the ranks of ``group`` (None: as they are)."""
+    if group is None:
+        return num, den
+    sums = torch.stack([num, den])
+    dist.all_reduce(sums, group=group)
+    return sums[0], sums[1]
+
+
+def masked_psnr(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """PSNR over the masked region of [0, 1]-ranged NHWC images. ``group``:
+    the images are this rank's shard of a batch split over the group's
+    ranks in equal parts; the squared-error and mask sums are reduced over
+    the ranks before the division, and the zero-error floor counts the
+    global elements, so every rank gets the PSNR of the global batch."""
     c = sr.shape[-1]
     mask = mask.to(sr.dtype)
-    mse = (((sr - hr) ** 2) * mask).sum() / (mask.sum() * c)
-    zero_floor = -20.0 * math.log10(math.sqrt((1.0 / 255.0) ** 2 / math.prod(sr.shape)))
+    err, den = _global((((sr - hr) ** 2) * mask).sum(), mask.sum(), group)
+    mse = err / (den * c)
+    n = math.prod(sr.shape)
+    if group is not None:
+        n *= dist.get_world_size(group)
+    zero_floor = -20.0 * math.log10(math.sqrt((1.0 / 255.0) ** 2 / n))
     return torch.where(mse == 0, torch.full_like(mse, zero_floor),
                        -20.0 * torch.log10(torch.sqrt(mse)))
 
 
-def masked_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean of the SSIM map of [0, 1]-ranged NHWC images. On the card
-    the inputs must not require grad (kernel F has no backward)."""
+def masked_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """Masked mean of the SSIM map of [0, 1]-ranged NHWC images (``group``:
+    as in :func:`masked_psnr`, the masked map sum and the mask sum reduced
+    over the ranks). On the card the inputs must not require grad (kernel F
+    has no backward)."""
     c = sr.shape[-1]
     smap = ssim_map(sr.float().permute(0, 3, 1, 2), hr.float().permute(0, 3, 1, 2))
     mask = mask.to(smap.dtype).permute(0, 3, 1, 2)
-    return (smap * mask).sum() / (mask.sum() * c)
+    num, den = _global((smap * mask).sum(), mask.sum(), group)
+    return num / (den * c)
 
 
 def psnr_and_ssim(sr: torch.Tensor, hr: torch.Tensor, mask: torch.Tensor

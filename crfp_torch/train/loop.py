@@ -21,6 +21,18 @@ The recipe of the reference trainer, as the JAX package runs it:
   keeps some ops in f32, which would be another computation;
 - per-step PSNR/SSIM in RGB and in the metric luma, on the detached output
   with an all-ones mask (:161-173).
+
+Data parallelism (``group``, the JAX step's ``mesh``, :176-186): each rank
+steps on its equal share of the global batch (``crfp_torch.parallel.
+shard_batch``) from the same parameters. After the backward, the gradients
+are summed over the ranks in flat buckets and divided by the world size,
+which is the gradient of the global mean loss, as XLA's all-reduce gives
+it; then the flow-freeze drop and Adam run on every rank alike. There is
+no ``DistributedDataParallel``: the amp path calls the model through
+``functional_call`` on bf16 casts, which DDP's forward hooks never see.
+The loss is the all-reduced mean, and PSNR/SSIM are reduced as ratios of
+global sums (``crfp_torch/ops/metrics.py``), so every rank reports the
+global batch's numbers.
 """
 
 from __future__ import annotations
@@ -29,10 +41,13 @@ import dataclasses
 from collections.abc import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from crfp_torch.ops.color import bgr2ycbcr_y
 from crfp_torch.ops.metrics import masked_psnr, masked_ssim
+from crfp_torch.parallel.sharding import group_of
 from crfp_torch.train.schedule import cosine_restart_schedule
 
 
@@ -98,7 +113,38 @@ def _device_batch(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def make_train_step(model: nn.Module, cfg: TrainConfig
+# bytes of one all-reduce bucket of flattened gradients
+_BUCKET_BYTES = 25 * 2 ** 20
+
+
+def _buckets(tensors: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    """Consecutive runs of one dtype and at most ``_BUCKET_BYTES`` each."""
+    out: list[list[torch.Tensor]] = []
+    size = 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if not out or out[-1][0].dtype != t.dtype or size + nbytes > _BUCKET_BYTES:
+            out.append([])
+            size = 0
+        out[-1].append(t)
+        size += nbytes
+    return out
+
+
+def all_reduce_gradients(params: list[nn.Parameter], group) -> None:
+    """Replace each gradient by its mean over the ranks of ``group``: sums
+    over flat buckets, then one division by the world size."""
+    world = dist.get_world_size(group)
+    grads = [p.grad for p in params if p.grad is not None]
+    for bucket in _buckets(grads):
+        flat = _flatten_dense_tensors(bucket)
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+        for g, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+            g.copy_(r)
+
+
+def make_train_step(model: nn.Module, cfg: TrainConfig, group=None
                     ) -> Callable[[torch.optim.Adam, dict, int], dict[str, torch.Tensor]]:
     """Returns ``train_step(opt, batch, step) -> metrics``.
 
@@ -106,12 +152,23 @@ def make_train_step(model: nn.Module, cfg: TrainConfig
     made so far (0 for the first). ``batch``: 'lr' (B, T, h, w, 3), 'fv' and
     'hr' (B, T, 8h, 8w, 3), 'mk' (B, T, 8h, 8w, 1), NHWC, tensors or numpy
     arrays; they move to the model's device. The metrics are 0-d float32
-    tensors on that device: loss, psnr, ssim, psnr_y, ssim_y."""
+    tensors on that device: loss, psnr, ssim, psnr_y, ssim_y.
+
+    ``group``: a process group or a ``data`` mesh
+    (``crfp_torch.parallel.data_parallel_mesh``) of more than one rank makes
+    the step data-parallel (see the module note): ``batch`` is then this
+    rank's shard, and the model must start equal on every rank
+    (``crfp_torch.parallel.replicate``). None, or a group of one rank, is the
+    single-process step."""
+    group = group_of(group)
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
     sched_trunk = cosine_restart_schedule(cfg.lr_rate, cfg.periods,
                                           cfg.restart_weights, cfg.min_lr)
     sched_flow = cosine_restart_schedule(cfg.lr_rate_flow, cfg.periods,
                                          cfg.restart_weights, cfg.min_lr)
     flow_params = [p for n, p in model.named_parameters() if _is_flow(n)]
+    all_params = list(model.parameters())
     device = next(model.parameters()).device
 
     loss_backward = _LossBackward(model, cfg.rec_w)
@@ -130,6 +187,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig
         opt.param_groups[1]["lr"] = sched_flow(max(step - cfg.flow_freeze_iters, 0))
         opt.zero_grad(set_to_none=True)
         sr, loss = forward_backward(b)
+        if group is not None:
+            all_reduce_gradients(all_params, group)
+            dist.all_reduce(loss, group=group)
+            loss = loss / dist.get_world_size(group)
         if frozen:
             for p in flow_params:
                 p.grad = None
@@ -141,9 +202,9 @@ def make_train_step(model: nn.Module, cfg: TrainConfig
             ones = torch.ones_like(sr_f[..., :1])
             sy, hy = bgr2ycbcr_y(sr_f) / 255.0, bgr2ycbcr_y(hr_f) / 255.0
             return {"loss": loss,
-                    "psnr": masked_psnr(sr_f, hr_f, ones),
-                    "ssim": masked_ssim(sr_f, hr_f, ones),
-                    "psnr_y": masked_psnr(sy, hy, ones),
-                    "ssim_y": masked_ssim(sy, hy, ones)}
+                    "psnr": masked_psnr(sr_f, hr_f, ones, group),
+                    "ssim": masked_ssim(sr_f, hr_f, ones, group),
+                    "psnr_y": masked_psnr(sy, hy, ones, group),
+                    "ssim_y": masked_ssim(sy, hy, ones, group)}
 
     return train_step

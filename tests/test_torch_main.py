@@ -3,9 +3,10 @@ package's ``main.py`` path on the CPU (f32).
 
 - The flag surface: ``parse_args([])`` and the ``train.sh`` / ``eval.sh`` /
   ``test.sh`` lines give the JAX parser's values flag for flag; the flags
-  the port refuses (``--num_gpu`` > 1, ``--dcn_anchor true``, no CUDA
-  without ``--cpu true``) raise before any directory is made, and the
-  TPU layout flags are logged as having no effect.
+  the port refuses (``--dcn_anchor true``, no CUDA without ``--cpu
+  true``) raise before any directory is made, and the TPU layout flags
+  are logged as having no effect. (``--num_gpu`` above 1 trains
+  data-parallel: tests/test_torch_main_dist.py.)
 - On a tiny REDS tree (mid 16, GT 64, N_frames 2, batch 2, one loader
   worker), ``train`` from an ``.npz`` of the JAX init runs 4 steps with
   saves and the dashboard; its logged losses equal the JAX
@@ -168,8 +169,7 @@ def test_flag_mapping_onto_the_port_configs():
 def test_refused_flags_raise_before_any_directory(tmp_path):
     import crfp_torch.main as tmain
 
-    cases = [(["--num_gpu", "2"], NotImplementedError, "queue 1 item 5"),
-             (["--dcn_anchor", "true"], ValueError, "anchored"),
+    cases = [(["--dcn_anchor", "true"], ValueError, "anchored"),
              (["--cpu", "false"], RuntimeError, "no CUDA device")]
     for extra, exc, match in cases:
         argv = _argv(str(tmp_path)) + extra
