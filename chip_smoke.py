@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only    # phases 1, 2 and 5 alone
     python3 chip_smoke.py --parallel-only   # phases 1 and 10 alone
+    python3 chip_smoke.py --tools-only      # phases 1 and 11 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -199,9 +200,35 @@ Phases, in order; any failure exits non-zero without the final line:
    crfp_torch.main --cpu false`` with train.sh's flags (``--num_gpu 4``;
    batch 24, the tree's 24 windows, no validation) on phase 9's tree,
    whose log must say world 1;
-11. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
-   launches over phase 10's checked runs) and, last, the {"ok": true, ...}
-   line.
+11. the tools and benches (crfp_torch.bench, crfp_torch.tools): the
+   capability ablation (``bench.capability.run_capability``) at its
+   defaults on checkpoints/{no_dcn,basic_fvsr,v18}_mid32_struct.npz (hr 768,
+   20 frames x sigmas 10/50/100, mid 32, bf16, v18 at windows 8/32 under the
+   plain clamp; A 8, B 5 a steady frame over the three rows, F 4 a frame),
+   its table printed with the card's name and power limit and its deltas
+   beside the JAX package's TPU reading (a report); sigma 10's first 6
+   frames of each trained row through the kernels and through the plain
+   versions, in f32 (>= 80 dB and max|d| <= 1e-3 a frame) and in bf16
+   (>= 55 dB and max|d| <= 0.05 a frame, per-frame zone PSNR within
+   0.05 dB); the
+   window-quality harnesses at their defaults (ground-truth flow: every
+   pair inside the window, 2v <= D, agrees to >= 80 dB; the trained
+   checkpoint's learned flow: the table), launches asserted; the trained
+   v18 checkpoint written under the reference's names as a ``.pt``
+   (``crfp_torch.params.to_reference``) read back through
+   ``load_params`` equal to the ``.npz`` and streamed at the serving shape
+   bit-equal to it; ``tools.test_runtime`` per stage and fused at 1080p /
+   warp 720^2 / bf16 / windows 8/32 and ``tools.bench``'s three protocols
+   uncut, launches asserted, ``stage_seconds`` printed; the trace table of
+   10 serving frames in a child process (no CUDA graph before it there),
+   which must show kernels A, B and C; ``flow_to_color`` on a flow computed
+   on the card and ``combine_gifs`` on GIFs of emitted frames (the mp4
+   tools need OpenCV, which the card's machine may lack: the CPU tests
+   hold them);
+12. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
+   launches over phase 10's checked runs; ``launches_tools``: the launches
+   over phase 11, its child process excluded) and, last, the
+   {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -908,12 +935,13 @@ def phase_slice(mid=MID, ckpt=CKPT):
 
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.runtime import CRFPRuntimeV18
-    from crfp_torch.params import load_npz, runtime_params_from_batch
+    from crfp_torch.params import from_jax, load_npz, runtime_params_from_batch
 
     t = 5
     cfg = ModelConfig(mid_channels=mid, dcn_window=8, dcn_window_hr=32)
     model = CRFPRuntimeV18(cfg, warp_size=WARP, device="cuda", seed=0)
-    sd, n_unmapped = runtime_params_from_batch(load_npz(str(ckpt)), model.state_dict())
+    sd, n_unmapped = runtime_params_from_batch(from_jax(load_npz(str(ckpt))),
+                                              model.state_dict())
     if n_unmapped != 5:
         fail(f"checkpoint adapter kept {n_unmapped} leaves at init, expected 5")
     model.load_state_dict(sd)
@@ -1238,7 +1266,7 @@ def _runtime_model(kind: str, dtype=None):
 
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.runtime import CRFPRuntimeSimple, CRFPRuntimeV18
-    from crfp_torch.params import load_npz, runtime_params_from_batch
+    from crfp_torch.params import from_jax, load_npz, runtime_params_from_batch
 
     win = dict(mid_channels=MID, dcn_window=8, dcn_window_hr=32)
     if kind in RUNTIME_SIMPLE:
@@ -1246,7 +1274,8 @@ def _runtime_model(kind: str, dtype=None):
                                                device="cuda", seed=30), 31)
     elif kind == "v18 nofv":
         model = CRFPRuntimeV18(ModelConfig(**win), WARP, nofv=True, device="cuda")
-        sd, n_unmapped = runtime_params_from_batch(load_npz(str(CKPT)), model.state_dict())
+        sd, n_unmapped = runtime_params_from_batch(from_jax(load_npz(str(CKPT))),
+                                                  model.state_dict())
         if n_unmapped != 5:
             fail(f"nofv: the checkpoint adapter kept {n_unmapped} leaves at init, expected 5")
         model.load_state_dict(sd, strict=True)
@@ -2645,6 +2674,300 @@ def phase_parallel(tmp: Path) -> dict:
     return total
 
 
+# phase 11: the capability checkpoints, the sigma whose first frames are held
+# against the plain versions, and the TPU reading of the capability deltas
+# (VERDICT.md:136-141, sigma-averaged PSNR dB; a quality reading, reported only)
+TOOLS_PLAIN_SIGMA, TOOLS_PLAIN_FRAMES = 10.0, 6
+# bf16 frames of a trained row, kernels against plain versions: the first
+# readings on the H100 were 58.80-60.50 dB and max|d| <= 2.34e-2 (a bf16
+# rounding or two of the output, carried by the recurrence), under phase
+# 8's 60 dB; these limits keep a margin of about 2x on both
+TOOLS_PLAIN_BF16_DB, TOOLS_PLAIN_BF16_DMAX = 55.0, 0.05
+TPU_CAPABILITY_DB = {"v18_vs_bicubic_whole_db": 0.32, "v18_vs_no_dcn_whole_db": -0.52,
+                     "v18_vs_basic_fvsr_whole_db": -0.28, "v18_vs_basic_fvsr_past_db": -0.27,
+                     "v18_vs_bicubic_fovea_db": 10.5, "v18_vs_basic_fvsr_fovea_db": 3.8}
+
+
+def _tools_capability() -> dict:
+    """Phase 11's capability ablation at its defaults on the three trained
+    mid-32 checkpoints, launch counts asserted; then sigma 10's first frames
+    of each trained row through the kernels against the plain versions."""
+    import numpy as np
+
+    from crfp_torch.bench import capability as cap
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench.deploy_gate import load_runner, stream_clip
+    from crfp_torch.eval.zones import OnChipZoneEval
+
+    ckpts = {r: str(ROOT / c) for r, c in cap.CKPTS.items()}
+    sigmas, frames, hr_size = (10.0, 50.0, 100.0), 20, 768
+    before = _counts()
+    t0 = time.perf_counter()
+    res = cap.run_capability(ckpts, sigmas=sigmas, hr_size=hr_size, frames=frames, mid=MID)
+    wall = time.perf_counter() - t0
+    launches = _since(before)
+    print(f"[tools] capability ablation: hr {hr_size}, {frames} frames x sigmas {sigmas}, "
+          f"mid {MID}, bf16, v18 windows 8/32 (plain clamp), held-out seeds from 9000: "
+          f"{wall:.1f} s (host clock, models built and clips generated inside); "
+          f"launches {launches}")
+    # per steady frame: v18 A 4, B 3; basic_fvsr A 4, B 1; no_dcn B 1; one F
+    # per frame for each of the four rows' evaluators
+    steady = (frames - 1) * len(sigmas)
+    expect = _expect(dcn_fwd=8 * steady, flow_warp=5 * steady, ssim=4 * frames * len(sigmas))
+    if launches != expect:
+        fail(f"capability launch counts {launches} != expected {expect}")
+    print(f"[tools] {card_line()}")
+    cap.print_tables(res)
+    for row, per in res["rows"].items():
+        for sigma, m in per.items():
+            for k, v in m.items():
+                if not (math.isfinite(v) and (k.startswith("psnr") or 0.0 <= v <= 1.0)):
+                    fail(f"capability {row} sigma {sigma} {k} = {v}")
+    print("[tools] capability deltas (PSNR dB, sigma-averaged) on the card beside the JAX "
+          "package's TPU reading with anchored windows (VERDICT.md:136-141), a report:")
+    for k, tpu in TPU_CAPABILITY_DB.items():
+        print(f"[tools]   {k}: {res['deltas'][k]:+.4f} here, {tpu:+.2f} TPU")
+
+    # sigma 10's first frames, each trained row through the kernels and the
+    # plain versions: in f32 the frames at phase 8's f32 limits (the kernels'
+    # arithmetic), in bf16 (the ablation's precision) at the bf16 limits above
+    # and each zone's PSNR within 0.05 dB, the gate's budget
+    si = sigmas.index(TOOLS_PLAIN_SIGMA)
+    lr, hr, _, gaze = cap.sigma_clip(si, TOOLS_PLAIN_SIGMA, frames, hr_size)
+    n = TOOLS_PLAIN_FRAMES
+    for row in cap.ROWS:
+        for bf16 in (False, True):
+            tag = f"[tools] capability {row} {'bf16' if bf16 else 'f32'}"
+            runner = load_runner(ckpts[row], cap.row_config(row, MID), bf16=bf16,
+                                 device="cuda")
+            ev_k, ev_p = (OnChipZoneEval(cap.FV_SIZE, "cuda") for _ in range(2))
+            got = list(stream_clip(runner, lr[:n], hr[:n], gaze[:n]))
+            for z, out, gt in got:
+                ev_k.update(out, gt, z)
+            with plain_kernels():
+                want = list(stream_clip(runner, lr[:n], hr[:n], gaze[:n]))
+                for z, out, gt in want:
+                    ev_p.update(out, gt, z)
+            _frames_agree(tag, [o for _, o, _ in got], [o for _, o, _ in want],
+                          TOOLS_PLAIN_BF16_DB if bf16 else 80.0,
+                          TOOLS_PLAIN_BF16_DMAX if bf16 else 1e-3,
+                          shape=(1, hr_size, hr_size, 3))
+            worst = max(abs(a - b) for k, v in ev_k.results.items() if k.startswith("psnr")
+                        for a, b in zip(v, ev_p.results[k]))
+            print(f"{tag}: {n} frames of sigma {TOOLS_PLAIN_SIGMA:g}, per-frame zone PSNR "
+                  f"kernels vs plain: max |d| {worst:.4f} dB (limit 0.05)")
+            if not worst <= 0.05:
+                fail(f"{tag}: zone PSNR of kernels and plain versions differ by {worst} dB")
+    return res
+
+
+def _tools_quality() -> None:
+    """Window quality under ground-truth flow (every pair inside the window
+    must agree to >= 80 dB) and under the trained checkpoint's learned flow,
+    each at its defaults, launch counts asserted."""
+    from crfp_torch.bench.quality_trained import run_trained_quality
+    from crfp_torch.bench.quality_window import run_window_quality
+
+    before = _counts()
+    t0 = time.perf_counter()
+    rows = run_window_quality()
+    launches = _since(before)
+    print(f"[tools] window quality (ground-truth flow, lr 24x40, mid 32, 6 frames, seeded "
+          f"f32): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    vels, wins = sorted({r.v_px for r in rows}), sorted({r.window for r in rows})
+    # per velocity: the exact stream and one stream a window, 5 steady frames each
+    expect = _expect(dcn_fwd=4 * 5 * (1 + len(wins)) * len(vels),
+                     flow_warp=3 * 5 * (1 + len(wins)) * len(vels))
+    if launches != expect:
+        fail(f"window quality launch counts {launches} != expected {expect}")
+    print("| v (LR px/f) | trunk px | " + " | ".join(f"D={d}" for d in wins) + " |")
+    print("|---|---|" + "---|" * len(wins))
+    agree = {(r.v_px, r.window): r.psnr_db for r in rows}
+    for v in vels:
+        print(f"| {v:g} | {2 * v:g} | " + " | ".join(f"{agree[(v, d)]:.2f}" for d in wins)
+              + " |")
+    for (v, d), db in agree.items():
+        # inside the window: the trunk displacement 2v (and 8v at the HR
+        # level against 4D) stays within D, so the clamp never bites
+        if 2 * v <= d and not db >= 80.0:
+            fail(f"window quality v {v} D {d}: inside the window yet {db} dB < 80")
+
+    before = _counts()
+    t0 = time.perf_counter()
+    trained = run_trained_quality(str(GATE_CKPT), mid_channels=MID)
+    launches = _since(before)
+    print(f"[tools] trained quality ({GATE_CKPT.name}, learned flow, lr 24x40, 6 frames, "
+          f"f32): {time.perf_counter() - t0:.1f} s; launches {launches}")
+    expect = _expect(dcn_fwd=4 * 5 * 2 * len(trained), flow_warp=3 * 5 * 2 * len(trained))
+    if launches != expect:
+        fail(f"trained quality launch counts {launches} != expected {expect}")
+    print("| v (LR px/f) | D | exact-vs-win dB | exact-vs-GT | win-vs-GT |")
+    print("|---|---|---|---|---|")
+    for r in trained:
+        print(f"| {r.v_px} | {r.window} | {r.agree_db} | {r.exact_db} | {r.win_db} |")
+        if not all(math.isfinite(x) for x in (r.agree_db, r.exact_db, r.win_db)):
+            fail(f"trained quality row {r} is not finite")
+
+
+def _reference_named(state: dict) -> dict:
+    """``state`` (the port's v18 trunk) under the reference's own names, as
+    its trainer saves them (``module.`` prefix, ``state_dict`` entry)."""
+    from crfp_torch.params import to_reference
+
+    return {"state_dict": {f"module.{k}": v for k, v in to_reference(state).items()}}
+
+
+def _tools_convert(tmp: Path):
+    """The trained v18 checkpoint written under the reference's names as a
+    .pt, read back through load_params and streamed at the serving shape
+    against the same weights from the .npz (bit-equal). Returns the two
+    streams' frames and the flow of the first pair of frames."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.runtime import CRFPRuntimeV18
+    from crfp_torch.params import runtime_params_from_batch
+    from crfp_torch.utils.params_io import load_params
+
+    npz = load_params(str(CKPT))
+    pt_path = tmp / "model_0_8000.pt"
+    torch.save(_reference_named(npz), pt_path)
+    pt = load_params(str(pt_path))
+    if pt.keys() != npz.keys() or not all(torch.equal(pt[k], npz[k]) for k in npz):
+        fail("the reference-named .pt does not load equal to the .npz")
+    lrs, fvs = _runtime_clip(3)
+    streams = {}
+    for tag, sd in (("pt", pt), ("npz", npz)):
+        model = CRFPRuntimeV18(ModelConfig(mid_channels=MID, dcn_window=8, dcn_window_hr=32),
+                               WARP, device="cuda")
+        model.load_state_dict(runtime_params_from_batch(sd, model.state_dict())[0], strict=True)
+        streams[tag] = _runtime_frames(model.eval(), lrs, fvs, 3)
+    for a, b in zip(streams["pt"], streams["npz"]):
+        if a.shape != (1, *HR_HW, 3) or not torch.equal(a, b):
+            fail("frames of the .pt and the .npz weights differ")
+    print(f"[tools] conversion: {len(pt)} tensors under the reference's names ({pt_path.name}, "
+          "module. prefix, state_dict entry) load equal to the .npz; 3 frames at 1080p / warp "
+          f"{WARP} bit-equal")
+    with torch.inference_mode():
+        a, b = (x.permute(0, 3, 1, 2).contiguous() for x in (lrs[1], lrs[0]))
+        flow = model.compute_flow(a, b)
+    return streams, flow
+
+
+def _tools_runtime() -> dict:
+    """tools/test_runtime.py in both modes and tools/bench.py's three
+    protocols, launch counts asserted. Returns the per-stage seconds."""
+    from crfp_torch.tools import bench
+    from crfp_torch.tools import test_runtime
+
+    def per_rep(reps):  # a rep: step0 (C 1), then 4 steps (A 4, B 2, C 1 each)
+        return _expect(dcn_fwd=16 * reps, flow_warp=8 * reps, emit=5 * reps)
+
+    argv = ["--bf16", "--dcn_window", "8", "--dcn_window_hr", "32"]
+    out = {}
+    for mode, extra, reps in (("per stage", [], 30), ("fused", ["--fused"], 10 + 2 * 20)):
+        before = _counts()
+        res = test_runtime.main(argv + extra)
+        got = _since(before)
+        print(f"[tools] test_runtime {mode}: {res}; launches {got}")
+        if got != per_rep(reps):
+            fail(f"test_runtime {mode} launch counts {got} != expected {per_rep(reps)}")
+        out[mode] = res
+    print(f"[tools] stage_seconds (per-stage mode, 1080p warp 720^2 bf16): "
+          f"{json.dumps(out['per stage'].stage_seconds)}")
+    before = _counts()
+    t0 = time.perf_counter()
+    line = bench.run()
+    got = _since(before)
+    reps = sum(warm + 2 * (n - warm) for *_, n, warm in bench.PROTOCOLS)
+    print(f"[tools] tools.bench, root bench.py's three protocols (no cut): "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    print(json.dumps(line))
+    if got != per_rep(reps):
+        fail(f"tools.bench launch counts {got} != expected {per_rep(reps)}")
+    return out["per stage"].stage_seconds
+
+
+def _tools_trace(tmp: Path) -> None:
+    """The trace table of 10 serving frames in a child process (no CUDA
+    graph before it there); kernels A, B and C must be in it."""
+    r = subprocess.run([sys.executable, "-m", "crfp_torch.bench.trace_table", "--frames",
+                        "10", "--logdir", str(tmp / "trace")], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    print("\n".join(f"[tools] trace | {line}" for line in r.stdout.splitlines()[:45]))
+    if r.returncode:
+        fail(f"trace table exited {r.returncode}: {r.stderr[-2000:]}")
+    from crfp_torch.bench.trace_table import parse_trace
+
+    # every row of the child's trace (it prints the top 40)
+    rows = parse_trace(str(tmp / "trace"), 10, top=10**6)
+    for kernel in ("dcn_fwd_kernel", "flow_warp_kernel", "emit_kernel"):
+        hits = [(n, ms) for n, ms in rows if kernel in n]
+        if not hits:
+            fail(f"the trace table lacks {kernel}")
+        print(f"[tools] trace: {kernel} {sum(ms for _, ms in hits):.4f} ms a frame "
+              f"({len(hits)} name(s))")
+    print(f"[tools] trace: {len(rows)} kernel names, {sum(ms for _, ms in rows):.3f} ms "
+          "of device time a frame")
+
+
+def _tools_video(tmp: Path, streams: dict, flow) -> None:
+    """flow_to_color on a flow computed on the card; combine_gifs on GIFs of
+    emitted frames (the .pt and the .npz streams, their top-left 256^2)."""
+    import numpy as np
+
+    from crfp_torch.tools.video import combine_gifs, flow_to_color, frames_to_gif, read_gif
+
+    img = flow_to_color(flow[0].permute(1, 2, 0).float().cpu().numpy())
+    want = (WARP[0] // 8, WARP[1] // 8, 3)
+    if img.shape != want or img.dtype != np.uint8 or img.min() == img.max():
+        fail(f"flow_to_color gave {img.shape} {img.dtype} range [{img.min()}, {img.max()}]")
+    paths = []
+    for tag, frames in streams.items():
+        u8 = [(f[0, :256, :256].clamp(0, 1) * 255).round().byte().cpu().numpy()
+              for f in frames]
+        paths.append(str(tmp / f"{tag}.gif"))
+        frames_to_gif(u8, paths[-1])
+    combine_gifs(paths, str(tmp / "both.gif"))
+    both = read_gif(str(tmp / "both.gif"))
+    if len(both) != 3 or any(f.shape != (256, 512, 3) or not np.array_equal(
+            f[:, :256], f[:, 256:]) for f in both):
+        fail("combine_gifs: wrong frames, or the two equal halves differ")
+    print(f"[tools] video: flow_to_color {img.shape} of a flow computed on the card; "
+          f"combine_gifs of two 3-frame GIFs of emitted frames -> {len(both)} frames "
+          f"{both[0].shape}, halves equal (the mp4 tools need cv2: held by the CPU tests)")
+
+
+def _since(before: dict) -> dict:
+    """The launches since the counts ``before``."""
+    now = _counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_tools() -> dict:
+    """Phase 11: the tools and benches on the card. Returns the launch
+    counts over the phase (the trace table's child process excluded)."""
+
+    def lap(what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] phase 11 {what}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    _zero_counts()
+    with tempfile.TemporaryDirectory(prefix="crfp_tools_") as d:
+        tmp = Path(d)
+        lap("capability", _tools_capability)
+        lap("window quality", _tools_quality)
+        streams, flow = lap("conversion", _tools_convert, tmp)
+        lap("runtime CLIs", _tools_runtime)
+        lap("trace table", _tools_trace, tmp)
+        lap("video", _tools_video, tmp, streams, flow)
+    total = _counts()
+    print(f"[tools] launches over phase 11: {total}")
+    return total
+
+
 def timed(name, phase, *args):
     """Run ``phase(*args)`` and print its wall time (host clock)."""
     t0 = time.perf_counter()
@@ -2664,6 +2987,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1 and 10 only (build, phase 9's tree, the parallel "
                          "paths); prints no final ok line")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="phases 1 and 11 only (build, the tools and benches); prints "
+                         "no final ok line")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     try:
@@ -2695,6 +3021,10 @@ def main(argv=None) -> int:
             timed("10 parallel", phase_parallel, Path(tmp))
         print(f"[done] parallel phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.tools_only:
+        timed("11 tools", phase_tools)
+        print(f"[done] tools phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     gen = torch.Generator().manual_seed(0)
     modes = timed("2 kernels", phase_kernels, gen)
     if args.kernels_only:
@@ -2714,6 +3044,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
         main_launches = timed("9 main", phase_main, Path(tmp))
         par_launches = timed("10 parallel", phase_parallel, Path(tmp))
+    tools_launches = timed("11 tools", phase_tools)
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
@@ -2782,6 +3113,10 @@ def main(argv=None) -> int:
             # rank 0 of phase 10: its 2 data-parallel steps and its bands of
             # the height-sharded runner's 3 + 3 frames
             "launches_parallel": par_launches[name],
+            # over phase 11: the capability ablation and its plain check, the
+            # window-quality harnesses, the converted checkpoint, the runtime
+            # CLIs and the video tools (the trace table's child excluded)
+            "launches_tools": tools_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);

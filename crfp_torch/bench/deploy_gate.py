@@ -35,11 +35,12 @@ import time
 import numpy as np
 import torch
 
+from crfp_torch.bench import device_of
+from crfp_torch.bench.quality_window import _texture
 from crfp_torch.eval.zones import ZONES, OnChipZoneEval, zone_masks_step
 from crfp_torch.models.config import ModelConfig
 from crfp_torch.models.crfp import CRFP
 from crfp_torch.models.streaming import StreamingRunner
-from crfp_torch.params import from_jax, load_npz
 
 FV_SIZE = 96  # the reference demo fovea
 SCALE = 8
@@ -63,23 +64,6 @@ class GateRow:
         return self.deploy_ssim - self.exact_ssim
 
 
-def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
-    """Smooth-ish multi-scale texture so bilinear warps are meaningful
-    (crfp_tpu/bench/quality_window.py::_texture)."""
-    img = np.zeros((h, w, 3), np.float32)
-    for period in (4, 8, 16, 32):
-        phase = rng.uniform(0, 2 * np.pi, (2, 3))
-        yy = np.arange(h)[:, None, None]
-        xx = np.arange(w)[None, :, None]
-        img += np.sin(2 * np.pi * yy / period + phase[0]) * np.cos(
-            2 * np.pi * xx / period + phase[1]
-        )
-    img += 0.3 * rng.standard_normal((h, w, 3)).astype(np.float32)
-    img -= img.min()
-    img /= img.max()
-    return img.astype(np.float32)
-
-
 def _clip(rng, h, w, s, frames, vy, vx):
     """Procedural GT/LR clip: textured plane translating (vy, vx) LR px/f."""
     mh = int(abs(vy) * s * frames) + 8
@@ -94,20 +78,31 @@ def _clip(rng, h, w, s, frames, vy, vx):
     return lr.astype(np.float32), hr.astype(np.float32)
 
 
+def load_runner(ckpt: str, cfg: ModelConfig, *, bf16: bool = False,
+                device: str | torch.device = "cuda") -> StreamingRunner:
+    """The streaming runner of the trunk ``cfg`` (any variant) with ``ckpt``
+    (any file ``load_params`` reads) loaded strictly, its parameters in
+    bfloat16 (``bf16``: the runner casts its inputs to them) or float32."""
+    from crfp_torch.utils.params_io import load_params
+
+    model = CRFP(cfg, device=device_of(device))
+    model.load_state_dict(load_params(ckpt), strict=True)
+    if bf16:
+        model = model.to(torch.bfloat16)
+    return StreamingRunner(model)
+
+
 def build_runner(ckpt: str, mid_channels: int = 32, *, deploy: bool,
                  dcn_fused: bool = False,
                  device: str | torch.device = "cuda") -> StreamingRunner:
-    """The EXACT (f32, no windows) or DEPLOY (bf16, windows 8/32, optionally
-    kernel E) streaming runner with ``ckpt`` loaded strictly."""
+    """The gate's EXACT (f32, no windows) or DEPLOY (bf16, windows 8/32,
+    optionally kernel E) streaming runner of v18 with ``ckpt`` loaded
+    strictly."""
     cfg = ModelConfig(variant="v18", mid_channels=mid_channels)
     if deploy:
         cfg = dataclasses.replace(cfg, dcn_window=8, dcn_window_hr=32,
                                   dcn_fused=dcn_fused)
-    model = CRFP(cfg, device=device)
-    model.load_state_dict(from_jax(load_npz(ckpt)), strict=True)
-    if deploy:
-        model = model.to(torch.bfloat16)
-    return StreamingRunner(model)
+    return load_runner(ckpt, cfg, bf16=deploy, device=device)
 
 
 def gate_clip(rng: np.random.Generator, sigma: float, lr_hw, frames: int,
@@ -141,6 +136,14 @@ def stream_clip(runner: StreamingRunner, lr: np.ndarray, hr: np.ndarray,
         if seconds is not None:
             seconds.append(time.perf_counter() - t0)
         yield z, out.float().clamp(0, 1), hr_d[i][None]
+
+
+def settled(ev: OnChipZoneEval, skip: int) -> dict[str, float]:
+    """Each zone metric's mean over the frames after ``skip`` settle frames
+    (recurrent state not yet propagated); 'past' entry j scores frame j+1,
+    so it drops one fewer."""
+    return {k: float(np.mean(v[max(skip - 1, 0) if k.endswith("past") else skip:]))
+            for k, v in ev.results.items()}
 
 
 def run_gate(
@@ -186,15 +189,7 @@ def run_gate(
         t_exact += te[1:]  # steady frames: the first is the cold start
         t_deploy += td[1:]
 
-        def settled(ev):
-            # drop the settle frames (recurrent state not yet propagated);
-            # 'past' entry j scores frame j+1, so it drops one fewer
-            return {
-                k: float(np.mean(v[max(skip - 1, 0) if k.endswith("past") else skip :]))
-                for k, v in ev.results.items()
-            }
-
-        se, sd = settled(ev_exact), settled(ev_deploy)
+        se, sd = settled(ev_exact, skip), settled(ev_deploy, skip)
         for zone in ZONES:
             rows.append(GateRow(
                 sigma=sigma, zone=zone,

@@ -4,7 +4,8 @@ the GPU, and of the deployment quality gate's three configurations.
     python -m crfp_torch.bench.profile
     python -m crfp_torch.bench.profile --train   # the train step alone
 
-Streaming (once with ``dcn_fused`` off and once on): builds the benchmark's chain (crfp_torch.bench.runtime.build_chain:
+Streaming (once with ``dcn_fused`` off and once on): builds the
+benchmark's chain (crfp_torch.bench.runtime.build_model and build_chain:
 1080p, warp 720^2, mid 32, t=5, bf16) and, after a warm-up, times 4 reps
 of it twice in one process: once without the profiler (CUDA events around
 the chain) and once under ``torch.profiler``. Training: the same for 4
@@ -28,7 +29,7 @@ import warnings
 import torch
 
 from crfp_torch.bench import train as train_bench
-from crfp_torch.bench.runtime import build_chain
+from crfp_torch.bench.runtime import build_chain, build_model
 
 # kernel-name substrings -> group, first match wins
 _GROUPS = (
@@ -77,15 +78,28 @@ def _idle_share(busy_us: float, wall_us: float, what: str) -> float:
     return 1.0 - busy_us / wall_us
 
 
+def capture(run, trace_path: str | None = None):
+    """Run ``run()`` under ``torch.profiler`` (host and CUDA activities).
+    Returns (profile, wall time of the run in microseconds by CUDA events);
+    ``trace_path``: also export the Chrome trace there. No CUDA graph may
+    have been captured in the process before: the profiler then loses
+    device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_us = _timed(run)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
+    return prof, wall_us
+
+
 def _profiled(run, units: int) -> dict:
     """Run ``run()`` (which does ``units`` frames or steps) once without and
     once under the profiler; the per-unit breakdown of the profiled run's
     device time and both idle shares."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     wall_plain_us = _timed(run)
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_prof_us = _timed(run)
+    prof, wall_prof_us = capture(run)
     # user annotations (the optimizer's "Optimizer.step#Adam.step" range)
     # appear on the device timeline too and span kernels counted already
     annotations = {e.name for e in prof.events()
@@ -131,7 +145,7 @@ def _profiled(run, units: int) -> dict:
 def profile_runtime(reps: int = 4, t: int = 5, dcn_fused: bool = False) -> dict:
     """Per frame of the bf16 streaming slice (1080p, warp 720^2, mid 32);
     ``dcn_fused``: dcn_0/1/2 through kernel E."""
-    chain = build_chain(preset="1080p", t=t, bf16=True, dcn_fused=dcn_fused)
+    chain = build_chain(*build_model(preset="1080p", bf16=True, dcn_fused=dcn_fused), t=t)
     with torch.inference_mode():
         chain(3)
         r = _profiled(lambda: chain(reps), reps * t)

@@ -5,12 +5,22 @@ The reference's runtime protocol: synthetic inputs from a seed, batch 1,
 encoded first), ``repeat_time`` reps of which ``warm_up`` are discarded,
 presets 1080p (LR 135x240) / 720p / 512^2, fovea 96^2, warp_size 720^2.
 
-Fused per-frame mode only: frames are enqueued back to back through the
-public NHWC entry points and each timed chain ends in
-``torch.cuda.synchronize()``; CUDA events time the chain. The best of two
-timed chains is reported, as the JAX harness does. Peak memory is
-``torch.cuda.max_memory_allocated()`` over the timed chains. Runs on the
-card only: without one it raises.
+Two modes, as in the JAX harness:
+- fused (the default, the deployment number): frames are enqueued back to
+  back through the public NHWC entry points and each timed chain ends in
+  ``torch.cuda.synchronize()``; CUDA events time the chain, the best of two
+  timed chains is reported, and ``stage_seconds`` is empty;
+- per stage (``fused=False``, the reference's flow / encoder / step
+  breakdown, CRFP_runtime.py:8654-8662): each rep times ``compute_flow``
+  (measured alone; ``step`` runs it again inside), ``encode`` and each
+  ``step`` between CUDA events with a device synchronisation at every
+  stage boundary; ``stage_seconds`` holds the mean seconds of each stage
+  per timed rep (``step``: per call) and ``sec_per_frame`` the reps' whole
+  time over their frames, synchronisations included.
+
+Peak memory is ``torch.cuda.max_memory_allocated()`` over the timed reps.
+Runs on the card unless the caller passes ``device="cpu"`` (host clock,
+no peak memory: no device number); without a card it raises.
 
     python -m crfp_torch.bench.runtime [--pairs 10]
 
@@ -26,10 +36,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
 
+from crfp_torch.bench import device_of
 from crfp_torch.models.config import ModelConfig
 from crfp_torch.models.runtime import CRFPRuntimeV18
 
@@ -38,6 +50,7 @@ PRESETS = {
     "720p": {"hr": (720, 1280), "lr": (90, 160)},
     "512": {"hr": (512, 512), "lr": (64, 64)},
 }
+STAGES = ("flow", "enc", "step")
 
 
 @dataclasses.dataclass
@@ -47,21 +60,24 @@ class BenchResult:
     dtype: str
     sec_per_frame: float
     frames_per_sec: float
-    peak_bytes: int
+    stage_seconds: dict[str, float]
+    peak_bytes: int | None
     device: str
 
     def __str__(self):
+        stages = "".join(f"  {k} {v * 1e3:.3f} ms" for k, v in self.stage_seconds.items())
+        mem = ("" if self.peak_bytes is None
+               else f"  |  peak {self.peak_bytes / 2**20:.0f} MiB")
         return (f"[{self.preset} warp={self.warp_size} {self.dtype}] "
                 f"{self.sec_per_frame * 1e3:.3f} ms/frame = "
-                f"{self.frames_per_sec:.2f} fps  |  peak "
-                f"{self.peak_bytes / 2**20:.0f} MiB  |  {self.device}")
+                f"{self.frames_per_sec:.2f} fps{'  |' + stages if stages else ''}"
+                f"{mem}  |  {self.device}")
 
 
-def build_chain(
+def build_model(
     preset: str = "1080p",
     warp_size: tuple[int, int] = (720, 720),
     mid_channels: int = 32,
-    t: int = 5,
     fv_hw: tuple[int, int] = (96, 96),
     seed: int = 0,
     dcn_window: int | None = 8,
@@ -69,19 +85,20 @@ def build_chain(
     bf16: bool = False,
     params_path: str | None = None,
     dcn_fused: bool = False,
+    device: str | torch.device = "cuda",
 ):
-    """The benchmark's model and inputs on the GPU. Returns
-    ``chain(n_reps)``, which enqueues ``n_reps`` reps of ``t`` frames
-    (encode + step0, then encode + step) and returns the last frame."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the runtime bench measures the GPU; no CUDA device")
+    """The benchmark's model (eval mode) and its NHWC inputs ``lr``, ``fv``
+    on ``device``. ``params_path``: a batch-trunk checkpoint in any format
+    ``load_params`` reads, adapted onto the runtime trunk."""
+    device = device_of(device)
     cfg = ModelConfig(mid_channels=mid_channels, dcn_window=dcn_window,
                       dcn_window_hr=dcn_window_hr, dcn_fused=dcn_fused)
-    model = CRFPRuntimeV18(cfg, warp_size=warp_size, device="cuda", seed=seed)
+    model = CRFPRuntimeV18(cfg, warp_size=warp_size, device=device, seed=seed)
     if params_path:
-        from crfp_torch.params import load_npz, runtime_params_from_batch
+        from crfp_torch.params import runtime_params_from_batch
+        from crfp_torch.utils.params_io import load_params
 
-        sd, n_unmapped = runtime_params_from_batch(load_npz(params_path),
+        sd, n_unmapped = runtime_params_from_batch(load_params(params_path),
                                                    model.state_dict())
         model.load_state_dict(sd)
         print(f"loaded {params_path} ({n_unmapped} runtime-only leaves kept at init)")
@@ -92,7 +109,13 @@ def build_chain(
     rng = np.random.default_rng(seed)
     lr = torch.from_numpy(rng.uniform(0, 1, (1, lr_h, lr_w, 3)).astype(np.float32))
     fv = torch.from_numpy(rng.uniform(0, 1, (1, *fv_hw, 3)).astype(np.float32))
-    lr, fv = lr.to("cuda", dtype), fv.to("cuda", dtype)
+    return model, lr.to(device, dtype), fv.to(device, dtype)
+
+
+def build_chain(model, lr, fv, t: int = 5):
+    """Returns ``chain(n_reps)``, which enqueues ``n_reps`` reps of ``t``
+    frames (encode + step0, then encode + step) of :func:`build_model`'s
+    ``model`` on its inputs and returns the last frame."""
 
     def chain(n_reps: int):
         out = None
@@ -105,6 +128,22 @@ def build_chain(
         return out
 
     return chain
+
+
+def _timed(device: torch.device, fn, *args):
+    """(fn(*args), seconds): CUDA events around the call and a device
+    synchronisation after it on the card, the host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(end) / 1e3
 
 
 def run_runtime_bench(
@@ -121,37 +160,61 @@ def run_runtime_bench(
     bf16: bool = False,
     params_path: str | None = None,
     dcn_fused: bool = False,
+    fused: bool = True,
+    device: str | torch.device = "cuda",
 ) -> BenchResult:
-    """Time the v18 streaming slice on the current CUDA device.
+    """Time the v18 streaming slice (see the module note for the two modes).
 
     The windows default to the deployment configuration (bench.py's
     ``_DEPLOY``: 8 and 32). ``bf16``: weights and activations in bfloat16
     (the kernels accumulate in f32). ``params_path``: a batch-trunk
-    ``.npz`` checkpoint adapted by ``crfp_torch.params``. ``dcn_fused``:
-    dcn_0/1/2 through kernel E instead of a PyTorch prologue and kernel A."""
-    chain = build_chain(preset, warp_size, mid_channels, t, fv_hw, seed,
-                        dcn_window, dcn_window_hr, bf16, params_path, dcn_fused)
+    checkpoint adapted by ``crfp_torch.params.runtime_params_from_batch``.
+    ``dcn_fused``: dcn_0/1/2 through kernel E instead of a PyTorch
+    prologue and kernel A."""
+    device = device_of(device)
+    model, lr, fv = build_model(preset, warp_size, mid_channels, fv_hw, seed, dcn_window,
+                                dcn_window_hr, bf16, params_path, dcn_fused, device)
+    on_card = device.type == "cuda"
+    timed_reps = max(1, repeat_time - warm_up)
+    stages: dict[str, float] = {}
     with torch.inference_mode():
-        chain(max(1, warm_up))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timed_reps = max(1, repeat_time - warm_up)
-        best_ms = float("inf")
-        for _ in range(2):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            chain(timed_reps)
-            end.record()
-            torch.cuda.synchronize()
-            best_ms = min(best_ms, start.elapsed_time(end))
-    spf = best_ms / 1e3 / (timed_reps * t)
+        if fused:
+            chain = build_chain(model, lr, fv, t)
+            _timed(device, chain, max(1, warm_up))
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            total = min(_timed(device, chain, timed_reps)[1] for _ in range(2))
+        else:
+            lr_nchw = lr.permute(0, 3, 1, 2).contiguous()  # compute_flow's layout
+            sums = dict.fromkeys(STAGES, 0.0)
+            total = 0.0
+
+            def rep():
+                _, t_flow = _timed(device, model.compute_flow, lr_nchw, lr_nchw)
+                (x_lr, x_hr), t_enc = _timed(device, model.encode, lr, fv)
+                state, _ = model.step0(lr, x_lr, x_hr)
+                t_step = 0.0
+                for _ in range(t - 1):
+                    (state, _), dt = _timed(device, model.step, state, lr, lr, x_lr, x_hr)
+                    t_step += dt
+                return t_flow, t_enc, t_step / max(t - 1, 1)
+
+            for i in range(timed_reps + warm_up):
+                if i == warm_up and on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+                per, dt = _timed(device, rep)
+                if i >= warm_up:
+                    total += dt
+                    for k, v in zip(STAGES, per):
+                        sums[k] += v
+            stages = {k: v / timed_reps for k, v in sums.items()}
+    spf = total / (timed_reps * t)
     return BenchResult(
         preset=preset, warp_size=tuple(warp_size),
         dtype="bfloat16" if bf16 else "float32",
-        sec_per_frame=spf, frames_per_sec=1.0 / spf,
-        peak_bytes=torch.cuda.max_memory_allocated(),
-        device=torch.cuda.get_device_name(0))
+        sec_per_frame=spf, frames_per_sec=1.0 / spf, stage_seconds=stages,
+        peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else None,
+        device=torch.cuda.get_device_name(device) if on_card else "cpu")
 
 
 def main(argv=None) -> None:

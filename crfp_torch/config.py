@@ -7,7 +7,8 @@ The port runs the logical math of the JAX model, so the JAX package's TPU
 layout flags carry none here:
 - ``--hr_s2d`` and ``--lv3_s2d`` compute what the plain layout computes
   (pinned by tests/test_models.py::test_hr_s2d_bit_equivalence_v18); they
-  are accepted, and ``main`` logs that they have no effect;
+  are accepted, and ``main`` logs that they have no effect
+  (:func:`check_tpu_flags`);
 - ``--dcn_anchor true`` changes which pixels the HR windows sample, so
   :func:`model_config` refuses it.
 
@@ -149,11 +150,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
 
 
+# why the port refuses per-cell anchored windows (main.py and the bench CLIs)
+DCN_ANCHOR_REFUSAL = ("--dcn_anchor: per-cell anchored windows sample other pixels than "
+                      "the plain +-window clamp, and the port does not carry them")
+# the JAX package's TPU layout flags: the same math in another layout
+LAYOUT_FLAGS = ("hr_s2d", "lv3_s2d", "emit_s2d")
+
+
 def model_config(args) -> ModelConfig:
     if args.dcn_anchor:
-        raise ValueError(
-            "--dcn_anchor true: per-cell anchored windows sample other pixels than "
-            "the plain +-window clamp, and the port does not carry them")
+        raise ValueError(DCN_ANCHOR_REFUSAL)
     return ModelConfig(
         variant=args.variant,
         mid_channels=args.mid_channels,
@@ -172,9 +178,15 @@ def model_config(args) -> ModelConfig:
     )
 
 
-def no_effect_flags(args) -> list[str]:
-    """The TPU layout flags set on the command line that change nothing here."""
-    return [f"--{k}" for k in ("hr_s2d", "lv3_s2d") if getattr(args, k)]
+def check_tpu_flags(args, log=print) -> None:
+    """The rule for the JAX package's TPU flags (``main`` and the bench
+    CLIs): ``--dcn_anchor`` raises, and each layout flag given is logged as
+    having no effect."""
+    if args.dcn_anchor:
+        raise ValueError(DCN_ANCHOR_REFUSAL)
+    for k in LAYOUT_FLAGS:
+        if getattr(args, k, False):
+            log(f"--{k}: a TPU layout of the JAX package, the same math; no effect in the port")
 
 
 def train_config(args) -> TrainConfig:

@@ -47,7 +47,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from crfp_torch.config import model_config, no_effect_flags, parse_args, train_config
+from crfp_torch.config import check_tpu_flags, model_config, parse_args, train_config
 from crfp_torch.data.loader import get_dataloader
 from crfp_torch.eval.evaluator import evaluate_clips
 from crfp_torch.models.crfp import CRFP
@@ -275,9 +275,7 @@ def _run(args, device: str, world: int):
                        if world < args.num_gpu else ""))
     elif args.num_gpu > 1:
         logger.info(f"--num_gpu {args.num_gpu}: eval and test run in one process")
-    for flag in no_effect_flags(args):
-        logger.info(f"{flag}: a TPU layout of the JAX package, the same math; "
-                    "no effect in the port")
+    check_tpu_flags(args, logger.info)
     from crfp_torch.data.reds import preprocess_path
 
     logger.info(f"host preprocess: {preprocess_path()}")

@@ -153,7 +153,10 @@ class _Runtime(nn.Module):
             return self.encoder_lr(lr), None
         return self.encoder_lr(lr), self.encoder_hr(torch.cat([fv, fv], dim=1))
 
-    def _compute_flow(self, lr_cur, lr_prev):
+    def compute_flow(self, lr_cur, lr_prev):
+        """Flow from ``lr_cur`` to ``lr_prev`` on their warp_size/8 crops,
+        NCHW in and out, like ``CRFP.compute_flow`` (the JAX model's
+        ``compute_flow``, which ``step`` runs inside)."""
         wph, wpw = self.warp_size
         return self.spynet(lr_cur[:, :, : wph // 8, : wpw // 8],
                            lr_prev[:, :, : wph // 8, : wpw // 8])
@@ -227,7 +230,7 @@ class CRFPRuntimeV18(_Runtime):
         cfg = self.cfg
         sr = cfg.split_ratio
         wph, wpw = self.warp_size
-        flow = self._compute_flow(lr, pre_lr)
+        flow = self.compute_flow(lr, pre_lr)
         feat_prop_lv0 = self.upsample(x_lr)
         # the warp kernels take f32 flow whatever the activations' dtype
         flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
@@ -315,7 +318,7 @@ class CRFPRuntimeSimple(_Runtime):
         cfg = self.cfg
         wph, wpw = self.warp_size
         three_way = cfg.variant == "v15"
-        flow = self._compute_flow(lr, pre_lr)
+        flow = self.compute_flow(lr, pre_lr)
         feat_prop_lv0 = self.upsample(x_lr)  # mid @ 2h x 2w, full frame
         flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
         flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()

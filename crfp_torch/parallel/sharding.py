@@ -36,6 +36,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _need_card(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device; pass device='cpu' to run on the CPU")
+
+
 def initialize_distributed(
     init_method: str | None = None,
     world_size: int | None = None,
@@ -51,8 +56,9 @@ def initialize_distributed(
     the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``;
     ``LOCAL_RANK`` picks the card). Without either it is a no-op returning
     False, so callers may call it unconditionally. ``device``: 'cuda'
-    (the default when a card exists) selects the card ``local rank % cards``
-    with ``torch.cuda.set_device`` and the NCCL backend; 'cpu' takes gloo.
+    (the default; without a card it raises) selects the card ``local rank %
+    cards`` with ``torch.cuda.set_device`` and the NCCL backend; 'cpu' takes
+    gloo.
     ``backend`` overrides the choice (gloo also takes CUDA tensors, which
     lets several ranks share one card). A genuine failure raises; only a
     second initialisation of an already initialised group is tolerated.
@@ -64,9 +70,9 @@ def initialize_distributed(
         return dist.get_world_size() > 1
     if explicit and (world_size is None or rank is None):
         raise ValueError("initialize_distributed: init_method needs world_size and rank")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = device or "cuda"
     if device == "cuda":
+        _need_card("initialize_distributed")
         local = int(os.environ.get("LOCAL_RANK", rank if explicit else os.environ["RANK"]))
         torch.cuda.set_device(local % torch.cuda.device_count())
     backend = backend or ("nccl" if device == "cuda" else "gloo")
@@ -111,15 +117,15 @@ def group_of(mesh: DeviceMesh | dist.ProcessGroup | None) -> dist.ProcessGroup |
 
 def shard_batch(batch: dict, mesh, device: torch.device | str | None = None) -> dict:
     """This rank's rows of a global batch (leading axis B), on ``device``
-    (the current card by default, the CPU where there is none). Every
+    (the current card by default; without a card it raises). Every
     rank holds B / world rows, in rank order; B must divide evenly, as JAX's
     ``device_put`` onto ``P('data')`` requires. Values: tensors or numpy
     arrays; they become float32 tensors."""
+    if device is None:
+        _need_card("shard_batch")
+        device = torch.device("cuda", torch.cuda.current_device())
     group = group_of(mesh)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if torch.cuda.is_available() else torch.device("cpu"))
     out = {}
     for k, v in batch.items():
         b = v.shape[0]

@@ -64,16 +64,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def frames_to_gif(frames, out_path: str, fps: int = 7) -> None:
-    """frames: list of (H, W, 3) uint8 RGB arrays
-    (crfp_tpu/tools/video.py::frames_to_gif, written with Pillow)."""
-    import PIL.Image
-
-    imgs = [PIL.Image.fromarray(f) for f in frames]
-    imgs[0].save(out_path, save_all=True, append_images=imgs[1:],
-                 duration=int(round(1000 / fps)), loop=0)
-
-
 def load_clip(gt_dir: str, lr_dir: str, n_frames: int):
     """The first ``n_frames`` frames of a clip on disk as float32 arrays in
     [0, 1]: GT (cropped to 1072x1920), LR (cropped to 134x240) and the
@@ -126,6 +116,7 @@ def main(argv=None, on_frame=None):
     from crfp_torch.models.crfp import CRFP
     from crfp_torch.models.streaming import StreamingRunner
     from crfp_torch.ops.color import y_beside_uv
+    from crfp_torch.tools.video import frames_to_gif
 
     device = "cpu" if args.cpu else "cuda"
     cfg = ModelConfig(variant=args.variant, mid_channels=args.mid_channels,

@@ -4,15 +4,13 @@
 ``load_params(path)`` returns the port's ``state_dict`` (CPU tensors) of:
 - a flat flax ``.npz`` (the JAX package's ``save_params_npz``, and what
   ``crfp_torch.tools.train_procedural`` writes), through ``params.from_jax``;
+- a reference ``.pt``/``.pth`` file, through
+  ``params.load_torch_checkpoint`` (strict);
 - a step directory of ``crfp_torch.train.checkpoint.CheckpointManager``,
   or a manager root (its latest step).
 
-Two formats the JAX loader reads raise instead:
-- reference ``.pt``/``.pth`` files: their names map onto the model only
-  through the inverse of crfp_tpu/tools/convert_torch.py::convert_state_dict,
-  which the port does not have yet;
-- orbax directories: reading them needs orbax, which needs JAX. The JAX
-  package's ``save_params_npz`` writes the same parameters as ``.npz``.
+Orbax directories raise: reading them needs orbax, which needs JAX. The
+JAX package's ``save_params_npz`` writes the same parameters as ``.npz``.
 """
 
 from __future__ import annotations
@@ -21,7 +19,7 @@ import os
 
 import torch
 
-from crfp_torch.params import from_jax, load_npz
+from crfp_torch.params import from_jax, load_npz, load_torch_checkpoint
 from crfp_torch.train.checkpoint import read_state
 
 
@@ -30,10 +28,7 @@ def load_params(path: str) -> dict[str, torch.Tensor]:
     if path.endswith(".npz"):
         return from_jax(load_npz(path))
     if path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{path!r}: reference .pt/.pth checkpoints need the inverse of the "
-            "torch converter (crfp_tpu/tools/convert_torch.py), not ported yet; "
-            "convert the file to .npz with the JAX package")
+        return load_torch_checkpoint(path)
     if os.path.isdir(path):
         state = read_state(path)
         if state is not None:
@@ -43,5 +38,5 @@ def load_params(path: str) -> dict[str, torch.Tensor]:
             "an orbax checkpoint needs orbax, which needs JAX: write its parameters "
             "as .npz with crfp_tpu.utils.params_io.save_params_npz")
     raise ValueError(
-        f"unrecognized checkpoint: {path!r} (expected .npz or a crfp_torch "
-        "checkpoint directory)")
+        f"unrecognized checkpoint: {path!r} (expected .npz, .pt/.pth or a "
+        "crfp_torch checkpoint directory)")

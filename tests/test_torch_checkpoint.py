@@ -3,8 +3,9 @@ crfp_torch/utils/params_io.py) on the CPU: a run resumed from a save after
 k steps equals the unbroken run bit for bit (parameters, both Adam groups'
 state, the step); ``latest_step``, ``max_to_keep`` and a repeated save;
 ``load_params`` reads ``.npz`` and the port's step directories and
-manager roots, and raises on reference ``.pt`` files and on orbax
-directories."""
+manager roots, reads ``.pt`` files through the reference's name map (a file
+of the port's own names is refused; reference-named files are held in
+tests/test_torch_convert.py), and raises on orbax directories."""
 
 import os
 
@@ -122,9 +123,12 @@ def test_load_params_formats(tmp_path):
     want = other.state_dict()
     same(load_params(str(tmp_path / "model")))
 
+    # .pt/.pth files go through the reference's name map, strictly: the
+    # port's own names are not the reference's
     torch.save(want, tmp_path / "ref.pt")
+    torch.save({"state_dict": want}, tmp_path / "ref.pth")
     for name in ("ref.pt", "ref.pth"):
-        with pytest.raises(NotImplementedError, match="converter"):
+        with pytest.raises(KeyError, match="spynet"):
             load_params(str(tmp_path / name))
     with pytest.raises(ValueError, match="unrecognized"):
         load_params(str(tmp_path / "missing.bin"))

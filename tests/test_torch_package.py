@@ -52,11 +52,44 @@ def test_port_imports_no_jax():
                 "main.py", "config.py", "data/loader.py", "data/reds.py", "data/vimeo.py",
                 "data/cache.py", "native/__init__.py", "native/bindings.py",
                 "train/checkpoint.py", "train/viz.py", "utils/__init__.py",
-                "utils/logging.py", "utils/params_io.py"):
+                "utils/logging.py", "utils/params_io.py",
+                # the tools and benches
+                "tools/convert_torch.py", "tools/test_runtime.py", "tools/bench.py",
+                "tools/video.py", "bench/__init__.py", "bench/runtime.py",
+                "bench/profile.py", "bench/capability.py", "bench/quality_window.py",
+                "bench/quality_trained.py", "bench/trace_table.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def test_port_and_chip_smoke_helpers_load_no_jax():
+    """What the AST scan cannot see: a module the port or chip_smoke.py loads
+    at run time that imports JAX itself. In a fresh interpreter, import every
+    module of the port and chip_smoke.py, and write a v18 trunk under the
+    reference's names as phase 11 does; no JAX module may have been loaded."""
+    import subprocess
+    import sys
+
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(_ROOT)!r})
+import chip_smoke, crfp_torch
+for m in pkgutil.walk_packages(crfp_torch.__path__, "crfp_torch."):
+    importlib.import_module(m.name)
+from crfp_torch.models.config import ModelConfig
+from crfp_torch.models.crfp import CRFP
+from crfp_torch.params import convert_state_dict
+sd = CRFP(ModelConfig(mid_channels=8), device="cpu").state_dict()
+back = convert_state_dict(chip_smoke._reference_named(sd)["state_dict"])
+assert back.keys() == sd.keys() and all(back[k].equal(sd[k]) for k in sd)
+print(sorted(m for m in sys.modules if m.split(".")[0] in {_FORBIDDEN!r}))
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]", r.stdout[-2000:]
 
 
 def _dcn_args(shared: bool):

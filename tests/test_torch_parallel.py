@@ -47,6 +47,22 @@ def test_initialize_distributed_single_process_noop():
     assert not torch.distributed.is_initialized()
 
 
+@pytest.mark.parametrize("entry", ["initialize_distributed", "shard_batch"])
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(entry):
+    """No CPU fallback: without a card ``device=None`` (the current card)
+    raises and names ``device='cpu'``."""
+    from crfp_torch.parallel import initialize_distributed, shard_batch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None selects it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "initialize_distributed":
+            initialize_distributed("tcp://127.0.0.1:1", 1, 0)
+        else:
+            shard_batch({"lr": np.zeros((2, 1), np.float32)}, None)
+    assert not torch.distributed.is_initialized()
+
+
 def test_two_ranks_bring_up_and_all_reduce(tmp_path):
     out = td.run_ranks(td.bringup, 2, tmp_path)
     for rank, o in enumerate(out):

@@ -57,13 +57,13 @@ def adapted():
     from crfp_tpu.utils.params_io import load_params
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.runtime import CRFPRuntimeV18
-    from crfp_torch.params import load_npz, runtime_params_from_batch
+    from crfp_torch.params import from_jax, load_npz, runtime_params_from_batch
 
     lrs, fvs = tp.clip(t=1, seed=0)
     jm = tp.jax_model(**_CFG)
     j_tree, n_j = jax_adapt(load_params(CKPT), tp.unflatten(tp.jax_init(jm, lrs, fvs)))
     model = CRFPRuntimeV18(ModelConfig(**_CFG), warp_size=tp.WARP, device="cpu")
-    sd, n_t = runtime_params_from_batch(load_npz(CKPT), model.state_dict())
+    sd, n_t = runtime_params_from_batch(from_jax(load_npz(CKPT)), model.state_dict())
     return jm, tp.flat_params(j_tree), sd, model, n_j, n_t
 
 

@@ -157,7 +157,7 @@ def test_runtime_params_from_batch_matches_jax(case):
     unmapped ones."""
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.crfp import CRFP
-    from crfp_torch.params import runtime_params_from_batch, to_jax
+    from crfp_torch.params import from_jax, runtime_params_from_batch, to_jax
     from crfp_tpu.models.runtime import runtime_params_from_batch as jax_adapt
 
     _, variant, nofv = case
@@ -165,7 +165,7 @@ def test_runtime_params_from_batch_matches_jax(case):
                         seed=3).state_dict())
     model = torch_model(variant, nofv)
     init = model.state_dict()
-    got, n_got = runtime_params_from_batch(batch, init)
+    got, n_got = runtime_params_from_batch(from_jax(batch), init)
     want, n_want = jax_adapt(tp.unflatten(batch), tp.unflatten(to_jax(init)))
     want = tp.flat_params(want)
     assert n_got == n_want > 0
@@ -173,7 +173,7 @@ def test_runtime_params_from_batch_matches_jax(case):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    model.load_state_dict(runtime_params_from_batch(batch, init)[0], strict=True)
+    model.load_state_dict(runtime_params_from_batch(from_jax(batch), init)[0], strict=True)
 
 
 def test_simple_state_and_seeded_init():
