@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only    # phases 1, 2 and 5 alone
     python3 chip_smoke.py --parallel-only   # phases 1 and 10 alone
     python3 chip_smoke.py --tools-only      # phases 1 and 11 alone
+    python3 chip_smoke.py --models-bf16-only  # phase 1 and phase 3d's bf16 pyramids and PCD
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -49,9 +50,10 @@ Phases, in order; any failure exits non-zero without the final line:
    shared (1,2,720,720) at O = 2; E (1,16,180,180) at O = 16), and A at O = 64
    (the pyramids' and PCD's widths: 4 channels a group at (1,64,180,320), 8
    at (1,64,180,320), 16 at (1,64,360,640), 64 at (1,64,720,1280)), each
-   clamped at D = 8 and unclamped, f32 and bf16, timed unclamped in bf16
-   with the f32 device time beside it, its bound the larger of the bytes and
-   the contraction at the bf16 tensor-core peak (``f32_ops_ms``: at the f32
+   clamped at D = 8 and unclamped, f32 and bf16 (bf16 must take the
+   tensor-core route, f32 the CUDA cores), timed unclamped in bf16 with the
+   f32 device time beside it, its bound the larger of the bytes and the
+   contraction at the bf16 tensor-core peak (``f32_ops_ms``: at the f32
    CUDA-core peak).
    A and E must give the same bits in two runs and replayed from a CUDA
    graph, and A under shared taps the bits of its per-tap loop on the
@@ -105,9 +107,13 @@ Phases, in order; any failure exits non-zero without the final line:
    clip, dcn_window None (and X8 plain at 8) (X8 A 4, B 4, C 1 a steady
    frame, X4 A 4, B 3, C 1, the cold frame C 1); a DCN at O = 64 that
    autograd records must raise (kernel D does not take it); PCDAlign at nf
-   64, 8 groups on (1,64,180,320) (A 4); then ms per steady bf16 frame of
-   the runtime models beside seeded v18 at 1080p and of the four pyramids
-   (CUDA events, in order and reversed);
+   64, 8 groups on (1,64,180,320) (A 4); X8 plain, X8 CRA and PCD again in
+   bf16 (kernel A at O = 64 on the tensor cores), kernels against plain
+   versions at >= 55 dB and max|d| <= 0.05 a frame (phase 11's bf16
+   limits; PCD's feature map >= 34 dB and max|d| <= 0.28), launches
+   asserted, and ms per steady bf16 X8 frame; then ms per
+   steady bf16 frame of the runtime models beside seeded v18 at 1080p and of
+   the four pyramids (CUDA events, in order and reversed);
 4. time the bf16 slice with crfp_torch.bench.runtime.run_runtime_bench,
    in turns with ModelConfig.dcn_fused off, on, on, off (off: A 4, B 2, C 1
    per steady frame; on: E 3, A 1, B 2, C 1), launch counts asserted;
@@ -805,12 +811,14 @@ def _wide_modes(gen, check, check_bf16):
     """Phase 2's records of kernel A at O = 64: f32 to 1e-4 abs against the
     plain version (white-noise and smooth offsets at D = 8, white noise
     unclamped), bf16 to 2e-2 of max|ref| clamped and unclamped, the same
-    bits in two runs and from a CUDA-graph replay; timed in bf16 unclamped
-    (the pyramids' default), with the f32 kernel's device time beside it.
+    bits in two runs and from a CUDA-graph replay; bf16 must plan the
+    tensor-core route (``mma`` in the record's ``tile``), f32 the CUDA
+    cores; timed in bf16 unclamped (the pyramids' default), with the f32
+    kernel's device time beside it.
     The bound takes the larger of the bytes at 3.35 TB/s and the
     contraction's 2 * 9 * C * O FLOP a pixel at the bf16 tensor-core peak;
     ``f32_ops_ms`` is the same FLOP at the f32 CUDA-core peak, the rate of
-    the path this first design runs."""
+    the f32 route."""
     import torch
 
     from crfp_torch.ops.cuda import dcn
@@ -863,10 +871,12 @@ def _wide_modes(gen, check, check_bf16):
         bnd = bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16")
         f32_ops = flops / PEAK_FLOPS["float32"] * 1e3
         plan = dcn.tile_plan(1, c, *hw, o, g, None, bf16=True)
+        if not plan.mma or dcn.tile_plan(1, c, *hw, o, g, None, bf16=False).mma:
+            fail(f"kernel A {mode}: bf16 must plan the tensor cores, f32 the CUDA cores")
         _record(out, "dcn_fwd", mode, 0, err, rel, k_ms, p_ms, None, bnd,
                 calls_per_x8_frame=calls, f32_device_ms=f32_dev, f32_ops_ms=f32_ops,
                 bound_fraction=bnd[0] / k_ms[1], f32_ops_fraction=f32_ops / f32_dev,
-                tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}",
+                tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}{' mma' if plan.mma else ''}",
                 digest=digest(*bits))
     return out
 
@@ -1346,10 +1356,11 @@ def _pyramid_inputs(kind: str, cra: bool, frames: int, dtype=None):
     return tuple(a[None].to(dtype or torch.float32).contiguous() for a in args)
 
 
-def _models_vs_plain(tag, run, expect, total, shape):
+def _models_vs_plain(tag, run, expect, total, shape, db_min=80.0, d_max=1e-3):
     """``run()`` through the kernels (launch counts equal to ``expect``),
-    then through the plain versions: >= 80 dB and max|d| <= 1e-3 per frame.
-    Adds the kernel run's launches to ``total``; returns the kernels' frames."""
+    then through the plain versions: >= ``db_min`` dB and max|d| <=
+    ``d_max`` per frame. Adds the kernel run's launches to ``total``;
+    returns the kernels' frames."""
     _zero_counts()
     got = run()
     launches = _counts()
@@ -1360,7 +1371,7 @@ def _models_vs_plain(tag, run, expect, total, shape):
         total[k] += v
     with plain_kernels():
         want = run()
-    _frames_agree(f"[models] {tag}", got, want, shape=shape)
+    _frames_agree(f"[models] {tag}", got, want, db_min, d_max, shape=shape)
     return got
 
 
@@ -1494,6 +1505,8 @@ def phase_models():
     _models_vs_plain("PCD nf 64 groups 8 (1,64,180,320) f32", run_pcd, _expect(dcn_fwd=4),
                      total, (1, 64, 180, 320))
     lap("PCD")
+    _models_bf16(total)
+    lap("bf16 pyramids and PCD")
 
     # ms per steady bf16 frame, CUDA events, every model in order and reversed
     ms = {}
@@ -1542,6 +1555,77 @@ def phase_models():
     print(f"[models] launches over the phase's kernel runs: {total}")
     return total
 
+
+
+# bf16 frames of the pyramids and PCD, kernels against plain versions. The
+# pyramids' frames: phase 11's bf16 limits (a bf16 rounding or two of the
+# output, carried by the recurrence; 65.51-68.66 dB, max|d| 3.9e-3 on the
+# H100 with either route of kernel A at O = 64). PCD's output is a feature
+# map of range ~[-0.7, 7.7] after four chained DCNs, where a bf16 ulp is up
+# to 0.03: the CUDA-core route read 44.15 dB, max|d| 0.1016, the tensor-core
+# route (samples rounded to bf16, as the TPU kernel rounds them) 36.90 dB,
+# 0.1406; its limits keep about 2x below the lower reading.
+MODELS_BF16_DB, MODELS_BF16_DMAX = 55.0, 0.05
+PCD_BF16_DB, PCD_BF16_DMAX = 34.0, 0.28
+
+
+def _models_bf16(total: dict) -> None:
+    """Phase 3d's bf16 half: X8 plain and X8 CRA on phase 3d's clip and PCD
+    on its features, in bf16 through the kernels (kernel A at O = 64 on the
+    tensor cores) and through the plain versions, >= MODELS_BF16_DB dB and
+    max|d| <= MODELS_BF16_DMAX a frame (PCD: PCD_BF16_DB, PCD_BF16_DMAX),
+    launches asserted (X8 A 4, B 4, C 1
+    a steady frame, the cold frame C 1; PCD A 4); then ms per steady bf16
+    X8 frame (CUDA events, twice). Adds the launches to ``total``."""
+    import torch
+
+    from crfp_torch.nn.pcd import PCDAlign
+
+    bf16 = torch.bfloat16
+    steady = PYR_FRAMES - 1
+    x8 = {}
+    for cra in (False, True):
+        model = x8[cra] = _pyramid("X8", cra, dtype=bf16)
+        args = _pyramid_inputs("X8", cra, PYR_FRAMES, bf16)
+
+        def run(model=model, args=args):
+            out = model(*args)  # forward runs under no_grad itself
+            torch.cuda.synchronize()
+            return list(out.float().unbind(1))
+
+        _models_vs_plain(f"X8{' CRA' if cra else ''} dcn_window=None bf16", run,
+                         _expect(dcn_fwd=4 * steady, flow_warp=4 * steady, emit=PYR_FRAMES),
+                         total, (1, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, 3),
+                         MODELS_BF16_DB, MODELS_BF16_DMAX)
+    pcd = _perturb_dcn(PCDAlign(64, 8, device="cuda", seed=70), 71).to(bf16)
+    gen = torch.Generator().manual_seed(72)
+    feats = [torch.randn(1, 64, 180, 320, generator=gen).cuda().to(bf16) for _ in range(3)]
+    flow = _smooth(gen, 2, (180, 320), 3.0)
+
+    def run_pcd():
+        out = pcd(*feats, flow)  # forward runs under no_grad itself
+        torch.cuda.synchronize()
+        return [out.float()]
+
+    _models_vs_plain("PCD nf 64 groups 8 (1,64,180,320) bf16", run_pcd, _expect(dcn_fwd=4),
+                     total, (1, 64, 180, 320), PCD_BF16_DB, PCD_BF16_DMAX)
+    ms = []
+    for _ in range(2):
+        spans = []
+        for frames in PYR_TIMED:
+            args = _pyramid_inputs("X8", False, frames, bf16)
+            with torch.inference_mode():
+                x8[False](*args)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                x8[False](*args)
+                end.record()
+            torch.cuda.synchronize()
+            spans.append(start.elapsed_time(end))
+        ms.append((spans[1] - spans[0]) / (PYR_TIMED[1] - PYR_TIMED[0]))
+    print(f"[models] X8 bf16 ms per steady frame (LR {GATE_LR_HW}, mid {PYR_MID}, "
+          f"dcn_window None, CUDA events, twice): {json.dumps(ms)}")
 
 
 def phase_bench():
@@ -2990,6 +3074,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="phases 1 and 11 only (build, the tools and benches); prints "
                          "no final ok line")
+    ap.add_argument("--models-bf16-only", action="store_true",
+                    help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
+                         "kernels against plain versions in bf16, the X8 bf16 frame's "
+                         "ms); prints no final ok line")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     try:
@@ -3024,6 +3112,10 @@ def main(argv=None) -> int:
     if args.tools_only:
         timed("11 tools", phase_tools)
         print(f"[done] tools phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.models_bf16_only:
+        timed("3d bf16 pyramids and PCD", _models_bf16, _expect())
+        print(f"[done] bf16 models passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     gen = torch.Generator().manual_seed(0)
     modes = timed("2 kernels", phase_kernels, gen)

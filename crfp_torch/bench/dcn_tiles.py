@@ -6,6 +6,7 @@ shapes.
     python -m crfp_torch.bench.dcn_tiles --bwd     # kernel D, every mode
     python -m crfp_torch.bench.dcn_tiles --bwd --plans   # and every plan
     python -m crfp_torch.bench.dcn_tiles --bwd --profile # device us of each launch
+    python -m crfp_torch.bench.dcn_tiles --wide    # A at O = 64, every tile
 
 For each call shape of kernel A (serving, gate and training; per-tap and
 shared-tap dcn_3) and of kernel E, and each dtype given, the script times
@@ -36,6 +37,13 @@ dW its value to f32 rounding (the blocks' partials change with the grid).
 cost the profiler its device events). The launches are programmatic
 dependent launches, so a launch's span includes its wait for the one
 before; a build with that attribute off gives disjoint spans.
+
+``--wide`` times kernel A at O = 64 on the tensor cores (bf16, the
+pyramids' and PCD's widths at the four shapes of ``chip_smoke.py``'s
+``WIDE_MODES``), unclamped and at D = 8, under every tile of
+``WIDE_MMA_TILE_SHAPES``, on chip_smoke.py's noisy offsets and (unclamped)
+on the smooth field alone; every tile must give the default plan's bits.
+``--wide --profile`` splits each call into its two launches.
 Ends with one JSON line. Fails without a card.
 """
 
@@ -259,6 +267,104 @@ def run_bwd_profile(calls: int = 20) -> list[dict]:
     return rows
 
 
+# (name, channels a group, (h, w)): kernel A at O = 64 on the X8 pyramid's
+# levels 1-3 and PCD's finest level (chip_smoke.py's WIDE_MODES)
+WIDE_SHAPES = [
+    ("A O64 cpg4 (1,64,180,320)", 4, (180, 320)),
+    ("A O64 cpg8 pcd (1,64,180,320)", 8, (180, 320)),
+    ("A O64 cpg16 (1,64,360,640)", 16, (360, 640)),
+    ("A O64 cpg64 (1,64,720,1280)", 64, (720, 1280)),
+]
+
+
+def _wide_operands(gen, cpg, hw):
+    """x (bf16), weight, bias, mask and two offset fields of kernel A at O
+    = 64: ``noisy``, chip_smoke.py's (a smooth flow-like field of std D = 8
+    plus white noise of std 2 for every group and tap), and ``smooth``, the
+    field alone (every tap of a pixel displaced alike)."""
+    c = o = 64
+    g, d = c // cpg, 8
+    field = _smooth(gen, 1, 2, hw, d).repeat(1, g * 9, 1, 1)
+    return dict(
+        x=torch.randn(1, c, *hw, generator=gen).cuda().to(torch.bfloat16),
+        noisy=field + (torch.randn(1, g * 18, *hw, generator=gen) * 2.0).cuda(),
+        smooth=field.contiguous(),
+        mask=torch.rand(1, g * 9, *hw, generator=gen).cuda(),
+        wt=(torch.randn(o, c, 3, 3, generator=gen) * 0.05).cuda(),
+        b=torch.randn(o, generator=gen).cuda())
+
+
+def run_wide() -> list[dict]:
+    """Device ms of kernel A at O = 64 in bf16 under every tile of the
+    tensor-core plan, unclamped and at D = 8, on noisy and smooth offsets."""
+    from crfp_torch.ops.cuda import dcn
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for name, cpg, (h, w) in WIDE_SHAPES:
+        c = o = 64
+        g, d = c // cpg, 8
+        ops = _wide_operands(gen, cpg, (h, w))
+        x, mask, wt, b = ops["x"], ops["mask"], ops["wt"], ops["b"]
+        for window, kind in ((None, "noisy"), (d, "noisy"), (None, "smooth")):
+            off = ops[kind]
+            mode = ("clamped" if window is not None else "unclamped") + f" {kind}"
+            default = dcn.tile_plan(1, c, h, w, o, g, window, bf16=True,
+                                    sm_count=dcn.sm_count(x.device))
+            want = dcn.dcn_forward(x, off, mask, wt, b, max_displacement=window)
+            for tile in dcn.WIDE_MMA_TILE_SHAPES:
+                plan = dcn.tile_plan(1, c, h, w, o, g, window, bf16=True, tile=tile)
+
+                def call(plan=plan, window=window):
+                    return dcn.dcn_forward(x, off, mask, wt, b, max_displacement=window,
+                                           plan=plan)
+                got = call()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    sys.exit(f"dcn_tiles: {name} {mode} tile {tile}: "
+                             "differs from the default plan's bits")
+                ms = device_ms(call)
+                row = dict(shape=name, dtype="bf16", mode=mode, tile=list(tile),
+                           tiles=plan.tiles_y * plan.tiles_x, device_ms=ms,
+                           default=plan == default)
+                rows.append(row)
+                print(f"[wide] {name:30s} {mode:16s} tile {tile[0]}x{tile[1]:<3d} "
+                      f"{row['tiles']:6d} tiles  device {ms:.4f} ms"
+                      + ("  (default)" if row["default"] else ""))
+    return rows
+
+
+def run_wide_profile(calls: int = 20) -> list[dict]:
+    """Device us per call of kernel A's two launches at O = 64 (the
+    pre-pass and the tiled kernel), bf16 unclamped on noisy offsets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crfp_torch.ops.cuda import dcn
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for name, cpg, hw in WIDE_SHAPES:
+        ops = _wide_operands(gen, cpg, hw)
+        args = (ops["x"], ops["noisy"], ops["mask"], ops["wt"], ops["b"])
+        for _ in range(3):
+            dcn.dcn_forward(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                dcn.dcn_forward(*args)
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if t and "dcn_fwd_kernel" in e.key:
+                kernel = "pack_x" if "pack_x" in e.key else "tiled"
+                spans[kernel] = spans.get(kernel, 0.0) + t / calls
+        rows.append(dict(shape=name, dtype="bf16", mode="unclamped noisy", device_us=spans))
+        print(f"[wide profile] {name:30s} " + "  ".join(f"{k} {v:.1f} us"
+                                                      for k, v in spans.items()))
+    return rows
+
+
 def run(dtypes=("bf16",)) -> list[dict]:
     from crfp_torch.ops.cuda import dcn, dcn_fused
 
@@ -315,7 +421,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plans", action="store_true",
                     help="with --bwd: also every tile and patch choice of bwd_plan")
     ap.add_argument("--profile", action="store_true",
-                    help="with --bwd: device time of each launch under torch.profiler")
+                    help="with --bwd or --wide: device time of each launch under "
+                         "torch.profiler")
+    ap.add_argument("--wide", action="store_true",
+                    help="time kernel A at O = 64 (bf16) under every tile of its plan")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("dcn_tiles: no CUDA device")
@@ -324,6 +433,12 @@ def main(argv=None) -> int:
     print(smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}")
     if args.modes:
         print(json.dumps({"dcn_modes": run_modes()}))
+        return 0
+    if args.wide and args.profile:
+        print(json.dumps({"dcn_wide_profile": run_wide_profile()}))
+        return 0
+    if args.wide:
+        print(json.dumps({"dcn_wide_tiles": run_wide()}))
         return 0
     if args.bwd and args.profile:
         print(json.dumps({"dcn_bwd_profile": run_bwd_profile()}))

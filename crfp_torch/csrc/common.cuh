@@ -66,11 +66,19 @@ __device__ __forceinline__ float clamp_pass(float v, float D) {
 //        the groups with the pixel's O sums in registers, f32 FMAs on the
 //        CUDA cores; a shared mask scales each group's sum once
 //        (crfp_tpu/ops/pallas/dcn.py:196-200).
-//      - dcn_tiles_wide (O = 64, per-tap, f32 and bf16 x): the same on the
-//        CUDA cores with the group's channels walked in 16-byte chunks.
-// The corners come from the packed planes through L1. Staging each group's
-// window of x in shared memory (cp.async, double-buffered) was built and
-// measured slower at every shape of the main paths (PERF.md).
+//      - dcn_tiles_wide_mma (bf16 x, O = 64, C = 64, per-tap): 64 pixels a
+//        block of 8 warps, the samples built one tap at a time into U (the
+//        corners copied by cp.async, lanes across a wide group's channels,
+//        16 bytes each), rounded to bf16 as above, each tap contracted on
+//        the tensor cores (mma.sync m16n8k16, ldmatrix) while the next
+//        tap's corners are in flight.
+//      - dcn_tiles_wide (f32 x, O = 64, per-tap): a thread per pixel, the
+//        64 sums in registers, f32 FMAs on the CUDA cores with the group's
+//        channels walked in 16-byte chunks.
+// The corners come from the packed planes through L1 (at O = 64 by
+// cp.async). Staging each group's window of x in shared memory (cp.async,
+// double-buffered) was built for O <= 32 and measured slower at every shape
+// of the main paths (PERF.md).
 // Checked and padded planes feed the same arithmetic in the same order; the
 // bias is added last; sums are formed in a fixed order with no atomics, so
 // two runs are bit-equal.
@@ -96,9 +104,13 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 232448;  // the H100's 227 KB per block
 
 // Resident blocks of 256 threads per SM that __launch_bounds__ asks for: 3
-// (at most 85 registers a thread) on the tensor-core path and at O < 32; 1
-// on the f32 path at O = 32, whose 64 sums a pixel would spill with fewer.
-__host__ __device__ constexpr int min_blocks(bool mma, int o) { return mma || o < 32 ? 3 : 1; }
+// (at most 85 registers a thread) on the tensor-core path at O = 32 and at
+// O < 32; 2 (128 registers) on the tensor-core path at O = 64, as many as
+// its 114,688 bytes of shared memory let in; 1 on the f32 path at O >= 32,
+// whose 64 sums a pixel would spill with fewer.
+__host__ __device__ constexpr int min_blocks(bool mma, int o) {
+  return mma ? (o == 64 ? 2 : 3) : (o < 32 ? 3 : 1);
+}
 
 // Rows (columns) of a packed plane of n rows (columns) with a zero border of
 // `pad`: a clamped call's corners lie at most pad below and pad + 1 above
@@ -117,11 +129,21 @@ __host__ __device__ constexpr int mma_kstride(int c) {
   return (kTaps * c + 15) / 16 * 16 + 8;
 }
 
+// The tensor-core path at O = 64 (dcn_tiles_wide_mma): tiles of kWidePix
+// pixels, C = kWideC input channels.
+constexpr int kWideO = 64;
+constexpr int kWidePix = 64;
+constexpr int kWideC = 64;
+
 // Bytes of dynamic shared memory; ops/cuda/dcn.py::tile_plan computes the
-// same, and the C entries refuse a plan that differs. Tensor-core path: the
-// bf16 weight [32][ks], U [32][ks] and the f32 output tile [32][kOutStride],
-// in this order; CUDA-core path: the f32 weight.
+// same, and the C entries refuse a plan that differs. Tensor-core path at O
+// = 32: the bf16 weight [32][ks], U [32][ks] and the f32 output tile
+// [32][kOutStride], in this order; at O = 64: the bf16 weight [64][9C],
+// the staging area of the corners [4][kWidePix][C] and U [kWidePix][C],
+// all bf16 (114,688 bytes at C = 64: two blocks an SM); CUDA-core path: the
+// f32 weight.
 __host__ __device__ inline int smem_bytes(bool mma, int C, int O) {
+  if (mma && O == kWideO) return O * kTaps * C * 2 + 5 * kWidePix * C * 2;
   return mma ? 2 * 32 * mma_kstride(C) * 2 + 32 * kOutStride * 4 : C * kTaps * O * 4;
 }
 
@@ -291,7 +313,12 @@ __host__ __device__ constexpr int chunk_of() {
 // [padded(W, pad)][CPG], zeros in the border, so that a corner of a sample
 // is one load of the group's CPG channels (a chunk of them at CPG > 4).
 // Blocks of 32 x 8 threads over (column, row) of the padded plane;
-// blockIdx.z: image x group.
+// blockIdx.z: image x group. A thread packs a pixel; in bf16 at 16 or 64
+// channels a group a warp packs its row's 32 pixels together: channel pairs
+// read with a lane a pixel, transposed through shared memory, written as
+// one contiguous run of 32 x CPG channels (a thread a pixel, its 16-byte
+// chunks 32-128 bytes apart across the warp, took 2.6x as long at 64
+// channels a group: PERF.md).
 template <typename T, int CPG>
 __device__ __forceinline__ void pack_x(const T* __restrict__ x, T* __restrict__ xp, int H,
                                        int W, int pad) {
@@ -300,23 +327,47 @@ __device__ __forceinline__ void pack_x(const T* __restrict__ x, T* __restrict__ 
   const int Hp = padded(H, pad), Wp = padded(W, pad);
   const int xq = blockIdx.x * blockDim.x + threadIdx.x;
   const int yq = blockIdx.y * blockDim.y + threadIdx.y;
-  if (xq >= Wp || yq >= Hp) return;
   const long long ng = blockIdx.z, HW = (long long)H * W;
   const int y = yq - pad, xx = xq - pad;
-  const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
-  const T* src = x + ng * CPG * HW + (long long)(inside ? y : 0) * W + (inside ? xx : 0);
-  Pix<T, CH>* dst = reinterpret_cast<Pix<T, CH>*>(xp) + ((ng * Hp + yq) * Wp + xq) * (CPG / CH);
-#pragma unroll
-  for (int j = 0; j < CPG / CH; ++j) {
-    Pix<T, CH> v;
-    if (inside) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) v.v[c] = __ldg(src + (j * CH + c) * HW);
-    } else {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) v.v[c] = store_f<T>(0.f);
+  const bool inside = xq < Wp && y >= 0 && y < H && xx >= 0 && xx < W;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && CPG / CH > 1) {
+    constexpr int RW = CPG / 2 + 1;  // words a pixel's row, padded: no bank conflicts
+    __shared__ uint32_t rows[8][32 * RW];
+    if (yq >= Hp) return;  // the whole warp: blockDim is (32, 8)
+    uint32_t* t = rows[threadIdx.y];
+    const int lane = threadIdx.x;
+    const T* src = x + ng * CPG * HW + (inside ? (long long)y * W + xx : 0);
+#pragma unroll 8
+    for (int c = 0; c < CPG; c += 2) {
+      __nv_bfloat162 v;
+      v.x = inside ? __ldg(src + c * HW) : store_f<T>(0.f);
+      v.y = inside ? __ldg(src + (c + 1) * HW) : store_f<T>(0.f);
+      t[lane * RW + c / 2] = *reinterpret_cast<const uint32_t*>(&v);
     }
-    dst[j] = v;
+    __syncwarp();
+    const int x0 = blockIdx.x * blockDim.x, n = min(32, Wp - x0) * (CPG / 8);
+    uint4* dst = reinterpret_cast<uint4*>(xp + ((ng * Hp + yq) * Wp + x0) * CPG);
+    for (int i = lane; i < n; i += 32) {
+      const uint32_t* w = t + (i / (CPG / 8)) * RW + (i % (CPG / 8)) * 4;
+      dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    if (xq >= Wp || yq >= Hp) return;
+    const T* src = x + ng * CPG * HW + (long long)(inside ? y : 0) * W + (inside ? xx : 0);
+    Pix<T, CH>* dst =
+        reinterpret_cast<Pix<T, CH>*>(xp) + ((ng * Hp + yq) * Wp + xq) * (CPG / CH);
+#pragma unroll
+    for (int j = 0; j < CPG / CH; ++j) {
+      Pix<T, CH> v;
+      if (inside) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) v.v[c] = __ldg(src + (j * CH + c) * HW);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) v.v[c] = store_f<T>(0.f);
+      }
+      dst[j] = v;
+    }
   }
 }
 
@@ -462,8 +513,7 @@ __device__ __forceinline__ void dcn_tiles(const TileArgs<T>& a, const Prologue& 
 // instruction cache; at one chunk (4 channels) the 9 taps are unrolled, so
 // that their loads overlap. The weight, f32
 // [g][k][ci][o] as dcn_tiles stages it, is C x 9 x 64 x 4 bytes (147,456 at
-// C = 64): one block of 256 threads an SM.
-constexpr int kWideO = 64;
+// C = 64): one block of 256 threads an SM. bf16 x takes dcn_tiles_wide_mma.
 
 template <int CPG, int SRC, typename T>
 __device__ __forceinline__ void dcn_tiles_wide(const TileArgs<T>& a, const ProA& pro) {
@@ -686,6 +736,291 @@ __device__ __forceinline__ void dcn_tiles_mma(const TileArgs<T>& a, const Prolog
   }
 }
 
+// ldmatrix .x4: four 8 x 8 matrices of b16 from shared memory, lane l
+// giving the address of row l % 8 of matrix l / 8; r[i] is matrix i's
+// fragment (row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// cp.async of BYTES (8 or 16) from global to shared memory, through L1;
+// `bytes` = 0 writes zeros and reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(BYTES), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element (row r, column c) of a bf16 tile of `cols` columns in shared
+// memory whose 16-byte chunks are XOR-swizzled by the row: chunk c / 8 of
+// row r sits at chunk (c / 8) ^ (r % 8). The 8 rows an ldmatrix reads, or
+// 8 lanes store, at one logical chunk fall in 8 distinct bank groups, with
+// no padding.
+__host__ __device__ constexpr int swz(int r, int c, int cols) {
+  return r * cols + ((((c >> 3) ^ (r & 7))) << 3) + (c & 7);
+}
+
+// The tensor-core path at O = 64 (bf16 x, C = 64, per-tap; the pyramids'
+// and PCD's DCNs at 4, 8, 16 or 64 channels a group; kernel A's prologue).
+// A block of kMmaWarps warps owns a tile of kWidePix = 64 pixels with all
+// 64 outputs and walks its tiles' taps as one sequence of steps (tile,
+// tap). A step's U is the tile's modulated samples of one tap, [pixel][c]
+// in bf16 (a K-chunk of 64 of K = 9 * 64), rounded as the TPU kernel rounds
+// its modulated column (crfp_tpu/ops/pallas/dcn.py:169).
+//  - Sampling: a thread takes (pixel, chunk) items of 16 bytes of a group's
+//    channels (8 bytes at CPG 4: the whole group), ITEMS of them a tap; the
+//    CPG / CH lanes of one (pixel, group) are neighbours, so a corner of a
+//    wide group is one coalesced 32-128 byte request, and the lanes of a
+//    warp lie on neighbouring pixels of a tile row otherwise (their offset
+//    and mask loads coalesce). The four corners of each item go from the
+//    packed planes to the thread's own slots of a staging area in shared
+//    memory by cp.async (zeros for a corner outside the frame), so that
+//    the loads in flight hold no registers; the thread then blends its own
+//    slots into U.
+//  - Step s: wait for step s's corners; barrier (U free); blend them into
+//    U; barrier (U complete); issue step s + 1's corner copies and step s +
+//    2's offset and mask loads; contract U while they fly.
+//  - Contraction: warp w computes pixels 16 (w % 4) .. + 15 x outputs
+//    32 (w / 4) .. + 31 as four m16n8k16 tiles, its A fragment (ldmatrix
+//    from U) reused over the four, B from the block's bf16 weight
+//    [o][k * 64 + c] (ldmatrix); 4 K-steps a tap, 36 a tile, in order.
+//    U and the weight are swizzled (swz), not padded.
+//  - After a tile's ninth tap each lane writes its sums, bias added last,
+//    straight from its fragments (8 consecutive pixels of a row a store).
+// Shared memory: the weight 73,728 bytes, the staging area 32,768, U
+// 8,192 (kWideSmem): two blocks of 256 threads an SM.
+template <int CPG, int SRC>
+__device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>& a,
+                                                   const ProA& pro) {
+  using T = __nv_bfloat16;
+  constexpr int C = kWideC, O = kWideO, P = kWidePix, K = kTaps * C;
+  constexpr int CH = chunk_of<T, CPG>(), NCH = CPG / CH;  // channels, lanes a (pixel, group)
+  constexpr int THREADS = kMmaWarps * 32;
+  constexpr int ITEMS = P * C / CH / THREADS;  // (pixel, chunk) items a thread and tap
+  constexpr int BYTES = CH * (int)sizeof(T);   // of a corner
+  constexpr bool kChk = SRC == kChecked;
+  static_assert(ITEMS * THREADS * CH == P * C && (NCH * P) % 32 == 0, "items");
+  static_assert(C % 16 == 0 && C % 8 == 0, "K-steps of 16, chunks of 8");
+  // warps on the contraction: MT m-tiles of 16 pixels, each computed by
+  // kMmaWarps / MT warps of NT n-tiles of 8 outputs
+  constexpr int MT = P / 16, NT = O / 8 / (kMmaWarps / MT);
+  static_assert(kMmaWarps % MT == 0 && NT % 2 == 0, "warps on the contraction");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* wb = reinterpret_cast<T*>(smem);                         // [O][K], swizzled
+  Pix<T, CH>* stage = reinterpret_cast<Pix<T, CH>*>(wb + O * K);  // [ITEMS][4][THREADS]
+  T* U = reinterpret_cast<T*>(stage + ITEMS * 4 * THREADS);   // [P][C], swizzled
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.G, H = a.H, W = a.W;
+  const long long HW = (long long)H * W;
+  const int pad = a.pad, Wp = padded(W, pad);
+  const long long HWp = (long long)padded(H, pad) * Wp;  // a packed plane, in pixels
+
+  // the weight, once per block: wb[o][k*C + c] in bf16
+  for (int o = warp; o < O; o += kMmaWarps) {
+    for (int c = lane; c < C; c += 32) {
+      const float* src = a.weight + ((long long)o * C + c) * kTaps;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) wb[swz(o, k * C + c, K)] = __float2bfloat16(__ldg(src + k));
+    }
+  }
+  // the contraction: warp w's 16 pixels x 32 outputs, four n-tiles of 8
+  const int mt = warp % MT, nh = warp / MT, gid = lane >> 2, tq = lane & 3;
+  float bias[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int o0 = 8 * NT * nh + 8 * j + 2 * tq;
+    bias[j][0] = a.bias != nullptr ? __ldg(a.bias + o0) : 0.f;
+    bias[j][1] = a.bias != nullptr ? __ldg(a.bias + o0 + 1) : 0.f;
+  }
+
+  // the thread's items: item i = tid + THREADS r is chunk i % NCH of pixel
+  // (i / NCH) % P of group i / (NCH P); (qy, qx) its place in the tile
+  int qy[ITEMS], qx[ITEMS];
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const int q = ((tid + THREADS * r) / NCH) % P;
+    qy[r] = q / a.tile_w;
+    qx[r] = q - qy[r] * a.tile_w;
+  }
+  auto item_group = [&](int r) { return (tid + THREADS * r) / (NCH * P); };
+  auto item_chunk = [&](int r) { return (tid + THREADS * r) % NCH; };
+  auto item_pixel = [&](int r) { return ((tid + THREADS * r) / NCH) % P; };
+
+  // a tile's image and top-left pixel
+  auto origin = [&](int tile, int& n, int& y0, int& x0) {
+    const int tx = tile % a.tiles_x, r = tile / a.tiles_x;
+    n = r / a.tiles_y;
+    y0 = (r % a.tiles_y) * a.tile_h;
+    x0 = tx * a.tile_w;
+  };
+  // a step's raw offsets and mask for each item (clamped where used, a
+  // step later, so that nothing waits for these loads)
+  float ody[ITEMS], odx[ITEMS], om[ITEMS];
+  auto load_taps = [&](int n, int y0, int x0, int k) {
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      const int py = y0 + qy[r], px = x0 + qx[r];
+      ody[r] = odx[r] = om[r] = 0.f;
+      if (py < H && px < W) {
+        const long long ngk = ((long long)n * G + item_group(r)) * kTaps + k;
+        const long long p = (long long)py * W + px;
+        ody[r] = __ldg(pro.off + ngk * 2 * HW + p);
+        odx[r] = __ldg(pro.off + (ngk * 2 + 1) * HW + p);
+        om[r] = __ldg(pro.mask + ngk * HW + p);
+      }
+    }
+  };
+  // a step's corners, copied into the thread's staging slots, and the
+  // sample's fractions and mask (m = 0, zero corners past the frame)
+  float cfy[ITEMS], cfx[ITEMS], cm[ITEMS];
+  const Pix<T, CH>* xp = reinterpret_cast<const Pix<T, CH>*>(a.xp);
+  auto gather = [&](int n, int y0, int x0, int k) {
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      const int py = y0 + qy[r], px = x0 + qx[r];
+      const bool valid = py < H && px < W;
+      const float sy = (float)(py + k / 3 - 1) + clamp_window(ody[r], a.D);
+      const float sx = (float)(px + k % 3 - 1) + clamp_window(odx[r], a.D);
+      const float y0f = floorf(sy), x0f = floorf(sx);
+      cfy[r] = sy - y0f;
+      cfx[r] = sx - x0f;
+      cm[r] = valid ? om[r] : 0.f;
+      const int yc = (int)y0f, xc = (int)x0f;
+      const Pix<T, CH>* src =
+          xp + ((long long)n * G + item_group(r)) * HWp * NCH + item_chunk(r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = yc + i / 2, x = xc + i % 2;
+        bool in = valid;
+        long long at = 0;
+        if constexpr (kChk) {
+          in = in && y >= 0 && y < H && x >= 0 && x < W;
+          at = in ? ((long long)y * W + x) * NCH : 0;
+        } else {
+          at = in ? ((long long)(y + pad) * Wp + (x + pad)) * NCH : 0;
+        }
+        cp_async<BYTES>(stage + (r * 4 + i) * THREADS + tid, src + at, in ? BYTES : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // the thread's staged corners, blended as bilinear() weighs them,
+  // modulated and rounded into U
+  auto put = [&]() {
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      const float fy = cfy[r], fx = cfx[r];
+      const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
+      const float w10 = fy * (1.f - fx), w11 = fy * fx;
+      Pix<T, CH> cn[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cn[i] = stage[(r * 4 + i) * THREADS + tid];
+      Pix<T, CH> u;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float v = fmaf(w11, to_f(cn[3].v[c]),
+                             fmaf(w10, to_f(cn[2].v[c]),
+                                  fmaf(w01, to_f(cn[1].v[c]), w00 * to_f(cn[0].v[c]))));
+        u.v[c] = __float2bfloat16(v * cm[r]);
+      }
+      *reinterpret_cast<Pix<T, CH>*>(
+          U + swz(item_pixel(r), item_group(r) * CPG + item_chunk(r) * CH, C)) = u;
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // the lane's ldmatrix rows: A (U) row 16 mt + lane % 16, chunk 2 s +
+  // lane / 16; B (weight) row 32 nh + 16 pr + lane % 8 + 8 (lane / 16),
+  // chunk 8 k + 2 s + (lane / 8) % 2
+  const int a_row = 16 * mt + (lane & 15), a_half = lane >> 4;
+  const int b_row = 8 * NT * nh + (lane & 7) + ((lane >> 4) << 3), b_half = (lane >> 3) & 1;
+  auto contract = [&](int k) {
+#pragma unroll
+    for (int s = 0; s < C / 16; ++s) {
+      uint32_t af[4];
+      ldsm_x4(af, U + swz(a_row, 16 * s + 8 * a_half, C));
+#pragma unroll
+      for (int pr = 0; pr < NT / 2; ++pr) {
+        uint32_t bq[4];
+        ldsm_x4(bq, wb + swz(b_row + 16 * pr, k * C + 16 * s + 8 * b_half, K));
+        const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+        mma_bf16(acc[2 * pr], af, b0);
+        mma_bf16(acc[2 * pr + 1], af, b1);
+      }
+    }
+  };
+  // the tile's sums, bias added, to the output planes; the sums reset.
+  // Fragment rows gid and gid + 8 are the tile's pixels 16 mt + gid (+ 8).
+  const int e0 = 16 * mt + gid, e1 = e0 + 8;
+  const int ey0 = e0 / a.tile_w, ex0 = e0 - ey0 * a.tile_w;
+  const int ey1 = e1 / a.tile_w, ex1 = e1 - ey1 * a.tile_w;
+  auto epilogue = [&](int n, int y0, int x0) {
+    T* on = a.out + (long long)n * O * HW;
+    const bool v0 = y0 + ey0 < H && x0 + ex0 < W, v1 = y0 + ey1 < H && x0 + ex1 < W;
+    const long long p0 = (long long)(y0 + ey0) * W + x0 + ex0;
+    const long long p1 = (long long)(y0 + ey1) * W + x0 + ex1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int o0 = 8 * NT * nh + 8 * j + 2 * tq;
+      if (v0) {
+        on[o0 * HW + p0] = store_f<T>(acc[j][0] + bias[j][0]);
+        on[(o0 + 1) * HW + p0] = store_f<T>(acc[j][1] + bias[j][1]);
+      }
+      if (v1) {
+        on[o0 * HW + p1] = store_f<T>(acc[j][2] + bias[j][0]);
+        on[(o0 + 1) * HW + p1] = store_f<T>(acc[j][3] + bias[j][1]);
+      }
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+  };
+
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  if ((int)blockIdx.x >= tiles) return;
+  const int steps = ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * kTaps;
+  // step s's tile (n, y0, x0) and the next tile's
+  int tile = blockIdx.x, n0, y00, x00, n1, y01, x01;
+  origin(tile, n0, y00, x00);
+  origin(tile + gridDim.x, n1, y01, x01);
+  load_taps(n0, y00, x00, 0);
+  wait_for_packed_x();
+  gather(n0, y00, x00, 0);
+  load_taps(n0, y00, x00, 1);
+  int k = 0;  // step s's tap
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // every warp is done with U (and the weight is staged)
+    put();
+    __syncthreads();  // U complete
+    const bool same1 = k + 1 < kTaps, same2 = k + 2 < kTaps;
+    if (s + 1 < steps)
+      gather(same1 ? n0 : n1, same1 ? y00 : y01, same1 ? x00 : x01, same1 ? k + 1 : k + 1 - kTaps);
+    if (s + 2 < steps)
+      load_taps(same2 ? n0 : n1, same2 ? y00 : y01, same2 ? x00 : x01,
+                same2 ? k + 2 : k + 2 - kTaps);
+    contract(k);
+    if (k == kTaps - 1) {
+      epilogue(n0, y00, x00);
+      tile += gridDim.x;
+      n0 = n1, y00 = y01, x00 = x01;
+      origin(tile + gridDim.x, n1, y01, x01);
+    }
+    k = k + 1 < kTaps ? k + 1 : 0;
+  }
+}
+
 // ---- host side --------------------------------------------------------
 
 // The grid of a persistent launch of `fn`: min(tiles, resident blocks per
@@ -774,7 +1109,11 @@ inline cudaError_t check_plan(TileArgs<T>& a, bool mma, int cpg, int O, int smem
   if (th < 1 || tw < 1 || (th * tw) % 32 || th * tw > kMaxThreads)
     return cudaErrorInvalidValue;
   if (a.G < 1 || a.C != a.G * cpg) return cudaErrorInvalidValue;
-  if (mma && (O != kMmaO || th * tw != 32)) return cudaErrorInvalidValue;
+  // the tensor-core path: 32-pixel tiles at O = 32, 64-pixel tiles of C =
+  // 64 channels at O = 64
+  if (mma && !(O == kMmaO && th * tw == 32) &&
+      !(O == kWideO && th * tw == kWidePix && a.C == kWideC))
+    return cudaErrorInvalidValue;
   if (a.pad < 0 || (a.pad > 0 && (a.D < 0.f || (float)(a.pad - 1) < ceilf(a.D))))
     return cudaErrorInvalidValue;
   *threads = mma ? kMmaWarps * 32 : th * tw;

@@ -18,11 +18,16 @@
 // weight once. bf16 x at O = 32 with per-tap masks: 32 pixels a block, a
 // warp per group, the contraction over K = 9*C on the tensor cores
 // (mma.sync m16n8k16, the modulated samples rounded to bf16 as the TPU
-// kernel rounds them). f32 x and the other widths (O = 2, 4 for dcn_3, 16
-// for dcn_0/1/2 at mid 16): a thread per pixel, f32 FMAs on the CUDA cores; a clamped call on bf16 x under shared_taps loads
-// the 9 taps' corners as one 4 x 4 patch. The plan (ops/cuda/dcn.py::tile_plan)
-// picks the tile. A group's window of x staged in shared memory was built
-// and measured slower at every main-path shape (PERF.md) and is gone.
+// kernel rounds them). bf16 x at O = 64 (the pyramids and PCD, C = 64,
+// per-tap): 64 pixels a block of 8 warps, the samples of one tap at a time
+// in U, contracted on the tensor cores while the next tap's corners are
+// copied into shared memory by cp.async (common.cuh::dcn_tiles_wide_mma).
+// f32 x and the other widths (O = 2, 4 for dcn_3, 16 for dcn_0/1/2 at mid
+// 16, f32 at O = 64): a thread per pixel, f32 FMAs on the CUDA cores; a
+// clamped call on bf16 x under shared_taps loads the 9 taps' corners as
+// one 4 x 4 patch. The plan (ops/cuda/dcn.py::tile_plan) picks the tile. A
+// group's window of x staged in shared memory for the O <= 32 routes was
+// built and measured slower at every main-path shape (PERF.md) and is gone.
 //
 // Bound on the H100 at the main-path shapes (1080p, warp 720^2, mid 32):
 // per-tap (dcn_0/1/2): x (1,32,180,180) bf16 2.1 MB + offset (1,144,180,180)
@@ -34,10 +39,14 @@
 // bytes again. Offsets, masks and outputs are read and written once,
 // coalesced (neighbouring lanes on neighbouring pixels of a tile row); the
 // pre-pass adds one read and one write of x (+20-25 % with the border),
-// ~2 MB a per-tap call. At O = 64 the contraction bounds it: 2 * 9 * 64 * 64
-// = 73,728 FLOP a pixel, 68 GFLOP for the X8 pyramid's lv3 (1, 64, 720,
-// 1280), ~1 ms at the f32 CUDA-core rate, against 0.26 GB (~0.08 ms) of
-// f32 operands.
+// ~2 MB a per-tap call. At O = 64: 2 * 9 * 64 * 64 = 73,728 FLOP a pixel,
+// 68 GFLOP for the X8 pyramid's lv3 (1, 64, 720, 1280), 0.069 ms at the
+// bf16 tensor-core peak against 0.34 GB of bf16 x, f32 offsets and masks
+// and bf16 out (0.100 ms): bytes bound it in bf16, by 1.5x. The gather
+// (4 corners x 9 taps of 128 bytes a pixel at 64 channels a group, through
+// L1) is what the tensor-core route spends its time on; the pre-pass adds a
+// read and a write of x. In f32 the same FLOP take ~1 ms at the CUDA-core
+// rate: the operations bound that route.
 #include "common.cuh"
 
 namespace {
@@ -45,7 +54,9 @@ namespace {
 template <typename T, int O, int CPG, bool MMA, int SRC, bool SHARED_TAPS = false>
 __global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, O))
 dcn_fwd_kernel(crfp::TileArgs<T> a, crfp::ProA pro) {
-  if constexpr (MMA)
+  if constexpr (MMA && O == crfp::kWideO)
+    crfp::dcn_tiles_wide_mma<CPG, SRC>(a, pro);
+  else if constexpr (MMA)
     crfp::dcn_tiles_mma<CPG, SRC>(a, pro);
   else if constexpr (O == crfp::kWideO)
     crfp::dcn_tiles_wide<CPG, SRC>(a, pro);
@@ -82,22 +93,32 @@ cudaError_t launch(crfp::TileArgs<T> a, const crfp::ProA& pro, int smem,
 template <typename T, int O>
 cudaError_t dispatch_cpg(int cpg, bool mma, const crfp::TileArgs<T>& a,
                          const crfp::ProA& pro, int smem, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && O == crfp::kMmaO) {
-    if (mma) {
-      if (cpg == 2) return launch<T, O, 2, true>(a, pro, smem, s);
-      if (cpg == 4) return launch<T, O, 4, true>(a, pro, smem, s);
-      return cudaErrorInvalidValue;
-    }
-  } else {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16 && O == crfp::kWideO) {
+    // bf16 at O = 64 on the tensor cores only: the pyramids' groups (16, 4,
+    // 1 at mid 64) and PCD's (8 at nf 64)
+    if (!mma) return cudaErrorInvalidValue;
+    if (cpg == 4) return launch<T, O, 4, true>(a, pro, smem, s);
+    if (cpg == 8) return launch<T, O, 8, true>(a, pro, smem, s);
+    if (cpg == 16) return launch<T, O, 16, true>(a, pro, smem, s);
+    if (cpg == 64) return launch<T, O, 64, true>(a, pro, smem, s);
+  } else if constexpr (O == crfp::kWideO) {
+    // f32 x at O = 64, on the CUDA cores
     if (mma) return cudaErrorInvalidValue;
-  }
-  if constexpr (O == crfp::kWideO) {
-    // the pyramids' groups (16, 4, 1 at mid 64) and PCD's (8 at nf 64)
     if (cpg == 4) return launch<T, O, 4, false>(a, pro, smem, s);
     if (cpg == 8) return launch<T, O, 8, false>(a, pro, smem, s);
     if (cpg == 16) return launch<T, O, 16, false>(a, pro, smem, s);
     if (cpg == 64) return launch<T, O, 64, false>(a, pro, smem, s);
   } else {
+    if constexpr (kBf16 && O == crfp::kMmaO) {
+      if (mma) {
+        if (cpg == 2) return launch<T, O, 2, true>(a, pro, smem, s);
+        if (cpg == 4) return launch<T, O, 4, true>(a, pro, smem, s);
+        return cudaErrorInvalidValue;
+      }
+    } else {
+      if (mma) return cudaErrorInvalidValue;
+    }
     if (cpg == 2) return launch<T, O, 2, false>(a, pro, smem, s);
     if (cpg == 4) return launch<T, O, 4, false>(a, pro, smem, s);
   }
@@ -132,9 +153,10 @@ CRFP_EXPORT_ERROR_STRING
 // NULL; out (N, O, H, W) in x's type; x_packed: scratch of N*C*padded(H)
 // *padded(W) elements of x's type (the pre-pass writes x there per group,
 // pixel-major, zero-padded). All contiguous. O in {2, 4, 16, 32} with C/G
-// in {2, 4}, or O = 64 with C/G in {4, 8, 16, 64}, per-tap. The tile plan (tile_h, tile_w, pad, smem_bytes) is
+// in {2, 4}, or O = 64 with C/G in {4, 8, 16, 64}, per-tap (bf16 x: C =
+// 64). The tile plan (tile_h, tile_w, pad, smem_bytes) is
 // ops/cuda/dcn.py::tile_plan's; the tensor cores take bf16 x at O = 32
-// without shared_mask. No synchronisation, no allocation.
+// without shared_mask and at O = 64. No synchronisation, no allocation.
 extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
                             const void* mask, const void* weight,
                             const void* bias, void* out, void* x_packed, int N,
@@ -147,7 +169,7 @@ extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
   if (O == crfp::kWideO && (shared_taps || shared_mask)) return (int)cudaErrorInvalidValue;
   const crfp::ProA pro{static_cast<const float*>(offset),
                        static_cast<const float*>(mask), shared_taps, shared_mask};
-  const bool mma = x_bf16 && O == crfp::kMmaO && !shared_mask;
+  const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);

@@ -39,10 +39,18 @@ per per-tap call and 3.5 MB per dcn_3 call.
 
 The widths the kernels take are one pure rule, :func:`width_fault`: every
 DCN stage of the v18 models at mid 16 and mid 32 (A, D, E), and the
-pyramids' and PCD's per-tap DCNs at O = 64 (A only, on the CUDA cores:
-the pixel's 64 sums in registers, each tap's corners read 16 bytes of
+pyramids' and PCD's per-tap DCNs at O = 64 (A only). At O = 64 bf16 x
+(C = 64) runs on the tensor cores: tiles of 64 pixels a block of 8 warps,
+the modulated samples of one tap at a time in U (a wide group's corner
+one coalesced 32-128 byte copy across lanes, ``cp.async`` into shared
+memory), each tap contracted with ``mma.sync`` while the next tap's
+corners are in flight; 114,688 bytes of shared memory (the bf16 weight,
+the corners' staging area and U), two blocks an SM. Its bound is
+bytes (0.100 ms at (1, 64, 720, 1280)), its contraction 0.069 ms at the
+bf16 tensor-core peak. f32 x at O = 64 stays on the CUDA cores: the
+pixel's 64 sums in registers, each tap's corners read 16 bytes of
 channels at a time; one block of 256 threads an SM, its f32 weight of
-C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory).
+C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory.
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -170,22 +178,34 @@ TILE_SHAPES = ((8, 32), (4, 32), (4, 16), (2, 16))
 # warps (one per group); the plan takes the shape with the fewest tiles
 # (the least ragged edge), (1, 32) on a tie: 48-wide planes take (2, 16).
 MMA_TILE_SHAPES = ((1, 32), (2, 16))
+# Tensor-core path at O = 64 (bf16 x, C = 64, per-tap): 64 pixels a block
+# of 8 warps; the plan takes the shape with the fewest tiles, the first on
+# a tie. (4, 16) first: the fastest at 16 and 64 channels a group and for
+# PCD in `python -m crfp_torch.bench.dcn_tiles --wide` on the H100 (1-4 %
+# over (2, 32), 3-5 % over (1, 64); PERF.md).
+WIDE_MMA_TILE_SHAPES = ((4, 16), (2, 32), (1, 64))
 SM_COUNT = 132  # H100 SXM
 MAX_SMEM = 232448  # the H100's 227 KB a block
 _TAPS, _MMA_O, _OUT_STRIDE = 9, 32, 36
+# the O = 64 tensor-core path's tile (pixels) and input channels
+# (csrc/common.cuh::kWidePix, kWideC)
+_WIDE_PIX, _WIDE_C = 64, 64
 
 
 def _min_blocks(mma: bool, o: int) -> int:
-    """Resident blocks an SM (``csrc/common.cuh::min_blocks``): 3 on the
-    tensor-core path and at O < 32, 1 on the f32 path at O = 32."""
-    return 3 if mma or o < _MMA_O else 1
+    """Resident blocks an SM (``csrc/common.cuh::min_blocks``): on the
+    tensor-core path 3 at O = 32 and 2 at O = 64; on the CUDA cores 3 at
+    O < 32, 1 at O >= 32."""
+    if mma:
+        return 2 if o == WIDE_OUT_CHANNELS else 3
+    return 3 if o < _MMA_O else 1
 
 
 @dataclass(frozen=True)
 class TilePlan:
     """How kernel A or E covers an (N, C, H, W) call: tiles of ``tile_h``
     x ``tile_w`` pixels (a block of one thread per pixel, or on the
-    tensor-core path 8 warps on 32 pixels); ``pad`` pixels of zeros around
+    tensor-core path 8 warps on 32 pixels, 64 at O = 64); ``pad`` pixels of zeros around
     the packed planes of x (a clamped call: ceil(D) + 1, so that no corner
     needs a frame check; 0: corners checked); ``smem_bytes`` of dynamic
     shared memory (``csrc/common.cuh::smem_bytes``); ``mma``: the bf16
@@ -212,30 +232,39 @@ class TilePlan:
 
 
 def _smem_bytes(mma: bool, c: int, o: int) -> int:
-    """``csrc/common.cuh::smem_bytes``. Tensor-core path: the bf16 weight
-    and U, [32][K + pad] each, and the f32 output tile; CUDA-core path: the
-    f32 weight."""
+    """``csrc/common.cuh::smem_bytes``. Tensor-core path at O = 32: the
+    bf16 weight and U, [32][K + pad] each, and the f32 output tile; at O =
+    64: the bf16 weight [64][K], the corners' staging area [4][64][C] and
+    U [64][C] (swizzled, not padded); CUDA-core path: the f32 weight."""
+    ks = (_TAPS * c + 15) // 16 * 16 + 8
+    if mma and o == WIDE_OUT_CHANNELS:
+        return o * _TAPS * c * 2 + 5 * _WIDE_PIX * c * 2
     if mma:
-        ks = (_TAPS * c + 15) // 16 * 16 + 8
         return 2 * 32 * ks * 2 + 32 * _OUT_STRIDE * 4
     return c * _TAPS * o * 4
 
 
 @functools.lru_cache(maxsize=512)
 def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=None):
-    mma = bool(bf16) and o == _MMA_O and not shared_mask
+    wide = o == WIDE_OUT_CHANNELS
+    mma = bool(bf16) and o in (_MMA_O, WIDE_OUT_CHANNELS) and not shared_mask
+    if mma and wide and c != _WIDE_C:
+        raise ValueError(f"tile_plan: bf16 at O = {o} takes {_WIDE_C} input channels, not {c}")
+    pixels = _WIDE_PIX if wide else 32
     if tile is not None:
         shapes = (tile,)
     elif mma:
-        shapes = (min(MMA_TILE_SHAPES, key=lambda t: -(-h // t[0]) * -(-w // t[1])),)
+        shapes = (min(WIDE_MMA_TILE_SHAPES if wide else MMA_TILE_SHAPES,
+                      key=lambda t: -(-h // t[0]) * -(-w // t[1])),)
     else:
         shapes = TILE_SHAPES
     for th, tw in shapes:
         ty, tx = -(-h // th), -(-w // tw)
         if n * ty * tx >= _min_blocks(mma, o) * sm_count:
             break
-    if mma and th * tw != 32:
-        raise ValueError(f"tile_plan: the tensor-core path takes 32-pixel tiles, not {th}x{tw}")
+    if mma and th * tw != pixels:
+        raise ValueError(f"tile_plan: the tensor-core path at O = {o} takes {pixels}-pixel "
+                         f"tiles, not {th}x{tw}")
     pad = 0 if max_displacement is None else math.ceil(max_displacement) + 1
     smem = _smem_bytes(mma, c, o)
     if smem > MAX_SMEM:
@@ -507,7 +536,7 @@ def deform_conv2d_windowed(
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
     bfloat16, offset/mask/weight/bias float32, f32 accumulation; bf16 x at
-    O = 32 contracted on the tensor cores) or raise. Widths:
+    O = 32 and O = 64 contracted on the tensor cores) or raise. Widths:
     :func:`width_fault`. Overridable (``torch.overrides``), as the warp's
     dispatcher."""
     if has_torch_function((x, offset, mask)):
