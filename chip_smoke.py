@@ -5,6 +5,7 @@
     python3 chip_smoke.py --parallel-only   # phases 1 and 10 alone
     python3 chip_smoke.py --tools-only      # phases 1 and 11 alone
     python3 chip_smoke.py --models-bf16-only  # phase 1 and phase 3d's bf16 pyramids and PCD
+    python3 chip_smoke.py --anchor-only     # phases 1 and 12 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -209,10 +210,11 @@ Phases, in order; any failure exits non-zero without the final line:
 11. the tools and benches (crfp_torch.bench, crfp_torch.tools): the
    capability ablation (``bench.capability.run_capability``) at its
    defaults on checkpoints/{no_dcn,basic_fvsr,v18}_mid32_struct.npz (hr 768,
-   20 frames x sigmas 10/50/100, mid 32, bf16, v18 at windows 8/32 under the
-   plain clamp; A 8, B 5 a steady frame over the three rows, F 4 a frame),
-   its table printed with the card's name and power limit and its deltas
-   beside the JAX package's TPU reading (a report); sigma 10's first 6
+   20 frames x sigmas 10/50/100, mid 32, bf16, v18 at windows 8/32 with
+   anchored HR windows on the s2d(4) grid, the JAX row's configuration;
+   A 8, B 5 a steady frame over the three rows, F 4 a frame), its table
+   printed with the card's name and power limit and its deltas beside the
+   JAX package's TPU reading, like for like (a report); sigma 10's first 6
    frames of each trained row through the kernels and through the plain
    versions, in f32 (>= 80 dB and max|d| <= 1e-3 a frame) and in bf16
    (>= 55 dB and max|d| <= 0.05 a frame, per-frame zone PSNR within
@@ -231,10 +233,27 @@ Phases, in order; any failure exits non-zero without the final line:
    on the card and ``combine_gifs`` on GIFs of emitted frames (the mp4
    tools need OpenCV, which the card's machine may lack: the CPU tests
    hold them);
-12. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
+12. anchored HR windows (``ModelConfig.dcn_anchor``, root bench.py's
+   ``_DEPLOY``): (a) kernel A in anchored shared-tap mode and kernel B in
+   anchored mode on both cell grids (band 64, and band 32 for ``hr_s2d``)
+   against their plain versions at (1,4,720,720), D = 32, on a smooth field
+   whose cell anchors reach ±32: f32 A to 1e-4 and B to 1e-5 abs, bf16 to
+   2e-2 of max|ref|, two runs and a CUDA-graph replay bit-equal, the output
+   different from the clamped kernel's; device and call ms beside the
+   clamped call's, the bound; (b) CRFPRuntimeV18 at 1080p / warp 720^2 /
+   mid 32 with windows 8/32, ``hr_s2d`` and ``dcn_anchor`` on
+   checkpoints/v18_mid32_struct_anchored.npz, 5 frames of a procedural
+   clip panning 36 / 44 HR px a frame: kernels against plain versions in
+   f32 (>= 80 dB, max|d| <= 1e-3 a frame) and bf16 (>= 85 dB, max|d| <=
+   0.02), launches asserted (A 4, B 2, C 1 a steady frame, of them anchored
+   A 1, B 1), the plain-clamp frames held outside those limits (so that the
+   check fails kernels that drop the anchor), and tools.bench's anchored
+   headline protocol;
+13. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
    launches over phase 10's checked runs; ``launches_tools``: the launches
-   over phase 11, its child process excluded) and, last, the
-   {"ok": true, ...} line.
+   over phase 11, its child process excluded; ``launches_anchor``: phase
+   12's bf16 anchored slice; ``anchor_*``: A's and B's anchored modes per
+   steady frame of it) and, last, the {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -887,6 +906,7 @@ def _zero_counts() -> None:
 
     dcn.launches = warp.launches = emit.launches = dcn_fused.launches = 0
     dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
+    dcn.anchor_launches = warp.anchor_launches = 0
 
 
 def _counts() -> dict:
@@ -920,8 +940,11 @@ def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None,
                   versus="kernels vs plain"):
     """Each frame through the kernels against the same frame through the
     plain versions (or as ``versus`` names them): finite, PSNR >=
-    ``db_min`` and max|d| <= ``d_max`` (None: not held)."""
+    ``db_min`` and max|d| <= ``d_max`` (None: not held). Returns each
+    frame's (PSNR, max|d|)."""
     import torch
+
+    readings = []
 
     for i, (g, w) in enumerate(zip(got, want)):
         if (shape is not None and g.shape != shape) or not bool(torch.isfinite(g).all()):
@@ -935,6 +958,8 @@ def _frames_agree(tag, got, want, db_min=80.0, d_max=1e-3, shape=None,
         if not (psnr >= db_min and (d_max is None or float(d.max()) <= d_max)):
             fail(f"{tag} frame {i}: {versus} PSNR {psnr:.2f} dB, "
                  f"max|d| {float(d.max())}")
+        readings.append((psnr, float(d.max())))
+    return readings
 
 
 def phase_slice(mid=MID, ckpt=CKPT):
@@ -2791,7 +2816,8 @@ def _tools_capability() -> dict:
     wall = time.perf_counter() - t0
     launches = _since(before)
     print(f"[tools] capability ablation: hr {hr_size}, {frames} frames x sigmas {sigmas}, "
-          f"mid {MID}, bf16, v18 windows 8/32 (plain clamp), held-out seeds from 9000: "
+          f"mid {MID}, bf16, v18 windows 8/32 anchored on the s2d(4) grid (as the JAX "
+          f"row), held-out seeds from 9000: "
           f"{wall:.1f} s (host clock, models built and clips generated inside); "
           f"launches {launches}")
     # per steady frame: v18 A 4, B 3; basic_fvsr A 4, B 1; no_dcn B 1; one F
@@ -3022,6 +3048,279 @@ def _tools_video(tmp: Path, streams: dict, flow) -> None:
           f"{both[0].shape}, halves equal (the mp4 tools need cv2: held by the CPU tests)")
 
 
+# ---- phase 12: anchored HR windows (ModelConfig.dcn_anchor) ---------------
+
+ANCHOR_CKPT = ROOT / "checkpoints" / "v18_mid32_struct_anchored.npz"
+# the clip pans this many LR px a frame: 36 and 44 px at the HR level, past
+# the window D = 32 of dcn_3 and the HR state warp
+ANCHOR_V, ANCHOR_FRAMES = (4.5, -5.5), 5
+# kernels against plain versions on the anchored slice in bf16, a frame:
+# between the kernels' readings (>= 89.44 dB, max|d| <= 7.8e-3 on the H100)
+# and the plain-clamp frames' (<= 80.06 dB, >= 0.045), so that the limit
+# fails kernels that drop the anchor
+ANCHOR_BF16_DB, ANCHOR_BF16_DMAX = 85.0, 0.02
+
+
+def _anchor_kernels(gen) -> list:
+    """Phase 12(a): kernel A in anchored shared-tap mode and kernel B in
+    anchored mode (both cell grids) against their plain versions at the
+    serving shape (1,4,720,720), D = 32, on a smooth field whose cell means
+    reach past ±32: f32 A to 1e-4 and B to 1e-5 abs, bf16 to 2e-2 of
+    max|ref|; two runs and a CUDA-graph replay bit-equal; the output must
+    differ from the clamped kernel's on the same operands. Times beside the
+    clamped call and beside the anchor table in PyTorch ops (the plain
+    version of the call's table pre-pass). Records carry ``calls_anchor``:
+    calls per steady frame of the anchored slice (the JAX deployment's s2d
+    grid for B)."""
+    import torch
+
+    from crfp_torch.ops import anchor as an
+    from crfp_torch.ops.cuda import dcn, warp
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    modes = []
+    record = functools.partial(_record, modes)
+    d, hw, c = 32, WARP, MID // 8
+    n_px = hw[0] * hw[1]
+
+    def field():
+        # std 40 px, varying over ~32 px, plus 1 px of noise
+        return (_smooth(gen, 2, hw, 40.0)
+                + (torch.randn(1, 2, *hw, generator=gen)).cuda()).contiguous()
+
+    def beyond(off, geom, what):
+        table = an.anchor_table(off, geom, 1)
+        reach = float(table.abs().max())
+        print(f"[anchor] {what}: anchors up to {reach:g} px (A = {geom.a_y}/{geom.a_x}), "
+              f"|offset| up to {float(off.abs().max()):.1f} px")
+        if reach < d:
+            fail(f"{what}: no cell's anchor reaches D = {d}")
+
+    def same_bits(tag, fn, first):
+        if not (torch.equal(fn(), first) and torch.equal(captured(fn), first)):
+            fail(f"{tag}: two runs and a CUDA-graph replay are not bit-equal")
+
+    # ---- A, anchored shared taps (dcn_3) --------------------------------
+    mode = "anchored shared G=1 D=32 (1,4,720,720)"
+    x = torch.randn(1, c, *hw, generator=gen).cuda()
+    off = field()
+    mask = torch.rand(1, 1, *hw, generator=gen).cuda()
+    wt = (torch.randn(c, c, 3, 3, generator=gen) * 0.2).cuda()
+    b = torch.randn(c, generator=gen).cuda()
+    kw = dict(max_displacement=d, shared_taps=True, shared_mask=True)
+    g32 = an.dcn_geometry(*hw, c, c, 1, 3, d, bf16=False, shared_taps=True, shared_mask=True)
+    g16 = an.dcn_geometry(*hw, c, c, 1, 3, d, bf16=True, shared_taps=True, shared_mask=True)
+    beyond(off, g16, f"kernel A {mode}")
+    with torch.no_grad():
+        got = dcn.deform_conv2d_windowed(x, off, mask, wt, b, anchor=g32, **kw)
+        ref = deform_conv2d_windowed_ref(x, off, mask, wt, b, anchor=g32, **kw)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not err <= 1e-4:
+            fail(f"kernel A {mode}: f32 max|d| {err} > 1e-4")
+        xb = x.to(torch.bfloat16)
+        refb = deform_conv2d_windowed_ref(xb.float(), off, mask, wt, b, anchor=g16, **kw)
+
+        def call():
+            return dcn.deform_conv2d_windowed(xb, off, mask, wt, b, anchor=g16, **kw)
+
+        gotb = call()
+        torch.cuda.synchronize()
+        rel = float((gotb.float() - refb).abs().max() / refb.abs().max())
+        if not rel <= 2e-2:
+            fail(f"kernel A {mode}: bf16 error {rel} of max|ref| > 2e-2")
+        same_bits(f"kernel A {mode}", call, gotb)
+        clamp = dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw)
+        moved = float((clamp.float() - gotb.float()).abs().max())
+        if not moved > 0.1 * float(refb.abs().max()):
+            fail(f"kernel A {mode}: anchored and clamped outputs differ by only {moved}")
+        k_ms = measure(call)
+        c_ms = measure(lambda: dcn.deform_conv2d_windowed(xb, off, mask, wt, b, **kw))
+        p_ms = measure(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, anchor=g16,
+                                                          **kw), iters=5)
+        # the table in PyTorch ops, what the call's pre-pass does in one launch
+        t_ms = measure(lambda: an.anchor_table(off, g16, 1))
+    flops = 2 * n_px * c * 9 * c + 9 * n_px * c * 9
+    bnd = bound([xb, off, mask, wt, b], [gotb], flops, "bfloat16")
+    plan = dcn.tile_plan(1, c, *hw, c, 1, g16.reach, bf16=True, shared_mask=True)
+    record("dcn_fwd", mode, 0, err, rel, k_ms, p_ms, None, bnd, calls_anchor=1,
+           clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+           table_torch_ms=t_ms[0], table_torch_device_ms=t_ms[1],
+           bound_fraction=bnd[0] / k_ms[1],
+           tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad}",
+           geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+           digest=digest(got, gotb))
+
+    # ---- B, anchored: the full-resolution grid (band 64) and the s2d one
+    # (band 32, the deployment's hr_s2d) ----------------------------------
+    import torch.nn.functional as F
+
+    for s2d, calls in ((1, 0), (4, 1)):
+        x = torch.randn(1, c, *hw, generator=gen).cuda()
+        flow = field()
+        g32 = an.warp_geometry(*hw, c, d, bf16=False, s2d=s2d)
+        g16 = an.warp_geometry(*hw, c, d, bf16=True, s2d=s2d)
+        mode = f"anchored HR D=32 (1,4,720,720) band {g16.band}"
+        beyond(an.flow_as_offset(flow), g16, f"kernel B {mode}")
+        with torch.no_grad():
+            got = warp.flow_warp_windowed(x, flow, d, anchor=g32)
+            ref = flow_warp_windowed_ref(x, flow, d, g32)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not err <= 1e-5:
+                fail(f"kernel B {mode}: f32 max|d| {err} > 1e-5")
+            xb = x.to(torch.bfloat16)
+            refb = flow_warp_windowed_ref(xb.float(), flow, d, g16)
+
+            def call():
+                return warp.flow_warp_windowed(xb, flow, d, anchor=g16)
+
+            gotb = call()
+            torch.cuda.synchronize()
+            rel = float((gotb.float() - refb).abs().max() / refb.abs().max())
+            if not rel <= 2e-2:
+                fail(f"kernel B {mode}: bf16 error {rel} of max|ref| > 2e-2")
+            same_bits(f"kernel B {mode}", call, gotb)
+            clamp = warp.flow_warp_windowed(xb, flow, d)
+            moved = float((clamp.float() - gotb.float()).abs().max())
+            if not moved > 0.1 * float(refb.abs().max()):
+                fail(f"kernel B {mode}: anchored and clamped outputs differ by only {moved}")
+            k_ms = measure(call)
+            c_ms = measure(lambda: warp.flow_warp_windowed(xb, flow, d))
+            p_ms = measure(lambda: flow_warp_windowed_ref(xb, flow, d, g16), iters=5)
+            t_ms = measure(lambda: an.anchor_table(an.flow_as_offset(flow), g16, 1))
+            # yardstick: grid_sample at the effective flow, precomputed
+            h, w = hw
+            from crfp_torch.ops.warp import anchored_flow
+
+            fe = anchored_flow(flow, g16)
+            gx = (torch.arange(w, device="cuda").view(1, 1, w) + fe[:, 0]) * (2.0 / (w - 1)) - 1
+            gy = (torch.arange(h, device="cuda").view(1, h, 1) + fe[:, 1]) * (2.0 / (h - 1)) - 1
+            grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
+            lib_ms = measure(lambda: F.grid_sample(xb, grid, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=True))
+        bnd = bound([xb, flow], [gotb], 8 * n_px * c, "bfloat16")
+        record("flow_warp", mode, 0, err, rel, k_ms, p_ms, lib_ms, bnd, calls_anchor=calls,
+               clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+               table_torch_ms=t_ms[0], table_torch_device_ms=t_ms[1],
+               bound_fraction=bnd[0] / k_ms[1],
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+               digest=digest(got, gotb))
+    return modes
+
+
+def phase_anchor(gen) -> tuple[list, dict]:
+    """Phase 12: anchored HR windows, the JAX package's deployment
+    configuration. (a) kernels A and B in anchored mode against their plain
+    versions (:func:`_anchor_kernels`); (b) the slice at full width:
+    CRFPRuntimeV18 at 1080p / warp 720^2 / mid 32 with bench.py's
+    ``_DEPLOY`` flags (windows 8/32, ``hr_s2d``, ``dcn_anchor``) on
+    checkpoints/v18_mid32_struct_anchored.npz, 5 frames of a procedural
+    clip panning 36 / 44 HR px a frame: in f32 kernels against plain
+    versions (>= 80 dB, max|d| <= 1e-3 a frame), in bf16 likewise (>= 85
+    dB, max|d| <= 0.02), launch counts asserted (A 4, B 2, C 1 a steady
+    frame; of them anchored A 1, B 1); the plain-clamp frames against the
+    anchored ones, each outside those limits; tools.bench's anchored
+    headline protocol. Returns
+    (the records of (a), the launch counts of (b)'s bf16 kernel run)."""
+    import torch
+
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench.quality_window import panning_clip
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.runtime import CRFPRuntimeV18
+    from crfp_torch.ops.cuda import dcn, warp
+    from crfp_torch.params import from_jax, load_npz, runtime_params_from_batch
+    from crfp_torch.tools import bench
+
+    modes = _anchor_kernels(gen)
+    t = ANCHOR_FRAMES
+    lrs, hrs = (torch.from_numpy(a[:, None]).cuda()
+                for a in panning_clip(t, LR_HW, ANCHOR_V, seed=12))
+    fvs = hrs[:, :, :FV, :FV].contiguous()
+    batch = from_jax(load_npz(str(ANCHOR_CKPT)))
+
+    def build(anchored: bool, dtype):
+        cfg = ModelConfig(mid_channels=MID, dcn_window=8, dcn_window_hr=32,
+                          hr_s2d=anchored, dcn_anchor=anchored)
+        model = CRFPRuntimeV18(cfg, warp_size=WARP, device="cuda", seed=0)
+        sd, n_unmapped = runtime_params_from_batch(batch, model.state_dict())
+        if n_unmapped != 5:
+            fail(f"anchored checkpoint adapter kept {n_unmapped} leaves at init, expected 5")
+        model.load_state_dict(sd)
+        return model.to(dtype).eval()
+
+    def run(model, dtype):
+        outs = []
+        with torch.inference_mode():
+            for i in range(t):
+                lr, fv = lrs[i].to(dtype), fvs[i].to(dtype)
+                x_lr, x_hr = model.encode(lr, fv)
+                if i == 0:
+                    state, out = model.step0(lr, x_lr, x_hr)
+                else:
+                    state, out = model.step(state, lr, lrs[i - 1].to(dtype), x_lr, x_hr)
+                outs.append(out.float())
+        torch.cuda.synchronize()
+        return outs
+
+    def anchored_counts():
+        return {"dcn_fwd": dcn.anchor_launches, "flow_warp": warp.anchor_launches}
+
+    expect = _expect(dcn_fwd=4 * (t - 1), flow_warp=2 * (t - 1), emit=t)
+    expect_anchored = {"dcn_fwd": t - 1, "flow_warp": t - 1}
+    model = build(True, torch.float32)
+    with torch.inference_mode():  # the HR motion the flow net sees on the ROI
+        flow = model.compute_flow(lrs[1].permute(0, 3, 1, 2), lrs[0].permute(0, 3, 1, 2))
+    hr_flow = flow * 8.0
+    print(f"[anchor] clip pans ({8 * ANCHOR_V[0]:g}, {8 * ANCHOR_V[1]:g}) HR px a frame; "
+          f"the flow net's HR flow on the ROI: mean (dx, dy) "
+          f"({float(hr_flow[:, 0].mean()):.2f}, {float(hr_flow[:, 1].mean()):.2f}), "
+          f"max |.| {float(hr_flow.abs().max()):.2f} px")
+    lines = {}
+    for dtype, db, dmax in ((torch.float32, 80.0, 1e-3),
+                            (torch.bfloat16, ANCHOR_BF16_DB, ANCHOR_BF16_DMAX)):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        model = build(True, dtype)
+        with plain_kernels():
+            want = run(model, dtype)
+        dcn.anchor_launches = warp.anchor_launches = 0
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = run(model, dtype)
+        wall = time.perf_counter() - t0
+        launches, anchored = _counts(), anchored_counts()
+        print(f"[anchor] {t} frames 1080p warp {WARP} mid {MID} ({ANCHOR_CKPT.name}) {name}, "
+              f"_DEPLOY flags (windows 8/32, hr_s2d, dcn_anchor), via kernels in "
+              f"{wall:.3f} s (first run, host clock); launches {launches}, anchored {anchored}")
+        if launches != expect or anchored != expect_anchored:
+            fail(f"anchored slice {name}: launch counts {launches} / anchored {anchored} != "
+                 f"expected {expect} / {expect_anchored}")
+        _frames_agree(f"[anchor] {name}", got, want, db, dmax, shape=(1, *HR_HW, 3))
+        lines[name] = launches
+        clamp = run(build(False, dtype), dtype)
+        readings = _frames_agree(f"[anchor] {name} anchored vs plain clamp", got[1:],
+                                 clamp[1:], -math.inf, None, versus="anchored vs plain-clamp")
+        inside = [i + 1 for i, (p, d) in enumerate(readings) if p >= db and d <= dmax]
+        if inside:
+            fail(f"anchored slice {name}: plain-clamp frames {inside} fall inside the kernels' "
+                 f"limit (>= {db:g} dB, max|d| <= {dmax:g}), which then cannot fail kernels "
+                 f"that drop the anchor")
+    before = _counts()
+    line = bench.run(bench.PROTOCOLS[:1])
+    got = _since(before)
+    *_, reps, warm = bench.PROTOCOLS[0]
+    n_reps = warm + 2 * (reps - warm)
+    want = _expect(dcn_fwd=16 * n_reps, flow_warp=8 * n_reps, emit=5 * n_reps)
+    print(f"[anchor] tools.bench, the anchored _DEPLOY's headline protocol "
+          f"({card_line()}); launches {got}")
+    print(json.dumps(line))
+    if got != want:
+        fail(f"tools.bench anchored launch counts {got} != expected {want}")
+    return modes, lines["bf16"]
+
+
 def _since(before: dict) -> dict:
     """The launches since the counts ``before``."""
     now = _counts()
@@ -3074,6 +3373,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="phases 1 and 11 only (build, the tools and benches); prints "
                          "no final ok line")
+    ap.add_argument("--anchor-only", action="store_true",
+                    help="phases 1 and 12 only (build, anchored kernels A and B against "
+                         "their plain versions, the anchored slice at full width), then a "
+                         "{\"modes\": [...]} line; prints no final ok line")
     ap.add_argument("--models-bf16-only", action="store_true",
                     help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
                          "kernels against plain versions in bf16, the X8 bf16 frame's "
@@ -3090,7 +3393,7 @@ def main(argv=None) -> int:
         fail(f"crfp_torch imported from {crfp_torch.__file__}, not from {ROOT}")
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
-    for ckpt in (CKPT, GATE_CKPT, MID16_CKPT):
+    for ckpt in (CKPT, GATE_CKPT, MID16_CKPT, ANCHOR_CKPT):
         if not ckpt.exists():
             fail(f"missing {ckpt}")
     torch.backends.cudnn.allow_tf32 = False
@@ -3112,6 +3415,11 @@ def main(argv=None) -> int:
     if args.tools_only:
         timed("11 tools", phase_tools)
         print(f"[done] tools phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.anchor_only:
+        anchor_modes, _ = timed("12 anchor", phase_anchor, torch.Generator().manual_seed(12))
+        print(f"[done] anchor phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": anchor_modes}))
         return 0
     if args.models_bf16_only:
         timed("3d bf16 pyramids and PCD", _models_bf16, _expect())
@@ -3137,6 +3445,9 @@ def main(argv=None) -> int:
         main_launches = timed("9 main", phase_main, Path(tmp))
         par_launches = timed("10 parallel", phase_parallel, Path(tmp))
     tools_launches = timed("11 tools", phase_tools)
+    anchor_modes, anchor_launches = timed("12 anchor", phase_anchor,
+                                          torch.Generator().manual_seed(12))
+    modes += anchor_modes
 
     kernels = []
     serve = "main-path calls per steady-state frame of the serving slice, bf16 inputs"
@@ -3186,6 +3497,13 @@ def main(argv=None) -> int:
         in_step = [m for m in ms if m.get("calls_per_step")]
         for key in ("device_ms", "call_ms", "bound_ms") if in_step else ():
             extra[f"train_step_{key}"] = sum(m[key] * m["calls_per_step"] for m in in_step)
+        # A and B in anchored mode: their time per steady frame of phase 12's
+        # anchored slice, beside the clamped call's
+        anch = [m for m in ms if m.get("calls_anchor")]
+        for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+                    "clamp_ms", "clamp_device_ms", "library_ms") if anch else ():
+            if all(m[key] is not None for m in anch):
+                extra[f"anchor_{key}"] = sum(m[key] * m["calls_anchor"] for m in anch)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_counterpart": tpu,
@@ -3209,6 +3527,11 @@ def main(argv=None) -> int:
             # window-quality harnesses, the converted checkpoint, the runtime
             # CLIs and the video tools (the trace table's child excluded)
             "launches_tools": tools_launches[name],
+            # phase 12's anchored slice (bench.py's _DEPLOY flags, 5 bf16
+            # frames at 1080p / warp 720^2 on the anchored checkpoint); A's
+            # and B's anchored-mode launches are among them (A 1, B 1 a
+            # steady frame)
+            "launches_anchor": anchor_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);

@@ -2,9 +2,10 @@
 
 The port of ``crfp_tpu`` (JAX/Pallas), module for module: ``crfp_torch/X``
 mirrors ``crfp_tpu/X``. It computes the logical math of the JAX package;
-the TPU layout devices (space-to-depth operand forms, per-cell window
-anchoring) are not carried. The fused-prep DCN is: kernel E, behind
-``ModelConfig.dcn_fused``.
+the TPU layout devices (space-to-depth operand forms) are not carried.
+Per-cell anchored HR windows are math and are carried for inference
+(``ModelConfig.dcn_anchor``, ``crfp_torch.ops.anchor``), and so is the
+fused-prep DCN: kernel E, behind ``ModelConfig.dcn_fused``.
 
 Public entry points take and return NHWC tensors like the JAX models;
 inside, tensors are NCHW. Entry points run on ``cuda`` unless the caller

@@ -12,16 +12,17 @@ from training) for four rows:
   ablation;
 - **basic_fvsr**: trained BasicFVSR (fovea blended once at input), the
   foveation ablation;
-- **v18**: the trained flagship at windows 8/32.
+- **v18**: the trained flagship at windows 8/32, anchored HR windows.
 
 Each trained row streams frame by frame through ``StreamingRunner`` with
 its own FNet flow and its training window configuration (no_dcn and
 basic_fvsr with ``hr_dcn=False``, the only branch they were trained in),
 bfloat16 parameters and inputs by default, float32 metrics (the zone
-evaluator's SSIM is kernel F on the card). The JAX harness also sets
-``hr_s2d`` and ``dcn_anchor`` on the v18 row; those are TPU layouts, and
-the JAX package itself runs that row with the plain clamp on the CPU
-(crfp_tpu/nn/align.py:41-43), so the port runs the plain clamp. The claims
+evaluator's SSIM is kernel F on the card). The v18 row is the JAX
+harness's deployment configuration: per-cell anchored HR windows
+(``dcn_anchor``) on the cell grid of the s2d(4) tail (``hr_s2d``), as the
+JAX package runs it on its accelerator (crfp_tpu/bench/capability.py:75-82;
+off the TPU the JAX dispatch drops the anchor). The claims
 to check: v18 > bicubic (whole frame), v18 > no_dcn (alignment earns
 quality), and a fovea/past advantage over basic_fvsr.
 
@@ -50,10 +51,11 @@ CKPTS = {r: f"checkpoints/{r}_mid32_struct.npz" for r in ROWS}
 
 
 def row_config(name: str, mid: int) -> ModelConfig:
-    """Each trained row's configuration (crfp_tpu/bench/capability.py:72-87,
-    without the TPU layouts)."""
+    """Each trained row's configuration (crfp_tpu/bench/capability.py:72-87;
+    ``hr_s2d`` selects v18's anchored cell grid)."""
     if name == "v18":
-        return ModelConfig(variant="v18", mid_channels=mid, dcn_window=8, dcn_window_hr=32)
+        return ModelConfig(variant="v18", mid_channels=mid, dcn_window=8, dcn_window_hr=32,
+                           hr_s2d=True, dcn_anchor=True)
     if name == "no_dcn":
         return ModelConfig(variant="no_dcn", mid_channels=mid, hr_dcn=False)
     if name == "basic_fvsr":

@@ -10,10 +10,10 @@ generated 720p clips, in two configurations on identical inputs:
 - EXACT: float32, unbounded DCN and warps (``dcn_window=None``): the
   quality reference.
 - DEPLOY: bfloat16 parameters and inputs, windowed DCN and warps (D=8 on
-  the 1/4-res stages, D=32 on dcn_3 and the HR state warp) and, with
-  ``dcn_fused``, kernel E on dcn_0/1/2. The JAX gate also hard-codes its
-  TPU layout knobs there (``hr_s2d``, ``dcn_anchor``), which the port does
-  not carry; ``dcn_fused`` is the port's one dispatch knob.
+  the 1/4-res stages, D=32 on dcn_3 and the HR state warp) with per-cell
+  anchored HR windows on the s2d(4) tail's cell grid (``dcn_anchor``,
+  ``hr_s2d``; crfp_tpu/bench/deploy_gate.py:105-108) and, with
+  ``dcn_fused``, kernel E on dcn_0/1/2 (the port's one dispatch knob).
 
 Per zone (whole / fovea / outskirt / past) it reports each path's PSNR and
 SSIM against the ground truth and the DEPLOY-EXACT delta, plus the direct
@@ -96,12 +96,12 @@ def build_runner(ckpt: str, mid_channels: int = 32, *, deploy: bool,
                  dcn_fused: bool = False,
                  device: str | torch.device = "cuda") -> StreamingRunner:
     """The gate's EXACT (f32, no windows) or DEPLOY (bf16, windows 8/32,
-    optionally kernel E) streaming runner of v18 with ``ckpt`` loaded
-    strictly."""
+    anchored HR windows, optionally kernel E) streaming runner of v18 with
+    ``ckpt`` loaded strictly."""
     cfg = ModelConfig(variant="v18", mid_channels=mid_channels)
     if deploy:
-        cfg = dataclasses.replace(cfg, dcn_window=8, dcn_window_hr=32,
-                                  dcn_fused=dcn_fused)
+        cfg = dataclasses.replace(cfg, dcn_window=8, dcn_window_hr=32, hr_s2d=True,
+                                  dcn_anchor=True, dcn_fused=dcn_fused)
     return load_runner(ckpt, cfg, bf16=deploy, device=device)
 
 

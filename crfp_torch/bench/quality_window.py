@@ -15,11 +15,12 @@ content translating by a whole number of LR pixels a frame:
 
 Within the window the two agree to float noise (>= 80 dB); beyond it the
 divergence is what clamping costs on content moving faster than D px a
-frame at the 1/4-res trunk (4D at the HR level). Per-cell anchored windows
-(``anchor=True`` in the JAX harness) are a TPU placement the port does not
-carry: they raise.
+frame at the 1/4-res trunk (4D at the HR level). ``anchor=True``
+(``--anchor``): the windowed side takes per-cell anchored HR windows
+(``ModelConfig.dcn_anchor``, the full-resolution cell grid, as the JAX
+harness runs it), which follow coherent motion past 4D.
 
-    python -m crfp_torch.bench.quality_window [--windows 4 8 16] [--cpu]
+    python -m crfp_torch.bench.quality_window [--windows 4 8 16] [--anchor] [--cpu]
 
 runs on the card unless ``--cpu`` is given.
 """
@@ -53,17 +54,28 @@ def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     return img.astype(np.float32)
 
 
+def panning_clip(frames: int, lr_hw, v, seed: int = 0,
+                 scale: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """A procedural texture panning ``v`` = (vy, vx) LR px a frame: the crop
+    origin moves by +v a frame. Returns (lr (T, h, w, 3), hr (T, s*h, s*w,
+    3)) float32, lr the s x s box mean of hr."""
+    h, w = lr_hw
+    s = scale
+    m = int(max(abs(v[0]), abs(v[1])) * frames * s) + 1
+    tex = _texture(np.random.default_rng(seed), h * s + 2 * m, w * s + 2 * m)
+    hrs = []
+    for i in range(frames):
+        oy, ox = m + int(round(v[0] * s * i)), m + int(round(v[1] * s * i))
+        hrs.append(tex[oy:oy + h * s, ox:ox + w * s])
+    hr = np.stack(hrs)
+    lr = hr.reshape(frames, h, s, w, s, 3).mean((2, 4))
+    return lr.astype(np.float32), hr.astype(np.float32)
+
+
 def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
     """PSNR of two [0, 1] arrays; 99 where they agree to 1e-12 in MSE."""
     mse = float(np.mean((a - b) ** 2))
     return 99.0 if mse < 1e-12 else float(-10.0 * np.log10(mse))
-
-
-def refuse_anchor(anchor: bool) -> None:
-    if anchor:
-        from crfp_torch.config import DCN_ANCHOR_REFUSAL
-
-        raise ValueError(DCN_ANCHOR_REFUSAL)
 
 
 def trunk(cfg: ModelConfig, state_dict, device) -> CRFP:
@@ -73,10 +85,12 @@ def trunk(cfg: ModelConfig, state_dict, device) -> CRFP:
     return model.eval()
 
 
-def windowed(cfg: ModelConfig, window: int) -> ModelConfig:
+def windowed(cfg: ModelConfig, window: int, anchor: bool = False) -> ModelConfig:
     """``cfg`` clamped at ``window`` on the 1/4-res stages and 4x that on
-    dcn_3 and the HR state warp (the JAX harnesses' pairing)."""
-    return dataclasses.replace(cfg, dcn_window=window, dcn_window_hr=4 * window)
+    dcn_3 and the HR state warp (the JAX harnesses' pairing), anchored
+    there with ``anchor``."""
+    return dataclasses.replace(cfg, dcn_window=window, dcn_window_hr=4 * window,
+                               dcn_anchor=anchor)
 
 
 @dataclasses.dataclass
@@ -100,9 +114,9 @@ def run_window_quality(
     device: str | torch.device = "cuda",
 ) -> list[WindowQualityResult]:
     """Exact against windowed on the last of ``frames`` frames, for each
-    velocity and window. ``state_dict``: the trunk's weights (default: the
-    port's seeded init, zero offset heads as in the JAX init)."""
-    refuse_anchor(anchor)
+    velocity and window. ``anchor``: anchored HR windows on the windowed
+    side. ``state_dict``: the trunk's weights (default: the port's seeded
+    init, zero offset heads as in the JAX init)."""
     device = device_of(device)
     h, w = lr_hw
     s = 8
@@ -138,7 +152,7 @@ def run_window_quality(
 
     cfg = ModelConfig(variant="v18", mid_channels=mid_channels)
     exact_model = trunk(cfg, state_dict, device)
-    win_models = {d: trunk(windowed(cfg, d), state_dict, device) for d in windows}
+    win_models = {d: trunk(windowed(cfg, d, anchor), state_dict, device) for d in windows}
     results = []
     for v in velocities:
         exact = stream(exact_model, v)
@@ -151,15 +165,16 @@ def run_window_quality(
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--anchor", action="store_true",
-                   help="per-cell anchored windows of the JAX package: refused")
+                   help="per-cell anchored HR windows on the windowed side")
     p.add_argument("--windows", type=int, nargs="+", default=[4, 8, 16])
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
+    mode = "anchored" if args.anchor else "windowed"
     for r in run_window_quality(windows=tuple(args.windows), anchor=args.anchor,
                                 device="cpu" if args.cpu else "cuda"):
         # trunk displacement is 2*v (flow is upsampled x2 and doubled)
         print(f"v={r.v_px:4.1f} px/frame (trunk {2 * r.v_px:4.1f} px)  "
-              f"D={r.window:2d}  exact-vs-windowed {r.psnr_db:6.2f} dB", flush=True)
+              f"D={r.window:2d}  exact-vs-{mode} {r.psnr_db:6.2f} dB", flush=True)
 
 
 if __name__ == "__main__":

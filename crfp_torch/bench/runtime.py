@@ -86,13 +86,18 @@ def build_model(
     params_path: str | None = None,
     dcn_fused: bool = False,
     device: str | torch.device = "cuda",
+    dcn_anchor: bool = False,
+    hr_s2d: bool = False,
 ):
     """The benchmark's model (eval mode) and its NHWC inputs ``lr``, ``fv``
     on ``device``. ``params_path``: a batch-trunk checkpoint in any format
-    ``load_params`` reads, adapted onto the runtime trunk."""
+    ``load_params`` reads, adapted onto the runtime trunk. ``dcn_anchor``
+    and ``hr_s2d``: anchored HR windows on the cell grid of the JAX
+    package's s2d(4) tail or of its plain one (``ModelConfig``)."""
     device = device_of(device)
     cfg = ModelConfig(mid_channels=mid_channels, dcn_window=dcn_window,
-                      dcn_window_hr=dcn_window_hr, dcn_fused=dcn_fused)
+                      dcn_window_hr=dcn_window_hr, dcn_fused=dcn_fused,
+                      dcn_anchor=dcn_anchor, hr_s2d=hr_s2d)
     model = CRFPRuntimeV18(cfg, warp_size=warp_size, device=device, seed=seed)
     if params_path:
         from crfp_torch.params import runtime_params_from_batch
@@ -162,6 +167,8 @@ def run_runtime_bench(
     dcn_fused: bool = False,
     fused: bool = True,
     device: str | torch.device = "cuda",
+    dcn_anchor: bool = False,
+    hr_s2d: bool = False,
 ) -> BenchResult:
     """Time the v18 streaming slice (see the module note for the two modes).
 
@@ -170,10 +177,13 @@ def run_runtime_bench(
     (the kernels accumulate in f32). ``params_path``: a batch-trunk
     checkpoint adapted by ``crfp_torch.params.runtime_params_from_batch``.
     ``dcn_fused``: dcn_0/1/2 through kernel E instead of a PyTorch
-    prologue and kernel A."""
+    prologue and kernel A. ``dcn_anchor``, ``hr_s2d``: as
+    crfp_tpu/bench/runtime.py:76-92, anchored HR windows and the selector
+    of their cell grid (:func:`build_model`)."""
     device = device_of(device)
     model, lr, fv = build_model(preset, warp_size, mid_channels, fv_hw, seed, dcn_window,
-                                dcn_window_hr, bf16, params_path, dcn_fused, device)
+                                dcn_window_hr, bf16, params_path, dcn_fused, device,
+                                dcn_anchor, hr_s2d)
     on_card = device.type == "cuda"
     timed_reps = max(1, repeat_time - warm_up)
     stages: dict[str, float] = {}

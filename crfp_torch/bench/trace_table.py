@@ -53,7 +53,7 @@ def parse_trace(logdir: str, frames: int, top: int = 40) -> list[tuple[str, floa
 def run(frames: int = 10, logdir: str | None = None, **bench_kw) -> list[tuple[str, float]]:
     """Capture and print the table. ``bench_kw``: preset, warp_size, bf16
     and the ``ModelConfig`` fields of ``bench/runtime.py::build_model``
-    (mid_channels, dcn_window, dcn_window_hr)."""
+    (mid_channels, dcn_window, dcn_window_hr, dcn_anchor, hr_s2d)."""
     import torch
 
     from crfp_torch.bench import device_of
@@ -102,9 +102,10 @@ def main(argv=None) -> list[tuple[str, float]]:
     p.add_argument("--mid", type=int, default=32)
     p.add_argument("--dcn_window", type=int, default=8)
     p.add_argument("--dcn_window_hr", type=int, default=32)
-    p.add_argument("--hr_s2d", action="store_true")  # a TPU layout: logged, no effect
+    # a TPU layout (logged, no effect), or under --dcn_anchor the cell grid's selector
+    p.add_argument("--hr_s2d", action="store_true")
     p.add_argument("--lv3_s2d", action="store_true")
-    p.add_argument("--dcn_anchor", action="store_true")
+    p.add_argument("--dcn_anchor", action="store_true")  # anchored HR windows
     p.add_argument("--f32", action="store_true")
     p.add_argument("--logdir", default=None)
     args = p.parse_args(argv)
@@ -112,7 +113,7 @@ def main(argv=None) -> list[tuple[str, float]]:
     return run(frames=args.frames, logdir=args.logdir, preset=args.preset,
                warp_size=(args.warp, args.warp_w or args.warp), mid_channels=args.mid,
                dcn_window=args.dcn_window, dcn_window_hr=args.dcn_window_hr,
-               bf16=not args.f32)
+               bf16=not args.f32, dcn_anchor=args.dcn_anchor, hr_s2d=args.hr_s2d)
 
 
 if __name__ == "__main__":

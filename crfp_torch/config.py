@@ -3,14 +3,17 @@ crfp_tpu/config.py, with the same names, types and defaults, so that the
 ``train.sh`` / ``eval.sh`` / ``test.sh`` lines carry over with ``main.py``
 swapped for ``python -m crfp_torch.main``.
 
-The port runs the logical math of the JAX model, so the JAX package's TPU
-layout flags carry none here:
+The port runs the logical math of the JAX model:
+- ``--dcn_anchor true`` is math, not a layout: per-cell anchored HR
+  windows sample past ±dcn_window_hr (crfp_torch/ops/anchor.py). The port
+  runs it for ``--eval`` and ``--test``, as the JAX package's evaluation
+  does (crfp_tpu/config.py:169-175); training with it (JAX's
+  ``dcn_anchor_vjp``) raises, naming the next slice;
 - ``--hr_s2d`` and ``--lv3_s2d`` compute what the plain layout computes
   (pinned by tests/test_models.py::test_hr_s2d_bit_equivalence_v18); they
   are accepted, and ``main`` logs that they have no effect
-  (:func:`check_tpu_flags`);
-- ``--dcn_anchor true`` changes which pixels the HR windows sample, so
-  :func:`model_config` refuses it.
+  (:func:`check_tpu_flags`), except ``--hr_s2d`` under ``--dcn_anchor``:
+  there it selects the anchored cell grid of the JAX s2d(4) tail.
 
 ``--num_gpu N`` trains data-parallel over ``min(N, cards)`` ranks
 (``crfp_torch/main.py``).
@@ -90,10 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "~4x dcn_window, e.g. 32); None = exact")
     p.add_argument("--hr_s2d", type=str2bool, default=False,
                    help="a TPU layout of the JAX package; the same math, no "
-                        "effect in the port")
+                        "effect in the port but the anchored HR cell grid "
+                        "under --dcn_anchor")
     p.add_argument("--dcn_anchor", type=str2bool, default=False,
-                   help="per-cell anchored HR windows of the JAX package; not "
-                        "ported (true raises)")
+                   help="per-cell anchored windows for the HR windowed ops "
+                        "(eval and test; training raises)")
     p.add_argument("--lv3_s2d", type=str2bool, default=False,
                    help="a TPU layout of the JAX package; the same math, no "
                         "effect in the port")
@@ -150,15 +154,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
 
 
-# why the port refuses per-cell anchored windows (main.py and the bench CLIs)
-DCN_ANCHOR_REFUSAL = ("--dcn_anchor: per-cell anchored windows sample other pixels than "
-                      "the plain +-window clamp, and the port does not carry them")
+# why the port refuses to train with per-cell anchored windows
+DCN_ANCHOR_REFUSAL = ("--dcn_anchor: anchored windows run for --eval and --test; training "
+                      "with them (kernel D's anchored mode) is the next slice, ROADMAP.md "
+                      "queue 1, \"anchored training\"")
 # the JAX package's TPU layout flags: the same math in another layout
 LAYOUT_FLAGS = ("hr_s2d", "lv3_s2d", "emit_s2d")
 
 
 def model_config(args) -> ModelConfig:
-    if args.dcn_anchor:
+    if args.dcn_anchor and not (args.eval or args.test):
         raise ValueError(DCN_ANCHOR_REFUSAL)
     return ModelConfig(
         variant=args.variant,
@@ -175,17 +180,23 @@ def model_config(args) -> ModelConfig:
         remat=args.remat,
         dcn_window=args.dcn_window,
         dcn_window_hr=args.dcn_window_hr,
+        dcn_anchor=args.dcn_anchor,
+        hr_s2d=args.hr_s2d,
     )
 
 
 def check_tpu_flags(args, log=print) -> None:
     """The rule for the JAX package's TPU flags (``main`` and the bench
-    CLIs): ``--dcn_anchor`` raises, and each layout flag given is logged as
-    having no effect."""
-    if args.dcn_anchor:
-        raise ValueError(DCN_ANCHOR_REFUSAL)
+    CLIs): each layout flag given is logged as having no effect, but
+    ``--hr_s2d`` under ``--dcn_anchor``, which is logged as the selector of
+    the anchored cell grid."""
     for k in LAYOUT_FLAGS:
-        if getattr(args, k, False):
+        if not getattr(args, k, False):
+            continue
+        if k == "hr_s2d" and getattr(args, "dcn_anchor", False):
+            log("--hr_s2d: the anchored HR ops take the cell grid of the JAX package's "
+                "s2d(4) kernels (the HR warp's band 32, not 64)")
+        else:
             log(f"--{k}: a TPU layout of the JAX package, the same math; no effect in the port")
 
 

@@ -4,7 +4,8 @@
 // A (dcn_fwd.cu) and E (dcn_fused.cu): x packed per group, pixel-major, by
 // a pre-pass; tiles of pixels per block on a persistent grid; the weight
 // staged once per block; the bf16 contraction on the tensor cores
-// (mma.sync). The two kernels differ only in their prologue.
+// (mma.sync). The two kernels differ only in their prologue. Also the
+// anchor-table pre-pass of the anchored calls of A and B (flow_warp.cu).
 #pragma once
 
 #include <cstdint>
@@ -155,18 +156,34 @@ struct Taps {
 
 // Kernel A's prologue: f32 offsets (N, G*T*2, H, W), channel (g*T + k)*2 +
 // {dy, dx}, T = 1 under shared_taps; f32 masks (N, G*M, H, W), M = 1 under
-// shared_mask. Every component is clamped to +-D.
+// shared_mask. Every component is clamped to +-D; or, anchored (shared taps
+// only, `anchor` not NULL), clipped around the anchor F of the TPU kernel's
+// cell that holds the pixel: F + clip(off - F, +-dl) (crfp_tpu/ops/pallas/
+// dcn.py:1006-1007). The anchors, f32 [N][G][nb][nt][2] as (dy, dx), are
+// ops/anchor.py::anchor_table's, one per cell of `band` x `xtile` pixels.
 struct ProA {
   const float* off;
   const float* mask;
   int shared_taps, shared_mask;
+  const float* anchor = nullptr;
+  int W = 0, band = 1, xtile = 1, nb = 0, nt = 0;
+  float dl_r = 0.f, dl_c = 0.f;
 
   __device__ __forceinline__ void operator()(int n, int g, int G, long long p,
                                              long long HW, float D, Taps& t) const {
     const long long ng = (long long)n * G + g;
     if (shared_taps) {
       const float* o = off + ng * 2 * HW + p;
-      const float dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
+      float dy, dx;
+      if (anchor != nullptr) {
+        const int py = (int)(p / W), px = (int)(p - (long long)py * W);
+        const float* f = anchor + ((ng * nb + py / band) * nt + px / xtile) * 2;
+        const float fy = __ldg(f), fx = __ldg(f + 1);
+        dy = fy + fminf(fmaxf(__ldg(o) - fy, -dl_r), dl_r);
+        dx = fx + fminf(fmaxf(__ldg(o + HW) - fx, -dl_c), dl_c);
+      } else {
+        dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
+      }
 #pragma unroll
       for (int k = 0; k < kTaps; ++k) t.dy[k] = dy, t.dx[k] = dx;
     } else {
@@ -189,6 +206,82 @@ struct ProA {
     }
   }
 };
+
+// The anchors of the TPU kernel's cells, the pre-pass of an anchored call of
+// kernel A (dcn_fwd.cu) or B (flow_warp.cu); its plain version is
+// crfp_torch/ops/anchor.py::anchor_table (crfp_tpu/ops/pallas/dcn.py:975-994).
+// One block per (image, group, cell) of `band` x `xtile` pixels: each
+// component clipped to +-reach (A + dl), averaged over the `taps` offsets of
+// a pixel, summed over the cell's pixels inside the frame and divided by the
+// full cell size (edge cells average over their zero padding), rounded half
+// to even to its quantum, clipped to +-A and written as table[...][2] =
+// (dy, dx). The offsets are (N, G*taps*2, H, W) with the y component at
+// channel (g*taps + k)*2 + cy and x at + cx: (0, 1) for a DCN's offsets,
+// (1, 0) for a warp's (dx, dy) flow (G = taps = 1). The sums run in
+// another order than PyTorch's mean, so a cell mean within an ulp of a
+// rounding boundary may round the other way; where that could move a
+// sample the offset lies more than dl from one of the two anchors.
+struct AnchorGrid {
+  int band, xtile, nb, nt;
+  int sub_tile, lane_q;  // the row and column quanta
+  int a_y, a_x;          // the anchors' range, multiples of the quanta
+  float dl_r, dl_c;      // the residual margins
+};
+
+constexpr int kAnchorThreads = 256;
+
+static __global__ void __launch_bounds__(kAnchorThreads)
+anchor_table_kernel(const float* __restrict__ off, float* __restrict__ table, int taps,
+                    int cy, int cx, int H, int W, AnchorGrid g) {
+  const int cell = blockIdx.x;  // (n * G + group) * nb * nt + bi * nt + tj
+  const int tj = cell % g.nt, bi = (cell / g.nt) % g.nb;
+  const long long ng = cell / (g.nt * g.nb);
+  const long long HW = (long long)H * W;
+  const float* base = off + ng * taps * 2 * HW;
+  const float ry = (float)g.a_y + g.dl_r, rx = (float)g.a_x + g.dl_c;
+  float sy = 0.f, sx = 0.f;
+  for (int i = threadIdx.x; i < g.band * g.xtile; i += blockDim.x) {
+    const int y = bi * g.band + i / g.xtile, x = tj * g.xtile + i % g.xtile;
+    if (y >= H || x >= W) continue;
+    const long long p = (long long)y * W + x;
+    float vy = 0.f, vx = 0.f;
+    for (int k = 0; k < taps; ++k) {
+      vy += fminf(fmaxf(__ldg(base + (2 * k + cy) * HW + p), -ry), ry);
+      vx += fminf(fmaxf(__ldg(base + (2 * k + cx) * HW + p), -rx), rx);
+    }
+    sy += vy / (float)taps;
+    sx += vx / (float)taps;
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    sy += __shfl_xor_sync(0xffffffffu, sy, s);
+    sx += __shfl_xor_sync(0xffffffffu, sx, s);
+  }
+  __shared__ float part[2][kAnchorThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) part[0][warp] = sy, part[1][warp] = sx;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  sy = sx = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sy += part[0][w], sx += part[1][w];
+  const float n = (float)(g.band * g.xtile);
+  const float qy = (float)g.sub_tile, qx = (float)g.lane_q;
+  const float ky = (float)(g.a_y / g.sub_tile), kx = (float)(g.a_x / g.lane_q);
+  table[cell * 2] = fminf(fmaxf(rintf(sy / n / qy), -ky), ky) * qy;
+  table[cell * 2 + 1] = fminf(fmaxf(rintf(sx / n / qx), -kx), kx) * qx;
+}
+
+// Launch the table pre-pass over N * G * nb * nt cells.
+inline cudaError_t launch_anchor_table(const float* off, float* table, int N, int G, int taps,
+                                       int cy, int cx, int H, int W, const AnchorGrid& g,
+                                       cudaStream_t stream) {
+  if (g.band < 1 || g.xtile < 1 || g.sub_tile < 1 || g.lane_q < 1 || taps < 1 ||
+      g.nb != (H + g.band - 1) / g.band || g.nt != (W + g.xtile - 1) / g.xtile)
+    return cudaErrorInvalidValue;
+  anchor_table_kernel<<<(unsigned)((long long)N * G * g.nb * g.nt), kAnchorThreads, 0,
+                        stream>>>(off, table, taps, cy, cx, H, W, g);
+  return cudaGetLastError();
+}
 
 // Kernel E's prologue: raw heads in x's type, offset channel (g*9 + k)*2 +
 // {dy, dx}, mask channel g*9 + k; f32 flow (N, 2, H, W) as (dx, dy):

@@ -9,6 +9,12 @@
 // the kernel; the bias is added last. shared_taps: one (dy, dx) per pixel
 // and group for every tap. shared_mask: one mask per pixel and group,
 // applied once to the group's sum (crfp_tpu/ops/pallas/dcn.py:196-200).
+// Anchored (shared taps, dcn_3 under ModelConfig.dcn_anchor;
+// crfp_tpu/ops/pallas/dcn.py:975-1014): a pre-pass writes each TPU cell's
+// quantized mean displacement (common.cuh::anchor_table_kernel) and every
+// pixel samples at its cell's anchor plus the residual clipped to +-dl,
+// exactly, up to A + dl (61 px for bf16 at D = 32) from the pixel; the
+// packed planes are padded for that reach.
 //
 // Design: the tiled routine of common.cuh, shared with kernel E
 // (dcn_fused.cu), with the prologue crfp::ProA (f32 offsets and masks). A
@@ -157,6 +163,16 @@ CRFP_EXPORT_ERROR_STRING
 // 64). The tile plan (tile_h, tile_w, pad, smem_bytes) is
 // ops/cuda/dcn.py::tile_plan's; the tensor cores take bf16 x at O = 32
 // without shared_mask and at O = 64. No synchronisation, no allocation.
+//
+// Anchored (anchor not NULL, shared taps only): the cells are band x xtile
+// pixels, nb = ceil(H / band) x nt = ceil(W / xtile) of them; a pre-pass
+// (common.cuh::anchor_table_kernel) writes their anchors, quantized to
+// sub_tile rows and lane_q columns within +-a_y / +-a_x, into `anchor`, f32
+// scratch of N*G*nb*nt*2 (ops/anchor.py::anchor_table's table); each pixel
+// then takes F + clip(off - F, +-dl) for its cell's anchor F. D is the
+// anchored reach max(a_y + dl_r, a_x + dl_c), which bounds every
+// displacement and so sizes the padding (pad >= ceil(D) + 1) as a clamp to
+// +-D would.
 extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
                             const void* mask, const void* weight,
                             const void* bias, void* out, void* x_packed, int N,
@@ -164,13 +180,27 @@ extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
                             int W, int O, int G, int KH, int KW, float D,
                             int shared_taps, int shared_mask, int x_bf16,
                             int tile_h, int tile_w, int pad, int smem_bytes,
-                            void* stream) {
+                            void* anchor, int band, int xtile, int sub_tile, int lane_q,
+                            int a_y, int a_x, float dl_r, float dl_c, void* stream) {
   if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
   if (O == crfp::kWideO && (shared_taps || shared_mask)) return (int)cudaErrorInvalidValue;
-  const crfp::ProA pro{static_cast<const float*>(offset),
-                       static_cast<const float*>(mask), shared_taps, shared_mask};
-  const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
+  if (anchor != nullptr && (!shared_taps || D < fmaxf(a_y + dl_r, a_x + dl_c)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  crfp::ProA pro{static_cast<const float*>(offset),
+                 static_cast<const float*>(mask), shared_taps, shared_mask};
+  if (anchor != nullptr) {
+    const crfp::AnchorGrid g{band, xtile, (H + band - 1) / band, (W + xtile - 1) / xtile,
+                             sub_tile, lane_q, a_y, a_x, dl_r, dl_c};
+    const cudaError_t e = crfp::launch_anchor_table(
+        static_cast<const float*>(offset), static_cast<float*>(anchor), N, G, 1, 0, 1, H, W,
+        g, s);
+    if (e != cudaSuccess) return (int)e;
+    pro.anchor = static_cast<const float*>(anchor);
+    pro.W = W, pro.band = band, pro.xtile = xtile, pro.nb = g.nb, pro.nt = g.nt;
+    pro.dl_r = dl_r, pro.dl_c = dl_c;
+  }
+  const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
   cudaError_t e;

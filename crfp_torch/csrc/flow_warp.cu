@@ -7,6 +7,16 @@
 // flow (dx, dy) is clamped to +-D (D < 0: no clamp) and x is sampled
 // bilinearly at (y + dy, x + dx), zeros outside the frame.
 //
+// Anchored (crfp_tpu/ops/pallas/warp.py's anchor=True): the flow is
+// clipped around the anchor of the TPU kernel's cell that holds the pixel
+// instead, F + clip(flow - F, +-dl), and sampled exactly there, zeros
+// outside the frame. A pre-pass (common.cuh::anchor_table_kernel, plain
+// version crfp_torch/ops/anchor.py::anchor_table) writes one (dy, dx)
+// anchor per cell of band x xtile pixels. The corners are checked against
+// the frame, so the anchored reach (up to ~2 D) needs no padding; the
+// table costs one 8-byte load a pixel, from L1 (a warp's 32 pixels span
+// one or two cells).
+//
 // What bounds it on the H100: bytes. HR state (1,4,720,720) bf16 4.1 MB +
 // flow (1,2,720,720) f32 4.1 MB + out 4.1 MB = 12.4 MB, 3.7 us at 3.35 TB/s;
 // the gate's (1,4,720,1280) 22 MB, 6.6 us; lv states (1,24,180,180) 3.4 MB,
@@ -50,10 +60,17 @@ constexpr int kThreads = 256;
 constexpr int kCBlock = 4;
 constexpr int kTileW = 32, kTileH = kThreads / kTileW;  // a block's tile of pixels
 
-template <typename T>
+// The anchored form's table and cell grid (Anchor::table NULL: the clamp).
+struct Anchor {
+  const float* table;  // [N][nb][nt][2], (dy, dx)
+  int band, xtile, nb, nt;
+  float dl_r, dl_c;
+};
+
+template <typename T, bool ANCHORED>
 __global__ void __launch_bounds__(kThreads)
 flow_warp_kernel(const T* __restrict__ x, const float* __restrict__ flow,
-                 T* __restrict__ out, int C, int H, int W, float D) {
+                 T* __restrict__ out, int C, int H, int W, float D, Anchor an) {
   const int HW = H * W;
   const int px = blockIdx.x * kTileW + threadIdx.x % kTileW;
   const int py = blockIdx.y * kTileH + threadIdx.x / kTileW;
@@ -62,9 +79,19 @@ flow_warp_kernel(const T* __restrict__ x, const float* __restrict__ flow,
   const int cblocks = (C + kCBlock - 1) / kCBlock;
   const int c0 = (blockIdx.z % cblocks) * kCBlock;
   const int n = blockIdx.z / cblocks;
-  const float sx = (float)px + crfp::clamp_window(__ldg(flow + (long long)n * 2 * HW + p), D);
-  const float sy =
-      (float)py + crfp::clamp_window(__ldg(flow + (long long)n * 2 * HW + HW + p), D);
+  const float flow_x = __ldg(flow + (long long)n * 2 * HW + p);
+  const float flow_y = __ldg(flow + (long long)n * 2 * HW + HW + p);
+  float sx, sy;
+  if constexpr (ANCHORED) {
+    const float* f =
+        an.table + (((long long)n * an.nb + py / an.band) * an.nt + px / an.xtile) * 2;
+    const float ay = __ldg(f), ax = __ldg(f + 1);
+    sx = (float)px + (ax + fminf(fmaxf(flow_x - ax, -an.dl_c), an.dl_c));
+    sy = (float)py + (ay + fminf(fmaxf(flow_y - ay, -an.dl_r), an.dl_r));
+  } else {
+    sx = (float)px + crfp::clamp_window(flow_x, D);
+    sy = (float)py + crfp::clamp_window(flow_y, D);
+  }
   const float y0f = floorf(sy);
   const float x0f = floorf(sx);
   const float fy = sy - y0f;
@@ -110,11 +137,15 @@ flow_warp_kernel(const T* __restrict__ x, const float* __restrict__ flow,
 
 template <typename T>
 cudaError_t launch(const void* x, const float* flow, void* out, int N, int C,
-                   int H, int W, float D, cudaStream_t s) {
+                   int H, int W, float D, const Anchor& an, cudaStream_t s) {
   dim3 grid((unsigned)((W + kTileW - 1) / kTileW), (unsigned)((H + kTileH - 1) / kTileH),
             (unsigned)(N * ((C + kCBlock - 1) / kCBlock)));
-  flow_warp_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), flow, static_cast<T*>(out), C, H, W, D);
+  if (an.table != nullptr)
+    flow_warp_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), flow, static_cast<T*>(out), C, H, W, D, an);
+  else
+    flow_warp_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), flow, static_cast<T*>(out), C, H, W, D, an);
   return cudaGetLastError();
 }
 
@@ -124,18 +155,34 @@ CRFP_EXPORT_ERROR_STRING
 
 // x: (N, C, H, W) f32 or bf16 (x_bf16); flow (N, 2, H, W) f32, channels
 // (dx, dy); out (N, C, H, W) in x's type. All contiguous; a plane holds
-// fewer than 2^31 pixels, N at most 65535.
+// fewer than 2^31 pixels, N at most 65535. anchor: NULL (the clamp to +-D)
+// or f32 scratch of N * ceil(H / band) * ceil(W / xtile) * 2 for the
+// anchored form's table, whose anchors are quantized to sub_tile rows and
+// lane_q columns within +-a_y / +-a_x, with residual margins dl_r (rows)
+// and dl_c (columns).
 extern "C" int crfp_flow_warp(const void* x, const void* flow, void* out,
                               int N, int C, int H, int W, float D, int x_bf16,
-                              void* stream) {
+                              void* anchor, int band, int xtile, int sub_tile, int lane_q,
+                              int a_y, int a_x, float dl_r, float dl_c, void* stream) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   if ((long long)H * W > 0x7fff0000LL || H > 8 * 65535 ||
       (long long)N * ((C + 3) / 4) > 65535)
     return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(flow);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Anchor an{nullptr, 0, 0, 0, 0, 0.f, 0.f};
+  if (anchor != nullptr) {
+    if (band < 1 || xtile < 1) return (int)cudaErrorInvalidValue;
+    const crfp::AnchorGrid g{band, xtile, (H + band - 1) / band, (W + xtile - 1) / xtile,
+                             sub_tile, lane_q, a_y, a_x, dl_r, dl_c};
+    // the flow's dy is its channel 1, dx its channel 0
+    const cudaError_t e = crfp::launch_anchor_table(f, static_cast<float*>(anchor), N, 1, 1,
+                                                    1, 0, H, W, g, s);
+    if (e != cudaSuccess) return (int)e;
+    an = Anchor{static_cast<const float*>(anchor), band, xtile, g.nb, g.nt, dl_r, dl_c};
+  }
   cudaError_t e = x_bf16
-                      ? launch<__nv_bfloat16>(x, f, out, N, C, H, W, D, s)
-                      : launch<float>(x, f, out, N, C, H, W, D, s);
+                      ? launch<__nv_bfloat16>(x, f, out, N, C, H, W, D, an, s)
+                      : launch<float>(x, f, out, N, C, H, W, D, an, s);
   return (int)e;
 }

@@ -328,7 +328,7 @@ def _spawn(argv, world: int, device: str) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    model_config(args)  # refuses the flags the port does not carry, before any I/O
+    model_config(args)  # refuses what the port does not run (anchored training), before any I/O
     if args.cpu:
         device = "cpu"
     elif torch.cuda.is_available():

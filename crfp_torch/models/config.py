@@ -2,10 +2,13 @@
 that the logical math reads (crfp_tpu/models/crfp.py:67-154), and the
 rules that the JAX trunk asserts on them (:160-187).
 
-The TPU layout switches of the JAX config (``hr_s2d``, ``lv3_s2d``,
-``emit_s2d``, ``dcn_anchor``) are not carried: the port always computes the
-plain layout and the plain ±window clamp. ``dcn_fused`` is carried: it is
-a dispatch knob with the same math and the same parameters.
+The TPU layout switches of the JAX config (``lv3_s2d``, ``emit_s2d``) are
+not carried: the port always computes the plain layout. ``dcn_fused`` is
+carried: it is a dispatch knob with the same math and the same
+parameters. ``dcn_anchor`` is carried: per-cell anchored windows are math,
+not a layout (they sample past ±dcn_window_hr), and so is ``hr_s2d`` as
+the selector of the HR state warp's cell grid (band 64 at full
+resolution, 32 in the JAX package's s2d(4) form).
 """
 
 from __future__ import annotations
@@ -48,6 +51,18 @@ class ModelConfig:
     # that autograd records takes the structured path. Needs dcn_window
     # (crfp_tpu/models/crfp.py:175-177). The parameter tree is the same.
     dcn_fused: bool = False
+    # per-cell anchored windows for the HR-level windowed ops (dcn_3 and the
+    # HR state warp; crfp_tpu/models/crfp.py:104-111): each cell of the TPU
+    # kernel's grid samples around the cell's quantized mean displacement,
+    # exact to anchor +- residual, past +-dcn_window_hr
+    # (crfp_torch/ops/anchor.py). Inference only; no effect without
+    # dcn_window_hr, as in the JAX package
+    dcn_anchor: bool = False
+    # the JAX package's s2d(4) HR tail. The port computes the plain layout
+    # (the same math); under dcn_anchor it selects the cell grid of the
+    # anchored HR state warp as JAX's s2d kernel resolves it (dcn_3's grid
+    # is the same in both forms). Same rules as JAX's
+    hr_s2d: bool = False
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -62,8 +77,16 @@ class ModelConfig:
         if self.dcn_fused and self.dcn_window is None:
             raise ValueError("dcn_fused is a windowed-kernel dispatch mode: "
                              "set dcn_window")
+        if self.hr_s2d and (self.variant not in ("v13", "v15", "v18") or not self.hr_dcn):
+            # crfp_tpu/models/crfp.py:163-166
+            raise ValueError("hr_s2d is defined for the v13/v15/v18 trunks with hr_dcn")
         if self.flow_net not in ("fnet", "spynet"):
             raise ValueError(f"flow_net={self.flow_net!r} (expected 'fnet' or 'spynet')")
+
+    @property
+    def anchor_s2d(self) -> int:
+        """The s2d factor whose anchored cell grid the HR state warp takes."""
+        return 4 if self.hr_s2d else 1
 
     @property
     def is_dsv(self) -> bool:

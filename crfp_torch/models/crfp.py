@@ -8,8 +8,12 @@ each step under ``torch.utils.checkpoint`` (non-reentrant) when
 ``cfg.remat`` is set and autograd records: the JAX package's
 ``nn.scan(nn.remat(step))``.
 
-The six variants of ``crfp_tpu.models.crfp.VARIANTS``, in plain layout
-(``hr_s2d=False``), with the fovea blended through its mask:
+The six variants of ``crfp_tpu.models.crfp.VARIANTS``, in plain layout,
+with the fovea blended through its mask. ``cfg.dcn_anchor`` anchors the
+HR state warp and dcn_3 (the HR-level windowed ops, :314-335) on the cell
+grid of the JAX trunk's ``hr_s2d`` branch or of its plain one
+(``cfg.hr_s2d``); inference only, as the JAX trunk without
+``dcn_anchor_vjp``:
 
 - ``v18`` (the trained model) and ``v18_cra``: the DSV trunk, channel-split
   lv states beside the HR state; ``v18_cra`` adds the LTE pyramid and a
@@ -61,6 +65,7 @@ from crfp_torch.nn.layers import (
     lrelu,
 )
 from crfp_torch.nn.lte import LTESimpleHR, LTESimpleHRPS, LTESimpleHRSingle, LTESimpleLR
+from crfp_torch.ops.anchor import hr_warp_geometry
 from crfp_torch.ops.color import rgb2y
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
 from crfp_torch.ops.resize import resize_bilinear, upsample
@@ -99,7 +104,8 @@ class CRFP(nn.Module):
             if cfg.hr_dcn:
                 self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
                                       pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
-                                      window=cfg.dcn_window_hr, pre_offset_channels=m)
+                                      window=cfg.dcn_window_hr, pre_offset_channels=m,
+                                      anchor=cfg.dcn_anchor)
             else:  # per-tap at 1/4 size, never kernel E (:213-215)
                 self.dcn_3 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
                                       window=cfg.dcn_window)
@@ -148,6 +154,11 @@ class CRFP(nn.Module):
 
     def compute_flow(self, lr_cur, lr_prev):
         return self.spynet(lr_cur, lr_prev)
+
+    def _hr_anchor(self, hr_state):
+        """The HR state warp's anchored geometry, or None for the clamp."""
+        cfg = self.cfg
+        return hr_warp_geometry(hr_state, cfg.dcn_window_hr, cfg.dcn_anchor, cfg.anchor_s2d)
 
     def _base(self, lr):
         """The bilinear x8 base: of the luma with ``y_only`` (:310-312)."""
@@ -279,7 +290,8 @@ class CRFP(nn.Module):
         # ---- v13 / v15 ----
         if cfg.hr_dcn:
             flow_lv0 = (upsample(flow, cfg.scale) * float(cfg.scale)).float()
-            hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+            hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr,
+                                           anchor=self._hr_anchor(hr_state))
             lv3_warped = self.downsample(hr_warped)
             lv3_state = self.downsample(hr_state)
         else:
@@ -339,7 +351,8 @@ class CRFP(nn.Module):
         flow_lv0 = (upsample(flow, cfg.scale) * float(cfg.scale)).float()
         hr_state = state["hr"]
         lv3_state = self.downsample(hr_state)
-        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr,
+                                       anchor=self._hr_anchor(hr_state))
         lv3_warped = flow_warp_windowed(lv3_state, flow_lv3, cfg.dcn_window)
         feats = torch.chunk(flow_warp_windowed(torch.cat(state["lv"], dim=1), flow_lv3,
                                                cfg.dcn_window), 3, dim=1)

@@ -12,12 +12,15 @@ and the final resblock stitches the ROI back into the full frame through
 a two-input-conv block. The fovea patch is blended into the top-left
 corner.
 
-This is the JAX model's ``hr_s2d=False`` branch: the port computes the
-logical math in plain NCHW layout (the JAX package's space-to-depth forms
-are bit-equivalent TPU layouts, tests/test_models.py). Three kernels run
+The port computes the logical math in plain NCHW layout (the JAX
+package's space-to-depth forms are bit-equivalent TPU layouts,
+tests/test_models.py). With ``cfg.dcn_anchor`` dcn_3 and the HR state warp
+take per-cell anchored windows on the cell grid of the JAX model's
+``hr_s2d`` branch or of its plain one (``cfg.hr_s2d``), as the JAX
+deployment configuration runs (bench.py's ``_DEPLOY``). Three kernels run
 per frame: kernel A for the four DCNs (dcn_0/1/2 per-tap, dcn_3
-shared-tap), kernel B for the HR and lv state warps (the HR warp only in
-``CRFPRuntimeSimple``), kernel C for the output frame (crfp_torch/ops/cuda).
+shared-tap), kernel B for the HR and lv state warps, kernel C for the
+output frame (crfp_torch/ops/cuda).
 
 Public entry points (``encode``, ``step0``, ``step``) take and return NHWC
 tensors like the JAX model — frames, encoder features and the state
@@ -44,6 +47,7 @@ from crfp_torch.nn.layers import (
 )
 from crfp_torch.nn.lte import LTESimpleHRSingle, LTESimpleLR
 from crfp_torch.ops import resize
+from crfp_torch.ops.anchor import hr_warp_geometry
 from crfp_torch.ops.cuda.emit import emit_frame
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
 
@@ -113,7 +117,7 @@ class _Runtime(nn.Module):
         # the HR level: shared taps on the ROI at dcn_window_hr
         self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True, pre_offset=cfg.offset_prop,
                               interpolate="pixelshuffle", window=cfg.dcn_window_hr,
-                              pre_offset_channels=m)
+                              pre_offset_channels=m, anchor=cfg.dcn_anchor)
         self.encoder_lr = LTESimpleLR(m, img)
         if not nofv:
             self.encoder_hr = LTESimpleHRSingle(last, 2 * img)
@@ -160,6 +164,13 @@ class _Runtime(nn.Module):
         wph, wpw = self.warp_size
         return self.spynet(lr_cur[:, :, : wph // 8, : wpw // 8],
                            lr_prev[:, :, : wph // 8, : wpw // 8])
+
+    def _warp_hr(self, hr_state, flow_lv0):
+        """The HR state warp at dcn_window_hr, anchored under cfg.dcn_anchor."""
+        cfg = self.cfg
+        return flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr,
+                                  anchor=hr_warp_geometry(hr_state, cfg.dcn_window_hr,
+                                                          cfg.dcn_anchor, cfg.anchor_s2d))
 
     def _finish(self, lv3, x_hr, lr):
         """Blend the fovea into the top-left corner (unless x_hr is None),
@@ -237,7 +248,7 @@ class CRFPRuntimeV18(_Runtime):
         flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
 
         hr_state = state["hr"]  # last @ ROI
-        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+        hr_warped = self._warp_hr(hr_state, flow_lv0)
         lv3_warped = self.downsample(hr_warped)
         lv3_state = self.downsample(hr_state)
         f = flow_warp_windowed(torch.cat(state["lv"], dim=1), flow_lv3, cfg.dcn_window)
@@ -324,7 +335,7 @@ class CRFPRuntimeSimple(_Runtime):
         flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
 
         hr_state = state["hr"]  # last @ ROI
-        hr_warped = flow_warp_windowed(hr_state, flow_lv0, cfg.dcn_window_hr)
+        hr_warped = self._warp_hr(hr_state, flow_lv0)
         lv3_warped = self.downsample(hr_warped)
         lv3_state = self.downsample(hr_state)
 

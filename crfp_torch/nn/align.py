@@ -24,9 +24,17 @@ computes tanh, flow add, clip and sigmoid inside its one launch
 that autograd records takes the structured path (kernel A forward, kernel
 D backward), as does repeat mode. The JAX dispatch is also limited to the
 TPU and to bf16 by its kernel's scratch memory; that is not math, and
-kernel E runs float32 and bfloat16. The JAX package's TPU-only ``anchor``
-and ``s2d`` forms are not carried: off the TPU they compute this same
-plain clamp (crfp_tpu/nn/align.py:42-84).
+kernel E runs float32 and bfloat16. The JAX package's ``s2d`` operand
+forms are layouts of the same math and are not carried.
+
+``anchor`` (repeat mode, windowed: dcn_3 under ``ModelConfig.dcn_anchor``)
+is math: per-cell anchored windows, which sample past ±window where the
+motion of a cell of the TPU kernel's grid is coherent
+(crfp_tpu/ops/pallas/dcn.py:771-780). The grid is the one the JAX kernel
+resolves for this call (:func:`crfp_torch.ops.anchor.dcn_geometry`: x's
+dtype and its width; the JAX model's s2d operand form resolves the same
+grid for this request); kernel A's anchored mode on the card, the plain
+version on the CPU. Inference only.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from torch import nn
 
 from crfp_torch.nn.layers import Conv, PixelShufflePack, lrelu
+from crfp_torch.ops.anchor import dcn_geometry
 from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
 from crfp_torch.ops.cuda.dcn_fused import deform_conv2d_fusedprep
 from crfp_torch.ops.dcn_windowed import fusedprep_offsets_and_mask
@@ -68,17 +77,23 @@ class DCNAlign(nn.Module):
         in_channels: int | None = None,
         pre_offset_channels: int | None = None,
         fused_prep: bool = False,
+        anchor: bool = False,
     ):
         """``in_channels``: channels of concat(cur, warped_prev, flow),
         default 2*mid + 2. ``pre_offset_channels``: channels of the
         incoming offset feature, default mid (only read with
         ``interpolate='pixelshuffle'``). ``fused_prep``: kernel E for a
         per-tap windowed stage outside autograd; ignored in repeat mode,
-        without a window and under grad. No parameter depends on it."""
+        without a window and under grad. ``anchor``: per-cell anchored
+        windows (repeat mode; no effect without a window). No parameter
+        depends on these."""
         super().__init__()
         m, g, k = mid_channels, deform_groups, kernel
         if repeat and g != 1:
             raise ValueError("repeat mode is defined for one deform group")
+        if anchor and not repeat:
+            raise ValueError("anchored windows are taken in repeat mode (dcn_3); per-tap "
+                             "anchoring is ROADMAP.md queue 1, \"per-tap anchored A\"")
         if interpolate not in ("none", "pixelshuffle"):
             raise ValueError(f"interpolate={interpolate!r}")
         self.mid_channels, self.deform_groups, self.kernel = m, g, k
@@ -86,6 +101,7 @@ class DCNAlign(nn.Module):
         self.repeat, self.pre_offset = repeat, pre_offset
         self.interpolate, self.window = interpolate, window
         self.fused_prep = fused_prep
+        self.anchor = anchor
         k2 = k * k
         self.dcn_block_conv1 = Conv(in_channels or 2 * m + 2, m)
         self.dcn_block_conv2 = Conv(m, m)
@@ -150,6 +166,11 @@ class DCNAlign(nn.Module):
             off, mask = fusedprep_offsets_and_mask(
                 self.dcn_offset(feat), self.dcn_mask(feat), flow, mag)
         kw = dict(shared_taps=self.repeat, shared_mask=self.repeat)
+        if self.anchor and self.window is not None:
+            _, c, ph, pw = pre_x.shape
+            kw["anchor"] = dcn_geometry(ph, pw, c, self.mid_channels, g, self.kernel,
+                                        self.window, bf16=pre_x.dtype == torch.bfloat16,
+                                        shared_taps=True, shared_mask=True)
         aligned = deform_conv2d_windowed(
             pre_x.contiguous(), off, mask, self.dcn_weight.float(),
             self.dcn_bias.float(), max_displacement=self.window, **kw)

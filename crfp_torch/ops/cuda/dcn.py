@@ -52,6 +52,20 @@ pixel's 64 sums in registers, each tap's corners read 16 bytes of
 channels at a time; one block of 256 threads an SM, its f32 weight of
 C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory.
 
+Anchored (``anchor``, an :class:`crfp_torch.ops.anchor.AnchorGeometry`;
+shared taps only, dcn_3's mode): the per-cell anchored windows of the TPU
+kernel (``anchor=True``, crfp_tpu/ops/pallas/dcn.py:771-780, :975-1014),
+inference only. A pre-pass of the call (``csrc/common.cuh::anchor_table_kernel``,
+a block per cell; its plain version is
+:func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the table
+outside its kernel) writes the cells' anchors into scratch from the
+wrapper; kernel A's prologue reads, per pixel, the anchor of the TPU cell
+that holds it and clips the residual to ±dl where it clamps to ±D
+otherwise. The packed planes' zero border is sized from the anchored
+reach ``A + dl`` (61 pixels for dcn_3 in bf16 at D = 32) instead of D. A
+per-tap anchored call (no model makes one) raises here, naming
+ROADMAP.md queue 1; so does an anchored call that autograd would record.
+
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
 
@@ -66,12 +80,20 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.overrides import handle_torch_function, has_torch_function
 
+from crfp_torch.ops.anchor import GRAD_REFUSAL, AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 
-# launches of the CUDA kernels (not of the plain version): A forward, D backward
+# launches of the CUDA kernels (not of the plain version): A forward, D
+# backward; anchor_launches: A's anchored launches, also in `launches`
 launches = 0
 bwd_launches = 0
+anchor_launches = 0
+
+# why kernel A refuses a per-tap anchored call
+PER_TAP_ANCHOR_REFUSAL = ("per-tap anchored windows (no model makes such a call; the "
+                          "plain version computes them) are ROADMAP.md queue 1, "
+                          "\"per-tap anchored A\"")
 
 # The widths of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and dcn_fused.cu (E),
 # each {O: channels a group}, 3x3 weights. Every DCN stage of the v18 models
@@ -94,7 +116,8 @@ _WIDTHS = {
 # D's block takes 256 / G pixels, a thread per (pixel, group)
 BWD_GROUPS = (1, 2, 4, 8)
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    [ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
+    [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -418,30 +441,43 @@ def dcn_forward(
     max_displacement: int | None = None,
     shared_taps: bool = False,
     shared_mask: bool = False,
+    anchor: AnchorGeometry | None = None,
     plan: TilePlan | None = None,
 ) -> torch.Tensor:
     """Kernel A alone (no autograd): (N, O, H, W) in x's dtype. CUDA tensors
-    only. ``plan``: a :func:`tile_plan` other than the default one (other
-    tiles are measured this way)."""
+    only. ``anchor``: the anchored mode (shared taps only). ``plan``: a
+    :func:`tile_plan` other than the default one (other tiles are measured
+    this way)."""
+    if anchor is not None and not shared_taps:
+        raise ValueError(f"dcn_fwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
     check_tiled("dcn_fwd", c, g, kh, kw, o, shared_mask)
     bf16 = x.dtype == torch.bfloat16
+    # an anchored call's displacements are bounded by its reach, which sizes
+    # the zero border of the packed planes as a clamp to +-reach would
+    d = max_displacement if anchor is None else anchor.reach
     if plan is None:
-        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, bool(shared_mask),
-                     sm_count(x.device))
+        plan = _plan(n, c, h, w, o, g, d, bf16, bool(shared_mask), sm_count(x.device))
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
+    # an anchored call's table, written by its own pre-pass
+    table = None if anchor is None else torch.empty(
+        (n, g, *anchor.cells(h, w), 2), dtype=torch.float32, device=x.device)
     _build.launch("dcn_fwd", "crfp_dcn_fwd", _ARGTYPES, x.device,
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   packed.data_ptr(),
-                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                  int(shared_taps), int(shared_mask), int(bf16), *plan.args())
-    global launches
+                  n, c, h, w, o, g, kh, kw, _build.window(d),
+                  int(shared_taps), int(shared_mask), int(bf16), *plan.args(),
+                  None if table is None else table.data_ptr(),
+                  *kernel_args(anchor))
+    global launches, anchor_launches
     launches += 1
+    if anchor is not None:
+        anchor_launches += 1
     return out
 
 
@@ -529,9 +565,13 @@ def deform_conv2d_windowed(
     max_displacement: int | None = None,
     shared_taps: bool = False,
     shared_mask: bool = False,
+    anchor: AnchorGeometry | None = None,
 ) -> torch.Tensor:
     """Windowed DCNv2, NCHW; (N, O, H, W) in x's dtype; differentiable in
-    x, offset, mask, weight and bias.
+    x, offset, mask, weight and bias. With ``anchor`` the per-cell anchored
+    DCN of that geometry instead of the ±D clamp
+    (:func:`crfp_torch.ops.anchor.dcn_geometry`), inference only: a call
+    that autograd would record raises, on every device.
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
@@ -543,13 +583,19 @@ def deform_conv2d_windowed(
         return handle_torch_function(
             deform_conv2d_windowed, (x, offset, mask), x, offset, mask, weight, bias,
             max_displacement=max_displacement, shared_taps=shared_taps,
-            shared_mask=shared_mask)
+            shared_mask=shared_mask, anchor=anchor)
+    recorded = torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                               for t in (x, offset, mask, weight, bias))
+    if anchor is not None and recorded:
+        raise RuntimeError(f"deform_conv2d_windowed: {GRAD_REFUSAL}")
     if x.device.type == "cpu":
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,
-            shared_taps=shared_taps, shared_mask=shared_mask)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, offset, mask, weight, bias)):
+            shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
+    if anchor is not None:
+        return dcn_forward(x, offset, mask, weight, bias, max_displacement=max_displacement,
+                           shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
+    if recorded:
         # a width that kernel D does not take (O = 64) raises here, where
         # autograd records the call, not first in the backward pass
         o, c, kh, kw = weight.shape

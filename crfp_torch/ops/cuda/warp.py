@@ -44,6 +44,18 @@ PyTorch's own sampler backward 26-57, device-bound) and the card needs
 7.5-15.4 us (17.5-24.4 before). The host's speed on a shared machine varies by 1.5x
 between runs; the device times repeat to 2 %.
 
+Anchored (``anchor``, an :class:`crfp_torch.ops.anchor.AnchorGeometry`):
+the per-cell anchored windows of the TPU warp (``anchor=True``,
+crfp_tpu/ops/pallas/warp.py:29-102), inference only. A pre-pass of the
+call writes the anchor table (one (dy, dx) a cell,
+``csrc/common.cuh::anchor_table_kernel``; plain version
+:func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the table
+outside its kernel) into scratch from the wrapper, and kernel B reads it:
+each pixel samples at its cell's anchor plus the flow's residual clipped
+to ±dl. A call that autograd would record
+raises: the anchored backward (kernel D's anchored mode) is not ported
+(ROADMAP.md, queue 1, "anchored training").
+
 Layouts: x (N, C, H, W); flow (N, 2, H, W), channels (dx, dy) in pixels.
 """
 
@@ -55,16 +67,19 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.overrides import handle_torch_function, has_torch_function
 
+from crfp_torch.ops.anchor import GRAD_REFUSAL, AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.warp import flow_warp_windowed_ref
 
-# launches of the CUDA kernels (not of the plain version): B forward, D backward
+# launches of the CUDA kernels (not of the plain version): B forward, D
+# backward; anchor_launches: B's anchored launches, also in `launches`
 launches = 0
 bwd_launches = 0
+anchor_launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                          ctypes.c_int,
-                                                          ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                          ctypes.c_void_p] + \
+    [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                               ctypes.c_int,
                                                               ctypes.c_void_p]
@@ -101,15 +116,22 @@ def _reject(x: torch.Tensor, flow: torch.Tensor) -> None:
     raise ValueError(f"flow_warp: x must be a CUDA tensor, got {x.device}")
 
 
-def _forward(x: torch.Tensor, flow: torch.Tensor,
-             max_displacement: int | None) -> torch.Tensor:
+def _forward(x: torch.Tensor, flow: torch.Tensor, max_displacement: int | None,
+             anchor: AnchorGeometry | None = None) -> torch.Tensor:
     n, c, h, w = _check(x, flow)
     out = torch.empty_like(x)
+    # an anchored call's table, written by its own pre-pass
+    table = None if anchor is None else torch.empty(
+        (n, 1, *anchor.cells(h, w), 2), dtype=_F32, device=x.device)
     _build.launch("flow_warp", "crfp_flow_warp", _ARGTYPES, x.device,
                   x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
-                  _build.window(max_displacement), int(x.dtype is _BF16))
-    global launches
+                  _build.window(max_displacement), int(x.dtype is _BF16),
+                  None if table is None else table.data_ptr(),
+                  *kernel_args(anchor))
+    global launches, anchor_launches
     launches += 1
+    if anchor is not None:
+        anchor_launches += 1
     return out
 
 
@@ -173,9 +195,13 @@ class _FlowWarpWindowed(torch.autograd.Function):
 
 
 def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
-                       max_displacement: int | None) -> torch.Tensor:
+                       max_displacement: int | None,
+                       anchor: AnchorGeometry | None = None) -> torch.Tensor:
     """Warp ``x`` by ``flow`` clamped to ``±max_displacement`` (None: no
-    clamp), zeros padding; x's dtype; differentiable in x and flow.
+    clamp), zeros padding; x's dtype; differentiable in x and flow. With
+    ``anchor`` the per-cell anchored warp of that geometry instead
+    (:func:`crfp_torch.ops.anchor.warp_geometry`), inference only: a call
+    that autograd would record raises, on every device.
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel B forward and kernel D at k=1 backward (x float32
@@ -185,9 +211,12 @@ def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
     height-sharded runner's sees the call whole."""
     if has_torch_function((x, flow)):
         return handle_torch_function(flow_warp_windowed, (x, flow), x, flow,
-                                     max_displacement)
+                                     max_displacement, anchor=anchor)
+    recorded = torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad)
+    if anchor is not None and recorded:
+        raise RuntimeError(f"flow_warp_windowed: {GRAD_REFUSAL}")
     if x.is_cpu:
-        return flow_warp_windowed_ref(x, flow, max_displacement)
-    if torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad):
+        return flow_warp_windowed_ref(x, flow, max_displacement, anchor)
+    if recorded:
         return _FlowWarpWindowed.apply(x, flow, max_displacement)
-    return _forward(x, flow, max_displacement)
+    return _forward(x, flow, max_displacement, anchor)

@@ -13,12 +13,18 @@ Layouts (the packed channel order of torchvision / DCNv2):
   T = 1 when ``shared_taps`` (one displacement for all taps) else kh*kw.
 - mask: (N, G*M, H, W), channel ``g*M + k``, M = 1 when ``shared_mask``.
 - weight: (O, C, kh, kw); bias: (O,) or None. Stride 1, 'same' padding.
+
+``anchor`` (an :class:`crfp_torch.ops.anchor.AnchorGeometry`): per-cell
+anchored windows instead of the ±D clamp; the exact DCN at the effective
+offsets of :func:`crfp_torch.ops.anchor.effective_offsets`, which reach
+past ±D (crfp_tpu/ops/pallas/dcn.py:771-780).
 """
 
 from __future__ import annotations
 
 import torch
 
+from crfp_torch.ops.anchor import AnchorGeometry, effective_offsets
 from crfp_torch.ops.warp import bilinear_sample_zeros
 
 
@@ -32,6 +38,7 @@ def deform_conv2d_windowed_ref(
     max_displacement: int | None = None,
     shared_taps: bool = False,
     shared_mask: bool = False,
+    anchor: AnchorGeometry | None = None,
 ) -> torch.Tensor:
     """Returns (N, O, H, W) in x's dtype; computes in float32."""
     n, c, h, w = x.shape
@@ -45,8 +52,10 @@ def deform_conv2d_windowed_ref(
     assert mask.shape == (n, g * mtaps, h, w), mask.shape
     cpg = c // g
 
+    if anchor is not None:
+        offset = effective_offsets(offset, anchor, g)
     off = offset.float().reshape(n, g, taps, 2, h, w)
-    if max_displacement is not None:
+    if anchor is None and max_displacement is not None:
         d = float(max_displacement)
         off = off.clamp(-d, d)
     dev = x.device

@@ -10,12 +10,16 @@ SPyNet's LR flow pyramid, in plain PyTorch.
 :func:`flow_warp_windowed_ref` is the plain version beside kernel B
 (``crfp_torch/ops/cuda/warp.py``): the same warp with the flow clamped to
 ``±max_displacement``, which is what the TPU's windowed warp computes
-(crfp_tpu/ops/pallas/warp.py:89-102).
+(crfp_tpu/ops/pallas/warp.py:89-102), or with per-cell anchored windows
+(``anchor``): the exact warp at the k = 1 DCN's effective offsets
+(crfp_torch/ops/anchor.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from crfp_torch.ops.anchor import AnchorGeometry, effective_offsets, flow_as_offset
 
 
 def bilinear_sample_zeros(x: torch.Tensor, sy: torch.Tensor,
@@ -91,10 +95,19 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor,
 
 
 def flow_warp_windowed_ref(x: torch.Tensor, flow: torch.Tensor,
-                           max_displacement: int | None) -> torch.Tensor:
+                           max_displacement: int | None,
+                           anchor: AnchorGeometry | None = None) -> torch.Tensor:
     """:func:`flow_warp` with the flow clamped to ``±max_displacement``
-    (None: unclamped)."""
+    (None: unclamped), or anchored by ``anchor``'s cell grid."""
+    if anchor is not None:
+        return flow_warp(x, anchored_flow(flow, anchor))
     if max_displacement is not None:
         d = float(max_displacement)
         flow = flow.float().clamp(-d, d)
     return flow_warp(x, flow)
+
+
+def anchored_flow(flow: torch.Tensor, anchor: AnchorGeometry) -> torch.Tensor:
+    """The flow (N, 2, H, W) as (dx, dy) that the anchored warp samples at:
+    the k = 1 DCN's effective offsets, flipped back to (dx, dy)."""
+    return effective_offsets(flow_as_offset(flow), anchor, 1).flip(1)

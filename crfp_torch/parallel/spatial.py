@@ -35,7 +35,8 @@ rows its rows first and crops after:
   its rows of the flow;
 - elementwise and channel operations pass; an operation on the height
   axis, or one the mode does not know, raises: the runner never computes
-  on a band as if the band were the frame.
+  on a band as if the band were the frame. So does an anchored warp or
+  DCN (``ModelConfig.dcn_anchor``), whose cell means span the bands.
 
 Heights: the LR height must divide evenly over the ranks, as JAX's
 ``device_put`` onto ``P(None, 'data')`` requires of every sharded plane.
@@ -376,8 +377,10 @@ class _RowBands(TorchFunctionMode):
         return None if window is None else int(window) + kh // 2 + 1
 
     def _warp(self, func, args, kwargs):
-        a = dict(zip(("x", "flow", "max_displacement"), args))
+        a = dict(zip(("x", "flow", "max_displacement", "anchor"), args))
         a.update(kwargs)
+        if a.get("anchor") is not None:
+            self.refuse("an anchored warp (its cells' means span the bands)")
         d = a["max_displacement"]
         return self._on_slab(func, a["x"], (a["flow"],), self._reach(d, 3),
                              lambda x, f: func(x, f, d))
@@ -385,6 +388,8 @@ class _RowBands(TorchFunctionMode):
     def _dcn(self, func, args, kwargs):
         a = dict(zip(("x", "offset", "mask", "weight", "bias"), args))
         a.update(kwargs)
+        if a.get("anchor") is not None:
+            self.refuse("an anchored DCN (its cells' means span the bands)")
         kw = {k: v for k, v in a.items() if k not in ("x", "offset", "mask")}
         return self._on_slab(func, a["x"], (a["offset"], a["mask"]),
                              self._reach(a.get("max_displacement"), a["weight"].shape[2]),

@@ -10,15 +10,14 @@ chain of t=5 frames a rep (``crfp_torch.bench.runtime``):
 - BASELINE.md's row: 720p with no ROI crop (warp 720x1280), 20 reps after 5;
 - full-frame 1080p (warp 1080x1920), 15 reps after 5.
 
-The model runs ``_DEPLOY``: mid 32, windows 8 / 32, bfloat16 weights and
-activations (f32 accumulation in the kernels). The JAX ``_DEPLOY`` also
-sets ``hr_s2d``, ``emit_s2d`` and ``dcn_anchor``: the first two are TPU
-layouts of the same math, and anchored windows sample other pixels than
-the plain clamp, which the port does not carry; the line's ``config``
-says so. The metric names are root ``bench.py``'s; ``unit`` is
-``frames/sec/gpu``, ``vs_baseline`` is frames/sec over the 30 fps
-real-time bar (BASELINE.md), and ``device`` gives the card's name and
-power limit. Runs on the card only.
+The model runs root ``bench.py``'s ``_DEPLOY`` (:49-58): mid 32, windows
+8 / 32, bfloat16 weights and activations (f32 accumulation in the
+kernels), per-cell anchored HR windows (``dcn_anchor``) on the cell grid
+of the s2d(4) tail (``hr_s2d``). ``emit_s2d`` is a TPU layout of the same
+math and is not carried; the line's ``config`` says so. The metric names
+are root ``bench.py``'s; ``unit`` is ``frames/sec/gpu``, ``vs_baseline``
+is frames/sec over the 30 fps real-time bar (BASELINE.md), and ``device``
+gives the card's name and power limit. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -26,9 +25,10 @@ from __future__ import annotations
 import argparse
 import json
 
-_DEPLOY = dict(mid_channels=32, t=5, dcn_window=8, dcn_window_hr=32, bf16=True, fused=True)
-CONFIG = ("_DEPLOY: mid 32, t 5, windows 8/32, bf16, fused; no dcn_anchor (anchored "
-          "windows are not carried by the port), no hr_s2d/emit_s2d (TPU layouts)")
+_DEPLOY = dict(mid_channels=32, t=5, dcn_window=8, dcn_window_hr=32, bf16=True,
+               hr_s2d=True, dcn_anchor=True, fused=True)
+CONFIG = ("_DEPLOY: mid 32, t 5, windows 8/32, bf16, hr_s2d (the anchored cell grid), "
+          "dcn_anchor, fused; no emit_s2d (a TPU layout)")
 # (metric, preset, warp, reps, warm-up): root bench.py's protocols
 PROTOCOLS = (
     ("1080p_8x_foveated_sr_runtime_warp720", "1080p", (720, 720), 30, 10),

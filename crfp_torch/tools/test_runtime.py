@@ -4,16 +4,18 @@ package's root ``test_runtime.py`` (the reference's test_runtime.py).
     python -m crfp_torch.tools.test_runtime [--preset 1080p|720p|512]
         [--warp 720] [--warp_w W] [--mid 32] [--reps 30] [--warmup 10]
         [--t 5] [--dcn_window D] [--dcn_window_hr D] [--bf16] [--fused]
-        [--model_path CKPT] [--cpu]
+        [--dcn_anchor] [--hr_s2d] [--model_path CKPT] [--cpu]
 
 The root script's flags, names and defaults (``crfp_torch.bench.runtime``
 does the timing): without ``--fused`` each rep times flow, encoders and
 step apart, with it one chain of frames. ``--model_path`` takes any
 checkpoint ``crfp_torch.utils.params_io.load_params`` reads (``.npz``, a
 reference ``.pt``, a port checkpoint directory), adapted from the batch
-trunk onto the runtime trunk. ``--hr_s2d``, ``--lv3_s2d`` and
-``--emit_s2d`` are TPU layouts of the same math: accepted, and logged as
-having no effect. ``--dcn_anchor`` raises (``crfp_torch.config``). Runs on
+trunk onto the runtime trunk. ``--dcn_anchor``: per-cell anchored HR
+windows (as the root script's, :27); ``--hr_s2d`` then selects the cell
+grid of the JAX package's s2d(4) tail. ``--lv3_s2d``, ``--emit_s2d`` (and
+``--hr_s2d`` without ``--dcn_anchor``) are TPU layouts of the same math:
+accepted, and logged as having no effect (``crfp_torch.config``). Runs on
 the card unless ``--cpu`` is given.
 """
 
@@ -69,6 +71,8 @@ def main(argv=None):
         params_path=args.model_path,
         fused=args.fused,
         device="cpu" if args.cpu else "cuda",
+        dcn_anchor=args.dcn_anchor,
+        hr_s2d=args.hr_s2d,
     )
     print(res)
     return res

@@ -6,7 +6,9 @@ checkpoints/v18_mid32_struct.npz (its _curve.json holds the flags).
         --resume checkpoints/v18_mid32_struct.npz --save runs/v18_mid32_torch.npz
 
 The flags are those of crfp_tpu/tools/train_procedural.py without its
-TPU-only ``--dcn_anchor`` and ``--no_cache``: Charbonnier loss, two-group
+``--no_cache``; its ``--dcn_anchor`` (anchored training, which needs
+kernel D's anchored mode) raises, naming ROADMAP.md queue 1, "anchored
+training", the next slice: Charbonnier loss, two-group
 Adam with the flow net at its own rate, cosine schedule over ``--iters``,
 flow freeze, windows 8/32 and remat. ``--variant`` takes every trunk
 variant; no_dcn and basic_fvsr run without the HR-level cascade
@@ -99,7 +101,13 @@ def main(argv: list[str] | None = None) -> None:
     # starts fresh (the format holds parameters only); pass the remaining
     # --iters to keep the schedule sensible
     p.add_argument("--resume", default=None)
+    p.add_argument("--dcn_anchor", action="store_true",
+                   help="anchored training: not ported yet (raises)")
     args = p.parse_args(argv)
+    if args.dcn_anchor:
+        from crfp_torch.config import DCN_ANCHOR_REFUSAL
+
+        raise ValueError(DCN_ANCHOR_REFUSAL)
 
     import torch
 

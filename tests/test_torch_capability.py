@@ -7,12 +7,14 @@ the file both packages load; a JAX ``init`` of the three trunks takes over
 a minute here.
 
 - bf16 (the deployment precision, which JAX's ``run_capability`` fixes;
-  its v18 row's ``hr_s2d``/``dcn_anchor`` run the plain clamp on the CPU):
+  its v18 row runs ``hr_s2d`` + ``dcn_anchor``, here through the anchored
+  Pallas kernels in interpret mode: off the TPU the JAX dispatch drops
+  the anchor, so the test routes it, ``torch_parity.anchored_jax_dispatch``):
   the same keys; the bicubic row equal to 1e-6; each model row's per-zone
   PSNR within 0.05 dB (the deployment gate's bound) and SSIM within 1e-3.
-- f32: the same rows against an oracle built here from JAX's ``CRFP``,
-  ``StreamingRunner`` and ``OnChipZoneEval`` on the same inputs, PSNR
-  within 1e-3 dB and SSIM within 1e-5.
+- f32: the same rows against an oracle built here from JAX's ``CRFP``
+  (v18 anchored as above), ``StreamingRunner`` and ``OnChipZoneEval`` on
+  the same inputs, PSNR within 1e-3 dB and SSIM within 1e-5.
 - Without a card the harness raises unless asked for the CPU.
 """
 
@@ -72,8 +74,10 @@ def _compare(got, want, psnr_tol, ssim_tol):
                 assert np.isfinite(g[k]) and abs(g[k] - v) <= tol, (row, k, g[k], v)
 
 
-def test_bf16_matches_jax_run_capability(ckpts):
+def test_bf16_matches_jax_run_capability(ckpts, monkeypatch):
     from crfp_tpu.bench.capability import run_capability as jax_run
+
+    tp.anchored_jax_dispatch(monkeypatch)
 
     want = jax_run(ckpts, sigmas=(SIGMA,), hr_size=HR, frames=FRAMES, mid=MID)
     got = _port(ckpts, bf16=True)
@@ -82,8 +86,9 @@ def test_bf16_matches_jax_run_capability(ckpts):
 
 def _jax_f32_oracle(ckpts, skip=2):
     """JAX's run_capability loop in float32: its clip, bicubic and gaze, its
-    StreamingRunner per row (the plain clamp at v18's windows 8/32) and its
-    OnChipZoneEval."""
+    StreamingRunner per row (v18 at windows 8/32, anchored on the s2d(4)
+    tail's cell grid, as its v18 row) and its OnChipZoneEval. Call it under
+    ``torch_parity.anchored_jax_dispatch``."""
     import jax.numpy as jnp
 
     from crfp_tpu.bench import capability as jc
@@ -96,7 +101,7 @@ def _jax_f32_oracle(ckpts, skip=2):
             "basic_fvsr": ModelConfig(variant="basic_fvsr", mid_channels=MID, hr_dcn=False,
                                       dcn_window=8),
             "v18": ModelConfig(variant="v18", mid_channels=MID, dcn_window=8,
-                               dcn_window_hr=32)}
+                               dcn_window_hr=32, hr_s2d=True, dcn_anchor=True)}
     runners = {k: StreamingRunner(CRFP(c), load_params(ckpts[k]), donate=False)
                for k, c in cfgs.items()}
     rng = np.random.default_rng(9000)
@@ -116,7 +121,8 @@ def _jax_f32_oracle(ckpts, skip=2):
                 for k, v in ev.results.items()} for r, ev in evs.items()}
 
 
-def test_f32_matches_jax_oracle(ckpts):
+def test_f32_matches_jax_oracle(ckpts, monkeypatch):
+    tp.anchored_jax_dispatch(monkeypatch)
     want = _jax_f32_oracle(ckpts)
     got = _port(ckpts, bf16=False)
     assert list(got["rows"]) == ["bicubic", "no_dcn", "basic_fvsr", "v18"]

@@ -2,10 +2,10 @@
 package's ``main.py`` path on the CPU (f32).
 
 - The flag surface: ``parse_args([])`` and the ``train.sh`` / ``eval.sh`` /
-  ``test.sh`` lines give the JAX parser's values flag for flag; the flags
-  the port refuses (``--dcn_anchor true``, no CUDA without ``--cpu
-  true``) raise before any directory is made, and the TPU layout flags
-  are logged as having no effect. (``--num_gpu`` above 1 trains
+  ``test.sh`` lines give the JAX parser's values flag for flag; what the
+  port refuses (training with ``--dcn_anchor true``, no CUDA without
+  ``--cpu true``) raises before any directory is made, and the TPU layout
+  flags are logged as having no effect. (``--num_gpu`` above 1 trains
   data-parallel: tests/test_torch_main_dist.py.)
 - On a tiny REDS tree (mid 16, GT 64, N_frames 2, batch 2, one loader
   worker), ``train`` from an ``.npz`` of the JAX init runs 4 steps with
@@ -167,9 +167,18 @@ def test_flag_mapping_onto_the_port_configs():
 
 
 def test_refused_flags_raise_before_any_directory(tmp_path):
+    """Training with ``--dcn_anchor true`` raises, naming the next slice
+    (anchored training); ``--eval`` and ``--test`` take it into the model's
+    configuration (their anchored run against JAX's evaluator:
+    tests/test_torch_anchor.py)."""
     import crfp_torch.main as tmain
+    from crfp_torch.config import model_config, parse_args
 
-    cases = [(["--dcn_anchor", "true"], ValueError, "anchored"),
+    for mode in ("--eval", "--test"):
+        cfg = model_config(parse_args(_argv(str(tmp_path)) + [
+            mode, "true", "--dcn_anchor", "true", "--hr_s2d", "true"]))
+        assert cfg.dcn_anchor and cfg.hr_s2d, mode
+    cases = [(["--dcn_anchor", "true"], ValueError, "anchored training"),
              (["--cpu", "false"], RuntimeError, "no CUDA device")]
     for extra, exc, match in cases:
         argv = _argv(str(tmp_path)) + extra

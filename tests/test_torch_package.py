@@ -57,7 +57,9 @@ def test_port_imports_no_jax():
                 "tools/convert_torch.py", "tools/test_runtime.py", "tools/bench.py",
                 "tools/video.py", "bench/__init__.py", "bench/runtime.py",
                 "bench/profile.py", "bench/capability.py", "bench/quality_window.py",
-                "bench/quality_trained.py", "bench/trace_table.py"):
+                "bench/quality_trained.py", "bench/trace_table.py",
+                # anchored windows and the VMAF harness
+                "ops/anchor.py", "eval/vmaf.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}

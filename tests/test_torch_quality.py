@@ -8,8 +8,9 @@ place of its own ``init`` (a JAX ``init`` of the trunk takes ~45 s here),
 and for ``run_trained_quality`` that init with random offset/mask heads and
 DCN weights, written with ``params.save_npz`` (the file both load). Every
 PSNR below 99 agrees within 0.01 dB, and the port gives 99 wherever JAX
-does. ``anchor=True`` raises, and so does a run without a card unless it
-asks for the CPU."""
+does. ``anchor=True`` (anchored HR windows) agrees with JAX's anchored
+run under its anchored Pallas kernels; a run without a card raises unless
+it asks for the CPU."""
 
 import sys
 
@@ -85,14 +86,49 @@ def test_trained_quality_matches_jax(tmp_path):
     assert all(np.isfinite([r.agree_db, r.exact_db, r.win_db]).all() for r in got)
 
 
-def test_anchor_and_missing_card_raise(tmp_path):
+def test_anchor_and_missing_card_raise(tmp_path, monkeypatch, capsys):
+    """``anchor=True`` runs: per-cell anchored HR windows on the windowed
+    side, against JAX's ``run_window_quality(anchor=True)`` with JAX's
+    dispatch routed to its anchored Pallas kernels (interpret mode; off the
+    TPU JAX drops the anchor) and the port's seeded weights; and the CLI's
+    ``--anchor``. Without a card the harnesses raise unless asked for the
+    CPU."""
+    import crfp_tpu.bench.quality_window as jq
+
     from crfp_torch.bench.quality_trained import run_trained_quality
     from crfp_torch.bench.quality_window import main, run_window_quality
+    from crfp_torch.params import to_jax
 
-    with pytest.raises(ValueError, match="anchored windows"):
-        run_window_quality(**SMALL, anchor=True, device="cpu")
-    with pytest.raises(ValueError, match="anchored windows"):
-        main(["--anchor", "--cpu"])
+    sd = _seeded_state()
+    params = tp.unflatten(to_jax(sd))
+
+    class SeededCRFP(jq.CRFP):
+        def init(self, *args, **kwargs):
+            return params
+
+    monkeypatch.setattr(jq, "CRFP", SeededCRFP)
+    tp.anchored_jax_dispatch(monkeypatch)
+    anchored = dict(SMALL, velocities=(6.0,))
+    want = jq.run_window_quality(**anchored, anchor=True)
+    got = run_window_quality(**anchored, anchor=True, state_dict=sd, device="cpu")
+    _agree(got, want, ["psnr_db"])
+    # 6 px a frame is 48 px at the HR level, past 4D = 32: the anchored HR
+    # windows follow it, the clamp does not
+    plain = run_window_quality(**anchored, state_dict=sd, device="cpu")
+    assert got[0].psnr_db != plain[0].psnr_db, (got, plain)
+    # the CLI hands --anchor on and names the mode in its lines
+    import crfp_torch.bench.quality_window as qw
+
+    seen = {}
+
+    def fake(**kw):
+        seen.update(kw)
+        return got
+
+    monkeypatch.setattr(qw, "run_window_quality", fake)
+    main(["--anchor", "--cpu", "--windows", "8"])
+    assert seen["anchor"] and seen["device"] == "cpu" and seen["windows"] == (8,)
+    assert "exact-vs-anchored" in capsys.readouterr().out
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -7,8 +7,9 @@ crfp_torch/tools/bench.py) on the CPU.
   without a card both raise unless asked for the CPU.
 - The CLIs take root ``test_runtime.py``'s flags with the same names,
   types and defaults, and root ``bench.py``'s three protocols, read from
-  the root scripts' source; ``--dcn_anchor`` raises, the TPU layout flags
-  are logged as having no effect, ``--model_path`` goes through
+  the root scripts' source (``_DEPLOY`` anchored, as the root one);
+  ``--dcn_anchor`` runs anchored HR windows, the TPU layout flags are
+  logged as having no effect, ``--model_path`` goes through
   ``load_params``.
 - ``CRFPRuntimeV18.compute_flow`` equals the JAX model's on the same
   weights (the port's seeded init through ``to_jax``) to 1e-5.
@@ -115,20 +116,33 @@ def test_bench_runs_the_root_protocols():
                if isinstance(k, ast.Constant) and k.value == "metric"]
     assert [p[1:] for p in bench.PROTOCOLS] == calls
     assert [p[0] for p in bench.PROTOCOLS] == metrics
-    # the JAX _DEPLOY less its TPU layouts and its anchored windows
-    tpu_only = {"hr_s2d", "emit_s2d", "dcn_anchor"}
+    # the JAX _DEPLOY, anchored, less its one TPU layout (hr_s2d selects the
+    # anchored cell grid)
+    tpu_only = {"emit_s2d"}
     assert bench._DEPLOY == {k: v for k, v in deploy.items() if k not in tpu_only}
-    assert "no dcn_anchor" in bench.CONFIG
+    assert bench._DEPLOY["dcn_anchor"] and bench._DEPLOY["hr_s2d"]
+    assert "dcn_anchor" in bench.CONFIG and "no emit_s2d" in bench.CONFIG
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main([])
 
 
-def test_dcn_anchor_raises_and_layout_flags_are_logged(capsys):
+def test_dcn_anchor_raises_and_layout_flags_are_logged(capsys, monkeypatch):
+    """``--dcn_anchor`` runs the anchored HR windows (the model the bench
+    builds carries it, and ``--hr_s2d`` is then logged as the cell grid's
+    selector); the layout flags alone are logged as having no effect."""
+    import crfp_torch.bench.runtime as br
     from crfp_torch.tools.test_runtime import main
 
-    with pytest.raises(ValueError, match="anchored windows"):
-        main(TINY_ARGV + ["--dcn_anchor"])
+    built = []
+    build = br.build_model
+    monkeypatch.setattr(br, "build_model", lambda *a, **k: built.append(build(*a, **k)) or
+                        built[-1])
+    res = main(TINY_ARGV + ["--dcn_anchor", "--hr_s2d", "--dcn_window_hr", "16", "--fused"])
+    cfg = built[-1][0].cfg
+    assert cfg.dcn_anchor and cfg.hr_s2d and cfg.dcn_window_hr == 16
+    assert "--hr_s2d: the anchored HR ops take the cell grid" in capsys.readouterr().out
+    assert res.device == "cpu" and res.frames_per_sec > 0
     res = main(TINY_ARGV + ["--hr_s2d", "--lv3_s2d", "--emit_s2d", "--fused"])
     out = capsys.readouterr().out
     for flag in ("--hr_s2d", "--lv3_s2d", "--emit_s2d"):

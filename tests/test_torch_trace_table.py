@@ -6,8 +6,8 @@ device-lane kernel, memcpy and memset events only (not host events, not
 the annotations that span kernels), summed by name and divided by the
 frames, largest first, cut at ``top``; the newest trace under the
 directory is read, gzipped or not; a trace ``torch.profiler`` exports
-here (no card) holds no device lane. ``run`` raises without a card, and
-``--dcn_anchor`` raises."""
+here (no card) holds no device lane. ``run`` raises without a card;
+``--dcn_anchor`` and ``--hr_s2d`` reach the model's configuration."""
 
 import gzip
 import json
@@ -85,11 +85,19 @@ def test_a_cpu_trace_has_no_device_lane(tmp_path):
     assert parse_trace(str(tmp_path), frames=1) == []
 
 
-def test_run_needs_a_card_and_anchor_raises(tmp_path):
+def test_run_needs_a_card_and_anchor_raises(tmp_path, monkeypatch, capsys):
+    """``--dcn_anchor`` (with ``--hr_s2d``, its cell grid's selector)
+    reaches the traced model's configuration; without a card ``run``
+    raises."""
+    import crfp_torch.bench.trace_table as tt
     from crfp_torch.bench.trace_table import main, run
 
-    with pytest.raises(ValueError, match="anchored windows"):
-        main(["--dcn_anchor", "--logdir", str(tmp_path)])
+    seen = {}
+    monkeypatch.setattr(tt, "run", lambda **kw: seen.update(kw) or [])
+    main(["--dcn_anchor", "--hr_s2d", "--logdir", str(tmp_path)])
+    assert seen["dcn_anchor"] and seen["hr_s2d"] and seen["bf16"], seen
+    assert "anchored HR ops take the cell grid" in capsys.readouterr().out
+    monkeypatch.undo()
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -122,3 +122,59 @@ def torch_frames(model, lrs, fvs) -> list[np.ndarray]:
                                     x_lr, x_hr)
         outs.append(out.numpy())
     return outs
+
+
+def anchored_jax_dispatch(monkeypatch) -> None:
+    """Route the JAX models' windowed dispatch to the anchored Pallas
+    kernels in interpret mode wherever a call asks for ``anchor``: off the
+    TPU ``crfp_tpu``'s dispatch drops it and computes the plain clamp
+    (crfp_tpu/nn/align.py:41-84, crfp_tpu/ops/pallas/warp.py:89-124). The
+    models import both dispatchers at call time, so patching the modules'
+    attributes reaches them; nothing in ``crfp_tpu`` changes."""
+    import crfp_tpu.nn.align as jalign
+    import crfp_tpu.ops.pallas.warp as jwarp
+    from crfp_tpu.ops.pallas.dcn import deform_conv2d_pallas
+
+    dcn, warp, warp_s2d = (jalign._windowed_dcn, jwarp.flow_warp_maybe_windowed,
+                           jwarp.flow_warp_maybe_windowed_s2d)
+
+    def windowed_dcn(x, off, mask, weight, bias, window, shared=False, shared_mask=False,
+                     s2d=1, anchor=False, anchor_vjp=False):
+        if not anchor:
+            return dcn(x, off, mask, weight, bias, window, shared, shared_mask, s2d)
+        # the TPU branch's request (crfp_tpu/nn/align.py:59), forward only
+        band = 32 if x.dtype == jnp.bfloat16 else 8
+        return deform_conv2d_pallas(x, off, mask, weight, bias, max_displacement=window,
+                                    shared_taps=shared, shared_mask=shared_mask, s2d=s2d,
+                                    band=band, anchor=True, interpret=True)
+
+    def warp_full(x, flow, window, *, anchor=False, anchor_vjp=False):
+        if not anchor or window is None:
+            return warp(x, flow, window)
+        return jwarp.flow_warp_windowed_pallas(x, flow, max_displacement=window,
+                                               anchor=True, interpret=True)
+
+    def warp_s2d_(x, flow, window, r=4, *, anchor=False, anchor_vjp=False):
+        if not anchor or window is None:
+            return warp_s2d(x, flow, window, r)
+        return jwarp.flow_warp_windowed_pallas_s2d(x, flow, r=r, max_displacement=window,
+                                                   anchor=True, interpret=True)
+
+    monkeypatch.setattr(jalign, "_windowed_dcn", windowed_dcn)
+    monkeypatch.setattr(jwarp, "flow_warp_maybe_windowed", warp_full)
+    monkeypatch.setattr(jwarp, "flow_warp_maybe_windowed_s2d", warp_s2d_)
+
+
+def set_flow_bias(flat: dict[str, np.ndarray], dy: float, dx: float,
+                  scale: float = 0.1) -> dict[str, np.ndarray]:
+    """Copy of ``flat`` whose FNet returns about (dx, dy) LR pixels
+    everywhere, plus its own weights' variation times ``scale``: the bias of
+    ``flow_conv2`` set to ``atanh(f / 256)`` (FNet ends in ``256 tanh``),
+    its kernel scaled. So the 8x flow moves coherently past the HR window."""
+    out = dict(flat)
+    for k, v in flat.items():
+        if k.endswith("flow_conv2/conv/bias"):
+            out[k] = np.arctanh(np.asarray([dx, dy], np.float32) / 256.0).astype(np.float32)
+        elif k.endswith("flow_conv2/conv/kernel"):
+            out[k] = (v * scale).astype(np.float32)
+    return out
