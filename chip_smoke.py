@@ -6,6 +6,7 @@
     python3 chip_smoke.py --tools-only      # phases 1 and 11 alone
     python3 chip_smoke.py --models-bf16-only  # phase 1 and phase 3d's bf16 pyramids and PCD
     python3 chip_smoke.py --anchor-only     # phases 1 and 12 alone
+    python3 chip_smoke.py --anchor-train-only  # phases 1 and 14 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -249,11 +250,36 @@ Phases, in order; any failure exits non-zero without the final line:
    A 1, B 1), the plain-clamp frames held outside those limits (so that the
    check fails kernels that drop the anchor), and tools.bench's anchored
    headline protocol;
+14. (run after phase 12, before phase 13's lines) anchored training
+   (``ModelConfig.dcn_anchor_vjp``): (a) kernel D's anchored modes, dcn_3's
+   shared taps and the HR state warp's k = 1 (on the s2d and the
+   full-resolution grid), against autograd of their plain versions at the
+   training grid, at the amp step's (2,4,192,192) and at train.sh's
+   (8,4,256,256), on a smooth field whose cell anchors reach ±32: f32 to
+   1e-4 and bf16 to 2e-2 of max|ref|, d-offset, d-mask and dW (d-flow)
+   bit-equal over two runs and a CUDA-graph replay, other than the clamped
+   backward's; device and call ms beside the clamped call's, the plain
+   version's and the bound; (b) CRFP v18 mid 32, windows 8/32, ``hr_s2d``,
+   ``dcn_anchor`` + ``dcn_anchor_vjp`` from
+   checkpoints/v18_mid32_struct_anchored.npz at the recipe on noise clips
+   moving up to 40 HR px a frame: 3 f32 steps through the kernels against
+   the plain versions (phase 6's limits), 3 amp steps likewise (losses to
+   5e-3 relative, every parameter to 2*lr*steps; the clamped trunk's amp
+   steps read beside them), launches asserted (per step A 48, B 36, D 24 +
+   18, F 2; of them anchored A 12, B 12, D 6 + 6), ms a step of the
+   anchored amp step beside the clamped one; (c) one epoch (3 steps) of
+   python -m crfp_torch.main with train.sh's flags and --dcn_anchor true
+   (windows 8/32) on phase 9's tree, launches asserted, its log naming the
+   anchored training grid;
 13. print one {"kernels": [...]} line (``launches_parallel``: rank 0's
    launches over phase 10's checked runs; ``launches_tools``: the launches
    over phase 11, its child process excluded; ``launches_anchor``: phase
    12's bf16 anchored slice; ``anchor_*``: A's and B's anchored modes per
-   steady frame of it) and, last, the {"ok": true, ...} line.
+   steady frame of it; ``launches_anchor_train``: phase 14(b)'s anchored
+   amp kernel steps; and the entries ``dcn_bwd_anchored`` and
+   ``flow_warp_bwd_anchored``, kernel D's anchored modes, their launches
+   the anchored-mode ones of those steps, their times per anchored amp
+   step) and, last, the {"ok": true, ...} line.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -907,6 +933,7 @@ def _zero_counts() -> None:
     dcn.launches = warp.launches = emit.launches = dcn_fused.launches = 0
     dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
     dcn.anchor_launches = warp.anchor_launches = 0
+    dcn.bwd_anchor_launches = warp.bwd_anchor_launches = 0
 
 
 def _counts() -> dict:
@@ -916,6 +943,14 @@ def _counts() -> dict:
             "emit": emit.launches, "dcn_bwd": dcn.bwd_launches,
             "flow_warp_bwd": warp.bwd_launches, "dcn_fused": dcn_fused.launches,
             "ssim": ssim.launches}
+
+
+def _anchor_counts() -> dict:
+    """The anchored-mode launches of A, B and D (a part of :func:`_counts`'s)."""
+    from crfp_torch.ops.cuda import dcn, warp
+
+    return {"dcn_fwd": dcn.anchor_launches, "flow_warp": warp.anchor_launches,
+            "dcn_bwd": dcn.bwd_anchor_launches, "flow_warp_bwd": warp.bwd_anchor_launches}
 
 
 def _expect(**counts) -> dict:
@@ -1840,6 +1875,19 @@ def _time_backward(fn, inputs, grad_out, iters=20):
     return call_ms, device_time_ms(run, launches=iters, stream=side)
 
 
+def _check_grads(tag, got, want, tol):
+    """max|d| <= tol * max|ref| for every gradient; returns (max abs error,
+    max relative error)."""
+    abs_err, rel_err = 0.0, 0.0
+    for i, (g_, w_) in enumerate(zip(got, want)):
+        d = float((g_.float() - w_.float()).abs().max())
+        rel = d / float(w_.abs().max())
+        if not rel <= tol:
+            fail(f"{tag}: gradient {i} max|d| {d} is {rel:.3e} of max|ref| > {tol}")
+        abs_err, rel_err = max(abs_err, d), max(rel_err, rel)
+    return abs_err, rel_err
+
+
 def phase_kernels_train(gen):
     """Phase 5: kernels D and F at the training shapes. Returns their
     records (calls per train step)."""
@@ -1858,19 +1906,6 @@ def phase_kernels_train(gen):
 
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen) * std).cuda()
-
-    def check_grads(kernel, mode, got, want, tol):
-        """max|d| <= tol * max|ref| for every gradient; returns (max abs
-        error, max relative error)."""
-        abs_err, rel_err = 0.0, 0.0
-        for i, (g_, w_) in enumerate(zip(got, want)):
-            d = float((g_.float() - w_).abs().max())
-            rel = d / float(w_.abs().max())
-            if not rel <= tol:
-                fail(f"{kernel} {mode}: gradient {i} max|d| {d} is {rel:.3e} of "
-                     f"max|ref| > {tol}")
-            abs_err, rel_err = max(abs_err, d), max(rel_err, rel)
-        return abs_err, rel_err
 
     # ---- D for the DCN stages: per-tap dcn_0/1/2, shared-tap dcn_3, at the
     # recipe's mid 32 and at the mid-16 widths; then unclamped (pad 0) at the
@@ -1918,11 +1953,11 @@ def phase_kernels_train(gen):
             _, got = _grads(kern, (x, o_, mask, wt, bias), gout)
             _, want = _grads(plain, (x, o_, mask, wt, bias), gout)
             torch.cuda.synchronize()
-            err = max(err, check_grads("kernel D dcn", mode, got, want, 1e-4)[0])
+            err = max(err, _check_grads(f"kernel D dcn {mode}", got, want, 1e-4)[0])
         xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
         _, gotb = _grads(kern, (xb, off, mask, wt, bias), gb)
         torch.cuda.synchronize()
-        _, rel = check_grads("kernel D dcn bf16", mode, gotb, want, 2e-2)
+        _, rel = _check_grads(f"kernel D dcn bf16 {mode}", gotb, want, 2e-2)
         # d-offset, d-mask and dW are summed in a fixed order (dx alone by
         # atomics): two runs and a replay from a CUDA graph give the same bits
         for o_, x_, g_ in ((noisy, x, gout), (off, xb, gb)):
@@ -1976,11 +2011,11 @@ def phase_kernels_train(gen):
             _, got = _grads(kern, (x, f_), gout)
             _, want = _grads(plain, (x, f_), gout)
             torch.cuda.synchronize()
-            err = max(err, check_grads("kernel D warp", mode, got, want, 1e-4)[0])
+            err = max(err, _check_grads(f"kernel D warp {mode}", got, want, 1e-4)[0])
         xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
         _, gotb = _grads(kern, (xb, flow), gb)
         torch.cuda.synchronize()
-        _, rel = check_grads("kernel D warp bf16", mode, gotb, want, 2e-2)
+        _, rel = _check_grads(f"kernel D warp bf16 {mode}", gotb, want, 2e-2)
         k_ms = measure(lambda: warp.flow_warp_backward(xb, flow, gb, d))
         p_ms = _time_backward(plain, (xb, flow), gb, iters=5)
         # yardstick: grid_sample's backward on a precomputed bf16 grid (the
@@ -2075,24 +2110,28 @@ def _train_batches():
     return device_batches(3, seed=0)
 
 
-def _train_vs_plain(tag, steps, lr, expect, batches, **build_kw):
-    """``steps`` f32 train steps of ``build_trainer(**build_kw)`` through the
-    kernels against the same steps through the plain versions, from the
-    same state and batches: losses to 1e-4 relative, every parameter to
-    2*lr*steps, the kernel path's launch counts equal to ``expect``.
-    Returns those counts."""
+def _train_vs_plain(tag, steps, lr, expect, batches, amp=False, expect_anchored=None,
+                    loss_rtol=1e-4, **build_kw):
+    """``steps`` train steps (f32, or ``amp``) of ``build_trainer(**build_kw)``
+    through the kernels against the same steps through the plain versions,
+    from the same state and batches: losses to ``loss_rtol`` relative (None:
+    read, not held), every parameter to 2*lr*steps, the kernel path's launch
+    counts equal to ``expect`` (and its anchored-mode launches to
+    ``expect_anchored``). Returns those counts."""
     from crfp_torch.bench.train import build_trainer
 
+    kind = "amp" if amp else "f32"
+
     def run(path):
-        model, opt, step = build_trainer(amp=False, lr_rate=lr, **build_kw)
+        model, opt, step = build_trainer(amp=amp, lr_rate=lr, **build_kw)
         t0 = time.perf_counter()
         losses = []
         for i in range(steps):
             m = step(opt, batches[i], i)
             losses.append(float(m["loss"]))
-            print(f"{tag} {path} f32 step {i}: " + ", ".join(
+            print(f"{tag} {path} {kind} step {i}: " + ", ".join(
                 f"{k} {float(v):.6f}" for k, v in m.items()))
-        print(f"{tag} {path}: {steps} f32 steps in {time.perf_counter() - t0:.2f} s "
+        print(f"{tag} {path}: {steps} {kind} steps in {time.perf_counter() - t0:.2f} s "
               "(host clock, first steps)")
         return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -2101,15 +2140,22 @@ def _train_vs_plain(tag, steps, lr, expect, batches, **build_kw):
     _zero_counts()
     got_losses, got_params = run("kernels")
     launches = _counts()
+    if expect_anchored is not None:
+        anchored = _anchor_counts()
+        print(f"{tag} anchored-mode launches in {steps} kernel steps: {anchored}")
+        if anchored != expect_anchored:
+            fail(f"{tag}: anchored launch counts {anchored} != expected {expect_anchored}")
     print(f"{tag} launches in {steps} kernel steps: {launches}")
     if launches != expect:
         fail(f"{tag}: launch counts {launches} != expected {expect}")
     for i, (g, w) in enumerate(zip(got_losses, want_losses)):
-        if not (math.isfinite(g) and abs(g - w) <= 1e-4 * abs(w)):
+        if not (math.isfinite(g) and (loss_rtol is None or abs(g - w) <= loss_rtol * abs(w))):
             fail(f"{tag} train step {i}: loss {g} through the kernels, {w} plain")
     worst = max(float((got_params[k] - want_params[k]).abs().max()) for k in want_params)
-    print(f"{tag} losses kernels {got_losses} plain {want_losses}; max param "
-          f"|d| after {steps} steps {worst:.3e} (limit {2 * lr * steps:.1e})")
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got_losses, want_losses))
+    print(f"{tag} losses kernels {got_losses} plain {want_losses}; max relative loss "
+          f"|d| {rel:.3e} (limit {loss_rtol}); max param |d| after {steps} steps "
+          f"{worst:.3e} (limit {2 * lr * steps:.1e})")
     if not worst <= 2 * lr * steps:
         fail(f"{tag} parameters differ by {worst} > {2 * lr * steps} after {steps} steps")
     return launches
@@ -3321,6 +3367,273 @@ def phase_anchor(gen) -> tuple[list, dict]:
     return modes, lines["bf16"]
 
 
+# ---- phase 14: anchored training (ModelConfig.dcn_anchor_vjp) -------------
+
+# phase 14(b): train steps of each kind, their rate, and how fast the noise
+# clips move (LR px a frame; up to 40 HR px, past the window D = 32)
+ANCHOR_TRAIN_STEPS, ANCHOR_TRAIN_LR, ANCHOR_TRAIN_V = 3, 2e-4, 5.0
+# the amp steps' losses, kernels against plain versions, relative: the two
+# round to bf16 at other points (A's tensor-core route rounds its modulated
+# samples, the plain version its output), and Adam's first, sign-like
+# updates carry that into the next steps' losses: 1.1e-3 and 1.3e-3 at step
+# 1 of the anchored trunk, 8.1e-4 of the clamped one (NVIDIA H100 80GB HBM3,
+# 700 W). The f32 steps hold phase 6's 1e-4.
+ANCHOR_TRAIN_AMP_RTOL = 5e-3
+
+
+def _anchor_train_kernels(gen) -> list:
+    """Phase 14(a): kernel D's two anchored modes, dcn_3's shared taps
+    (``csrc/dcn_bwd.cu``) and the HR state warp's k = 1
+    (``csrc/flow_warp_bwd.cu``), against autograd of their plain versions at
+    the training grid (``fullgrad``), at the amp step's (2,4,192,192) and at
+    train.sh's (8,4,256,256), on a smooth field whose cell anchors reach
+    ±32: f32 to 1e-4 and bf16 (against the f32 plain version) to 2e-2 of
+    max|ref| for every gradient; d-offset, d-mask and dW (the warp: d-flow)
+    bit-equal over two runs and a CUDA-graph replay on the forward's table;
+    d-offset (d-flow) other than the clamped backward's. Device and call ms
+    beside the clamped call's, the plain version's and the bytes bound.
+    Records carry ``calls_anchor_train``: calls per amp step of phase
+    14(b)'s anchored trunk (``hr_s2d``: the warp's s2d grid)."""
+    import torch
+
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench.train import RECIPE
+    from crfp_torch.ops import anchor as an
+    from crfp_torch.ops.cuda import dcn, warp
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.warp import anchored_flow, flow_warp_windowed_ref
+
+    print(f"[anchor train] kernel D's anchored modes on {card_line()}")
+    modes = []
+    record = functools.partial(_record, modes)
+    d, c, b, gt = 32, RECIPE["mid"] // 8, RECIPE["b"], RECIPE["gt"]
+    n_rec = RECIPE["t"] - 1
+    amp_shape = (f"({b},{c},{gt},{gt})", b, (gt, gt))
+    sh_shape = (f"({MAIN_B},{c},{MAIN_GT},{MAIN_GT}) train.sh", MAIN_B, (MAIN_GT, MAIN_GT))
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    def field(n, hw):
+        # std 40 px, varying over ~32 px, plus 1 px of noise
+        return (_smooth(gen, 2, hw, 40.0, n=n) + rn(n, 2, *hw)).contiguous()
+
+    def beyond(off, geom, what):
+        reach = float(an.anchor_table(off, geom, 1).abs().max())
+        print(f"[anchor train] {what}: anchors up to {reach:g} px (A = {geom.a_y}/"
+              f"{geom.a_x}), |offset| up to {float(off.abs().max()):.1f} px")
+        if reach < d:
+            fail(f"{what}: no cell's anchor reaches D = {d}")
+
+    def same_bits(tag, fn):
+        first = fn()
+        if not (torch.equal(fn(), first) and torch.equal(captured(fn), first)):
+            fail(f"{tag}: two runs and a CUDA-graph replay are not bit-equal")
+        return first
+
+    # ---- D, anchored shared taps (dcn_3) ---------------------------------
+    for (label, n, hw), calls in ((amp_shape, n_rec), (sh_shape, 0)):
+        mode = f"anchored shared G=1 D=32 {label}"
+        x, off = rn(n, c, *hw), field(n, hw)
+        mask = torch.rand(n, 1, *hw, generator=gen).cuda()
+        wt, bias, gout = rn(c, c, 3, 3, std=0.2), rn(c), rn(n, c, *hw)
+        kw = dict(max_displacement=d, shared_taps=True, shared_mask=True)
+        geoms = {bf16: an.dcn_geometry(*hw, c, c, 1, 3, d, bf16=bf16, shared_taps=True,
+                                       shared_mask=True, fullgrad=True)
+                 for bf16 in (False, True)}
+        g16 = geoms[True]
+        beyond(off, g16, f"kernel D {mode}")
+
+        def kern(*a, g=None):
+            return dcn.deform_conv2d_windowed(*a, anchor=g, **kw)
+
+        def plain(*a, g=None):
+            return deform_conv2d_windowed_ref(*a, anchor=g, **kw)
+
+        ops = (x, off, mask, wt, bias)
+        _, got = _grads(functools.partial(kern, g=geoms[False]), ops, gout)
+        _, want = _grads(functools.partial(plain, g=geoms[False]), ops, gout)
+        torch.cuda.synchronize()
+        err = _check_grads(f"kernel D dcn {mode} f32", got, want, 1e-4)[0]
+        xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+        _, gotb = _grads(functools.partial(kern, g=g16), (xb, *ops[1:]), gb)
+        _, wantb = _grads(functools.partial(plain, g=g16), (xb.float(), *ops[1:]), gb.float())
+        torch.cuda.synchronize()
+        _, rel = _check_grads(f"kernel D dcn {mode} bf16", gotb, wantb, 2e-2)
+        _, table = dcn.dcn_forward(xb, off, mask, wt, bias, anchor=g16, with_table=True, **kw)
+
+        def bwd():
+            return dcn.dcn_backward(xb, off, mask, wt, gb, anchor=g16, table=table, **kw)
+
+        bits = same_bits(f"kernel D dcn {mode}",
+                         lambda: torch.cat([t.flatten() for t in bwd()[1:]]))
+        anch, clamp = bwd(), dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
+        moved = float((anch[1] - clamp[1]).abs().max())
+        if not moved > 0.1 * float(anch[1].abs().max()):
+            fail(f"kernel D dcn {mode}: anchored and clamped d-offset differ by only {moved}")
+        k_ms = measure(bwd)
+        c_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
+        p_ms = _time_backward(functools.partial(plain, g=g16), (xb, *ops[1:]), gb, iters=5)
+        n_px = n * hw[0] * hw[1]
+        flops = n_px * 9 * c * (4 * c + 22)  # as phase 5 counts the clamped call
+        bnd = bound([xb, off, mask, wt, gb, table], list(anch), flops, "bfloat16")
+        plan = dcn.bwd_plan(n, c, *hw, c, 1, g16.reach, shared_taps=True)
+        record("dcn_bwd", mode, 0, err, rel, k_ms, p_ms, None, bnd, calls_anchor_train=calls,
+               clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+               bound_fraction=bnd[0] / k_ms[1],
+               tile=f"{plan.tile_h}x{plan.tile_w} pad {plan.pad} grid {plan.grid}"
+                    f"{' patch' if plan.patch else ''}",
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+               digest=digest(bits))
+
+    # ---- D at k = 1, anchored: the HR state warp on the s2d grid (phase
+    # 14(b)'s hr_s2d trunk) and on the full-resolution one (train_procedural
+    # and main) ------------------------------------------------------------
+    for (label, n, hw), s2d, calls in ((amp_shape, 4, n_rec), (amp_shape, 1, 0),
+                                       (sh_shape, 1, 0)):
+        x, flow, gout = rn(n, c, *hw), field(n, hw), rn(n, c, *hw)
+        geoms = {bf16: an.warp_geometry(*hw, c, d, bf16=bf16, s2d=s2d, fullgrad=True)
+                 for bf16 in (False, True)}
+        g16 = geoms[True]
+        mode = f"anchored HR D=32 {label} band {g16.band}"
+        beyond(an.flow_as_offset(flow), g16, f"kernel D warp {mode}")
+
+        def kern(x_, f_, g=None):
+            return warp.flow_warp_windowed(x_, f_, d, anchor=g)
+
+        def plain(x_, f_, g=None):
+            return flow_warp_windowed_ref(x_, f_, d, g)
+
+        _, got = _grads(functools.partial(kern, g=geoms[False]), (x, flow), gout)
+        _, want = _grads(functools.partial(plain, g=geoms[False]), (x, flow), gout)
+        torch.cuda.synchronize()
+        err = _check_grads(f"kernel D warp {mode} f32", got, want, 1e-4)[0]
+        xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+        _, gotb = _grads(functools.partial(kern, g=g16), (xb, flow), gb)
+        _, wantb = _grads(functools.partial(plain, g=g16), (xb.float(), flow), gb.float())
+        torch.cuda.synchronize()
+        _, rel = _check_grads(f"kernel D warp {mode} bf16", gotb, wantb, 2e-2)
+        _, table = warp.flow_warp_forward_table(xb, flow, d, g16)
+
+        def bwd():
+            return warp.flow_warp_backward(xb, flow, gb, d, anchor=g16, table=table)
+
+        bits = same_bits(f"kernel D warp {mode}", lambda: bwd()[1])
+        anch, clamp = bwd(), warp.flow_warp_backward(xb, flow, gb, d)
+        moved = float((anch[1] - clamp[1]).abs().max())
+        if not moved > 0.1 * float(anch[1].abs().max()):
+            fail(f"kernel D warp {mode}: anchored and clamped d-flow differ by only {moved}")
+        k_ms = measure(bwd)
+        c_ms = measure(lambda: warp.flow_warp_backward(xb, flow, gb, d))
+        p_ms = _time_backward(functools.partial(plain, g=g16), (xb, flow), gb, iters=5)
+        # yardstick: grid_sample's backward at the effective flow (a bf16
+        # grid computed beforehand, as phase 5's for the clamped call)
+        h, w = hw
+        fe = anchored_flow(flow, g16)
+        gx = (torch.arange(w, device="cuda").view(1, 1, w) + fe[:, 0]) * (2.0 / (w - 1)) - 1
+        gy = (torch.arange(h, device="cuda").view(1, h, 1) + fe[:, 1]) * (2.0 / (h - 1)) - 1
+        grid = torch.stack([gx, gy], dim=-1).to(torch.bfloat16)
+        lib_ms = measure(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gb, xb, grid, 0, 0, True, [True, True]))
+        bnd = bound([xb, flow, gb, table], list(anch), 20 * n * h * w * c, "bfloat16")
+        record("flow_warp_bwd", mode, 0, err, rel, k_ms, p_ms, lib_ms, bnd,
+               calls_anchor_train=calls, clamp_ms=c_ms[0], clamp_device_ms=c_ms[1],
+               anchored_vs_clamp_max_abs=moved, bound_fraction=bnd[0] / k_ms[1],
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+               digest=digest(bits))
+    return modes
+
+
+def _anchor_train_expect(steps: int, n_rec: int) -> dict:
+    """Anchored-mode launches of ``steps`` anchored train steps of ``n_rec``
+    recurrent steps each: dcn_3 (A) and the HR state warp (B) twice a
+    recurrent step (remat recomputes it), D once each."""
+    return {"dcn_fwd": 2 * n_rec * steps, "flow_warp": 2 * n_rec * steps,
+            "dcn_bwd": n_rec * steps, "flow_warp_bwd": n_rec * steps}
+
+
+def phase_anchor_train(gen, data: str, tmp: Path) -> tuple[list, dict, dict]:
+    """Phase 14: anchored training, the JAX package's deployment
+    configuration trained as it is deployed (``dcn_anchor_vjp``). (a)
+    kernel D's anchored modes (:func:`_anchor_train_kernels`); (b) CRFP v18
+    mid 32, windows 8/32, ``hr_s2d``, ``dcn_anchor`` + ``dcn_anchor_vjp``
+    from checkpoints/v18_mid32_struct_anchored.npz at the recipe (B 2, T 7,
+    GT 192) on noise clips moving up to 40 HR px a frame: 3 f32 and 3 amp
+    steps through the kernels against the same steps through the plain
+    versions (losses to 1e-4 relative, every parameter to 2*lr*steps, as
+    phase 6), launches asserted (of them A, B and D in anchored mode), then
+    ms a step of the anchored amp step beside the clamped one (clamped,
+    anchored, anchored, clamped; and the full-resolution grid); (c) python -m
+    crfp_torch.main with train.sh's flags and --dcn_anchor true (windows
+    8/32, which anchoring needs) on phase 9's tree at ``data``: its steps'
+    launches asserted, its log naming the anchored training grid. Returns
+    (the records of (a), the launch counts of (b)'s amp kernel steps, their
+    anchored-mode part)."""
+    from crfp_torch import main as cli
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench.train import RECIPE, device_batches, run_train_bench
+
+    modes = _anchor_train_kernels(gen)
+    steps, lr, n_rec = ANCHOR_TRAIN_STEPS, ANCHOR_TRAIN_LR, RECIPE["t"] - 1
+    batches = device_batches(steps, seed=14, v_max=ANCHOR_TRAIN_V)
+    build = dict(ckpt=str(ANCHOR_CKPT), anchor=True, hr_s2d=True)
+    expect, expect_anchored = _train_expect(steps), _anchor_train_expect(steps, n_rec)
+    _train_vs_plain("[anchor train]", steps, lr, expect, batches,
+                    expect_anchored=expect_anchored, **build)
+    # the clamped trunk's amp steps under the same comparison, read beside
+    # the anchored ones (not held: a reference for the amp limit)
+    _train_vs_plain("[anchor train] clamped reference", steps, lr, expect, batches, amp=True,
+                    loss_rtol=None, ckpt=str(ANCHOR_CKPT))
+    launches = _train_vs_plain("[anchor train]", steps, lr, expect, batches, amp=True,
+                               expect_anchored=expect_anchored,
+                               loss_rtol=ANCHOR_TRAIN_AMP_RTOL, **build)
+    anchored = _anchor_counts()
+
+    # ms a step, anchored beside clamped, in turns
+    readings = []
+    for anchor, s2d in ((False, False), (True, True), (True, True), (False, False),
+                        (True, False)):
+        res = run_train_bench(anchor=anchor, hr_s2d=s2d)
+        readings.append(res)
+        print(f"[anchor train] amp step at the recipe, "
+              f"{'anchored ' + ('s2d grid' if s2d else 'full grid') if anchor else 'clamped'}"
+              f": {res['ms_per_step']:.2f} ms ({res['frames_per_s']:.1f} frames/s, peak "
+              f"{res['peak_mib']:.0f} MiB, CUDA events; {card_line()})")
+        if not math.isfinite(res["last_loss"]):
+            fail(f"anchored train bench: loss {res['last_loss']}")
+    print(f"[anchor train] {json.dumps(readings)}")
+
+    # (c) the entry point with train.sh's flags and --dcn_anchor true
+    run = tmp / "train_anchor"
+    argv = TRAIN_SH + ["--save_dir", str(run), "--dataset_dir", data,
+                       "--frame_cache", str(tmp / "cache"), "--dcn_anchor", "true",
+                       "--dcn_window", "8", "--dcn_window_hr", "32", "--val_every", "999999",
+                       "--viz_every", "0", "--save_every", "999999"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    wall = time.perf_counter() - t0
+    got, got_anchored = _counts(), _anchor_counts()
+    n_steps = out["step"]
+    losses = [m["loss"] for m in out["metrics"]]
+    print(f"[anchor train] main, train.sh's flags + --dcn_anchor true (windows 8/32): "
+          f"{n_steps} steps in {wall:.2f} s (host clock; {card_line()}); losses {losses}; "
+          f"launches {got}, anchored {got_anchored}")
+    log = (run / "train.log").read_text()
+    line = next((ln for ln in log.splitlines() if "--dcn_anchor: anchored HR windows" in ln),
+                None)
+    print(f"[anchor train] main's log: {line}")
+    if line is None or "the training grid (dcn_anchor_vjp)" not in line:
+        fail("main --dcn_anchor true: the log does not name the anchored training grid")
+    if not (n_steps >= 1 and all(math.isfinite(v) for v in losses)):
+        fail(f"main --dcn_anchor true: {n_steps} steps, losses {losses}")
+    want = _main_expect(train_steps=n_steps)
+    if got != want or got_anchored != _anchor_train_expect(n_steps, MAIN_T - 1):
+        fail(f"main --dcn_anchor true: launch counts {got} / anchored {got_anchored} != "
+             f"expected {want} / {_anchor_train_expect(n_steps, MAIN_T - 1)}")
+    return modes, launches, anchored
+
+
 def _since(before: dict) -> dict:
     """The launches since the counts ``before``."""
     now = _counts()
@@ -3377,6 +3690,11 @@ def main(argv=None) -> int:
                     help="phases 1 and 12 only (build, anchored kernels A and B against "
                          "their plain versions, the anchored slice at full width), then a "
                          "{\"modes\": [...]} line; prints no final ok line")
+    ap.add_argument("--anchor-train-only", action="store_true",
+                    help="phases 1 and 14 only (build, kernel D's anchored modes against "
+                         "their plain versions, anchored train steps, main --dcn_anchor on a "
+                         "REDS-shaped tree it writes), then a {\"modes\": [...]} line; prints "
+                         "no final ok line")
     ap.add_argument("--models-bf16-only", action="store_true",
                     help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
                          "kernels against plain versions in bf16, the X8 bf16 frame's "
@@ -3421,6 +3739,14 @@ def main(argv=None) -> int:
         print(f"[done] anchor phase passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"modes": anchor_modes}))
         return 0
+    if args.anchor_train_only:
+        with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
+            data = str(_write_reds_tree(Path(tmp))) + "/"
+            modes14, _, _ = timed("14 anchored training", phase_anchor_train,
+                                  torch.Generator().manual_seed(14), data, Path(tmp))
+        print(f"[done] anchored training phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": modes14}))
+        return 0
     if args.models_bf16_only:
         timed("3d bf16 pyramids and PCD", _models_bf16, _expect())
         print(f"[done] bf16 models passed in {time.perf_counter() - t_start:.1f} s")
@@ -3444,9 +3770,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
         main_launches = timed("9 main", phase_main, Path(tmp))
         par_launches = timed("10 parallel", phase_parallel, Path(tmp))
-    tools_launches = timed("11 tools", phase_tools)
-    anchor_modes, anchor_launches = timed("12 anchor", phase_anchor,
-                                          torch.Generator().manual_seed(12))
+        tools_launches = timed("11 tools", phase_tools)
+        anchor_modes, anchor_launches = timed("12 anchor", phase_anchor,
+                                              torch.Generator().manual_seed(12))
+        # phase 14 before phase 13's lines: its (c) runs on phase 9's tree
+        modes14, atrain_launches, atrain_anchored = timed(
+            "14 anchored training", phase_anchor_train, torch.Generator().manual_seed(14),
+            str(Path(tmp) / "REDS_sharp") + "/", Path(tmp))
     modes += anchor_modes
 
     kernels = []
@@ -3532,6 +3862,10 @@ def main(argv=None) -> int:
             # and B's anchored-mode launches are among them (A 1, B 1 a
             # steady frame)
             "launches_anchor": anchor_launches[name],
+            # phase 14(b)'s anchored amp kernel steps (3 at the recipe,
+            # hr_s2d, dcn_anchor + dcn_anchor_vjp); A's, B's and D's
+            # anchored-mode launches are among them
+            "launches_anchor_train": atrain_launches[name],
             "max_abs_err": max(m["max_abs_err"] for m in ms),
             # ms, plain_ms and library_ms are call times (an eager loop
             # between two events: the larger of host and device time);
@@ -3549,6 +3883,40 @@ def main(argv=None) -> int:
             **extra,
             "per_unit_of": per,
             "modes": ms,
+        })
+    # kernel D's anchored modes (phase 14), entries of their own: the TPU's
+    # anchored call site :581; per anchored amp step of phase 14(b)
+    atrain = ("main-path calls per anchored amp train step (B 2, T 7, GT 192, mid 32, "
+              "windows 8/32, hr_s2d, dcn_anchor + dcn_anchor_vjp), bf16 inputs")
+    for name, src, what in (
+            ("dcn_bwd", "crfp_torch/csrc/dcn_bwd.cu", "dcn_3's shared taps"),
+            ("flow_warp_bwd", "crfp_torch/csrc/flow_warp_bwd.cu",
+             "k=1, no mask: the HR state warp")):
+        ms = [m for m in modes14 if m["kernel"] == name]
+        on_path = [m for m in ms if m["calls_anchor_train"] > 0]
+
+        def per_step(key, on_path=on_path):
+            if any(m[key] is None for m in on_path):
+                return None
+            return sum(m[key] * m["calls_anchor_train"] for m in on_path)
+
+        kernels.append({
+            "name": f"{name}_anchored", "route": "cuda", "source": src,
+            "replaces": "crfp_tpu/ops/pallas/dcn.py:581",
+            "tpu_counterpart": "crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel in anchored "
+                               f"mode (_bwd_call(geom, ext), _core_op_anchored), {what}",
+            # the anchored-mode launches of phase 14(b)'s amp kernel steps
+            "launches": atrain_anchored[name],
+            "max_abs_err": max(m["max_abs_err"] for m in ms),
+            "ms": per_step("ms"), "call_ms": per_step("call_ms"),
+            "device_ms": per_step("device_ms"), "plain_ms": per_step("plain_ms"),
+            "plain_device_ms": per_step("plain_device_ms"), "bound_ms": per_step("bound_ms"),
+            "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
+                         else "operations"),
+            "library_ms": per_step("library_ms"),
+            "library_device_ms": per_step("library_device_ms"),
+            "clamp_ms": per_step("clamp_ms"), "clamp_device_ms": per_step("clamp_device_ms"),
+            "per_unit_of": atrain, "modes": ms,
         })
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

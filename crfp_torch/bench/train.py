@@ -10,7 +10,11 @@ box means, masks a Nanascan of (GT/2)^2 patches
 
 :func:`run_train_bench` times the step with CUDA events after a warm-up,
 on batches already on the card, and reports ms/step, training frames/s
-(B*T frames per step) and peak device memory.
+(B*T frames per step) and peak device memory. ``anchor=True`` times the
+same step with per-cell anchored HR windows on the training grid
+(``dcn_anchor`` + ``dcn_anchor_vjp``, the full-resolution grid as
+``train_procedural --dcn_anchor`` trains it; ``hr_s2d`` selects the s2d
+one), so that its ms can be read beside the clamped step's.
 """
 
 from __future__ import annotations
@@ -63,27 +67,32 @@ def noise_clip_pool(n: int, t: int, gt: int, seed: int, scale: int = 8,
     return clips
 
 
-def device_batches(n: int, seed: int) -> list[dict[str, torch.Tensor]]:
-    """``n`` training batches of the recipe's shapes from the noise pool, as
-    tensors on the card."""
+def device_batches(n: int, seed: int, v_max: float = 2.0) -> list[dict[str, torch.Tensor]]:
+    """``n`` training batches of the recipe's shapes from the noise pool
+    (clips moving up to ``v_max`` LR pixels a frame), as tensors on the
+    card."""
     b, t, gt = RECIPE["b"], RECIPE["t"], RECIPE["gt"]
-    clips = noise_clip_pool(max(4, b), t, gt, seed)
+    clips = noise_clip_pool(max(4, b), t, gt, seed, v_max=v_max)
     rng = np.random.default_rng(seed + 1)
     return [{k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
              for k, v in make_batch(clips, b, t, gt, rng).items()} for _ in range(n)]
 
 
 def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
-                  variant: str = "v18", flow_net: str = "fnet", group=None, **tcfg):
+                  variant: str = "v18", flow_net: str = "fnet", group=None,
+                  anchor: bool = False, hr_s2d: bool = False, **tcfg):
     """(model, optimizer, train_step) of the recipe's CRFP of ``variant`` and
     ``flow_net`` on the card (``hr_dcn`` as train_procedural sets it);
     weights from ``ckpt`` (strict) or from ``seed``; ``tcfg`` overrides
     fields of TrainConfig (the flow net is not frozen by default).
     ``group``: the data-parallel step over a group or mesh of ranks
-    (``make_train_step``); the caller makes the weights equal on every rank."""
+    (``make_train_step``); the caller makes the weights equal on every rank.
+    ``anchor``: anchored HR windows on the training grid (``hr_s2d``: the
+    s2d(4) tail's grid for the HR warp)."""
     cfg = ModelConfig(variant=variant, hr_dcn=variant_hr_dcn(variant),
                       mid_channels=RECIPE["mid"], dcn_window=RECIPE["dcn_window"],
-                      dcn_window_hr=RECIPE["dcn_window_hr"], remat=True, flow_net=flow_net)
+                      dcn_window_hr=RECIPE["dcn_window_hr"], remat=True, flow_net=flow_net,
+                      dcn_anchor=anchor, dcn_anchor_vjp=anchor, hr_s2d=hr_s2d)
     model = CRFP(cfg, device="cuda", seed=seed)
     if ckpt is not None:
         model.load_state_dict(from_jax(load_npz(ckpt)), strict=True)
@@ -91,13 +100,14 @@ def build_trainer(amp: bool, ckpt: str | None = None, seed: int = 0,
     return model, make_optimizer(model, tc), make_train_step(model, tc, group)
 
 
-def warmed_trainer(warmup: int, steps: int, seed: int = 0):
+def warmed_trainer(warmup: int, steps: int, seed: int = 0, **build_kw):
     """(optimizer, train_step, batches) of the amp recipe, random weights
     from ``seed``, after ``warmup`` steps on the first batches; the batches
-    from index ``warmup`` on are ``steps`` more. CUDA only."""
+    from index ``warmup`` on are ``steps`` more; ``build_kw``: more of
+    :func:`build_trainer`'s arguments (``anchor``). CUDA only."""
     if not torch.cuda.is_available():
         raise RuntimeError("the train bench needs a CUDA device")
-    _, opt, step = build_trainer(amp=True, seed=seed)
+    _, opt, step = build_trainer(amp=True, seed=seed, **build_kw)
     batches = device_batches(warmup + steps, seed)
     for i in range(warmup):
         step(opt, batches[i], i)
@@ -105,11 +115,14 @@ def warmed_trainer(warmup: int, steps: int, seed: int = 0):
     return opt, step, batches
 
 
-def run_train_bench(steps: int = 10, warmup: int = 3, seed: int = 0) -> dict:
+def run_train_bench(steps: int = 10, warmup: int = 3, seed: int = 0,
+                    anchor: bool = False, hr_s2d: bool = False) -> dict:
     """ms/step, frames/s and peak memory of the amp train step at the
-    recipe, random weights from ``seed``. CUDA only."""
+    recipe, random weights from ``seed``; ``anchor``: with anchored HR
+    windows on the training grid (``hr_s2d``: the s2d(4) tail's grid for the
+    HR warp). CUDA only."""
     r = RECIPE
-    opt, step, batches = warmed_trainer(warmup, steps, seed)
+    opt, step, batches = warmed_trainer(warmup, steps, seed, anchor=anchor, hr_s2d=hr_s2d)
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -120,7 +133,8 @@ def run_train_bench(steps: int = 10, warmup: int = 3, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / steps
     return {
-        "device": torch.cuda.get_device_name(0), **r, "amp": True, "steps": steps,
+        "device": torch.cuda.get_device_name(0), **r, "amp": True, "anchor": anchor, "hr_s2d": hr_s2d,
+        "steps": steps,
         "ms_per_step": ms, "frames_per_s": r["b"] * r["t"] / (ms / 1e3),
         "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
         "last_loss": float(metrics["loss"]),

@@ -5,10 +5,9 @@ swapped for ``python -m crfp_torch.main``.
 
 The port runs the logical math of the JAX model:
 - ``--dcn_anchor true`` is math, not a layout: per-cell anchored HR
-  windows sample past ±dcn_window_hr (crfp_torch/ops/anchor.py). The port
-  runs it for ``--eval`` and ``--test``, as the JAX package's evaluation
-  does (crfp_tpu/config.py:169-175); training with it (JAX's
-  ``dcn_anchor_vjp``) raises, naming the next slice;
+  windows sample past ±dcn_window_hr (crfp_torch/ops/anchor.py). Training
+  with it also sets ``dcn_anchor_vjp``, the training cell grid, which
+  ``--eval`` and ``--test`` leave off (crfp_tpu/config.py:169-175);
 - ``--hr_s2d`` and ``--lv3_s2d`` compute what the plain layout computes
   (pinned by tests/test_models.py::test_hr_s2d_bit_equivalence_v18); they
   are accepted, and ``main`` logs that they have no effect
@@ -154,17 +153,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
 
 
-# why the port refuses to train with per-cell anchored windows
-DCN_ANCHOR_REFUSAL = ("--dcn_anchor: anchored windows run for --eval and --test; training "
-                      "with them (kernel D's anchored mode) is the next slice, ROADMAP.md "
-                      "queue 1, \"anchored training\"")
 # the JAX package's TPU layout flags: the same math in another layout
 LAYOUT_FLAGS = ("hr_s2d", "lv3_s2d", "emit_s2d")
 
 
 def model_config(args) -> ModelConfig:
-    if args.dcn_anchor and not (args.eval or args.test):
-        raise ValueError(DCN_ANCHOR_REFUSAL)
     return ModelConfig(
         variant=args.variant,
         mid_channels=args.mid_channels,
@@ -181,6 +174,9 @@ def model_config(args) -> ModelConfig:
         dcn_window=args.dcn_window,
         dcn_window_hr=args.dcn_window_hr,
         dcn_anchor=args.dcn_anchor,
+        # the anchored backward's training grid is a training concern
+        # (crfp_tpu/config.py:172-175)
+        dcn_anchor_vjp=args.dcn_anchor and not (args.eval or args.test),
         hr_s2d=args.hr_s2d,
     )
 
@@ -198,6 +194,28 @@ def check_tpu_flags(args, log=print) -> None:
                 "s2d(4) kernels (the HR warp's band 32, not 64)")
         else:
             log(f"--{k}: a TPU layout of the JAX package, the same math; no effect in the port")
+
+
+def anchor_grid_line(cfg: ModelConfig, lr_hw: tuple[int, int] | None = None) -> str:
+    """What the anchored HR ops of ``cfg`` resolve: the training grid
+    (``dcn_anchor_vjp``, the backward's VMEM factors) or the inference one,
+    for dcn_3 and the HR state warp in f32 and bf16; the grid reads the
+    widths, not the frame, so any ``lr_hw`` gives the same cells."""
+    from crfp_torch.ops.anchor import dcn_geometry, warp_geometry
+
+    h, w = (cfg.scale * v for v in (lr_hw or (24, 24)))
+    c, d, fg = cfg.last_channels, cfg.dcn_window_hr, cfg.dcn_anchor_vjp
+    if d is None:
+        return "--dcn_anchor: no effect without --dcn_window_hr"
+    cells = []
+    for bf16 in (False, True):
+        dg = dcn_geometry(h, w, c, c, 1, cfg.dcn_kernel, d, bf16=bf16, shared_taps=True,
+                          shared_mask=True, fullgrad=fg)
+        wg = warp_geometry(h, w, c, d, bf16=bf16, s2d=cfg.anchor_s2d, fullgrad=fg)
+        cells.append(f"{'bf16' if bf16 else 'f32'}: dcn_3 band {dg.band} x xtile {dg.xtile}, "
+                     f"HR warp band {wg.band} x xtile {wg.xtile}")
+    grid = "the training grid (dcn_anchor_vjp)" if fg else "the inference grid"
+    return f"--dcn_anchor: anchored HR windows on {grid}; " + "; ".join(cells)
 
 
 def train_config(args) -> TrainConfig:

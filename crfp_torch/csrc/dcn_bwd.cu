@@ -2,7 +2,8 @@
 // backward, NCHW.
 //
 // Replaces crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel (:219, pallas_call in
-// _bwd_call :593) for the DCN stages (the warp is csrc/flow_warp_bwd.cu).
+// _bwd_call :593, and in anchored mode :581) for the DCN stages (the warp is
+// csrc/flow_warp_bwd.cu).
 // The forward is kernel A (csrc/dcn_fwd.cu):
 //   out[o,p] = sum_g gm_g(p) sum_k sum_{c in g} W[o,c,k] m_gk(p) v_ck(p) + b[o]
 // with v_ck the bilinear sample of x at p + p_k + clamp(off_gk(p), +-D)
@@ -14,6 +15,17 @@
 //                   mode), times torch's clamp derivative: 1 where
 //                   |off| <= D, else 0
 //   dW[o,c,k]     = sum_p g[o,p] u_ck(p),  u_ck = m_gk gm_g v_ck
+// Anchored (shared taps: dcn_3 trained under ModelConfig.dcn_anchor_vjp, the
+// TPU's _core_op_anchored :673-713): the forward (kernel A) sampled at
+// F + clip(off - F, +-dl) for the anchor F of the pixel's cell, from the
+// table its pre-pass wrote; this kernel reads that table (the forward's, saved
+// by the autograd Function), samples at the same points and multiplies
+// d-offset by the residual clip's derivative, 1 where |off - F| <= dl, else 0
+// (torch.clamp's, the plain version's). The anchor itself is flat (a rounded
+// mean): no gradient reaches it. D is then the anchored reach A + dl, which
+// sizes the zero border of the packed planes (62 pixels for dcn_3 in bf16 at
+// D = 32) as a clamp to +-reach would; dx, d-mask and dW are the clamped
+// mode's.
 // The bias gradient is a reduction of grad_out outside the kernel, as on the
 // TPU (crfp_tpu/ops/pallas/dcn.py:1139). For bf16 x, u is rounded to bf16
 // before the dW product, as the TPU kernel rounds its dot operands
@@ -114,9 +126,15 @@ struct BwdArgs {
   float* dxp;            // scratch: the f32 dx accumulator, packed like xp
   float* dw_part;        // scratch: the blocks' dW partials, [grid][rows x 9][NB]
   int N, C, H, W, O, G;
-  float D;               // clamp; < 0: none
+  float D;               // clamp (anchored: the reach); < 0: none
   int shared_taps, shared_mask;
   int tile_h, tile_w, pad, tiles_y, tiles_x, grid;
+  // anchored (shared taps): the forward's table [N][G][nb][nt][2] as (dy,
+  // dx), cells of band x xtile pixels, residual margins dl_r / dl_c; NULL:
+  // the clamp
+  const float* anchor;
+  int band, xtile, nb, nt;
+  float dl_r, dl_c;
 };
 
 // dv * w into one corner of the packed f32 accumulator: one vector atomic
@@ -252,6 +270,22 @@ dcn_bwd_kernel(BwdArgs<T> a) {
         oyk[k] = __ldg(offp + (2 * t) * HW);
         oxk[k] = __ldg(offp + (2 * t + 1) * HW);
       }
+      // under shared taps, the derivative of the one offset pair's
+      // window: the clamp's; anchored, the residual clip's around the
+      // cell's anchor F, every tap then sampling at F + clip(off - F, +-dl)
+      // exactly as kernel A's prologue (common.cuh::ProA) computes it
+      float pass_y = crfp::clamp_pass(oyk[0], a.D), pass_x = crfp::clamp_pass(oxk[0], a.D);
+      if (a.anchor != nullptr) {
+        const float* f = a.anchor + ((ng * a.nb + py / a.band) * a.nt + px / a.xtile) * 2;
+        const float fy = __ldg(f), fx = __ldg(f + 1);
+        const float ry = oyk[0] - fy, rx = oxk[0] - fx;
+        pass_y = ry >= -a.dl_r && ry <= a.dl_r ? 1.f : 0.f;
+        pass_x = rx >= -a.dl_c && rx <= a.dl_c ? 1.f : 0.f;
+        const float ey = fy + fminf(fmaxf(ry, -a.dl_r), a.dl_r);
+        const float ex = fx + fminf(fmaxf(rx, -a.dl_c), a.dl_c);
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) oyk[k] = ey, oxk[k] = ex;
+      }
       float dgm = 0.f, sdy = 0.f, sdx = 0.f;
       float pd[4][4][CPG];  // dx of the patch (unused and removed without PATCH)
 
@@ -383,8 +417,8 @@ dcn_bwd_kernel(BwdArgs<T> a) {
       }
       if (a.shared_mask) dmp[0] = dgm;
       if (a.shared_taps) {  // the one offset pair every tap read
-        doffp[0] = crfp::clamp_pass(oyk[0], a.D) * sdy;
-        doffp[HW] = crfp::clamp_pass(oxk[0], a.D) * sdx;
+        doffp[0] = pass_y * sdy;
+        doffp[HW] = pass_x * sdx;
       }
     } else {
 #pragma unroll
@@ -564,7 +598,7 @@ cudaError_t dispatch(BwdArgs<T> a, int smem, int patch, cudaStream_t s) {
 // The plan checks of ops/cuda/dcn.py::bwd_plan and width_fault:
 // cudaErrorInvalidValue for a plan it would not make.
 template <typename T>
-cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch) {
+cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch, int a_y, int a_x) {
   if (a.G != 1 && a.G != 2 && a.G != 4 && a.G != 8) return cudaErrorInvalidValue;
   const int cpg = a.C / a.G, P = kThreads / a.G;
   if (a.C != a.G * cpg || (cpg != 2 && cpg != 4)) return cudaErrorInvalidValue;
@@ -574,6 +608,11 @@ cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch) {
   if (a.pad < 0 || (a.pad > 0 && (a.D < 0.f || (float)(a.pad - 1) < ceilf(a.D))))
     return cudaErrorInvalidValue;
   if (patch && !(a.shared_taps && a.pad > 0)) return cudaErrorInvalidValue;
+  // anchored: shared taps, and D (which sized the padding) no less than the
+  // reach, so that no sample leaves the padded planes
+  if (a.anchor != nullptr &&
+      (!a.shared_taps || a.band < 1 || a.xtile < 1 || a.D < fmaxf(a_y + a.dl_r, a_x + a.dl_c)))
+    return cudaErrorInvalidValue;
   if (smem != bwd_smem_bytes(a.C, a.O, a.G) || smem > crfp::kMaxSmem)
     return cudaErrorInvalidValue;
   a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
@@ -587,7 +626,8 @@ cudaError_t run(const void* x, const void* offset, const void* mask, const void*
                 const void* grad_out, void* dx, void* d_offset, void* d_mask, void* dw,
                 void* x_packed, void* acc, int N, int C, int H, int W, int O, int G, float D,
                 int shared_taps, int shared_mask, int tile_h, int tile_w, int pad, int smem,
-                int grid, int patch, cudaStream_t s) {
+                int grid, int patch, const float* anchor, int band, int xtile, int a_y,
+                int a_x, float dl_r, float dl_c, cudaStream_t s) {
   const int Hp = crfp::padded(H, pad), Wp = crfp::padded(W, pad);
   float* dxp = static_cast<float*>(acc);
   BwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(offset),
@@ -597,8 +637,10 @@ cudaError_t run(const void* x, const void* offset, const void* mask, const void*
                static_cast<float*>(dw), static_cast<T*>(x_packed), dxp,
                dxp + (long long)N * C * Hp * Wp,
                N, C, H, W, O, G, D, shared_taps, shared_mask,
-               tile_h, tile_w, pad, 0, 0, grid};
-  cudaError_t e = check_plan(a, smem, patch);
+               tile_h, tile_w, pad, 0, 0, grid,
+               anchor, band, xtile, band > 0 ? (H + band - 1) / band : 0,
+               xtile > 0 ? (W + xtile - 1) / xtile : 0, dl_r, dl_c};
+  cudaError_t e = check_plan(a, smem, patch, a_y, a_x);
   if (e != cudaSuccess) return e;
   return dispatch(a, smem, patch, s);
 }
@@ -615,23 +657,36 @@ CRFP_EXPORT_ERROR_STRING
 // type; acc, f32: the packed dx accumulator (as many elements), then
 // grid*O*C*9 for the blocks' dW partials. All contiguous. O in {2, 4, 16,
 // 32}, C/G in {2, 4}, G in {1, 2, 4, 8}. The plan (tile_h, tile_w, pad,
-// smem_bytes, grid, patch) is ops/cuda/dcn.py::bwd_plan's. Three launches,
-// no synchronisation, no allocation.
+// smem_bytes, grid, patch), the last arguments, is ops/cuda/dcn.py::bwd_plan's.
+// Three launches, no synchronisation, no allocation.
+//
+// Anchored (anchor not NULL, shared taps only): the table that the forward's
+// pre-pass wrote (crfp_dcn_fwd's `anchor`), f32 [N][G][ceil(H / band)]
+// [ceil(W / xtile)][2]; the geometry arguments are crfp_dcn_fwd's (the
+// quanta sub_tile and lane_q are not read here): a_y, a_x the anchors' range
+// and dl_r, dl_c the residual margins; D the anchored reach max(a_y + dl_r,
+// a_x + dl_c), which bounds every displacement and so sizes the padding
+// (pad >= ceil(D) + 1). NULL: zeros in band ... dl_c.
 extern "C" int crfp_dcn_bwd(const void* x, const void* offset, const void* mask,
                             const void* weight, const void* grad_out, void* dx,
                             void* d_offset, void* d_mask, void* dw, void* x_packed,
                             void* acc, int N, int C, int H, int W, int O, int G, int KH,
                             int KW, float D, int shared_taps, int shared_mask, int x_bf16,
+                            const void* anchor, int band, int xtile, int sub_tile,
+                            int lane_q, int a_y, int a_x, float dl_r, float dl_c,
                             int tile_h, int tile_w, int pad, int smem_bytes, int grid,
                             int patch, void* stream) {
   if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* an = static_cast<const float*>(anchor);
   cudaError_t e =
       x_bf16 ? run<__nv_bfloat16>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask,
                                   dw, x_packed, acc, N, C, H, W, O, G, D, shared_taps,
-                                  shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch, s)
+                                  shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch,
+                                  an, band, xtile, a_y, a_x, dl_r, dl_c, s)
              : run<float>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask, dw,
                           x_packed, acc, N, C, H, W, O, G, D, shared_taps, shared_mask,
-                          tile_h, tile_w, pad, smem_bytes, grid, patch, s);
+                          tile_h, tile_w, pad, smem_bytes, grid, patch, an, band, xtile, a_y,
+                          a_x, dl_r, dl_c, s);
   return (int)e;
 }

@@ -2,14 +2,22 @@
 // NCHW.
 //
 // Replaces crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel (:219, pallas_call in
-// _bwd_call :593) where crfp_tpu/ops/pallas/warp.py::flow_warp_windowed_pallas
-// (:29) runs it at k=1 with an identity weight and no mask. The forward is
-// kernel B (csrc/flow_warp.cu): out[c,p] = bilinear sample of x[c] at
+// _bwd_call :593, anchored :581) where
+// crfp_tpu/ops/pallas/warp.py::flow_warp_windowed_pallas (:29) and its s2d
+// form (:55) run it at k=1 with an identity weight and no mask. The forward
+// is kernel B (csrc/flow_warp.cu): out[c,p] = bilinear sample of x[c] at
 // p + clamp(flow(p), +-D), zeros outside the frame. Backward:
 //   dx        : grad_out[c,p] times each corner weight, scattered into the
 //               four corners;
 //   d flow_x  = sum_c grad_out[c,p] dv_c/dsx, and d flow_y likewise, times
 //               torch's clamp derivative (1 where |flow| <= D, else 0).
+// Anchored (the HR state warp trained under ModelConfig.dcn_anchor_vjp):
+// the forward sampled at F + clip(flow - F, +-dl) per component, F the
+// anchor of the pixel's cell in the table that B's pre-pass wrote; this
+// kernel reads that table, samples at the same points (frame-checked, as
+// the clamped mode) and multiplies each component's d-flow by the residual
+// clip's derivative, 1 where |flow - F| <= dl, else 0 (torch.clamp's). The
+// table holds (dy, dx), the flow (dx, dy).
 //
 // What bounds it on the H100: bytes, and very few of them. At the training
 // shapes (bf16 activations) the HR state (2,4,192,192) moves 2.9 MB (0.9 us
@@ -67,11 +75,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int CG>
+// The anchored form's table and cell grid (Anchor::table NULL: the clamp).
+struct Anchor {
+  const float* table;  // [N][nb][nt][2], (dy, dx)
+  int band, xtile, nb, nt;
+  float dl_r, dl_c;
+};
+
+template <typename T, int CG, bool ANCHORED>
 __global__ void __launch_bounds__(kThreads)
 flow_warp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ flow,
                      const T* __restrict__ gout, float* __restrict__ dx,
-                     float* __restrict__ dflow, int C, int H, int W, float D) {
+                     float* __restrict__ dflow, int C, int H, int W, float D, Anchor an) {
   constexpr int kPix = kThreads / CG;
   __shared__ float part[2][CG][kPix];
   const int HW = H * W;
@@ -80,14 +95,28 @@ flow_warp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ flow,
   const int p = blockIdx.x * kPix + tp;
   const int n = blockIdx.y;
   const bool live = p < HW;
-  float gsx = 0.f, gsy = 0.f, fx_raw = 0.f, fy_raw = 0.f;
+  float gsx = 0.f, gsy = 0.f, pass_x = 0.f, pass_y = 0.f;
   if (live) {
     const int py = p / W;
     const int px = p - py * W;
-    fx_raw = __ldg(flow + (long long)n * 2 * HW + p);
-    fy_raw = __ldg(flow + (long long)n * 2 * HW + HW + p);
-    const float sx = (float)px + crfp::clamp_window(fx_raw, D);
-    const float sy = (float)py + crfp::clamp_window(fy_raw, D);
+    const float fx_raw = __ldg(flow + (long long)n * 2 * HW + p);
+    const float fy_raw = __ldg(flow + (long long)n * 2 * HW + HW + p);
+    float sx, sy;
+    if constexpr (ANCHORED) {  // as kernel B's anchored form computes it
+      const float* f =
+          an.table + (((long long)n * an.nb + py / an.band) * an.nt + px / an.xtile) * 2;
+      const float ay = __ldg(f), ax = __ldg(f + 1);
+      const float rx = fx_raw - ax, ry = fy_raw - ay;
+      sx = (float)px + (ax + fminf(fmaxf(rx, -an.dl_c), an.dl_c));
+      sy = (float)py + (ay + fminf(fmaxf(ry, -an.dl_r), an.dl_r));
+      pass_x = rx >= -an.dl_c && rx <= an.dl_c ? 1.f : 0.f;
+      pass_y = ry >= -an.dl_r && ry <= an.dl_r ? 1.f : 0.f;
+    } else {
+      sx = (float)px + crfp::clamp_window(fx_raw, D);
+      sy = (float)py + crfp::clamp_window(fy_raw, D);
+      pass_x = crfp::clamp_pass(fx_raw, D);
+      pass_y = crfp::clamp_pass(fy_raw, D);
+    }
     const float y0f = floorf(sy);
     const float x0f = floorf(sx);
     const float fy = sy - y0f;
@@ -131,8 +160,8 @@ flow_warp_bwd_kernel(const T* __restrict__ x, const float* __restrict__ flow,
     }
   }
   if (live) {
-    dflow[(long long)n * 2 * HW + p] = crfp::clamp_pass(fx_raw, D) * gsx;
-    dflow[(long long)n * 2 * HW + HW + p] = crfp::clamp_pass(fy_raw, D) * gsy;
+    dflow[(long long)n * 2 * HW + p] = pass_x * gsx;
+    dflow[(long long)n * 2 * HW + HW + p] = pass_y * gsy;
   }
 }
 
@@ -158,22 +187,27 @@ cast_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
 template <typename T, int CG>
 cudaError_t launch(const void* x, const float* flow, const void* gout,
                    float* dx, float* dflow, int N, int C, int H, int W,
-                   float D, cudaStream_t s) {
+                   float D, const Anchor& an, cudaStream_t s) {
   constexpr int kPix = kThreads / CG;
   dim3 grid((unsigned)(((long long)H * W + kPix - 1) / kPix), (unsigned)N);
-  flow_warp_bwd_kernel<T, CG><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), flow, static_cast<const T*>(gout), dx, dflow,
-      C, H, W, D);
+  if (an.table != nullptr)
+    flow_warp_bwd_kernel<T, CG, true><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), flow, static_cast<const T*>(gout), dx, dflow,
+        C, H, W, D, an);
+  else
+    flow_warp_bwd_kernel<T, CG, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), flow, static_cast<const T*>(gout), dx, dflow,
+        C, H, W, D, an);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const float* flow, const void* gout,
                      float* dx, float* dflow, int N, int C, int H, int W,
-                     float D, cudaStream_t s) {
-  if (C >= 8) return launch<T, 8>(x, flow, gout, dx, dflow, N, C, H, W, D, s);
-  if (C >= 4) return launch<T, 4>(x, flow, gout, dx, dflow, N, C, H, W, D, s);
-  return launch<T, 1>(x, flow, gout, dx, dflow, N, C, H, W, D, s);
+                     float D, const Anchor& an, cudaStream_t s) {
+  if (C >= 8) return launch<T, 8>(x, flow, gout, dx, dflow, N, C, H, W, D, an, s);
+  if (C >= 4) return launch<T, 4>(x, flow, gout, dx, dflow, N, C, H, W, D, an, s);
+  return launch<T, 1>(x, flow, gout, dx, dflow, N, C, H, W, D, an, s);
 }
 
 }  // namespace
@@ -186,14 +220,24 @@ CRFP_EXPORT_ERROR_STRING
 // dx_out: (N, C, H, W) bf16, the result for bf16 x; both 16-byte aligned. d_flow (N, 2, H, W) f32,
 // every element written. All contiguous; a plane holds fewer than 2^31
 // pixels, N at most 65535. Three operations on the stream: memset,
-// scatter, cast (bf16 only).
+// scatter, cast (bf16 only). anchor: NULL (the clamp to +-D) or the table
+// that the forward's pre-pass wrote (crfp_flow_warp's `anchor`), f32
+// [N][ceil(H / band)][ceil(W / xtile)][2] as (dy, dx); the geometry
+// arguments are crfp_flow_warp's, of which this entry reads the cells and
+// the residual margins dl_r (rows) and dl_c (columns).
 extern "C" int crfp_flow_warp_bwd(const void* x, const void* flow,
                                   const void* grad_out, void* dx_acc,
                                   void* dx_out, void* d_flow, int N, int C,
                                   int H, int W, float D, int x_bf16,
+                                  const void* anchor, int band, int xtile, int sub_tile,
+                                  int lane_q, int a_y, int a_x, float dl_r, float dl_c,
                                   void* stream) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   if ((long long)H * W > 0x7fff0000LL || N > 65535) return (int)cudaErrorInvalidValue;
+  if (anchor != nullptr && (band < 1 || xtile < 1)) return (int)cudaErrorInvalidValue;
+  const Anchor an{static_cast<const float*>(anchor), band, xtile,
+                  anchor != nullptr ? (H + band - 1) / band : 0,
+                  anchor != nullptr ? (W + xtile - 1) / xtile : 0, dl_r, dl_c};
   if (x_bf16 &&
       ((reinterpret_cast<uintptr_t>(dx_acc) | reinterpret_cast<uintptr_t>(dx_out)) & 15u))
     return (int)cudaErrorMisalignedAddress;
@@ -204,8 +248,8 @@ extern "C" int crfp_flow_warp_bwd(const void* x, const void* flow,
   const long long count = (long long)N * C * H * W;
   cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)count * sizeof(float), s);
   if (e != cudaSuccess) return (int)e;
-  e = x_bf16 ? dispatch<__nv_bfloat16>(x, f, grad_out, acc, gf, N, C, H, W, D, s)
-             : dispatch<float>(x, f, grad_out, acc, gf, N, C, H, W, D, s);
+  e = x_bf16 ? dispatch<__nv_bfloat16>(x, f, grad_out, acc, gf, N, C, H, W, D, an, s)
+             : dispatch<float>(x, f, grad_out, acc, gf, N, C, H, W, D, an, s);
   if (e != cudaSuccess || !x_bf16) return (int)e;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dx_out);
   const long long threads = (count + 3) / 4;

@@ -47,7 +47,8 @@ import time
 import torch
 import torch.distributed as dist
 
-from crfp_torch.config import check_tpu_flags, model_config, parse_args, train_config
+from crfp_torch.config import (anchor_grid_line, check_tpu_flags, model_config, parse_args,
+                               train_config)
 from crfp_torch.data.loader import get_dataloader
 from crfp_torch.eval.evaluator import evaluate_clips
 from crfp_torch.models.crfp import CRFP
@@ -276,6 +277,8 @@ def _run(args, device: str, world: int):
     elif args.num_gpu > 1:
         logger.info(f"--num_gpu {args.num_gpu}: eval and test run in one process")
     check_tpu_flags(args, logger.info)
+    if args.dcn_anchor:  # which cell grid the anchored ops take
+        logger.info(anchor_grid_line(model_config(args), (args.GT_size // args.scale,) * 2))
     from crfp_torch.data.reds import preprocess_path
 
     logger.info(f"host preprocess: {preprocess_path()}")
@@ -328,7 +331,7 @@ def _spawn(argv, world: int, device: str) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    model_config(args)  # refuses what the port does not run (anchored training), before any I/O
+    model_config(args)  # a config the port refuses raises here, before any I/O
     if args.cpu:
         device = "cpu"
     elif torch.cuda.is_available():

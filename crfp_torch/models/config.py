@@ -8,7 +8,8 @@ carried: it is a dispatch knob with the same math and the same
 parameters. ``dcn_anchor`` is carried: per-cell anchored windows are math,
 not a layout (they sample past ±dcn_window_hr), and so is ``hr_s2d`` as
 the selector of the HR state warp's cell grid (band 64 at full
-resolution, 32 in the JAX package's s2d(4) form).
+resolution, 32 in the JAX package's s2d(4) form), and ``dcn_anchor_vjp``
+as the selector of the training grid.
 """
 
 from __future__ import annotations
@@ -55,9 +56,15 @@ class ModelConfig:
     # HR state warp; crfp_tpu/models/crfp.py:104-111): each cell of the TPU
     # kernel's grid samples around the cell's quantized mean displacement,
     # exact to anchor +- residual, past +-dcn_window_hr
-    # (crfp_torch/ops/anchor.py). Inference only; no effect without
-    # dcn_window_hr, as in the JAX package
+    # (crfp_torch/ops/anchor.py). No effect without dcn_window_hr, as in
+    # the JAX package
     dcn_anchor: bool = False
+    # train the anchored ops on the cell grid that JAX's anchored backward
+    # resolves (the backward's VMEM factors, crfp_tpu/models/crfp.py:112-120):
+    # the training entry points set it, inference (the runtime models, the
+    # deploy gate, the benches, eval and test) keeps the inference grid.
+    # Needs dcn_anchor (:173-174)
+    dcn_anchor_vjp: bool = False
     # the JAX package's s2d(4) HR tail. The port computes the plain layout
     # (the same math); under dcn_anchor it selects the cell grid of the
     # anchored HR state warp as JAX's s2d kernel resolves it (dcn_3's grid
@@ -74,6 +81,8 @@ class ModelConfig:
             # the reference's hr_dcn=True branches of these two read undefined
             # locals; only hr_dcn=False ever ran (crfp_tpu/models/crfp.py:183-187)
             raise ValueError(f"{self.variant} only supports hr_dcn=False")
+        if self.dcn_anchor_vjp and not self.dcn_anchor:
+            raise ValueError("dcn_anchor_vjp trains the anchored path: set dcn_anchor")
         if self.dcn_fused and self.dcn_window is None:
             raise ValueError("dcn_fused is a windowed-kernel dispatch mode: "
                              "set dcn_window")

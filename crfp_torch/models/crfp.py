@@ -12,8 +12,8 @@ The six variants of ``crfp_tpu.models.crfp.VARIANTS``, in plain layout,
 with the fovea blended through its mask. ``cfg.dcn_anchor`` anchors the
 HR state warp and dcn_3 (the HR-level windowed ops, :314-335) on the cell
 grid of the JAX trunk's ``hr_s2d`` branch or of its plain one
-(``cfg.hr_s2d``); inference only, as the JAX trunk without
-``dcn_anchor_vjp``:
+(``cfg.hr_s2d``); with ``cfg.dcn_anchor_vjp`` (training) on the training
+grid that JAX's anchored backward resolves, else on the inference grid:
 
 - ``v18`` (the trained model) and ``v18_cra``: the DSV trunk, channel-split
   lv states beside the HR state; ``v18_cra`` adds the LTE pyramid and a
@@ -105,7 +105,7 @@ class CRFP(nn.Module):
                 self.dcn_3 = DCNAlign(last, 1, dk, mag, repeat=True,
                                       pre_offset=cfg.offset_prop, interpolate="pixelshuffle",
                                       window=cfg.dcn_window_hr, pre_offset_channels=m,
-                                      anchor=cfg.dcn_anchor)
+                                      anchor=cfg.dcn_anchor, anchor_vjp=cfg.dcn_anchor_vjp)
             else:  # per-tap at 1/4 size, never kernel E (:213-215)
                 self.dcn_3 = DCNAlign(m, dg, dk, mag, pre_offset=cfg.offset_prop,
                                       window=cfg.dcn_window)
@@ -156,9 +156,11 @@ class CRFP(nn.Module):
         return self.spynet(lr_cur, lr_prev)
 
     def _hr_anchor(self, hr_state):
-        """The HR state warp's anchored geometry, or None for the clamp."""
+        """The HR state warp's anchored geometry (the training grid under
+        ``dcn_anchor_vjp``), or None for the clamp."""
         cfg = self.cfg
-        return hr_warp_geometry(hr_state, cfg.dcn_window_hr, cfg.dcn_anchor, cfg.anchor_s2d)
+        return hr_warp_geometry(hr_state, cfg.dcn_window_hr, cfg.dcn_anchor, cfg.anchor_s2d,
+                                fullgrad=cfg.dcn_anchor_vjp)
 
     def _base(self, lr):
         """The bilinear x8 base: of the luma with ``y_only`` (:310-312)."""

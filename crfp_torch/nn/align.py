@@ -34,7 +34,9 @@ motion of a cell of the TPU kernel's grid is coherent
 resolves for this call (:func:`crfp_torch.ops.anchor.dcn_geometry`: x's
 dtype and its width; the JAX model's s2d operand form resolves the same
 grid for this request); kernel A's anchored mode on the card, the plain
-version on the CPU. Inference only.
+version on the CPU. ``anchor_vjp``: the training grid, which JAX's anchored
+backward resolves (crfp_tpu/nn/align.py:44-63, ``anchor_vjp``); kernel D's
+anchored mode differentiates it on the card.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class DCNAlign(nn.Module):
         pre_offset_channels: int | None = None,
         fused_prep: bool = False,
         anchor: bool = False,
+        anchor_vjp: bool = False,
     ):
         """``in_channels``: channels of concat(cur, warped_prev, flow),
         default 2*mid + 2. ``pre_offset_channels``: channels of the
@@ -85,8 +88,8 @@ class DCNAlign(nn.Module):
         ``interpolate='pixelshuffle'``). ``fused_prep``: kernel E for a
         per-tap windowed stage outside autograd; ignored in repeat mode,
         without a window and under grad. ``anchor``: per-cell anchored
-        windows (repeat mode; no effect without a window). No parameter
-        depends on these."""
+        windows (repeat mode; no effect without a window); ``anchor_vjp``:
+        on the training grid. No parameter depends on these."""
         super().__init__()
         m, g, k = mid_channels, deform_groups, kernel
         if repeat and g != 1:
@@ -101,7 +104,7 @@ class DCNAlign(nn.Module):
         self.repeat, self.pre_offset = repeat, pre_offset
         self.interpolate, self.window = interpolate, window
         self.fused_prep = fused_prep
-        self.anchor = anchor
+        self.anchor, self.anchor_vjp = anchor, anchor_vjp
         k2 = k * k
         self.dcn_block_conv1 = Conv(in_channels or 2 * m + 2, m)
         self.dcn_block_conv2 = Conv(m, m)
@@ -170,7 +173,8 @@ class DCNAlign(nn.Module):
             _, c, ph, pw = pre_x.shape
             kw["anchor"] = dcn_geometry(ph, pw, c, self.mid_channels, g, self.kernel,
                                         self.window, bf16=pre_x.dtype == torch.bfloat16,
-                                        shared_taps=True, shared_mask=True)
+                                        shared_taps=True, shared_mask=True,
+                                        fullgrad=self.anchor_vjp)
         aligned = deform_conv2d_windowed(
             pre_x.contiguous(), off, mask, self.dcn_weight.float(),
             self.dcn_bias.float(), max_displacement=self.window, **kw)

@@ -24,11 +24,26 @@ scoped-VMEM guard), copied here as pure Python from
 :func:`anchor_geometry`. Nothing here imports JAX: this is the port's own
 copy.
 
+Training resolves another grid: JAX's anchored backward (its
+``anchor_vjp``, the model's ``dcn_anchor_vjp``) sizes the cells with the
+backward's VMEM factors (``fullgrad``, crfp_tpu/ops/pallas/dcn.py:884-900),
+and the forward takes that grid too. Where even the floor geometry is over
+the guard, JAX differentiates the same math at the same resolved grid in
+XLA (:909-931); the port needs only the grid.
+
+Gradients follow JAX's mirror (:1261-1291): the anchor is flat (a rounded
+mean), so :func:`anchor_table` is built without gradient, and
+``F + clip(off - F, ±dl)`` passes the offset's gradient where the residual
+lies within ±dl and stops it outside. At ``|off - F| == dl`` exactly the
+port takes ``torch.clamp``'s convention: the gradient passes (kernel D's
+anchored modes do the same); the tests keep their fields off that tie.
+
 Offsets are in the port's packed layout (N, G*T*2, H, W), channel
 ``(g*T + k)*2 + {0: dy, 1: dx}``; T = 1 under shared taps.
 :func:`anchor_table` and :func:`effective_offsets` are the plain versions:
 on the card the kernels' anchored calls write the table with a pre-pass
-of their own (crfp_torch/csrc/common.cuh::anchor_table_kernel).
+of their own (crfp_torch/csrc/common.cuh::anchor_table_kernel), and the
+backward reads the table its forward wrote.
 """
 
 from __future__ import annotations
@@ -40,11 +55,6 @@ import torch
 
 # the TPU kernel's scoped-VMEM limit that its guard sizes cells against
 _VMEM_LIMIT = 15_500_000
-
-# why an anchored call may not be differentiated (the kernels' dispatchers)
-GRAD_REFUSAL = ("anchored windows are inference only in the port: their backward "
-                "(kernel D's anchored mode) is the next slice, ROADMAP.md queue 1, "
-                "\"anchored training\"")
 
 
 def _round_up(v: int, m: int) -> int:
@@ -79,7 +89,8 @@ class AnchorGeometry:
 
 
 def kernel_args(geom: AnchorGeometry | None) -> tuple:
-    """The geometry arguments of kernels A's and B's C entries: band, xtile,
+    """The geometry arguments of the anchored C entries (kernels A, B and
+    D's two modes): band, xtile,
     sub_tile, lane_q, a_y, a_x (ints), dl_r, dl_c (floats); zeros for an
     unanchored call."""
     if geom is None:
@@ -148,23 +159,26 @@ def anchor_geometry(
 
 def dcn_geometry(h: int, w: int, c: int, o: int, g: int, k: int, max_displacement: int, *,
                  bf16: bool, shared_taps: bool, shared_mask: bool,
-                 s2d: int = 1) -> AnchorGeometry:
+                 s2d: int = 1, fullgrad: bool = False) -> AnchorGeometry:
     """The anchored DCN's geometry for the request of
-    crfp_tpu/nn/align.py:59: band 32 in bf16 (band 8 for f32 x), xtile 32,
-    inference (no backward factors)."""
+    crfp_tpu/nn/align.py:59: band 32 in bf16 (band 8 for f32 x), xtile 32;
+    ``fullgrad``: the training grid (the backward's VMEM factors), else the
+    inference one."""
     return anchor_geometry(h, w, c, o, g, k, max_displacement, bf16=bf16,
                            shared_taps=shared_taps, shared_mask=shared_mask, s2d=s2d,
-                           band=32 if bf16 else 8, xtile=32)
+                           band=32 if bf16 else 8, xtile=32, fullgrad=fullgrad)
 
 
 def warp_geometry(h: int, w: int, c: int, max_displacement: int, *, bf16: bool,
-                  s2d: int = 1) -> AnchorGeometry:
+                  s2d: int = 1, fullgrad: bool = False) -> AnchorGeometry:
     """The anchored warp's geometry: the k = 1 DCN with an identity weight
     and no mask, band 64 x xtile 32 at full resolution
     (crfp_tpu/ops/pallas/warp.py:48-52), band 32 x xtile 32 in the s2d(4)
-    form (:84-86); ``s2d`` is 1 or that r."""
+    form (:84-86); ``s2d`` is 1 or that r; ``fullgrad``: the training
+    grid."""
     return anchor_geometry(h, w, c, c, 1, 1, max_displacement, bf16=bf16, shared_taps=False,
-                           has_mask=False, s2d=s2d, band=64 if s2d == 1 else 32, xtile=32)
+                           has_mask=False, s2d=s2d, band=64 if s2d == 1 else 32, xtile=32,
+                           fullgrad=fullgrad)
 
 
 def _components(offset: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -175,15 +189,17 @@ def _components(offset: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.
 
 
 def hr_warp_geometry(x: torch.Tensor, window: int | None, anchor: bool,
-                     s2d: int = 1) -> AnchorGeometry | None:
+                     s2d: int = 1, fullgrad: bool = False) -> AnchorGeometry | None:
     """The HR state warp's anchored geometry for x (N, C, H, W), or None for
     the ±window clamp: None unless ``anchor`` and a ``window``
     (crfp_tpu/models/runtime.py:190-205; ``s2d``: the JAX model's s2d(4)
-    tail or its plain one)."""
+    tail or its plain one; ``fullgrad``: the training grid,
+    crfp_tpu/models/crfp.py:314-335)."""
     if not anchor or window is None:
         return None
     _, c, h, w = x.shape
-    return warp_geometry(h, w, c, window, bf16=x.dtype == torch.bfloat16, s2d=s2d)
+    return warp_geometry(h, w, c, window, bf16=x.dtype == torch.bfloat16, s2d=s2d,
+                         fullgrad=fullgrad)
 
 
 def anchor_table(offset: torch.Tensor, geom: AnchorGeometry, groups: int) -> torch.Tensor:
@@ -192,7 +208,9 @@ def anchor_table(offset: torch.Tensor, geom: AnchorGeometry, groups: int) -> tor
     ±(A + dl), averaged over the T taps and over each cell (edge cells over
     their zero padding), rounded half-to-even to its quantum and clipped to
     ±A (crfp_tpu/ops/pallas/dcn.py:975-994). PyTorch ops on the offset's
-    device, with no host transfer (a CUDA graph may capture them)."""
+    device, with no host transfer (a CUDA graph may capture them); no
+    gradient (the anchors are flat in the offsets)."""
+    offset = offset.detach()
     n, _, h, w = offset.shape
     nb, nt = geom.cells(h, w)
     pad = (0, nt * geom.xtile - w, 0, nb * geom.band - h)
@@ -212,7 +230,8 @@ def effective_offsets(offset: torch.Tensor, geom: AnchorGeometry, groups: int) -
     float32 in ``offset``'s packed layout (N, G*T*2, H, W), F the anchor of
     the cell that holds the pixel; the exact DCN at these offsets is the
     anchored DCN (crfp_tpu/ops/pallas/dcn.py:1261-1290,
-    ``_anchored_effective_offsets``)."""
+    ``_anchored_effective_offsets``). Differentiable in ``offset``: 1 where
+    ``|off - F| <= dl``, 0 outside (the module's note on the tie)."""
     n, ch, h, w = offset.shape
     table = anchor_table(offset, geom, groups)
     dev = offset.device

@@ -16,7 +16,8 @@ picks the tile and the padding; both dispatchers pass it to their C entry.
 
 Backward: replaces ``_dcn_bwd_kernel`` (:219, ``pallas_call`` in
 ``_bwd_call`` :593, reached through ``deform_conv2d_pallas_vjp``'s custom
-VJP :1412-1418) with ``crfp_torch/csrc/dcn_bwd.cu``, behind a
+VJP :1412-1418; anchored :581, through ``_core_op_anchored`` :673-713) with
+``crfp_torch/csrc/dcn_bwd.cu``, behind a
 ``torch.autograd.Function``: dx, d-offset, d-mask and dW from the kernel,
 db as a reduction of the output gradient (the TPU adds it outside the
 kernel body too, :1139). Each call launches three kernels: the pre-pass
@@ -55,16 +56,21 @@ C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory.
 Anchored (``anchor``, an :class:`crfp_torch.ops.anchor.AnchorGeometry`;
 shared taps only, dcn_3's mode): the per-cell anchored windows of the TPU
 kernel (``anchor=True``, crfp_tpu/ops/pallas/dcn.py:771-780, :975-1014),
-inference only. A pre-pass of the call (``csrc/common.cuh::anchor_table_kernel``,
-a block per cell; its plain version is
-:func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the table
-outside its kernel) writes the cells' anchors into scratch from the
+trained as JAX's ``anchor_vjp`` trains them. A pre-pass of the forward call
+(``csrc/common.cuh::anchor_table_kernel``, a block per cell; its plain
+version is :func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the
+table outside its kernel) writes the cells' anchors into a table from the
 wrapper; kernel A's prologue reads, per pixel, the anchor of the TPU cell
 that holds it and clips the residual to ±dl where it clamps to ±D
 otherwise. The packed planes' zero border is sized from the anchored
-reach ``A + dl`` (61 pixels for dcn_3 in bf16 at D = 32) instead of D. A
-per-tap anchored call (no model makes one) raises here, naming
-ROADMAP.md queue 1; so does an anchored call that autograd would record.
+reach ``A + dl`` (61 pixels for dcn_3 in bf16 at D = 32) instead of D.
+The backward takes exactly the forward's anchors: the autograd Function
+saves the table that the forward's pre-pass wrote (``save_for_backward``,
+so a ``torch.utils.checkpoint`` recomputation writes it again, with the
+same bits) and kernel D's anchored mode reads it, samples where A sampled,
+and passes d-offset only where ``|off - F| <= dl``. Its padding is sized
+from the reach as A's. A per-tap anchored call (no model makes one) raises
+here, under grad too, naming ROADMAP.md queue 1.
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -80,15 +86,17 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.overrides import handle_torch_function, has_torch_function
 
-from crfp_torch.ops.anchor import GRAD_REFUSAL, AnchorGeometry, kernel_args
+from crfp_torch.ops.anchor import AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 
 # launches of the CUDA kernels (not of the plain version): A forward, D
-# backward; anchor_launches: A's anchored launches, also in `launches`
+# backward; anchor_launches and bwd_anchor_launches: A's and D's anchored
+# launches, also in `launches` and `bwd_launches`
 launches = 0
 bwd_launches = 0
 anchor_launches = 0
+bwd_anchor_launches = 0
 
 # why kernel A refuses a per-tap anchored call
 PER_TAP_ANCHOR_REFUSAL = ("per-tap anchored windows (no model makes such a call; the "
@@ -119,7 +127,8 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
     [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
+    [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=256)
@@ -443,11 +452,14 @@ def dcn_forward(
     shared_mask: bool = False,
     anchor: AnchorGeometry | None = None,
     plan: TilePlan | None = None,
-) -> torch.Tensor:
+    with_table: bool = False,
+):
     """Kernel A alone (no autograd): (N, O, H, W) in x's dtype. CUDA tensors
     only. ``anchor``: the anchored mode (shared taps only). ``plan``: a
     :func:`tile_plan` other than the default one (other tiles are measured
-    this way)."""
+    this way). ``with_table``: return (output, the anchor table the call's
+    pre-pass wrote, f32 (N, G, bands, tiles, 2), or None unanchored), the
+    table that :func:`dcn_backward` takes."""
     if anchor is not None and not shared_taps:
         raise ValueError(f"dcn_fwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
@@ -478,7 +490,7 @@ def dcn_forward(
     launches += 1
     if anchor is not None:
         anchor_launches += 1
-    return out
+    return (out, table) if with_table else out
 
 
 def dcn_backward(
@@ -491,13 +503,20 @@ def dcn_backward(
     max_displacement: int | None = None,
     shared_taps: bool = False,
     shared_mask: bool = False,
+    anchor: AnchorGeometry | None = None,
+    table: torch.Tensor | None = None,
     plan: BwdPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel D for the DCN stages: (dx in x's dtype, d-offset, d-mask, dW
     float32) of :func:`deform_conv2d_windowed` for the output gradient
     ``grad_out`` (N, O, H, W) in x's dtype. CUDA tensors only. Three
     launches, no synchronisation; outputs and scratch from ``torch.empty``.
-    ``plan``: a :func:`bwd_plan` other than the default one."""
+    ``anchor`` with ``table``: the anchored mode (shared taps only), on the
+    table that kernel A's anchored forward wrote (``dcn_forward(...,
+    with_table=True)``). ``plan``: a :func:`bwd_plan` other than the
+    default one."""
+    if anchor is not None and not shared_taps:
+        raise ValueError(f"dcn_bwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
@@ -506,9 +525,18 @@ def dcn_backward(
             or grad_out.device != x.device or not grad_out.is_contiguous():
         raise ValueError(f"dcn_bwd: grad_out {tuple(grad_out.shape)} {grad_out.dtype} "
                          f"must be a contiguous {(n, o, h, w)} {x.dtype} on {x.device}")
+    if (anchor is None) != (table is None):
+        raise ValueError("dcn_bwd: an anchored call takes the anchor geometry and the "
+                         "table of its forward, both")
+    if table is not None and (table.shape != (n, g, *anchor.cells(h, w), 2)
+                              or table.dtype != torch.float32 or table.device != x.device
+                              or not table.is_contiguous()):
+        raise ValueError(f"dcn_bwd: anchor table {tuple(table.shape)} {table.dtype} must be "
+                         f"a contiguous float32 {(n, g, *anchor.cells(h, w), 2)} on {x.device}")
+    # the anchored reach bounds every displacement and sizes the padding
+    d = max_displacement if anchor is None else anchor.reach
     if plan is None:
-        plan = _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps),
-                         sm_count(x.device))
+        plan = _bwd_plan(n, c, h, w, o, g, d, bool(shared_taps), sm_count(x.device))
     dx = torch.empty_like(x)
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
@@ -521,38 +549,44 @@ def dcn_backward(
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
                   d_mask.data_ptr(), dw.data_ptr(), packed.data_ptr(), acc.data_ptr(),
-                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
+                  n, c, h, w, o, g, kh, kw, _build.window(d),
                   int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
+                  None if table is None else table.data_ptr(), *kernel_args(anchor),
                   *plan.args())
-    global bwd_launches
+    global bwd_launches, bwd_anchor_launches
     bwd_launches += 1
+    if anchor is not None:
+        bwd_anchor_launches += 1
     return dx, d_off, d_mask, dw
+
 
 
 class _DeformConv2dWindowed(torch.autograd.Function):
     """Kernel A forward, kernel D backward; db is the sum of the output
-    gradient over (N, H, W)."""
+    gradient over (N, H, W). Anchored, the forward's table is saved with
+    the operands, and the backward reads it."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, max_displacement,
-                shared_taps, shared_mask):
-        ctx.save_for_backward(x, offset, mask, weight)
+                shared_taps, shared_mask, anchor):
+        out, table = dcn_forward(x, offset, mask, weight, bias,
+                                 max_displacement=max_displacement, shared_taps=shared_taps,
+                                 shared_mask=shared_mask, anchor=anchor, with_table=True)
+        ctx.save_for_backward(x, offset, mask, weight, table)
         ctx.kw = dict(max_displacement=max_displacement, shared_taps=shared_taps,
-                      shared_mask=shared_mask)
+                      shared_mask=shared_mask, anchor=anchor)
         ctx.has_bias = bias is not None
-        return dcn_forward(x, offset, mask, weight, bias,
-                           max_displacement=max_displacement, shared_taps=shared_taps,
-                           shared_mask=shared_mask)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        x, offset, mask, weight = ctx.saved_tensors
+        x, offset, mask, weight, table = ctx.saved_tensors
         grad_out = grad_out.to(x.dtype).contiguous()
         dx, d_off, d_mask, dw = dcn_backward(x, offset, mask, weight, grad_out,
-                                             **ctx.kw)
+                                             table=table, **ctx.kw)
         db = grad_out.float().sum((0, 2, 3)) if ctx.has_bias else None
-        return dx, d_off, d_mask, dw, db, None, None, None
+        return dx, d_off, d_mask, dw, db, None, None, None, None
 
 
 def deform_conv2d_windowed(
@@ -570,8 +604,9 @@ def deform_conv2d_windowed(
     """Windowed DCNv2, NCHW; (N, O, H, W) in x's dtype; differentiable in
     x, offset, mask, weight and bias. With ``anchor`` the per-cell anchored
     DCN of that geometry instead of the ±D clamp
-    (:func:`crfp_torch.ops.anchor.dcn_geometry`), inference only: a call
-    that autograd would record raises, on every device.
+    (:func:`crfp_torch.ops.anchor.dcn_geometry`; ``fullgrad=True`` for the
+    training grid), differentiable as well under shared taps (kernel D's
+    anchored mode); a per-tap anchored call raises on a CUDA tensor.
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
@@ -586,20 +621,21 @@ def deform_conv2d_windowed(
             shared_mask=shared_mask, anchor=anchor)
     recorded = torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                                for t in (x, offset, mask, weight, bias))
-    if anchor is not None and recorded:
-        raise RuntimeError(f"deform_conv2d_windowed: {GRAD_REFUSAL}")
     if x.device.type == "cpu":
         return deform_conv2d_windowed_ref(
             x, offset, mask, weight, bias, max_displacement=max_displacement,
             shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
-    if anchor is not None:
+    if anchor is not None and not recorded:
         return dcn_forward(x, offset, mask, weight, bias, max_displacement=max_displacement,
                            shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
     if recorded:
-        # a width that kernel D does not take (O = 64) raises here, where
-        # autograd records the call, not first in the backward pass
+        # a width that kernel D does not take (O = 64), or a per-tap
+        # anchored call, raises here, where autograd records the call, not
+        # first in the backward pass
+        if anchor is not None and not shared_taps:
+            raise ValueError(f"deform_conv2d_windowed: {PER_TAP_ANCHOR_REFUSAL}")
         o, c, kh, kw = weight.shape
         taps = 1 if shared_taps else kh * kw
         check_tiled("dcn_bwd", c, offset.shape[1] // (2 * taps), kh, kw, o, shared_mask)
     return _DeformConv2dWindowed.apply(x, offset, mask, weight, bias,
-                                       max_displacement, shared_taps, shared_mask)
+                                       max_displacement, shared_taps, shared_mask, anchor)

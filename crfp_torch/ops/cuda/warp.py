@@ -8,7 +8,7 @@ identity weight, with ``crfp_torch/csrc/flow_warp.cu``: a warp kernel of
 its own, since a k=1 DCN spends a C x C contraction per pixel.
 
 Backward: replaces ``crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel`` (:219,
-``_bwd_call`` :593) at k=1 with no mask, which is how the TPU
+``_bwd_call`` :593; anchored :581) at k=1 with no mask, which is how the TPU
 differentiates the windowed warp, with ``crfp_torch/csrc/flow_warp_bwd.cu``
 behind a ``torch.autograd.Function``: dx and d-flow, 0 where the flow is
 clamped. No second derivative.
@@ -46,15 +46,16 @@ between runs; the device times repeat to 2 %.
 
 Anchored (``anchor``, an :class:`crfp_torch.ops.anchor.AnchorGeometry`):
 the per-cell anchored windows of the TPU warp (``anchor=True``,
-crfp_tpu/ops/pallas/warp.py:29-102), inference only. A pre-pass of the
-call writes the anchor table (one (dy, dx) a cell,
-``csrc/common.cuh::anchor_table_kernel``; plain version
+crfp_tpu/ops/pallas/warp.py:29-102), trained as JAX's ``anchor_vjp``
+trains them. A pre-pass of the forward call writes the anchor table (one
+(dy, dx) a cell, ``csrc/common.cuh::anchor_table_kernel``; plain version
 :func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the table
-outside its kernel) into scratch from the wrapper, and kernel B reads it:
+outside its kernel) into a tensor from the wrapper, and kernel B reads it:
 each pixel samples at its cell's anchor plus the flow's residual clipped
-to ±dl. A call that autograd would record
-raises: the anchored backward (kernel D's anchored mode) is not ported
-(ROADMAP.md, queue 1, "anchored training").
+to ±dl. The autograd Function saves that table (``save_for_backward``), and
+kernel D at k=1 in anchored mode reads it: dx scattered from the same
+sample points, each d-flow component passed only where its residual lies
+within ±dl.
 
 Layouts: x (N, C, H, W); flow (N, 2, H, W), channels (dx, dy) in pixels.
 """
@@ -67,22 +68,25 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.overrides import handle_torch_function, has_torch_function
 
-from crfp_torch.ops.anchor import GRAD_REFUSAL, AnchorGeometry, kernel_args
+from crfp_torch.ops.anchor import AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.warp import flow_warp_windowed_ref
 
 # launches of the CUDA kernels (not of the plain version): B forward, D
-# backward; anchor_launches: B's anchored launches, also in `launches`
+# backward; anchor_launches and bwd_anchor_launches: B's and D's anchored
+# launches, also in `launches` and `bwd_launches`
 launches = 0
 bwd_launches = 0
 anchor_launches = 0
+bwd_anchor_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                           ctypes.c_void_p] + \
     [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                               ctypes.c_int,
-                                                              ctypes.c_void_p]
+                                                              ctypes.c_void_p] + \
+    [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _F32, _BF16 = torch.float32, torch.bfloat16
 
 
@@ -117,7 +121,9 @@ def _reject(x: torch.Tensor, flow: torch.Tensor) -> None:
 
 
 def _forward(x: torch.Tensor, flow: torch.Tensor, max_displacement: int | None,
-             anchor: AnchorGeometry | None = None) -> torch.Tensor:
+             anchor: AnchorGeometry | None = None):
+    """Kernel B on checked operands: (output, the anchor table its pre-pass
+    wrote, or None unanchored)."""
     n, c, h, w = _check(x, flow)
     out = torch.empty_like(x)
     # an anchored call's table, written by its own pre-pass
@@ -132,12 +138,14 @@ def _forward(x: torch.Tensor, flow: torch.Tensor, max_displacement: int | None,
     launches += 1
     if anchor is not None:
         anchor_launches += 1
-    return out
+    return out, table
 
 
 def _backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
-              max_displacement: int | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel D at k=1 on checked operands. dx is summed in float32 (the
+              max_displacement: int | None, anchor: AnchorGeometry | None = None,
+              table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D at k=1 on checked operands (anchored: on the forward's
+    ``table``). dx is summed in float32 (the
     scatter adds up to four corner terms per source pixel, and a bf16 sum
     would round each): for float32 x the accumulator is the result, for
     bfloat16 x the C entry casts it into ``dx`` after the scatter."""
@@ -152,46 +160,70 @@ def _backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
     _build.launch("flow_warp_bwd", "crfp_flow_warp_bwd", _BWD_ARGTYPES, x.device,
                   x.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
                   dx.data_ptr(), d_flow.data_ptr(), n, c, h, w,
-                  _build.window(max_displacement), int(x.dtype is _BF16))
-    global bwd_launches
+                  _build.window(max_displacement), int(x.dtype is _BF16),
+                  None if table is None else table.data_ptr(), *kernel_args(anchor))
+    global bwd_launches, bwd_anchor_launches
     bwd_launches += 1
+    if anchor is not None:
+        bwd_anchor_launches += 1
     return dx, d_flow
 
 
+def flow_warp_forward_table(x: torch.Tensor, flow: torch.Tensor, max_displacement: int | None,
+                            anchor: AnchorGeometry) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B in anchored mode, no autograd: (output, the anchor table its
+    pre-pass wrote, f32 (N, 1, bands, tiles, 2)), the table that
+    :func:`flow_warp_backward` takes. CUDA tensors only."""
+    return _forward(x, flow, max_displacement, anchor)
+
+
 def flow_warp_backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
-                       max_displacement: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+                       max_displacement: int | None, anchor: AnchorGeometry | None = None,
+                       table: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel D at k=1: (dx in x's dtype, d-flow float32) of
     :func:`flow_warp_windowed` for ``grad_out`` (N, C, H, W) in x's dtype.
-    CUDA tensors only. d-flow is reduced in a fixed order: the same inputs
-    give the same bits."""
-    _check(x, flow)
+    CUDA tensors only. ``anchor`` with ``table``: the anchored mode, on the
+    table of the anchored forward (:func:`flow_warp_forward_table`). d-flow
+    is reduced in a fixed order: the same inputs give the same bits."""
+    n, _, h, w = _check(x, flow)
     if grad_out.shape != x.shape or grad_out.dtype != x.dtype \
             or grad_out.device != x.device or not grad_out.is_contiguous():
         raise ValueError(f"flow_warp_bwd: grad_out {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} must be a contiguous {tuple(x.shape)} "
                          f"{x.dtype} on {x.device}")
-    return _backward(x, flow, grad_out, max_displacement)
+    if (anchor is None) != (table is None):
+        raise ValueError("flow_warp_bwd: an anchored call takes the anchor geometry and the "
+                         "table of its forward, both")
+    if table is not None and (table.shape != (n, 1, *anchor.cells(h, w), 2)
+                              or table.dtype is not _F32 or table.device != x.device
+                              or not table.is_contiguous()):
+        raise ValueError(f"flow_warp_bwd: anchor table {tuple(table.shape)} {table.dtype} "
+                         f"must be a contiguous float32 {(n, 1, *anchor.cells(h, w), 2)} "
+                         f"on {x.device}")
+    return _backward(x, flow, grad_out, max_displacement, anchor, table)
 
 
 class _FlowWarpWindowed(torch.autograd.Function):
-    """Kernel B forward, kernel D at k=1 backward."""
+    """Kernel B forward, kernel D at k=1 backward; anchored, the forward's
+    table is saved with the operands, and the backward reads it."""
 
     @staticmethod
-    def forward(ctx, x, flow, max_displacement):
-        ctx.save_for_backward(x, flow)
-        ctx.max_displacement = max_displacement
-        return _forward(x, flow, max_displacement)
+    def forward(ctx, x, flow, max_displacement, anchor):
+        out, table = _forward(x, flow, max_displacement, anchor)
+        ctx.save_for_backward(x, flow, table)
+        ctx.max_displacement, ctx.anchor = max_displacement, anchor
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         # x and flow passed _check in forward; autograd gives grad_out the
         # output's shape and device
-        x, flow = ctx.saved_tensors
+        x, flow, table = ctx.saved_tensors
         if grad_out.dtype is not x.dtype or not grad_out.is_contiguous():
             grad_out = grad_out.to(x.dtype).contiguous()
-        dx, d_flow = _backward(x, flow, grad_out, ctx.max_displacement)
-        return dx, d_flow, None
+        dx, d_flow = _backward(x, flow, grad_out, ctx.max_displacement, ctx.anchor, table)
+        return dx, d_flow, None, None
 
 
 def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
@@ -200,8 +232,8 @@ def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
     """Warp ``x`` by ``flow`` clamped to ``±max_displacement`` (None: no
     clamp), zeros padding; x's dtype; differentiable in x and flow. With
     ``anchor`` the per-cell anchored warp of that geometry instead
-    (:func:`crfp_torch.ops.anchor.warp_geometry`), inference only: a call
-    that autograd would record raises, on every device.
+    (:func:`crfp_torch.ops.anchor.warp_geometry`; ``fullgrad=True`` for
+    the training grid), differentiable as well.
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel B forward and kernel D at k=1 backward (x float32
@@ -213,10 +245,8 @@ def flow_warp_windowed(x: torch.Tensor, flow: torch.Tensor,
         return handle_torch_function(flow_warp_windowed, (x, flow), x, flow,
                                      max_displacement, anchor=anchor)
     recorded = torch.is_grad_enabled() and (x.requires_grad or flow.requires_grad)
-    if anchor is not None and recorded:
-        raise RuntimeError(f"flow_warp_windowed: {GRAD_REFUSAL}")
     if x.is_cpu:
         return flow_warp_windowed_ref(x, flow, max_displacement, anchor)
     if recorded:
-        return _FlowWarpWindowed.apply(x, flow, max_displacement)
-    return _forward(x, flow, max_displacement, anchor)
+        return _FlowWarpWindowed.apply(x, flow, max_displacement, anchor)
+    return _forward(x, flow, max_displacement, anchor)[0]

@@ -6,9 +6,9 @@ checkpoints/v18_mid32_struct.npz (its _curve.json holds the flags).
         --resume checkpoints/v18_mid32_struct.npz --save runs/v18_mid32_torch.npz
 
 The flags are those of crfp_tpu/tools/train_procedural.py without its
-``--no_cache``; its ``--dcn_anchor`` (anchored training, which needs
-kernel D's anchored mode) raises, naming ROADMAP.md queue 1, "anchored
-training", the next slice: Charbonnier loss, two-group
+``--no_cache``; ``--dcn_anchor`` trains per-cell anchored HR windows on
+the training grid (``dcn_anchor`` and ``dcn_anchor_vjp``, as the JAX tool
+sets them, crfp_tpu/tools/train_procedural.py:116): Charbonnier loss, two-group
 Adam with the flow net at its own rate, cosine schedule over ``--iters``,
 flow freeze, windows 8/32 and remat. ``--variant`` takes every trunk
 variant; no_dcn and basic_fvsr run without the HR-level cascade
@@ -102,12 +102,8 @@ def main(argv: list[str] | None = None) -> None:
     # --iters to keep the schedule sensible
     p.add_argument("--resume", default=None)
     p.add_argument("--dcn_anchor", action="store_true",
-                   help="anchored training: not ported yet (raises)")
+                   help="train per-cell anchored HR windows (on the training grid)")
     args = p.parse_args(argv)
-    if args.dcn_anchor:
-        from crfp_torch.config import DCN_ANCHOR_REFUSAL
-
-        raise ValueError(DCN_ANCHOR_REFUSAL)
 
     import torch
 
@@ -121,7 +117,8 @@ def main(argv: list[str] | None = None) -> None:
         raise RuntimeError("no CUDA device; pass --cpu to train on the CPU")
     cfg = ModelConfig(variant=args.variant, mid_channels=args.mid,
                       hr_dcn=variant_hr_dcn(args.variant), dcn_window=args.dcn_window,
-                      dcn_window_hr=args.dcn_window_hr, remat=True)
+                      dcn_window_hr=args.dcn_window_hr, dcn_anchor=args.dcn_anchor,
+                      dcn_anchor_vjp=args.dcn_anchor, remat=True)
     model = CRFP(cfg, device=device, seed=args.seed)
     tcfg = TrainConfig(lr_rate=args.lr, flow_freeze_iters=args.flow_freeze,
                        periods=(max(args.iters, 1),), amp=args.amp)
@@ -135,6 +132,10 @@ def main(argv: list[str] | None = None) -> None:
     train_step = make_train_step(model, tcfg)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{n_params / 1e6:.2f}M params on {device}", flush=True)
+    if args.dcn_anchor:
+        from crfp_torch.config import anchor_grid_line
+
+        print(anchor_grid_line(cfg, (args.gt // 8, args.gt // 8)), flush=True)
 
     def sync():
         if device == "cuda":

@@ -23,8 +23,11 @@ the JAX package, on the CPU.
   and ``python -m crfp_torch.main --test`` with ``--dcn_anchor true``
   against JAX's ``evaluate_clips``; 3 frames, HR motion past ±dcn_window_hr,
   within 1e-4 (the evaluator: 1e-3 dB, SSIM 1e-5).
-- Refusals: an anchored call under autograd, training with the flag, a
-  per-tap anchored call to kernel A's dispatcher, the height-sharded runner.
+- Training (slice 15, tests/test_torch_anchor_train.py holds it against
+  JAX): shared-tap anchored calls differentiate through the dispatchers,
+  and ``main`` and ``train_procedural`` train with ``--dcn_anchor``.
+- Refusals: a per-tap anchored call to kernel A's dispatcher, the
+  height-sharded runner.
 - On a card (marker ``cuda``): kernels A and B in anchored mode against
   their plain versions, bit-equal over two runs, different from the clamp.
 """
@@ -431,43 +434,92 @@ def test_main_test_mode_anchored_matches_jax_evaluator(tmp_path, monkeypatch):
     assert abs(plain.psnr - want.psnr) > 1e-3  # the anchored run is the one that matches
 
 
-# ---- refusals ---------------------------------------------------------------
+# ---- training (slice 15) and refusals ------------------------------------------
 
 
 def test_anchored_calls_under_autograd_raise():
+    """The refusal this test once held is gone (slice 15): shared-tap
+    anchored calls under autograd differentiate through the dispatchers, on
+    the CPU through the plain version, with its gradients bit for bit, at
+    the training grid and at the inference one; inference still runs."""
     from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
     from crfp_torch.ops.cuda.warp import flow_warp_windowed
 
-    x = torch.randn(1, 4, 16, 24, requires_grad=True)
-    off = torch.randn(1, 2, 16, 24)
-    mask = torch.rand(1, 1, 16, 24)
-    wt = torch.randn(4, 4, 3, 3)
-    geom = an.dcn_geometry(16, 24, 4, 4, 1, 3, 8, bf16=False, shared_taps=True,
-                           shared_mask=True)
-    with pytest.raises(RuntimeError, match="anchored training"):
-        deform_conv2d_windowed(x, off, mask, wt, shared_taps=True, shared_mask=True,
-                               max_displacement=8, anchor=geom)
-    wgeom = an.warp_geometry(16, 24, 4, 8, bf16=False)
-    with pytest.raises(RuntimeError, match="anchored training"):
-        flow_warp_windowed(x, off, 8, anchor=wgeom)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, 16, 24, generator=gen)
+    off = torch.randn(1, 2, 16, 24, generator=gen) * 12.0
+    mask = torch.rand(1, 1, 16, 24, generator=gen)
+    wt = torch.randn(4, 4, 3, 3, generator=gen)
+    gout = torch.randn(1, 4, 16, 24, generator=gen)
+    kw = dict(shared_taps=True, shared_mask=True, max_displacement=8)
+
+    def grads(fn, *inputs):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, gout)
+
+    for fullgrad in (True, False):
+        geom = an.dcn_geometry(16, 24, 4, 4, 1, 3, 8, bf16=False, shared_taps=True,
+                               shared_mask=True, fullgrad=fullgrad)
+        got = grads(lambda *a: deform_conv2d_windowed(*a, anchor=geom, **kw), x, off, mask, wt)
+        want = grads(lambda *a: deform_conv2d_windowed_ref(*a, anchor=geom, **kw),
+                     x, off, mask, wt)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert float(got[1].abs().max()) > 0
+        wgeom = an.warp_geometry(16, 24, 4, 8, bf16=False, fullgrad=fullgrad)
+        flow = off.flip(1).contiguous()
+        got = grads(lambda a, f: flow_warp_windowed(a, f, 8, anchor=wgeom), x, flow)
+        want = grads(lambda a, f: flow_warp_windowed_ref(a, f, 8, wgeom), x, flow)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     with torch.no_grad():  # inference runs
-        assert deform_conv2d_windowed(x, off, mask, wt, shared_taps=True, shared_mask=True,
-                                      max_displacement=8, anchor=geom).shape == (1, 4, 16, 24)
-        assert flow_warp_windowed(x, off, 8, anchor=wgeom).shape == x.shape
+        assert deform_conv2d_windowed(x, off, mask, wt, anchor=geom, **kw).shape == x.shape
+        assert flow_warp_windowed(x, flow, 8, anchor=wgeom).shape == x.shape
 
 
-def test_training_with_the_flag_raises(tmp_path):
-    from crfp_torch.config import parse_args
+def test_training_with_the_flag_raises(tmp_path, monkeypatch):
+    """The refusal this test once held is gone (slice 15): ``python -m
+    crfp_torch.main`` and ``train_procedural --cpu --dcn_anchor`` train
+    with anchored HR windows on the training grid, which the log names;
+    their losses are finite and fall."""
+    import crfp_torch.train.loop as loop
+    from crfp_torch.config import model_config, parse_args
     from crfp_torch.main import main
     from crfp_torch.tools.train_procedural import main as train_main
+    from tests.test_data import _make_fake_reds
     from tests.test_torch_main import _argv
 
-    with pytest.raises(ValueError, match='ROADMAP.md queue 1, "anchored training"'):
-        main(_argv(str(tmp_path)) + ["--dcn_anchor", "true"])
-    assert not (tmp_path / "exp").exists()
-    with pytest.raises(ValueError, match="anchored training"):
-        train_main(["--cpu", "--dcn_anchor", "--iters", "1"])
-    assert parse_args(["--dcn_anchor", "true"]).dcn_anchor
+    tmp = str(tmp_path)
+    _make_fake_reds(tmp, n_frames=4, gt_hw=(64, 96))
+    flags = ["--dcn_anchor", "true", "--dcn_window", "8", "--dcn_window_hr", "32",
+             "--lr_rate", "1e-3", "--num_epochs", "2"]
+    cfg = model_config(parse_args(_argv(tmp, extra=flags)))
+    assert cfg.dcn_anchor and cfg.dcn_anchor_vjp
+    out = main(_argv(tmp, extra=flags))
+    losses = [m["loss"] for m in out["metrics"]]
+    assert len(losses) == 8 and all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    log = open(os.path.join(tmp, "exp", "MRCF.log")).read()
+    assert "--dcn_anchor: anchored HR windows on the training grid (dcn_anchor_vjp)" in log
+    assert "HR warp band 16 x xtile 64" in log  # the mid-16 HR state's training grid
+
+    seen = []
+    make = loop.make_train_step
+
+    def recording(model, tcfg, group=None):
+        assert model.cfg.dcn_anchor and model.cfg.dcn_anchor_vjp
+        step = make(model, tcfg, group)
+
+        def run(opt, batch, it):
+            m = step(opt, batch, it)
+            seen.append(float(m["loss"]))
+            return m
+        return run
+
+    monkeypatch.setattr(loop, "make_train_step", recording)
+    monkeypatch.chdir(tmp_path)  # the clip-pool cache goes under runs/ here
+    train_main(["--cpu", "--dcn_anchor", "--iters", "6", "--b", "1", "--t", "3", "--gt", "64",
+                "--mid", "16", "--pool", "2", "--flow_freeze", "0", "--lr", "1e-3",
+                "--save", str(tmp_path / "anchored.npz")])
+    assert len(seen) == 6 and all(np.isfinite(seen)) and seen[-1] < seen[0], seen
+    assert (tmp_path / "anchored.npz").exists()
 
 
 def test_per_tap_anchored_kernel_a_raises():

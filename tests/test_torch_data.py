@@ -22,9 +22,21 @@ from tests.test_vimeo import _make_fake_vimeo  # noqa: E402
 PATHS = ["native", "pillow"]
 
 
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native bindings on a private build of its library
+    (``torch_parity.jax_native_oracle``): its in-place build can be
+    half-written when several test workers build it at once."""
+    from tests.torch_parity import jax_native_oracle
+
+    return jax_native_oracle(tmp_path_factory.mktemp("jax_native"))
+
+
 @pytest.fixture(params=PATHS)
 def path(request, monkeypatch):
-    """The preprocess path both packages take."""
+    """The preprocess path both packages take. On the native path the JAX
+    reader's ``crfp_tpu.native`` (crfp_tpu/data/reds.py:56) takes the
+    private oracle's entry points for the test's duration."""
     import crfp_torch.native
     import crfp_tpu.native
 
@@ -33,6 +45,10 @@ def path(request, monkeypatch):
         monkeypatch.setattr(crfp_torch.native, "native_available", lambda: False)
     elif not crfp_torch.native.native_available():
         pytest.skip("no C++ toolchain: the native library does not build")
+    else:
+        oracle = request.getfixturevalue("jax_native")
+        for name in crfp_tpu.native.__all__:
+            monkeypatch.setattr(crfp_tpu.native, name, getattr(oracle, name))
     from crfp_torch.data.reds import preprocess_path
 
     assert preprocess_path() == request.param

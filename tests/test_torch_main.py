@@ -3,9 +3,10 @@ package's ``main.py`` path on the CPU (f32).
 
 - The flag surface: ``parse_args([])`` and the ``train.sh`` / ``eval.sh`` /
   ``test.sh`` lines give the JAX parser's values flag for flag; what the
-  port refuses (training with ``--dcn_anchor true``, no CUDA without
-  ``--cpu true``) raises before any directory is made, and the TPU layout
-  flags are logged as having no effect. (``--num_gpu`` above 1 trains
+  port refuses (no CUDA without ``--cpu true``) raises before any
+  directory is made, training with ``--dcn_anchor true`` trains on the
+  anchored training grid, and the TPU layout flags are logged as having
+  no effect. (``--num_gpu`` above 1 trains
   data-parallel: tests/test_torch_main_dist.py.)
 - On a tiny REDS tree (mid 16, GT 64, N_frames 2, batch 2, one loader
   worker), ``train`` from an ``.npz`` of the JAX init runs 4 steps with
@@ -167,19 +168,27 @@ def test_flag_mapping_onto_the_port_configs():
 
 
 def test_refused_flags_raise_before_any_directory(tmp_path):
-    """Training with ``--dcn_anchor true`` raises, naming the next slice
-    (anchored training); ``--eval`` and ``--test`` take it into the model's
-    configuration (their anchored run against JAX's evaluator:
-    tests/test_torch_anchor.py)."""
+    """Training with ``--dcn_anchor true`` no longer raises (slice 15): it
+    trains on the anchored training grid (``dcn_anchor_vjp``), losses
+    finite and falling over 8 steps on a tiny REDS tree; ``--eval`` and
+    ``--test`` take the inference grid (their anchored run against JAX's
+    evaluator: tests/test_torch_anchor.py). No CUDA without ``--cpu true``
+    still raises before any directory is made."""
     import crfp_torch.main as tmain
     from crfp_torch.config import model_config, parse_args
 
     for mode in ("--eval", "--test"):
         cfg = model_config(parse_args(_argv(str(tmp_path)) + [
             mode, "true", "--dcn_anchor", "true", "--hr_s2d", "true"]))
-        assert cfg.dcn_anchor and cfg.hr_s2d, mode
-    cases = [(["--dcn_anchor", "true"], ValueError, "anchored training"),
-             (["--cpu", "false"], RuntimeError, "no CUDA device")]
+        assert cfg.dcn_anchor and cfg.hr_s2d and not cfg.dcn_anchor_vjp, mode
+    tree = tmp_path / "tree"
+    _make_fake_reds(str(tree), n_frames=4, gt_hw=(64, 96))
+    flags = ["--dcn_anchor", "true", "--dcn_window", "8", "--dcn_window_hr", "32",
+             "--lr_rate", "1e-3", "--num_epochs", "2"]
+    assert model_config(parse_args(_argv(str(tree), extra=flags))).dcn_anchor_vjp
+    losses = [m["loss"] for m in tmain.main(_argv(str(tree), extra=flags))["metrics"]]
+    assert len(losses) == 8 and all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    cases = [(["--cpu", "false"], RuntimeError, "no CUDA device")]
     for extra, exc, match in cases:
         argv = _argv(str(tmp_path)) + extra
         if torch.cuda.is_available() and extra == ["--cpu", "false"]:

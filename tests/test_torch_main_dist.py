@@ -6,6 +6,8 @@ training over N gloo ranks that the entry point spawns itself.
   the checkpoint; the log names a world of 2 and the ranks' parameters end
   bit-equal (the run compares a digest of each rank's and logs it). The
   run is a subprocess in its own session, killed whole on its timeout.
+- The same with ``--dcn_anchor true``: the ranks train on the anchored
+  training grid.
 - ``--num_gpu 3`` with a batch of 2 raises the uneven-batch error before
   any directory is made; under ``torchrun``'s environment a world other
   than the one ``--num_gpu`` asks for raises too.
@@ -59,6 +61,31 @@ def test_two_ranks_train_through_the_entry_point(tmp_path):
     assert "data parallel: world 2 (--num_gpu 2)" in log, log
     assert log.count("epoch 0 iter 1 ") == 1 and log.count("epoch 0 iter 2 ") == 1, log
     assert "bit-equal: True" in log, log
+
+
+def test_two_ranks_train_anchored_through_the_entry_point(tmp_path):
+    """``--dcn_anchor true`` (windows 8/32) over 2 gloo ranks: the
+    data-parallel steps take the anchored training grid (``dcn_anchor_vjp``),
+    which the log names, and the ranks' parameters end bit-equal."""
+    save = str(tmp_path / "exp")
+    argv = [*_argv(save, 2), "--mid_channels", "16", "--dcn_anchor", "true",
+            "--dcn_window", "8", "--dcn_window_hr", "32"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    proc = subprocess.Popen([sys.executable, "-m", "crfp_torch.main", *argv],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"the 2-rank anchored run did not finish within {TIMEOUT_S} s")
+    assert proc.returncode == 0, out[-4000:]
+    with open(os.path.join(save, "MRCF.log")) as f:
+        log = f.read()
+    assert "data parallel: world 2 (--num_gpu 2)" in log, log
+    assert "anchored HR windows on the training grid (dcn_anchor_vjp)" in log, log
+    assert log.count("epoch 0 iter 2 ") == 1 and "bit-equal: True" in log, log
 
 
 def test_uneven_batch_over_the_ranks_raises(tmp_path):

@@ -1,23 +1,32 @@
 """The port's host preprocessing library (crfp_torch/native, built with g++
 into crfp_torch/build/) against the JAX package's library, byte for byte,
 on its three entry points, and against Pillow/numpy as
-tests/test_native.py holds the JAX one. Skipped without g++."""
+tests/test_native.py holds the JAX one. Skipped without g++.
 
+The JAX library is built privately for this module
+(``torch_parity.jax_native_oracle``): the JAX package's own in-place build
+can be half-written when several test workers build it at once."""
+
+import os
 import shutil
+import sys
 
 import numpy as np
 import PIL.Image
 import pytest
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="no C++ toolchain")
 
 
 @pytest.fixture(scope="module")
-def libs():
+def libs(tmp_path_factory):
     from crfp_torch import native
-    from crfp_tpu import native as jnative
+    from torch_parity import jax_native_oracle
 
-    assert native.native_available() and jnative.native_available()
+    jnative = jax_native_oracle(tmp_path_factory.mktemp("jax_native"))
+    assert native.native_available()
     return native, jnative
 
 

@@ -128,12 +128,15 @@ def anchored_jax_dispatch(monkeypatch) -> None:
     """Route the JAX models' windowed dispatch to the anchored Pallas
     kernels in interpret mode wherever a call asks for ``anchor``: off the
     TPU ``crfp_tpu``'s dispatch drops it and computes the plain clamp
-    (crfp_tpu/nn/align.py:41-84, crfp_tpu/ops/pallas/warp.py:89-124). The
+    (crfp_tpu/nn/align.py:41-84, crfp_tpu/ops/pallas/warp.py:89-124). With
+    ``anchor_vjp`` (a model trained with ``dcn_anchor_vjp``) the calls go
+    to the differentiable entries with ``anchor_vjp=True``, as the TPU
+    branch makes them: the training grid, the anchored backward. The
     models import both dispatchers at call time, so patching the modules'
     attributes reaches them; nothing in ``crfp_tpu`` changes."""
     import crfp_tpu.nn.align as jalign
     import crfp_tpu.ops.pallas.warp as jwarp
-    from crfp_tpu.ops.pallas.dcn import deform_conv2d_pallas
+    from crfp_tpu.ops.pallas.dcn import deform_conv2d_pallas_vjp
 
     dcn, warp, warp_s2d = (jalign._windowed_dcn, jwarp.flow_warp_maybe_windowed,
                            jwarp.flow_warp_maybe_windowed_s2d)
@@ -142,27 +145,61 @@ def anchored_jax_dispatch(monkeypatch) -> None:
                      s2d=1, anchor=False, anchor_vjp=False):
         if not anchor:
             return dcn(x, off, mask, weight, bias, window, shared, shared_mask, s2d)
-        # the TPU branch's request (crfp_tpu/nn/align.py:59), forward only
+        # the TPU branch's request (crfp_tpu/nn/align.py:59)
         band = 32 if x.dtype == jnp.bfloat16 else 8
-        return deform_conv2d_pallas(x, off, mask, weight, bias, max_displacement=window,
-                                    shared_taps=shared, shared_mask=shared_mask, s2d=s2d,
-                                    band=band, anchor=True, interpret=True)
+        return deform_conv2d_pallas_vjp(x, off, mask, weight, bias, max_displacement=window,
+                                        shared_taps=shared, shared_mask=shared_mask, s2d=s2d,
+                                        band=band, anchor=True, anchor_vjp=anchor_vjp,
+                                        interpret=True)
 
     def warp_full(x, flow, window, *, anchor=False, anchor_vjp=False):
         if not anchor or window is None:
             return warp(x, flow, window)
         return jwarp.flow_warp_windowed_pallas(x, flow, max_displacement=window,
-                                               anchor=True, interpret=True)
+                                               anchor=True, anchor_vjp=anchor_vjp,
+                                               interpret=True)
 
     def warp_s2d_(x, flow, window, r=4, *, anchor=False, anchor_vjp=False):
         if not anchor or window is None:
             return warp_s2d(x, flow, window, r)
         return jwarp.flow_warp_windowed_pallas_s2d(x, flow, r=r, max_displacement=window,
-                                                   anchor=True, interpret=True)
+                                                   anchor=True, anchor_vjp=anchor_vjp,
+                                                   interpret=True)
 
     monkeypatch.setattr(jalign, "_windowed_dcn", windowed_dcn)
     monkeypatch.setattr(jwarp, "flow_warp_maybe_windowed", warp_full)
     monkeypatch.setattr(jwarp, "flow_warp_maybe_windowed_s2d", warp_s2d_)
+
+
+def jax_native_oracle(directory):
+    """A private instance of the JAX package's native bindings
+    (crfp_tpu/native/bindings.py), its library built into ``directory``.
+
+    The JAX package builds ``libcrfp_native.so`` in place, straight onto
+    the path it then loads, and a failed load disables the library for the
+    life of the process; several test workers that build it at once on a
+    fresh tree can load a half-written file. So the port's tests do not
+    take their oracle from that shared build: they load the module file a
+    second time under another name, point its ``_LIB`` at a temporary name
+    in ``directory``, build with the module's own ``_build`` (the JAX
+    package's g++ line), move the file into place with ``os.replace`` and
+    load it from there. Nothing in ``crfp_tpu`` changes."""
+    import importlib.util
+    import os
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "crfp_tpu", "native", "bindings.py")
+    spec = importlib.util.spec_from_file_location("crfp_tpu_native_oracle", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    final = os.path.join(str(directory), "libcrfp_native.so")
+    mod._LIB = f"{final}.{os.getpid()}.tmp"
+    mod._build()
+    os.replace(mod._LIB, final)
+    mod._LIB = final
+    if not mod.native_available():
+        raise RuntimeError(f"the JAX package's native library did not load from {final}")
+    return mod
 
 
 def set_flow_bias(flat: dict[str, np.ndarray], dy: float, dx: float,
