@@ -7,6 +7,7 @@
     python3 chip_smoke.py --models-bf16-only  # phase 1 and phase 3d's bf16 pyramids and PCD
     python3 chip_smoke.py --anchor-only     # phases 1 and 12 alone
     python3 chip_smoke.py --anchor-train-only  # phases 1 and 14 alone
+    python3 chip_smoke.py --widths-only     # phases 1 and 15 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -108,7 +109,8 @@ Phases, in order; any failure exits non-zero without the final line:
    CRFPPyramidX4, plain and CRA, at mid 64, dg 16, on 3 frames of the 720p
    clip, dcn_window None (and X8 plain at 8) (X8 A 4, B 4, C 1 a steady
    frame, X4 A 4, B 3, C 1, the cold frame C 1); a DCN at O = 64 that
-   autograd records must raise (kernel D does not take it); PCDAlign at nf
+   autograd records must train through kernel D's general route (its
+   gradients against the plain version's to 1e-4); PCDAlign at nf
    64, 8 groups on (1,64,180,320) (A 4); X8 plain, X8 CRA and PCD again in
    bf16 (kernel A at O = 64 on the tensor cores), kernels against plain
    versions at >= 55 dB and max|d| <= 0.05 a frame (phase 11's bf16
@@ -279,7 +281,32 @@ Phases, in order; any failure exits non-zero without the final line:
    amp kernel steps; and the entries ``dcn_bwd_anchored`` and
    ``flow_warp_bwd_anchored``, kernel D's anchored modes, their launches
    the anchored-mode ones of those steps, their times per anchored amp
-   step) and, last, the {"ok": true, ...} line.
+   step; ``dcn_*_general``, the general routes of A, D and E (phase 15),
+   per unit of their own main path at mid 24) and, last, the {"ok": true,
+   ...} line;
+15. (run after phase 14, before phase 13's lines) every DCN width the JAX
+   kernels take (``--mid_channels``, ``--dg_num``, ``--dcn_kernel``), the
+   general route of kernels A, D and E: (a) each against its plain version
+   at mid 8, 24, 48 and 64, ``dg_num`` 1, 2, 4 and 16 at mid 32,
+   ``dcn_kernel`` 1 and 5 at mid 32 and the X8 pyramid at mid 16, dg 16,
+   named by ``plan=`` (the rule's own route printed beside it), f32 and
+   bf16, A and E bit-equal over two runs and a CUDA-graph replay, D's
+   d-offset, d-mask and dW over two runs, at mid 32 also against the tuned
+   route; dcn_3's anchored shared taps at mid 24 and 64 (A forward, D
+   backward against autograd of the plain version, different from the
+   clamp); device and call ms beside the bound; (b) the paths at full
+   width, seeded weights, kernels against plain versions, launches and their
+   general-route share asserted: v18 serving (1080p / warp 720^2, t 5) at mid
+   24 and 64 (f32 >= 80 dB, max|d| <= 1e-3 a frame; bf16 between the sound
+   readings and a planted fault's, beside mid 32 in bf16 through the tuned
+   and the forced general route on the same weights), the gate's
+   StreamingRunner at mid 24 (EXACT and DEPLOY with ``dcn_fused``, f32 at
+   phase 3's limits, DEPLOY bf16 at phase 8's 60 dB),
+   anchored serving at mid 24 (``_DEPLOY``; the plain clamp outside the
+   limits), one f32 train step of the recipe at mid 24, mid 64, ``dg_num``
+   16 and ``dcn_kernel`` 5 (phase 6's limits) and one amp step each
+   (finite), one anchored f32 step at mid 24, one step of ``python -m
+   crfp_torch.main`` at ``--mid_channels 24``.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -934,6 +961,7 @@ def _zero_counts() -> None:
     dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
     dcn.anchor_launches = warp.anchor_launches = 0
     dcn.bwd_anchor_launches = warp.bwd_anchor_launches = 0
+    dcn.general_launches = dcn.bwd_general_launches = dcn_fused.general_launches = 0
 
 
 def _counts() -> dict:
@@ -951,6 +979,14 @@ def _anchor_counts() -> dict:
 
     return {"dcn_fwd": dcn.anchor_launches, "flow_warp": warp.anchor_launches,
             "dcn_bwd": dcn.bwd_anchor_launches, "flow_warp_bwd": warp.bwd_anchor_launches}
+
+
+def _general_counts() -> dict:
+    """The general-route launches of A, D and E (a part of :func:`_counts`'s)."""
+    from crfp_torch.ops.cuda import dcn, dcn_fused
+
+    return {"dcn_fwd": dcn.general_launches, "dcn_bwd": dcn.bwd_general_launches,
+            "dcn_fused": dcn_fused.general_launches}
 
 
 def _expect(**counts) -> dict:
@@ -1538,17 +1574,28 @@ def phase_models():
     if not clamp_d > 1e-4:
         fail("X8 dcn_window=8 gave the unclamped frames: the window clamped nothing")
     # the models run under no_grad; a DCN at their width that autograd
-    # records raises (kernel D does not take O = 64)
-    xg = torch.randn(1, PYR_MID, 16, 16, device="cuda", requires_grad=True)
-    try:
-        dcn.deform_conv2d_windowed(xg, torch.zeros(1, 18 * 16, 16, 16, device="cuda"),
-                                   torch.ones(1, 9 * 16, 16, 16, device="cuda"),
-                                   torch.zeros(PYR_MID, PYR_MID, 3, 3, device="cuda"))
-        fail("a recorded O = 64 DCN did not raise")
-    except ValueError as e:
-        if "dcn_bwd" not in str(e):
-            raise
-        print(f"[models] a recorded O = 64 DCN raises: {e}")
+    # records trains through kernel D's general route (O = 64)
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    gen64 = torch.Generator().manual_seed(64)
+    ops64 = [t.cuda() for t in (torch.randn(1, PYR_MID, 16, 16, generator=gen64),
+                                torch.randn(1, 18 * 16, 16, 16, generator=gen64) * 2,
+                                torch.rand(1, 9 * 16, 16, 16, generator=gen64),
+                                torch.randn(PYR_MID, PYR_MID, 3, 3, generator=gen64) * 0.05)]
+    g64 = torch.randn(1, PYR_MID, 16, 16, generator=gen64).cuda()
+    before = dcn.bwd_general_launches
+    grads = []
+    for fn in (dcn.deform_conv2d_windowed, deform_conv2d_windowed_ref):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ops64]
+        fn(*leaves).backward(g64)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    rel64 = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads))
+    print(f"[models] a recorded O = 64 DCN trains through kernel D's general route: "
+          f"{dcn.bwd_general_launches - before} launch, gradients within {rel64:.2e} of "
+          f"max|ref| of the plain version's (limit 1e-4)")
+    if dcn.bwd_general_launches != before + 1 or not rel64 <= 1e-4:
+        fail("a recorded O = 64 DCN did not train through kernel D's general route")
     lap("pyramids")
 
     # PCD at nf 64, 8 groups: A 4 a call
@@ -2111,19 +2158,21 @@ def _train_batches():
 
 
 def _train_vs_plain(tag, steps, lr, expect, batches, amp=False, expect_anchored=None,
-                    loss_rtol=1e-4, **build_kw):
+                    loss_rtol=1e-4, builder=None, expect_general=None, **build_kw):
     """``steps`` train steps (f32, or ``amp``) of ``build_trainer(**build_kw)``
-    through the kernels against the same steps through the plain versions,
-    from the same state and batches: losses to ``loss_rtol`` relative (None:
-    read, not held), every parameter to 2*lr*steps, the kernel path's launch
-    counts equal to ``expect`` (and its anchored-mode launches to
-    ``expect_anchored``). Returns those counts."""
+    (or of ``builder(**build_kw)``) through the kernels against the same
+    steps through the plain versions, from the same state and batches:
+    losses to ``loss_rtol`` relative (None: read, not held), every
+    parameter to 2*lr*steps, the kernel path's launch counts equal to
+    ``expect`` (and its anchored-mode launches to ``expect_anchored``, its
+    general-route ones to ``expect_general``). Returns those counts."""
     from crfp_torch.bench.train import build_trainer
 
     kind = "amp" if amp else "f32"
+    builder = builder or build_trainer
 
     def run(path):
-        model, opt, step = build_trainer(amp=amp, lr_rate=lr, **build_kw)
+        model, opt, step = builder(amp=amp, lr_rate=lr, **build_kw)
         t0 = time.perf_counter()
         losses = []
         for i in range(steps):
@@ -2140,6 +2189,11 @@ def _train_vs_plain(tag, steps, lr, expect, batches, amp=False, expect_anchored=
     _zero_counts()
     got_losses, got_params = run("kernels")
     launches = _counts()
+    if expect_general is not None:
+        general = _general_counts()
+        print(f"{tag} general-route launches in {steps} kernel steps: {general}")
+        if general != expect_general:
+            fail(f"{tag}: general-route launch counts {general} != expected {expect_general}")
     if expect_anchored is not None:
         anchored = _anchor_counts()
         print(f"{tag} anchored-mode launches in {steps} kernel steps: {anchored}")
@@ -3634,6 +3688,718 @@ def phase_anchor_train(gen, data: str, tmp: Path) -> tuple[list, dict, dict]:
     return modes, launches, anchored
 
 
+# ---- phase 15: every DCN width the JAX kernels take (the general route) ----
+# (a)'s widths: (id, C, O, G, kh = kw, shared, A's plane, calls per unit of
+# each general entry's main path). A and E run at the serving slice's
+# planes, per-tap at 1/4 resolution (1,C,180,180) and (E, the gate's)
+# (1,C,180,320) at D = 8, shared taps at the HR (1,C,720,720) at D = 32; D
+# at the amp step's (2,C,48,48) and (2,C,192,192). The units: a steady
+# frame of the mid-24 serving slice (A: 3 per-tap + 1 dcn_3), a mid-24
+# amp step (D: 18 per-tap, 6 dcn_3), a DEPLOY frame of the mid-24 gate (E:
+# 3). The tuned widths of mid 32 come last: there the general route, named
+# by plan=, is also held against the tuned one.
+WIDTHS = [
+    ("mid8 per-tap", 8, 8, 8, 3, False, None, (0, 0, 0)),
+    ("mid8 dcn_3", 1, 1, 1, 3, True, None, (0, 0, 0)),
+    ("mid24 per-tap", 24, 24, 8, 3, False, None, (3, 18, 3)),
+    ("mid24 dcn_3", 3, 3, 1, 3, True, None, (1, 6, 0)),
+    ("mid48 per-tap", 48, 48, 8, 3, False, None, (0, 0, 0)),
+    ("mid48 dcn_3", 6, 6, 1, 3, True, None, (0, 0, 0)),
+    ("mid64 per-tap", 64, 64, 8, 3, False, None, (0, 0, 0)),
+    ("mid64 dcn_3", 8, 8, 1, 3, True, None, (0, 0, 0)),
+    ("dg1 mid32", 32, 32, 1, 3, False, None, (0, 0, 0)),
+    ("dg2 mid32", 32, 32, 2, 3, False, None, (0, 0, 0)),
+    ("dg4 mid32", 32, 32, 4, 3, False, None, (0, 0, 0)),
+    ("dg16 mid32", 32, 32, 16, 3, False, None, (0, 0, 0)),
+    ("k1 mid32", 32, 32, 8, 1, False, None, (0, 0, 0)),
+    ("k5 mid32", 32, 32, 8, 5, False, None, (0, 0, 0)),
+    ("k5 mid32 dcn_3", 4, 4, 1, 5, True, None, (0, 0, 0)),
+    # the gen-1 X8 at mid 16, dg 16: its levels' 16 and 1 groups
+    ("pyramid mid16 dg16 lv1", 16, 16, 16, 3, False, (180, 320), (0, 0, 0)),
+    ("pyramid mid16 dg16 lv3", 16, 16, 1, 3, False, (180, 320), (0, 0, 0)),
+    ("mid32 per-tap", 32, 32, 8, 3, False, None, (0, 0, 0)),
+    ("mid32 dcn_3", 4, 4, 1, 3, True, None, (0, 0, 0)),
+]
+WIDTH_FRAMES = 5  # the serving slice's t
+# phase 15(b)'s runtime slices in bf16 on seeded weights, kernels against
+# plain versions, a frame: between the sound readings (>= 73.97 dB, max|d|
+# <= 7.8e-3: the output's bf16 rounding sets them) and the planted faults'
+# (the mask 2 % low <= 70.66 dB, the anchored slice served with the plain
+# clamp <= 60.13; NVIDIA H100 80GB HBM3, 700 W). max|d| tells neither fault
+# from the sound frames. A fault below ~2 % of the DCN's output passes.
+WIDTHS_BF16_DB, WIDTHS_BF16_DMAX = 72.0, 0.02
+PLANTED_FAULT = "kernel A's mask read 2 % low"
+# the widths' trunks in (b): (tag, mid, dg, dcn_kernel)
+WIDTH_TRUNKS = [("mid24", 24, 8, 3), ("mid64", 64, 8, 3), ("dg16", 32, 16, 3), ("k5", 32, 8, 5)]
+
+
+def _width_kernels(gen) -> list:
+    """Phase 15(a): the general route of kernels A, D and E, named by
+    ``plan=`` at every width of :data:`WIDTHS` (the rule's own route
+    printed beside it), against their plain versions: f32 to phase 2's
+    limits (A 1e-4 abs, clamped and unclamped; D and E 1e-4 of max|ref|),
+    bf16 to 2e-2 of max|ref| of the f32 plain version on the same values;
+    A and E bit-equal over two runs and from a CUDA graph, D's d-offset,
+    d-mask and dW over two runs; at mid 32 the general route against the
+    tuned one. Device and call ms in bf16 beside the plain version's call
+    ms and the bound (bytes at 3.35 TB/s against the operations at the
+    bf16 peak, as phases 2 and 5 count them). Returns the records."""
+    import torch
+
+    from crfp_torch.ops.cuda import dcn, dcn_fused
+    from crfp_torch.ops.dcn_windowed import (
+        deform_conv2d_fusedprep_ref,
+        deform_conv2d_windowed_ref,
+    )
+
+    modes = []
+    record = functools.partial(_record, modes)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    def rel_err(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    def plain_ms(fn):  # the plain versions are slow: a short loop, call time only
+        return time_ms(fn, iters=3, warmup=1), None
+
+    for wid, c, o, g, k, shared, plane, (a_calls, d_calls, e_calls) in WIDTHS:
+        taps, k2 = (1 if shared else k * k), k * k
+        hw = WARP if shared else (plane or (WARP[0] // 4, WARP[1] // 4))
+        d = 32 if shared else 8
+        tag = f"{wid} C{c} O{o} G{g} {k}x{k}"
+        kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
+        routes = {name: dcn.width_route(name, c, o, g, k, k, shared=shared)
+                  for name in ("dcn_fwd", "dcn_bwd") + (() if shared else ("dcn_fused",))}
+
+        def fwd_plan(x_, d_, kernel="dcn_fwd"):
+            return dcn.tile_plan(*x_.shape, o, g, d_, bf16=x_.dtype == bf, shared_mask=shared,
+                                 shared_taps=shared, kh=k, kw=k, kernel=kernel,
+                                 route="general")
+
+        # ---- A ----------------------------------------------------------
+        x = randn(1, c, *hw)
+        off = (_smooth(gen, 2, hw, d).repeat(1, g * taps, 1, 1)
+               + randn(1, g * taps * 2, *hw, std=1.0 if shared else 2.0))
+        mask = torch.rand(1, g * taps, *hw, generator=gen).cuda()
+        wt, b = randn(o, c, k, k, std=0.1), randn(o)
+        err = 0.0
+        before = dcn.general_launches
+        for d_ in (d, None):
+            kw_ = dict(kw, max_displacement=d_)
+            got = dcn.dcn_forward(x, off, mask, wt, b, plan=fwd_plan(x, d_), **kw_)
+            ref = deform_conv2d_windowed_ref(x, off, mask, wt, b, **kw_)
+            torch.cuda.synchronize()
+            err = max(err, float((got - ref).abs().max()))
+        ref = deform_conv2d_windowed_ref(x, off, mask, wt, b, **kw)
+        xb = x.to(bf)
+        pb = fwd_plan(xb, d)
+        gotb = dcn.dcn_forward(xb, off, mask, wt, b, plan=pb, **kw)
+        torch.cuda.synchronize()
+        rel = rel_err(gotb, ref)
+        if dcn.general_launches != before + 3:
+            fail(f"[widths] A {tag}: {dcn.general_launches - before} general launches, not 3")
+        if not (err <= 1e-4 and rel <= 2e-2):
+            fail(f"[widths] A {tag}: f32 max|d| {err} (limit 1e-4), bf16 {rel} of max|ref| "
+                 f"(limit 2e-2)")
+        if not torch.equal(dcn.dcn_forward(xb, off, mask, wt, b, plan=pb, **kw), gotb) or \
+                not torch.equal(captured(lambda: dcn.dcn_forward(xb, off, mask, wt, b, plan=pb,
+                                                                 **kw)), gotb):
+            fail(f"[widths] A {tag}: two runs, or a CUDA-graph replay, differ")
+        extra = {}
+        if routes["dcn_fwd"] == "tuned":  # the tuned route on the same operands
+            extra["vs_tuned_f32"] = rel_err(
+                dcn.dcn_forward(x, off, mask, wt, b, plan=fwd_plan(x, d), **kw),
+                dcn.dcn_forward(x, off, mask, wt, b, **kw))
+            extra["vs_tuned_bf16"] = rel_err(gotb, dcn.dcn_forward(xb, off, mask, wt, b, **kw))
+            extra["tuned_ms"] = measure(lambda: dcn.dcn_forward(xb, off, mask, wt, b, **kw))
+            if not (extra["vs_tuned_f32"] <= 1e-5 and extra["vs_tuned_bf16"] <= 1e-2):
+                fail(f"[widths] A {tag}: general against tuned {extra}")
+        n_px = hw[0] * hw[1]
+        bnd = bound([xb, off, mask, wt, b], [gotb], 2 * n_px * c * k2 * o + 9 * n_px * c * k2,
+                    "bfloat16")
+        k_ms = measure(lambda: dcn.dcn_forward(xb, off, mask, wt, b, plan=pb, **kw))
+        record("dcn_fwd_general", f"{tag} (1,{c},{hw[0]},{hw[1]}) D={d}", a_calls, err, rel,
+               k_ms, plain_ms(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, **kw)),
+               None, bnd, route=routes["dcn_fwd"], bound_fraction=bnd[0] / k_ms[1],
+               digest=digest(got, gotb), **extra)
+
+        # ---- D, at the amp step's planes ---------------------------------
+        thw = (192, 192) if shared else (48, 48)
+        tn = 2
+        x = randn(tn, c, *thw)
+        off = (_smooth(gen, 2, thw, d, n=tn).repeat(1, g * taps, 1, 1)
+               + randn(tn, g * taps * 2, *thw, std=1.0 if shared else 2.0))
+        mask = torch.rand(tn, g * taps, *thw, generator=gen).cuda()
+        wt, gout = randn(o, c, k, k, std=0.1), randn(tn, o, *thw)
+        bplan = dcn.bwd_plan(tn, c, *thw, o, g, d, shared_taps=shared, shared_mask=shared,
+                             kh=k, kw=k, route="general")
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, off, mask, wt)]
+        deform_conv2d_windowed_ref(*leaves, None, **kw).backward(gout)
+        want = [t.grad for t in leaves]
+        before = dcn.bwd_general_launches
+        got = dcn.dcn_backward(x, off, mask, wt, gout, plan=bplan, **kw)
+        err = max(rel_err(a_, w_) for a_, w_ in zip(got, want))
+        xb, gb = x.to(bf), gout.to(bf)
+        leaves = [t.detach().float().clone().requires_grad_(True) for t in (xb, off, mask, wt)]
+        deform_conv2d_windowed_ref(*leaves, None, **kw).backward(gb.float())
+        gotb = dcn.dcn_backward(xb, off, mask, wt, gb, plan=bplan, **kw)
+        again = dcn.dcn_backward(xb, off, mask, wt, gb, plan=bplan, **kw)
+        torch.cuda.synchronize()
+        rel = max(rel_err(a_, l_.grad) for a_, l_ in zip(gotb, leaves))
+        if dcn.bwd_general_launches != before + 3:
+            fail(f"[widths] D {tag}: {dcn.bwd_general_launches - before} general launches")
+        if not (err <= 1e-4 and rel <= 2e-2):
+            fail(f"[widths] D {tag}: f32 {err} of max|ref| (limit 1e-4), bf16 {rel} (2e-2)")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(gotb[1:], again[1:])):
+            fail(f"[widths] D {tag}: d-offset, d-mask or dW differ over two runs")
+        extra = {}
+        if routes["dcn_bwd"] == "tuned":
+            tuned = dcn.dcn_backward(x, off, mask, wt, gout, **kw)
+            extra["vs_tuned_f32"] = max(rel_err(a_, b_) for a_, b_ in zip(got, tuned))
+            extra["tuned_ms"] = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
+            if not extra["vs_tuned_f32"] <= 1e-4:
+                fail(f"[widths] D {tag}: general against tuned {extra}")
+        n_px = tn * thw[0] * thw[1]
+        bnd = bound([xb, off, mask, wt, gb], list(gotb), n_px * k2 * c * (4 * o + 22),
+                    "bfloat16")
+        k_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, plan=bplan, **kw))
+
+        def plain_bwd():
+            lv = [t.detach().requires_grad_(True) for t in (xb, off, mask, wt)]
+            deform_conv2d_windowed_ref(*lv, None, **kw).backward(gb)
+
+        record("dcn_bwd_general", f"{tag} ({tn},{c},{thw[0]},{thw[1]}) D={d}", d_calls, err,
+               rel, k_ms, plain_ms(plain_bwd), None, bnd, route=routes["dcn_bwd"],
+               bound_fraction=bnd[0] / k_ms[1], digest=digest(*gotb[1:]), **extra)
+
+        # ---- E, per-tap, at the gate's 1/4-res plane ---------------------
+        if shared:
+            continue
+        ghw = plane or (GATE_LR_HW[0] * 2, GATE_LR_HW[1] * 2)
+        x = randn(1, c, *ghw)
+        raw = _smooth(gen, g * k2 * 2, ghw, 0.3) + randn(1, g * k2 * 2, *ghw, std=0.02)
+        rawm = _smooth(gen, g * k2, ghw, 1.5)
+        flow = _smooth(gen, 2, ghw, 3.0)
+        wt, b = randn(o, c, k, k, std=0.1), randn(o)
+        ekw = dict(max_residue_magnitude=10.0, max_displacement=8)
+        before = dcn_fused.general_launches
+        ep = fwd_plan(x, 8, "dcn_fused")
+        got = dcn_fused.deform_conv2d_fusedprep(x, raw, rawm, flow, wt, b, plan=ep, **ekw)
+        ref = deform_conv2d_fusedprep_ref(x, raw, rawm, flow, wt, b, **ekw)
+        xb, rb, rmb = x.to(bf), raw.to(bf), rawm.to(bf)
+        epb = fwd_plan(xb, 8, "dcn_fused")
+        gotb = dcn_fused.deform_conv2d_fusedprep(xb, rb, rmb, flow, wt, b, plan=epb, **ekw)
+        refb = deform_conv2d_fusedprep_ref(xb.float(), rb.float(), rmb.float(), flow, wt, b,
+                                           **ekw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref), rel_err(gotb, refb)
+        if dcn_fused.general_launches != before + 2:
+            fail(f"[widths] E {tag}: {dcn_fused.general_launches - before} general launches")
+        if not (err <= 1e-4 and rel <= 2e-2):
+            fail(f"[widths] E {tag}: f32 {err} of max|ref| (limit 1e-4), bf16 {rel} (2e-2)")
+        if not torch.equal(captured(lambda: dcn_fused.deform_conv2d_fusedprep(
+                xb, rb, rmb, flow, wt, b, plan=epb, **ekw)), gotb):
+            fail(f"[widths] E {tag}: replayed from a CUDA graph it differs")
+        extra = {}
+        if routes["dcn_fused"] == "tuned":
+            extra["vs_tuned_bf16"] = rel_err(gotb, dcn_fused.deform_conv2d_fusedprep(
+                xb, rb, rmb, flow, wt, b, **ekw))
+            extra["tuned_ms"] = measure(lambda: dcn_fused.deform_conv2d_fusedprep(
+                xb, rb, rmb, flow, wt, b, **ekw))
+            if not extra["vs_tuned_bf16"] <= 1e-2:
+                fail(f"[widths] E {tag}: general against tuned {extra}")
+        n_px = ghw[0] * ghw[1]
+        bnd = bound([xb, rb, rmb, flow, wt, b], [gotb],
+                    2 * n_px * c * k2 * o + 9 * n_px * c * k2, "bfloat16")
+        k_ms = measure(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, rmb, flow, wt, b,
+                                                                  plan=epb, **ekw))
+        record("dcn_fused_general", f"{tag} (1,{c},{ghw[0]},{ghw[1]}) D=8", e_calls, err, rel,
+               k_ms, plain_ms(lambda: deform_conv2d_fusedprep_ref(xb, rb, rmb, flow, wt, b,
+                                                                  **ekw)),
+               None, bnd, route=routes["dcn_fused"], bound_fraction=bnd[0] / k_ms[1],
+               digest=digest(got, gotb), **extra)
+    modes += _width_anchored_kernels(gen)
+    return modes
+
+
+def _width_anchored_kernels(gen) -> list:
+    """Phase 15(a), anchored: dcn_3's anchored shared taps on the general
+    route at mid 24 (C = O = 3) and mid 64 (C = O = 8), A forward at the
+    serving plane (1,C,720,720) and D backward at the amp step's
+    (2,C,192,192) on the training grid (``fullgrad``), on a smooth field
+    whose cell anchors reach past D = 32: against their plain versions
+    (autograd of them for D) at phases 12(a) and 14(a)'s limits (A f32 1e-4
+    abs, D f32 1e-4 of max|ref| per gradient, bf16 2e-2 of max|ref|), two
+    runs and a CUDA-graph replay bit-equal, the output (D: d-offset) other
+    than the clamped call's, each launch on the general route and anchored.
+    Returns the records (0 calls a unit: the units are unanchored)."""
+    import torch
+
+    from crfp_torch.ops import anchor as an
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    modes = []
+    record = functools.partial(_record, modes)
+    d = 32
+    kw = dict(max_displacement=d, shared_taps=True, shared_mask=True)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    def beyond(off, geom, what):
+        reach = float(an.anchor_table(off, geom, 1).abs().max())
+        print(f"[widths] {what}: anchors up to {reach:g} px (A = {geom.a_y}/{geom.a_x}), "
+              f"|offset| up to {float(off.abs().max()):.1f} px")
+        if reach < d:
+            fail(f"[widths] {what}: no cell's anchor reaches D = {d}")
+
+    def same_bits(tag, fn):
+        first = fn()
+        if not (torch.equal(fn(), first) and torch.equal(captured(fn), first)):
+            fail(f"[widths] {tag}: two runs and a CUDA-graph replay are not bit-equal")
+        return first
+
+    def now():
+        return (dcn.general_launches, dcn.anchor_launches, dcn.bwd_general_launches,
+                dcn.bwd_anchor_launches)
+
+    def counted(tag, before, fwd, bwd):
+        got = tuple(a - b for a, b in zip(now(), before))
+        if got != (fwd, fwd, bwd, bwd):
+            fail(f"[widths] {tag}: general / anchored launches of A, D {got}, expected "
+                 f"{(fwd, fwd, bwd, bwd)}")
+
+    for mid in (24, 64):
+        c = mid // 8
+        if dcn.width_route("dcn_fwd", c, c, 1, 3, 3, shared=True, bf16=True) != "general" or \
+                dcn.width_route("dcn_bwd", c, c, 1, 3, 3, shared=True) != "general":
+            fail(f"[widths] mid {mid} dcn_3: not on the general route")
+
+        # ---- A, anchored shared taps, at the serving plane ----------------
+        hw = WARP
+        mode = f"anchored mid{mid} dcn_3 C{c} O{c} G1 3x3 (1,{c},{hw[0]},{hw[1]}) D={d}"
+        x = rn(1, c, *hw)
+        off = (_smooth(gen, 2, hw, 40.0) + rn(1, 2, *hw)).contiguous()
+        mask = torch.rand(1, 1, *hw, generator=gen).cuda()
+        wt, b = rn(c, c, 3, 3, std=0.2), rn(c)
+        g32, g16 = (an.dcn_geometry(*hw, c, c, 1, 3, d, bf16=bf16, shared_taps=True,
+                                    shared_mask=True) for bf16 in (False, True))
+        beyond(off, g16, f"A {mode}")
+        before = now()
+        with torch.no_grad():
+            got = dcn.dcn_forward(x, off, mask, wt, b, anchor=g32, **kw)
+            ref = deform_conv2d_windowed_ref(x, off, mask, wt, b, anchor=g32, **kw)
+            xb = x.to(torch.bfloat16)
+            refb = deform_conv2d_windowed_ref(xb.float(), off, mask, wt, b, anchor=g16, **kw)
+            gotb = dcn.dcn_forward(xb, off, mask, wt, b, anchor=g16, **kw)
+            torch.cuda.synchronize()
+            counted(f"A {mode}", before, 2, 0)
+            err = float((got - ref).abs().max())
+            rel = float((gotb.float() - refb).abs().max() / refb.abs().max())
+            if not (err <= 1e-4 and rel <= 2e-2):
+                fail(f"[widths] A {mode}: f32 max|d| {err} (limit 1e-4), bf16 {rel} of "
+                     f"max|ref| (limit 2e-2)")
+
+            def call():
+                return dcn.dcn_forward(xb, off, mask, wt, b, anchor=g16, **kw)
+
+            same_bits(f"A {mode}", call)
+            moved = float((dcn.dcn_forward(xb, off, mask, wt, b, **kw).float()
+                           - gotb.float()).abs().max())
+            if not moved > 0.1 * float(refb.abs().max()):
+                fail(f"[widths] A {mode}: anchored and clamped outputs differ by only {moved}")
+            k_ms = measure(call)
+            c_ms = measure(lambda: dcn.dcn_forward(xb, off, mask, wt, b, **kw))
+            p_ms = (time_ms(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b,
+                                                               anchor=g16, **kw),
+                            iters=3, warmup=1), None)
+        n_px = hw[0] * hw[1]
+        bnd = bound([xb, off, mask, wt, b], [gotb], 2 * n_px * c * 9 * c + 9 * n_px * c * 9,
+                    "bfloat16")
+        record("dcn_fwd_general", mode, 0, err, rel, k_ms, p_ms, None, bnd, route="general",
+               clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+               bound_fraction=bnd[0] / k_ms[1],
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+               digest=digest(got, gotb))
+
+        # ---- D, anchored shared taps, at the amp step's plane -------------
+        n, thw = 2, (192, 192)
+        mode = f"anchored mid{mid} dcn_3 C{c} O{c} G1 3x3 ({n},{c},{thw[0]},{thw[1]}) D={d}"
+        x, gout = rn(n, c, *thw), rn(n, c, *thw)
+        off = (_smooth(gen, 2, thw, 40.0, n=n) + rn(n, 2, *thw)).contiguous()
+        mask = torch.rand(n, 1, *thw, generator=gen).cuda()
+        wt, bias = rn(c, c, 3, 3, std=0.2), rn(c)
+        g32, g16 = (an.dcn_geometry(*thw, c, c, 1, 3, d, bf16=bf16, shared_taps=True,
+                                    shared_mask=True, fullgrad=True) for bf16 in (False, True))
+        beyond(off, g16, f"D {mode}")
+
+        def kern(*a, g=None):
+            return dcn.deform_conv2d_windowed(*a, anchor=g, **kw)
+
+        def plain(*a, g=None):
+            return deform_conv2d_windowed_ref(*a, anchor=g, **kw)
+
+        ops = (x, off, mask, wt, bias)
+        before = now()
+        _, got = _grads(functools.partial(kern, g=g32), ops, gout)
+        _, want = _grads(functools.partial(plain, g=g32), ops, gout)
+        xb, gb = x.to(torch.bfloat16), gout.to(torch.bfloat16)
+        _, gotb = _grads(functools.partial(kern, g=g16), (xb, *ops[1:]), gb)
+        _, wantb = _grads(functools.partial(plain, g=g16), (xb.float(), *ops[1:]), gb.float())
+        torch.cuda.synchronize()
+        counted(f"D {mode}", before, 2, 2)
+        err = _check_grads(f"[widths] D {mode} f32", got, want, 1e-4)[0]
+        _, rel = _check_grads(f"[widths] D {mode} bf16", gotb, wantb, 2e-2)
+        _, table = dcn.dcn_forward(xb, off, mask, wt, bias, anchor=g16, with_table=True, **kw)
+
+        def bwd():
+            return dcn.dcn_backward(xb, off, mask, wt, gb, anchor=g16, table=table, **kw)
+
+        bits = same_bits(f"D {mode}", lambda: torch.cat([t.flatten() for t in bwd()[1:]]))
+        anch, clamp = bwd(), dcn.dcn_backward(xb, off, mask, wt, gb, **kw)
+        moved = float((anch[1] - clamp[1]).abs().max())
+        if not moved > 0.1 * float(anch[1].abs().max()):
+            fail(f"[widths] D {mode}: anchored and clamped d-offset differ by only {moved}")
+        k_ms = measure(bwd)
+        c_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, **kw))
+        p_ms = _time_backward(functools.partial(plain, g=g16), (xb, *ops[1:]), gb, iters=5)
+        n_px = n * thw[0] * thw[1]
+        bnd = bound([xb, off, mask, wt, gb, table], list(anch), n_px * 9 * c * (4 * c + 22),
+                    "bfloat16")
+        record("dcn_bwd_general", mode, 0, err, rel, k_ms, p_ms, None, bnd, route="general",
+               clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+               bound_fraction=bnd[0] / k_ms[1],
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g}",
+               digest=digest(bits))
+    return modes
+
+
+@contextlib.contextmanager
+def general_route():
+    """Every call of kernels A, D and E takes the general route, the tuned
+    widths too (``dcn.forced_route``; the control of phase 15(b))."""
+    from crfp_torch.ops.cuda import dcn
+
+    dcn.forced_route = "general"
+    try:
+        yield
+    finally:
+        dcn.forced_route = None
+
+
+@contextlib.contextmanager
+def planted_fault():
+    """:data:`PLANTED_FAULT`: every call of kernel A (the dispatchers call
+    ``dcn.dcn_forward`` by this name) takes its mask times 0.98. Phase
+    15(b) holds its bf16 frames outside the bf16 limit. (On the seeded
+    runtime every offset lies past its window, so a fault in the sample
+    positions would not show there: 15(a) holds those.)"""
+    from crfp_torch.ops.cuda import dcn
+
+    real = dcn.dcn_forward
+
+    def faulty(x, offset, mask, *args, **kwargs):
+        return real(x, offset, mask * 0.98, *args, **kwargs)
+
+    dcn.dcn_forward = faulty
+    try:
+        yield
+    finally:
+        dcn.dcn_forward = real
+
+
+def _width_runtime(mid: int, dtype, anchored: bool = False):
+    """CRFPRuntimeV18 at ``mid`` on the card, 1080p / warp 720^2, windows
+    8/32 (``anchored``: bench.py's _DEPLOY flags, hr_s2d and dcn_anchor),
+    seeded weights with random DCN heads."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.runtime import CRFPRuntimeV18
+
+    cfg = ModelConfig(mid_channels=mid, dcn_window=8, dcn_window_hr=32, hr_s2d=anchored,
+                      dcn_anchor=anchored)
+    model = _perturb_dcn(CRFPRuntimeV18(cfg, warp_size=WARP, device="cuda", seed=15), 16)
+    return model.to(dtype or torch.float32).eval()
+
+
+def _width_trainer(amp: bool, lr_rate: float, mid: int, dg: int, k: int, seed: int = 15,
+                   anchor: bool = False):
+    """(model, optimizer, train_step) of the recipe's v18 trunk (windows
+    8/32, remat) at this width, seeded with random DCN heads; ``anchor``:
+    anchored on the training grid as phase 14(b) trains (``hr_s2d``,
+    ``dcn_anchor`` + ``dcn_anchor_vjp``)."""
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.train.loop import TrainConfig, make_optimizer, make_train_step
+
+    cfg = ModelConfig(mid_channels=mid, deform_groups=dg, dcn_kernel=k, dcn_window=8,
+                      dcn_window_hr=32, remat=True, hr_s2d=anchor, dcn_anchor=anchor,
+                      dcn_anchor_vjp=anchor)
+    model = _perturb_dcn(CRFP(cfg, device="cuda", seed=seed), seed + 1)
+    tc = TrainConfig(amp=amp, flow_freeze_iters=0, lr_rate=lr_rate)
+    return model, make_optimizer(model, tc), make_train_step(model, tc)
+
+
+def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
+    """Phase 15: every DCN width the JAX kernels take, through the general
+    route of A, D and E. (a) the kernels at every width of :data:`WIDTHS`
+    (:func:`_width_kernels`); (b) the paths at full width, seeded weights
+    with random DCN heads, kernels against plain versions, launch counts
+    and the general route's share of them asserted:
+    1. v18 serving (CRFPRuntimeV18, 1080p / warp 720^2, t = 5, windows 8/32)
+       at mid 24 (A general 4 a steady frame) and mid 64 (dcn_3 general:
+       A 1; dcn_0/1/2 on the O = 64 tuned route): f32 >= 80 dB and max|d|
+       <= 1e-3 a frame, at mid 24 also bf16 at WIDTHS_BF16_DB and
+       WIDTHS_BF16_DMAX (set for seeded weights between the sound
+       readings and the planted faults'), and :func:`planted_fault`'s
+       frames outside them; the control: mid 32 in bf16 through the
+       tuned routes and through the general route forced on the same
+       weights, each against the plain versions at those limits;
+    2. the gate's StreamingRunner at mid 24 on 4 frames of a gate clip:
+       EXACT (A 4, B 3 a steady frame, A all general) and DEPLOY with
+       dcn_fused (E 3, A 1, B 3, every DCN general; anchored dcn_3 and HR
+       warp), in f32 at phase 3's limits, DEPLOY in bf16 at phase 8's
+       (>= 60 dB a frame against the plain versions);
+    3. anchored serving (_DEPLOY) at mid 24 on phase 12's panning clip, f32
+       and bf16 (bf16 at WIDTHS_BF16_DB; A 1, B 1 anchored a steady frame),
+       the same weights served with the plain clamp outside those limits,
+       as phase 12 holds them;
+    4. one f32 train step of the recipe (B 2, T 7, GT 192) at mid 24 and
+       mid 64, then dg 16 and dcn_kernel 5 at mid 32, through the kernels
+       against the plain versions at phase 6's limits, and one amp step each
+       that must stay finite; one anchored f32 step at mid 24
+       (``dcn_anchor`` + ``dcn_anchor_vjp``, ``hr_s2d``) on phase 14(b)'s
+       moving clips at phase 6's limits, dcn_3's anchored A and D on the
+       general route;
+    5. one step of python -m crfp_torch.main with train.sh's flags and
+       --mid_channels 24 (batch 24: the tree's 24 windows) on ``data``.
+    Returns (the records of (a), {path: general-route launch counts})."""
+    import numpy as np
+    import torch
+
+    from crfp_torch import main as cli
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench import deploy_gate as dg
+    from crfp_torch.bench.quality_window import panning_clip
+    from crfp_torch.bench.train import RECIPE
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.crfp import CRFP
+    from crfp_torch.models.streaming import StreamingRunner
+
+    t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"[time] phase 15 {what}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    modes = _width_kernels(gen)
+    lap("(a) kernels")
+    general = {}
+    t, steady = WIDTH_FRAMES, WIDTH_FRAMES - 1
+    rng = np.random.default_rng(15)
+    lrs = torch.from_numpy(rng.uniform(0, 1, (t, 1, *LR_HW, 3)).astype(np.float32)).cuda()
+    fvs = torch.from_numpy(rng.uniform(0, 1, (t, 1, FV, FV, 3)).astype(np.float32)).cuda()
+
+    def serve(model, lrs_, fvs_, dtype):
+        outs = []
+        with torch.inference_mode():
+            for i in range(t):
+                lr, fv = lrs_[i].to(dtype), fvs_[i].to(dtype)
+                x_lr, x_hr = model.encode(lr, fv)
+                if i == 0:
+                    state, out = model.step0(lr, x_lr, x_hr)
+                else:
+                    state, out = model.step(state, lr, lrs_[i - 1].to(dtype), x_lr, x_hr)
+                outs.append(out.float())
+        torch.cuda.synchronize()
+        return outs
+
+    def held(tag, run, expect, expect_general, limits, shape):
+        with plain_kernels():
+            want = run()
+        _zero_counts()
+        got = run()
+        launches, gen_l = _counts(), _general_counts()
+        print(f"[widths] {tag}: launches {launches}, general route {gen_l}")
+        if launches != expect or gen_l != expect_general:
+            fail(f"[widths] {tag}: launches {launches} / general {gen_l} != expected "
+                 f"{expect} / {expect_general}")
+        _frames_agree(f"[widths] {tag}", got, want, *limits, shape=shape)
+        return gen_l, got, want
+
+    def outside(tag, faulty, want, limits, versus):
+        # a planted fault's frames must fall outside the limit that holds the
+        # kernels, which then fails a kernel with that fault
+        readings = _frames_agree(f"[widths] {tag}", faulty[1:], want[1:], -math.inf, None,
+                                 versus=versus)
+        inside = [i + 1 for i, (p, d_) in enumerate(readings)
+                  if p >= limits[0] and (limits[1] is None or d_ <= limits[1])]
+        if inside:
+            fail(f"[widths] {tag}: {versus} frames {inside} fall inside the kernels' limit "
+                 f"(>= {limits[0]:g} dB, max|d| <= {limits[1]}), which then cannot fail "
+                 f"kernels with that fault")
+
+    # 1. serving
+    serve_expect = _expect(dcn_fwd=4 * steady, flow_warp=2 * steady, emit=t)
+    for mid, a_gen, dtypes in ((24, 4, (torch.float32, torch.bfloat16)),
+                               (64, 1, (torch.float32,))):
+        for dtype in dtypes:
+            model = _width_runtime(mid, dtype)
+            bf16 = dtype == torch.bfloat16
+            limits = (WIDTHS_BF16_DB, WIDTHS_BF16_DMAX) if bf16 else (80.0, 1e-3)
+            run = functools.partial(serve, model, lrs, fvs, dtype)
+            got, _, want = held(f"serving mid {mid} {'bf16' if bf16 else 'f32'}", run,
+                                serve_expect, {"dcn_fwd": a_gen * steady, "dcn_bwd": 0,
+                                               "dcn_fused": 0}, limits, (1, *HR_HW, 3))
+            if mid == 24 and bf16:
+                general["serving mid 24 bf16"] = got
+                with planted_fault():
+                    faulty = run()
+                outside(f"serving mid {mid} bf16, {PLANTED_FAULT}", faulty, want, limits,
+                        "planted fault vs plain")
+            del model
+    # the control: mid 32 in bf16, the tuned routes and the general one
+    # forced on the same weights, each against the plain versions
+    model = _width_runtime(32, torch.bfloat16)
+    run32 = functools.partial(serve, model, lrs, fvs, torch.bfloat16)
+    with plain_kernels():
+        want = run32()
+    tuned = run32()
+    _zero_counts()
+    with general_route():
+        forced = run32()
+    if _general_counts()["dcn_fwd"] != 4 * steady:
+        fail(f"[widths] serving mid 32 bf16, general route forced: {_general_counts()}")
+    for tag, got in (("tuned routes", tuned), ("general route forced", forced)):
+        _frames_agree(f"[widths] serving mid 32 bf16 {tag}", got, want, WIDTHS_BF16_DB,
+                      WIDTHS_BF16_DMAX, shape=(1, *HR_HW, 3))
+    _frames_agree("[widths] serving mid 32 bf16", forced, tuned, WIDTHS_BF16_DB,
+                  WIDTHS_BF16_DMAX, versus="general vs tuned routes")
+    del model
+    lap("(b1) serving mid 24, 64; the mid-32 control")
+
+    # 2. the gate's runner at mid 24
+    lr, hr, gaze = dg.gate_clip(np.random.default_rng(24), 50.0, GATE_LR_HW, MID16_FRAMES)
+    gsteady = MID16_FRAMES - 1
+    for tag, cfg, dtype, limits, expect, expect_gen in (
+        ("EXACT f32", ModelConfig(mid_channels=24), torch.float32, (80.0, 1e-3),
+         _expect(dcn_fwd=4 * gsteady, flow_warp=3 * gsteady),
+         {"dcn_fwd": 4 * gsteady, "dcn_bwd": 0, "dcn_fused": 0}),
+        ("DEPLOY f32 dcn_fused", None, torch.float32, (80.0, 1e-3),
+         _expect(dcn_fused=3 * gsteady, dcn_fwd=gsteady, flow_warp=3 * gsteady),
+         {"dcn_fwd": gsteady, "dcn_bwd": 0, "dcn_fused": 3 * gsteady}),
+        # the batch trunk's bf16 frames against plain versions at the gate's
+        # own limit (phase 8); the runtime slices hold phase 12's
+        ("DEPLOY bf16 dcn_fused", None, torch.bfloat16, (GATE_PLAIN_BF16_DB, None),
+         _expect(dcn_fused=3 * gsteady, dcn_fwd=gsteady, flow_warp=3 * gsteady),
+         {"dcn_fwd": gsteady, "dcn_bwd": 0, "dcn_fused": 3 * gsteady}),
+    ):
+        if cfg is None:  # the gate's DEPLOY configuration (bench/deploy_gate.py)
+            cfg = ModelConfig(mid_channels=24, dcn_window=8, dcn_window_hr=32, hr_s2d=True,
+                              dcn_anchor=True, dcn_fused=True)
+        runner = StreamingRunner(_perturb_dcn(CRFP(cfg, device="cuda", seed=24), 25).to(dtype))
+        got, *_ = held(f"gate mid 24 {tag}",
+                       lambda: [out for _, out, _ in dg.stream_clip(runner, lr, hr, gaze)],
+                       expect, expect_gen, limits, (1, *hr.shape[1:3], 3))
+        if tag.startswith("DEPLOY bf16"):
+            general["gate DEPLOY mid 24 bf16"] = got
+        del runner
+    lap("(b2) gate mid 24")
+
+    # 3. anchored serving at mid 24, on phase 12's panning clip
+    alrs, ahrs = (torch.from_numpy(a[:, None]).cuda()
+                  for a in panning_clip(t, LR_HW, ANCHOR_V, seed=15))
+    afvs = ahrs[:, :, :FV, :FV].contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        model = _width_runtime(24, dtype, anchored=True)
+        tag = f"anchored serving mid 24 {'bf16' if bf16 else 'f32'}"
+        limits = (WIDTHS_BF16_DB, WIDTHS_BF16_DMAX) if bf16 else (80.0, 1e-3)
+        _, got, _ = held(tag, functools.partial(serve, model, alrs, afvs, dtype), serve_expect,
+                         {"dcn_fwd": 4 * steady, "dcn_bwd": 0, "dcn_fused": 0}, limits,
+                         (1, *HR_HW, 3))
+        anchored = _anchor_counts()
+        if anchored["dcn_fwd"] != steady or anchored["flow_warp"] != steady:
+            fail(f"[widths] {tag}: anchored launches {anchored}")
+        # the same weights served with the plain clamp (a kernel that drops
+        # the anchor), as phase 12 holds it
+        clamp_model = _width_runtime(24, dtype)
+        clamp_model.load_state_dict(model.state_dict())
+        outside(f"{tag}, plain clamp", serve(clamp_model, alrs, afvs, dtype), got, limits,
+                "anchored vs plain-clamp")
+        del model, clamp_model
+    lap("(b3) anchored serving mid 24")
+
+    # 4. train steps at the recipe's shapes
+    batches = _train_batches()
+    n_rec = RECIPE["t"] - 1
+    for tag, mid, dgn, k in WIDTH_TRUNKS:
+        # the general route's share: A and D at every stage where the rule
+        # says so (f32 A at O = 64 is tuned, dcn_3 at mid 64 general)
+        from crfp_torch.ops.cuda import dcn
+
+        cpg_route = dcn.width_route("dcn_fwd", mid, mid, dgn, k, k)
+        a3 = dcn.width_route("dcn_fwd", mid // 8, mid // 8, 1, k, k, shared=True)
+        d_route = dcn.width_route("dcn_bwd", mid, mid, dgn, k, k)
+        d3 = dcn.width_route("dcn_bwd", mid // 8, mid // 8, 1, k, k, shared=True)
+        a_gen = 2 * n_rec * (3 * (cpg_route == "general") + (a3 == "general"))
+        d_gen = n_rec * (3 * (d_route == "general") + (d3 == "general"))
+        expect_gen = {"dcn_fwd": a_gen, "dcn_bwd": d_gen, "dcn_fused": 0}
+        _train_vs_plain(f"[widths] {tag} train", 1, 2e-4, _train_expect(1), batches,
+                        builder=_width_trainer, expect_general=expect_gen, mid=mid, dg=dgn, k=k)
+        _zero_counts()
+        _, opt, step = _width_trainer(True, 2e-4, mid, dgn, k)
+        loss = float(step(opt, batches[1], 0)["loss"])
+        torch.cuda.synchronize()
+        launches, gen_l = _counts(), _general_counts()
+        print(f"[widths] {tag} amp step: loss {loss:.6f}; launches {launches}, general {gen_l}")
+        if not math.isfinite(loss) or launches != _train_expect(1):
+            fail(f"[widths] {tag} amp step: loss {loss}, launches {launches}")
+        if tag == "mid24":
+            general["amp step mid 24"] = gen_l
+    # anchored at mid 24 (dcn_anchor + dcn_anchor_vjp, hr_s2d) on phase
+    # 14(b)'s moving noise clips: dcn_3's anchored A and D on the general
+    # route (every A and D of mid 24 is general), the HR warp's on B and D
+    from crfp_torch.bench.train import device_batches
+
+    _train_vs_plain("[widths] mid24 anchored train", 1, 2e-4, _train_expect(1),
+                    device_batches(1, seed=14, v_max=ANCHOR_TRAIN_V), builder=_width_trainer,
+                    expect_anchored=_anchor_train_expect(1, n_rec),
+                    expect_general={"dcn_fwd": 8 * n_rec, "dcn_bwd": 4 * n_rec, "dcn_fused": 0},
+                    mid=24, dg=8, k=3, anchor=True)
+    lap("(b4) train steps")
+
+    # 5. python -m crfp_torch.main at mid 24, one step
+    run = tmp / "train_mid24"
+    argv = TRAIN_SH + ["--save_dir", str(run), "--dataset_dir", data,
+                       "--frame_cache", str(tmp / "cache"), "--mid_channels", "24",
+                       "--batch_size", "24", "--val_every", "999999", "--viz_every", "0",
+                       "--save_every", "999999"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    wall = time.perf_counter() - t0
+    got, gen_l = _counts(), _general_counts()
+    losses = [m["loss"] for m in out["metrics"]]
+    print(f"[widths] main, train.sh's flags + --mid_channels 24 --batch_size 24: "
+          f"{out['step']} step(s) in {wall:.2f} s (host clock; {card_line()}); losses "
+          f"{losses}; launches {got}, general {gen_l}")
+    want = _main_expect(train_steps=out["step"])
+    if out["step"] != 1 or not all(math.isfinite(v) for v in losses) or got != want or \
+            gen_l != {"dcn_fwd": want["dcn_fwd"], "dcn_bwd": want["dcn_bwd"], "dcn_fused": 0}:
+        fail(f"[widths] main at mid 24: {out['step']} steps, losses {losses}, launches {got} / "
+             f"general {gen_l} != {want}")
+    lap("(b5) main mid 24")
+    return modes, general
+
+
 def _since(before: dict) -> dict:
     """The launches since the counts ``before``."""
     now = _counts()
@@ -3695,6 +4461,12 @@ def main(argv=None) -> int:
                          "their plain versions, anchored train steps, main --dcn_anchor on a "
                          "REDS-shaped tree it writes), then a {\"modes\": [...]} line; prints "
                          "no final ok line")
+    ap.add_argument("--widths-only", action="store_true",
+                    help="phases 1 and 15 only (build, the general route of kernels A, D "
+                         "and E against their plain versions at every width of the flags, "
+                         "the paths at full width at mid 24 and 64, dg_num 16, dcn_kernel 5, "
+                         "main at --mid_channels 24 on a REDS-shaped tree it writes), then a "
+                         "{\"modes\": [...]} line; prints no final ok line")
     ap.add_argument("--models-bf16-only", action="store_true",
                     help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
                          "kernels against plain versions in bf16, the X8 bf16 frame's "
@@ -3747,6 +4519,14 @@ def main(argv=None) -> int:
         print(f"[done] anchored training phase passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"modes": modes14}))
         return 0
+    if args.widths_only:
+        with tempfile.TemporaryDirectory(prefix="crfp_main_") as tmp:
+            data = str(_write_reds_tree(Path(tmp))) + "/"
+            modes15, _ = timed("15 widths", phase_widths, torch.Generator().manual_seed(15),
+                               data, Path(tmp))
+        print(f"[done] widths phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": modes15}))
+        return 0
     if args.models_bf16_only:
         timed("3d bf16 pyramids and PCD", _models_bf16, _expect())
         print(f"[done] bf16 models passed in {time.perf_counter() - t_start:.1f} s")
@@ -3777,6 +4557,10 @@ def main(argv=None) -> int:
         modes14, atrain_launches, atrain_anchored = timed(
             "14 anchored training", phase_anchor_train, torch.Generator().manual_seed(14),
             str(Path(tmp) / "REDS_sharp") + "/", Path(tmp))
+        # phase 15 too: its main step runs on phase 9's tree
+        modes15, width_general = timed("15 widths", phase_widths,
+                                       torch.Generator().manual_seed(15),
+                                       str(Path(tmp) / "REDS_sharp") + "/", Path(tmp))
     modes += anchor_modes
 
     kernels = []
@@ -3917,6 +4701,46 @@ def main(argv=None) -> int:
             "library_device_ms": per_step("library_device_ms"),
             "clamp_ms": per_step("clamp_ms"), "clamp_device_ms": per_step("clamp_device_ms"),
             "per_unit_of": atrain, "modes": ms,
+        })
+    # the general routes of A, D and E (phase 15), entries of their own: the
+    # TPU kernels' every width; per unit of each one's main path at mid 24
+    for name, base, src, replaces, unit, path in (
+            ("dcn_fwd_general", "dcn_fwd",
+             "crfp_torch/csrc/dcn_fwd.cu + common.cuh::dcn_tiles_general",
+             "crfp_tpu/ops/pallas/dcn.py:59",
+             "main-path calls per steady frame of the mid-24 serving slice (1080p, warp "
+             "720^2, windows 8/32), bf16 inputs", "serving mid 24 bf16"),
+            ("dcn_bwd_general", "dcn_bwd", "crfp_torch/csrc/dcn_bwd.cu (crfp_dcn_bwd_general)",
+             "crfp_tpu/ops/pallas/dcn.py:219",
+             "main-path calls per amp train step at mid 24 (B 2, T 7, GT 192, windows 8/32), "
+             "bf16 inputs", "amp step mid 24"),
+            ("dcn_fused_general", "dcn_fused",
+             "crfp_torch/csrc/dcn_fused.cu + common.cuh::dcn_tiles_general",
+             "crfp_tpu/ops/pallas/dcn.py:1468",
+             "main-path calls per steady DEPLOY frame of the mid-24 gate runner (bf16, windows "
+             "8/32, dcn_fused)", "gate DEPLOY mid 24 bf16")):
+        ms = [m for m in modes15 if m["kernel"] == name]
+        on_path = [m for m in ms if m["calls"] > 0]
+
+        def per_call(key, on_path=on_path):
+            if any(m[key] is None for m in on_path):
+                return None
+            return sum(m[key] * m["calls"] for m in on_path)
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "tpu_counterpart": f"{replaces.split(':')[0]} at every width the TPU kernel takes "
+                               "(any C % G == 0, O, kh x kw), the flags' other widths",
+            # the general-route launches of phase 15(b)'s run of this path
+            "launches": width_general[path][base],
+            "max_abs_err": max(m["max_abs_err"] for m in ms),
+            "ms": per_call("ms"), "call_ms": per_call("call_ms"),
+            "device_ms": per_call("device_ms"), "plain_ms": per_call("plain_ms"),
+            "plain_device_ms": per_call("plain_device_ms"), "bound_ms": per_call("bound_ms"),
+            "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
+                         else "operations"),
+            "library_ms": None, "library_device_ms": None,
+            "per_unit_of": unit, "modes": ms,
         })
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

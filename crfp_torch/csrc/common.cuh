@@ -4,8 +4,10 @@
 // A (dcn_fwd.cu) and E (dcn_fused.cu): x packed per group, pixel-major, by
 // a pre-pass; tiles of pixels per block on a persistent grid; the weight
 // staged once per block; the bf16 contraction on the tensor cores
-// (mma.sync). The two kernels differ only in their prologue. Also the
-// anchor-table pre-pass of the anchored calls of A and B (flow_warp.cu).
+// (mma.sync). The two kernels differ only in their prologue. Beside the
+// tuned routes, the general route of A, E and D (dcn_tiles_general, gen_*),
+// which takes every width. Also the anchor-table pre-pass of the anchored
+// calls of A and B (flow_warp.cu).
 #pragma once
 
 #include <cstdint>
@@ -205,6 +207,35 @@ struct ProA {
       for (int k = 0; k < kTaps; ++k) t.m[k] = __ldg(mk + k * HW);
     }
   }
+
+  // The general route's prologue: tap k of K2 for one pixel and group, the
+  // same arithmetic as operator() at any tap count; m the tap's mask (1
+  // under shared_mask), gm the shared mask (1 otherwise).
+  __device__ __forceinline__ void tap(int n, int g, int G, int k, int K2, long long p,
+                                      long long HW, float D, float& dy, float& dx, float& m,
+                                      float& gm) const {
+    const long long ng = (long long)n * G + g;
+    if (shared_taps) {
+      const float* o = off + ng * 2 * HW + p;
+      if (anchor != nullptr) {
+        const int py = (int)(p / W), px = (int)(p - (long long)py * W);
+        const float* f = anchor + ((ng * nb + py / band) * nt + px / xtile) * 2;
+        const float fy = __ldg(f), fx = __ldg(f + 1);
+        dy = fy + fminf(fmaxf(__ldg(o) - fy, -dl_r), dl_r);
+        dx = fx + fminf(fmaxf(__ldg(o + HW) - fx, -dl_c), dl_c);
+      } else {
+        dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
+      }
+    } else {
+      const float* o = off + (ng * K2 + k) * 2 * HW + p;
+      dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
+    }
+    if (shared_mask) {
+      m = 1.f, gm = __ldg(mask + ng * HW + p);
+    } else {
+      m = __ldg(mask + (ng * K2 + k) * HW + p), gm = 1.f;
+    }
+  }
 };
 
 // The anchors of the TPU kernel's cells, the pre-pass of an anchored call of
@@ -310,6 +341,20 @@ struct ProE {
       t.m[k] = 1.f / (1.f + expf(-load_f(rm + k * HW)));
     }
     t.gm = 1.f;
+  }
+
+  // The general route's prologue: tap k of K2, operator()'s arithmetic.
+  __device__ __forceinline__ void tap(int n, int g, int G, int k, int K2, long long p,
+                                      long long HW, float D, float& dy, float& dx, float& m,
+                                      float& gm) const {
+    const float fx = __ldg(flow + (long long)n * 2 * HW + p);
+    const float fy = __ldg(flow + ((long long)n * 2 + 1) * HW + p);
+    const long long ngk = ((long long)n * G + g) * K2 + k;
+    const T* ro = raw_off + ngk * 2 * HW + p;
+    dy = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro))), fy), D);
+    dx = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro + HW))), fx), D);
+    m = 1.f / (1.f + expf(-load_f(raw_mask + ngk * HW + p)));
+    gm = 1.f;
   }
 };
 
@@ -1114,6 +1159,249 @@ __device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general route of kernels A, E and D (dcn_bwd.cu): every width the TPU
+// kernels take (crfp_tpu/ops/pallas/dcn.py:796-817, :1700-1706): any C with
+// C % G == 0, any O, any kh x kw weight, each a runtime value, as are the
+// taps' places p_k = (k / kw - (kh - 1) / 2, k % kw - (kw - 1) / 2). The
+// tuned routes above keep the widths they were written for; the plans
+// (ops/cuda/dcn.py::tile_plan, bwd_plan) send every other width here.
+//  - gen_pack, the pre-pass: x packed per group, pixel-major, with no
+//    border ([N][G][H][W][CPG]); a thread a pixel, its CPG channels one
+//    scalar at a time, so that no channel count needs a vector size (3
+//    bf16 channels are 6 bytes, which no load takes whole). Every corner
+//    is checked against the frame, so no reach sizes a border.
+//  - K = C * kh * kw is walked in chunks of at most kGenRows rows
+//    (GenChunks): the rows are ordered (group, tap, channel), and a chunk is
+//    kGenRows / CPG whole (group, tap) pairs, or, where CPG > kGenRows, a
+//    run of kGenRows channels of one pair. A thread takes a (pair, pixel)
+//    of the chunk: it reads the tap's (dy, dx, m) from the prologue once
+//    and forms the bilinear geometry once, then walks the pair's channels.
+//  - dcn_tiles_general (A, E): a block of 256 threads on a tile of kGenPix =
+//    32 pixels; per chunk the modulated samples go to U [rows][32] in f32
+//    (rounded to bf16 first for bf16 x, as the TPU kernel rounds its
+//    modulated column, crfp_tpu/ops/pallas/dcn.py:169, and as the tuned
+//    tensor-core route rounds; a shared mask scales after the rounding, as
+//    the TPU scales the group's sum, :196-200) and the chunk's weight rows
+//    for up to kGenOuts = 128 outputs to Ws [rows][opw] (bf16-rounded for
+//    bf16 x, as the tensor-core route's weight); thread (pixel q, slot s)
+//    keeps 4 x 4 sums of outputs 4 (s + 8 j) .. + 3 in registers, f32 FMAs
+//    on the CUDA cores. O > 128 takes the chunks again for each 128
+//    outputs. 40 KB of shared memory at most, whatever C, O and kh x kw.
+// Correct first: every tap's prologue is computed once a (pixel, group,
+// tap), but the weight chunk is staged for each tile and the contraction
+// runs on the CUDA cores in bf16 too.
+// ---------------------------------------------------------------------------
+
+constexpr int kGenPix = 32;      // pixels of a tile
+constexpr int kGenRows = 64;     // rows of K in a chunk
+constexpr int kGenOuts = 128;    // outputs of one pass of the forward
+constexpr int kGenThreads = 256;
+
+// Output columns of the forward's staged weight: O rounded up to 4, at most
+// kGenOuts.
+__host__ __device__ inline int gen_opw(int O) {
+  const int o4 = (O + 3) / 4 * 4;
+  return o4 < kGenOuts ? o4 : kGenOuts;
+}
+
+// Bytes of dynamic shared memory of the general forward (ops/cuda/dcn.py::
+// _gen_smem_bytes): U [kGenRows][kGenPix] and Ws [kGenRows][opw], f32.
+__host__ __device__ inline int gen_smem_bytes(int O) {
+  return 4 * kGenRows * (kGenPix + gen_opw(O));
+}
+
+// The chunks of K, rows ordered (group, tap, channel): row ((g K2 + k) CPG +
+// ci) is channel g CPG + ci at tap k.
+struct GenChunks {
+  int cpg, pairs;  // channels a group; (group, tap) pairs, G * K2
+  int per;         // pairs a chunk (1 where a pair is split)
+  int split;       // chunks a pair (1 unless CPG > kGenRows)
+
+  __host__ __device__ GenChunks(int cpg_, int G, int K2) : cpg(cpg_), pairs(G * K2) {
+    split = cpg_ > kGenRows ? (cpg_ + kGenRows - 1) / kGenRows : 1;
+    per = split > 1 ? 1 : kGenRows / cpg_;
+  }
+  __host__ __device__ int count() const {
+    return split > 1 ? pairs * split : (pairs + per - 1) / per;
+  }
+  // chunk j: pairs [t0, t0 + nt), channels [c0, c0 + nc) of each
+  __device__ __forceinline__ void at(int j, int& t0, int& nt, int& c0, int& nc) const {
+    if (split > 1) {
+      t0 = j / split, nt = 1, c0 = (j % split) * kGenRows;
+      nc = min(kGenRows, cpg - c0);
+    } else {
+      t0 = j * per, nt = min(per, pairs - t0), c0 = 0, nc = cpg;
+    }
+  }
+};
+
+template <typename T>
+struct GenArgs {
+  const T* x;            // (N, C, H, W)
+  T* xp;                 // scratch: x packed per group, [N][G][H][W][CPG]
+  const float* weight;   // (O, C, KH, KW)
+  const float* bias;     // (O,) or NULL
+  T* out;                // (N, O, H, W)
+  int N, C, H, W, G, O, KH, KW;
+  float D;               // clamp; < 0: none
+  int tile_h, tile_w;    // kGenPix pixels
+  int tiles_y, tiles_x;
+};
+
+// The pre-pass of the general route: x (N, C, H, W) -> xp [N][G][H][W][CPG],
+// blocks of 32 x 8 threads over (column, row), blockIdx.z image x group, a
+// thread a pixel; dxp, where not NULL (kernel D), gets zeros in the same
+// layout.
+template <typename T>
+__device__ __forceinline__ void gen_pack(const T* __restrict__ x, T* __restrict__ xp,
+                                         float* __restrict__ dxp, int H, int W, int cpg) {
+  allow_dependent_launch();
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= W || py >= H) return;
+  const long long ng = blockIdx.z, HW = (long long)H * W, p = (long long)py * W + px;
+  const T* src = x + ng * cpg * HW + p;
+  const long long d = (ng * HW + p) * cpg;
+  for (int c = 0; c < cpg; ++c) {
+    xp[d + c] = src[c * HW];
+    if (dxp != nullptr) dxp[d + c] = 0.f;
+  }
+}
+
+// A general-route sample: its four corners' element offsets in a packed
+// plane ([H][W][CPG], 0 for a corner outside the frame), whether each lies
+// inside, and bilinear()'s weights.
+struct GenCorners {
+  long long at[4];
+  bool in[4];
+  Bilinear b;
+};
+
+__device__ __forceinline__ GenCorners gen_corners(float sy, float sx, int H, int W, int cpg) {
+  GenCorners q;
+  q.b = bilinear(sy, sx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = q.b.y0 + i / 2, x = q.b.x0 + i % 2;
+    q.in[i] = y >= 0 && y < H && x >= 0 && x < W;
+    q.at[i] = q.in[i] ? ((long long)y * W + x) * cpg : 0;
+  }
+  return q;
+}
+
+// One channel's four corners (zeros outside the frame), at src + at[i].
+template <typename T>
+__device__ __forceinline__ void gen_corner_values(const GenCorners& q, const T* src,
+                                                  float (&c)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] = q.in[i] ? load_f(src + q.at[i]) : 0.f;
+}
+
+// blend()'s arithmetic on one channel
+__device__ __forceinline__ float gen_blend(const Bilinear& b, const float (&c)[4]) {
+  return fmaf(b.w11, c[3], fmaf(b.w10, c[2], fmaf(b.w01, c[1], b.w00 * c[0])));
+}
+
+template <typename T, typename Prologue>
+__device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Prologue& pro) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* U = reinterpret_cast<float*>(smem);  // [kGenRows][kGenPix]
+  float* Ws = U + kGenRows * kGenPix;         // [kGenRows][opw]
+  const int tid = threadIdx.x;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
+  const int cpg = C / G, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const long long HW = (long long)H * W;
+  const int opw = gen_opw(O);
+  const GenChunks chunks(cpg, G, K2);
+  const int nchunks = chunks.count();
+  // the contraction: pixel q of the tile, output slot s (a warp's)
+  const int q = tid % kGenPix, slot = tid / kGenPix;
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  wait_for_packed_x();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
+    const int n = r0 / a.tiles_y, y0 = (r0 % a.tiles_y) * a.tile_h, x0 = tx * a.tile_w;
+    const int qy = y0 + q / a.tile_w, qx = x0 + q % a.tile_w;
+    for (int o0 = 0; o0 < O; o0 += kGenOuts) {
+      const int on = min(kGenOuts, O - o0);
+      float acc[4][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+      for (int j = 0; j < nchunks; ++j) {
+        int t0, nt, c0, nc;
+        chunks.at(j, t0, nt, c0, nc);
+        const int rows = nt * nc;
+        __syncthreads();  // the last chunk's U and Ws are read
+        // the modulated samples: a thread a (pair, pixel)
+        for (int i = tid; i < nt * kGenPix; i += kGenThreads) {
+          const int tl = i / kGenPix, pq = i - tl * kGenPix;
+          const int pair = t0 + tl, g = pair / K2, k = pair - g * K2;
+          const int py = y0 + pq / a.tile_w, px = x0 + pq % a.tile_w;
+          float* urow = U + tl * nc * kGenPix + pq;
+          if (py >= H || px >= W) {
+            for (int cc = 0; cc < nc; ++cc) urow[cc * kGenPix] = 0.f;
+            continue;
+          }
+          const long long p = (long long)py * W + px;
+          float dy, dx, m, gm;
+          pro.tap(n, g, G, k, K2, p, HW, a.D, dy, dx, m, gm);
+          const GenCorners cr = gen_corners((float)(py + k / KW - ky0) + dy,
+                                            (float)(px + k % KW - kx0) + dx, H, W, cpg);
+          const T* src = a.xp + ((long long)n * G + g) * HW * cpg + c0;
+          for (int cc = 0; cc < nc; ++cc) {
+            float c[4];
+            gen_corner_values(cr, src + cc, c);
+            float u = gen_blend(cr.b, c) * m;
+            if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+            urow[cc * kGenPix] = u * gm;
+          }
+        }
+        // the chunk's weight rows for this pass's outputs
+        for (int i = tid; i < rows * opw; i += kGenThreads) {
+          const int r = i / opw, oo = i - r * opw;
+          const int tl = r / nc, pair = t0 + tl, g = pair / K2, k = pair - g * K2;
+          const int c = g * cpg + c0 + (r - tl * nc);
+          float w = oo < on ? __ldg(a.weight + ((long long)(o0 + oo) * C + c) * K2 + k) : 0.f;
+          if constexpr (kBf16) w = __bfloat162float(__float2bfloat16(w));
+          Ws[i] = w;
+        }
+        __syncthreads();  // U and Ws complete
+        for (int r = 0; r < rows; ++r) {
+          const float u = U[r * kGenPix + q];
+          const float* wr = Ws + r * opw;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int ob = (slot + 8 * s) * 4;
+            if (ob < on) {
+              const float4 w = *reinterpret_cast<const float4*>(wr + ob);
+              acc[s][0] = fmaf(u, w.x, acc[s][0]);
+              acc[s][1] = fmaf(u, w.y, acc[s][1]);
+              acc[s][2] = fmaf(u, w.z, acc[s][2]);
+              acc[s][3] = fmaf(u, w.w, acc[s][3]);
+            }
+          }
+        }
+      }
+      if (qy < H && qx < W) {
+        T* op = a.out + (long long)n * O * HW + (long long)qy * W + qx;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int o = (slot + 8 * s) * 4 + jj;
+            if (o < on) {
+              const float b = a.bias != nullptr ? __ldg(a.bias + o0 + o) : 0.f;
+              op[(long long)(o0 + o) * HW] = store_f<T>(acc[s][jj] + b);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // ---- host side --------------------------------------------------------
 
 // The grid of a persistent launch of `fn`: min(tiles, resident blocks per
@@ -1215,6 +1503,53 @@ inline cudaError_t check_plan(TileArgs<T>& a, bool mma, int cpg, int O, int smem
   a.tiles_x = (a.W + tw - 1) / tw;
   *tiles = a.N * a.tiles_y * a.tiles_x;
   return *tiles > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The general route's plan check (ops/cuda/dcn.py::tile_plan with route
+// "general"): tiles of kGenPix pixels, no border (every corner is checked),
+// gen_smem_bytes; completes the tile counts.
+template <typename T>
+inline cudaError_t check_gen_plan(GenArgs<T>& a, int pad, int smem, int* tiles) {
+  if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != kGenPix || pad != 0)
+    return cudaErrorInvalidValue;
+  if (a.G < 1 || a.C < 1 || a.C % a.G || a.O < 1 || a.KH < 1 || a.KW < 1)
+    return cudaErrorInvalidValue;
+  if (smem != gen_smem_bytes(a.O)) return cudaErrorInvalidValue;
+  a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
+  a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
+  *tiles = a.N * a.tiles_y * a.tiles_x;
+  return *tiles > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches the general route: the pre-pass `pack` over the frame and N * G
+// planes, then `fn` on a persistent grid as its programmatic dependent.
+template <typename T, typename Prologue>
+inline cudaError_t launch_general(void (*pack)(const T*, T*, float*, int, int, int),
+                                  void (*fn)(GenArgs<T>, Prologue), GenArgs<T> a,
+                                  const Prologue& pro, int pad, int smem,
+                                  cudaStream_t stream) {
+  int tiles = 0, grid = 0;
+  cudaError_t e = check_gen_plan(a, pad, smem, &tiles);
+  if (e != cudaSuccess) return e;
+  e = tiled_grid(reinterpret_cast<const void*>(fn), kGenThreads, smem, tiles, &grid);
+  if (e != cudaSuccess) return e;
+  pack<<<dim3((unsigned)((a.W + 31) / 32), (unsigned)((a.H + 7) / 8), (unsigned)(a.N * a.G)),
+         dim3(32, 8), 0, stream>>>(a.x, a.xp, nullptr, a.H, a.W, a.C / a.G);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3((unsigned)kGenThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fn, a, pro);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace crfp

@@ -80,6 +80,11 @@
 // us less, without the s and dW arithmetic at most 5 us less. So the
 // contraction stays on the CUDA cores, where bf16 and f32 share one code
 // path; the atomics are what a next design must cut.
+//
+// The kernel above is the tuned route (the widths of dispatch(): O in {2, 4,
+// 16, 32}, 2 or 4 channels a group, G <= 8, 3x3). Every other width the TPU
+// kernel takes runs the general route below, crfp_dcn_bwd_general, in the
+// same three launches with every size a runtime value.
 #include "common.cuh"
 
 namespace {
@@ -135,6 +140,11 @@ struct BwdArgs {
   const float* anchor;
   int band, xtile, nb, nt;
   float dl_r, dl_c;
+  // the general route: the weight's KH x KW, and under shared taps or a
+  // shared mask its per-tap sums [N][G][K2][3][H][W] (d-mask, d-offset y,
+  // x), which the epilogue adds up over the taps in order
+  int KH, KW;
+  float* tap_part;
 };
 
 // dv * w into one corner of the packed f32 accumulator: one vector atomic
@@ -516,6 +526,219 @@ __global__ void __launch_bounds__(256) dcn_bwd_epilogue(BwdArgs<T> a, int nb_dx)
   }
 }
 
+// ---- the general route ------------------------------------------------
+// Every width the TPU kernel takes (any C % G == 0, O, KH x KW; common.cuh's
+// note on the general route), in the tuned route's three launches:
+//  1. dcn_bwd_general_pack: x packed per group, pixel-major, no border
+//     (common.cuh::gen_pack, scalar stores for any CPG), and the f32 dx
+//     accumulator of the same layout zeroed;
+//  2. dcn_bwd_general (programmatic dependent launch, persistent grid): a
+//     block of 256 threads on tiles of kGenPix = 32 pixels walks K = C KH KW
+//     in common.cuh's chunks (rows ordered (group, tap, channel)). Per chunk
+//     (a) s = W^T g for each row and pixel into S [rows][32], a thread a
+//     (row, pixel), the O products from the f32 weight and grad_out through
+//     L1; (b) a thread a (group, tap) pair and pixel: the tap's geometry
+//     once, then per channel the sample v, d-mask += v s, dv = m gm s, the
+//     d-offset sums, u = m gm v (rounded to bf16 for bf16 x) into U [rows]
+//     [33], and dx by one f32 atomicAdd a corner and channel into the packed
+//     accumulator (no vector width fits every CPG); a pair's d-mask and
+//     d-offset (times the clamp's derivative, or anchored the residual
+//     clip's) are written once, under shared taps (a shared mask) as
+//     per-tap sums into tap_part; a pair split over chunks (CPG > 64)
+//     carries its sums in shared memory; (c) dW += g^T u, a thread an
+//     (output, row) element summed over the tile's pixels into the block's
+//     partial, in tile order.
+//  3. dcn_bwd_general_epilogue: dx unpacked into x's type; under shared taps
+//     d-offset, under a shared mask d-mask, summed over the taps in order;
+//     dW summed over the blocks' partials in order. So dW, d-offset and
+//     d-mask are deterministic; only dx's f32 atomics are not.
+// Shared memory: 17,024 bytes whatever the widths (gen_bwd_smem_bytes).
+
+// bytes of dynamic shared memory (ops/cuda/dcn.py::_gen_bwd_smem_bytes): S
+// [kGenRows][kGenPix], U [kGenRows][kGenPix + 1], a split pair's sums
+// [kGenPix][3], f32
+__host__ __device__ constexpr int gen_bwd_smem_bytes() {
+  return 4 * (crfp::kGenRows * crfp::kGenPix + crfp::kGenRows * (crfp::kGenPix + 1) +
+              3 * crfp::kGenPix);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) dcn_bwd_general_pack(BwdArgs<T> a) {
+  crfp::gen_pack(a.x, a.xp, a.dxp, a.H, a.W, a.C / a.G);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int P = crfp::kGenPix, R = crfp::kGenRows, US = P + 1, NT = crfp::kGenThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* S = reinterpret_cast<float*>(smem);  // [R][P]
+  float* Us = S + R * P;                      // [R][US]
+  float* part = Us + R * US;                  // [P][3]
+  const int tid = threadIdx.x;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
+  const int cpg = C / G, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const long long HW = (long long)H * W;
+  const crfp::GenChunks chunks(cpg, G, K2);
+  const int nchunks = chunks.count();
+  const int taps = a.shared_taps ? 1 : K2;
+  float* dwp = a.dw_part + (long long)blockIdx.x * O * C * K2;  // [O][C][K2]
+
+  crfp::wait_for_packed_x();  // the packed x and the zeroed accumulator
+  crfp::allow_dependent_launch();
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
+    const int n = r0 / a.tiles_y, y0 = (r0 % a.tiles_y) * a.tile_h, x0 = tx * a.tile_w;
+    const bool first = tile == (int)blockIdx.x;
+    const T* gn = a.gout + (long long)n * O * HW;
+    for (int j = 0; j < nchunks; ++j) {
+      int t0, nt, c0, nc;
+      chunks.at(j, t0, nt, c0, nc);
+      const int rows = nt * nc;
+      // (a) s = W^T g; the last chunk's (c) read only U
+      for (int i = tid; i < rows * P; i += NT) {
+        const int r = i / P, pq = i - r * P;
+        const int tl = r / nc, pair = t0 + tl, g = pair / K2, k = pair - g * K2;
+        const int c = g * cpg + c0 + (r - tl * nc);
+        const int py = y0 + pq / a.tile_w, px = x0 + pq % a.tile_w;
+        float s = 0.f;
+        if (py < H && px < W) {
+          const T* go = gn + (long long)py * W + px;
+          const float* wr = a.weight + (long long)c * K2 + k;
+          for (int o = 0; o < O; ++o)
+            s = fmaf(__ldg(wr + (long long)o * C * K2), crfp::load_f(go + o * HW), s);
+        }
+        S[i] = s;
+      }
+      __syncthreads();  // S complete; U free
+      // (b) a thread a (pair, pixel)
+      for (int i = tid; i < nt * P; i += NT) {
+        const int tl = i / P, pq = i - tl * P;
+        const int pair = t0 + tl, g = pair / K2, k = pair - g * K2;
+        const int py = y0 + pq / a.tile_w, px = x0 + pq % a.tile_w;
+        float* urow = Us + tl * nc * US + pq;
+        if (py >= H || px >= W) {
+          for (int cc = 0; cc < nc; ++cc) urow[cc * US] = 0.f;
+          continue;
+        }
+        const long long p = (long long)py * W + px, ng = (long long)n * G + g;
+        const float* offp = a.off + (ng * taps + (a.shared_taps ? 0 : k)) * 2 * HW + p;
+        const float oy = __ldg(offp), ox = __ldg(offp + HW);
+        float ey = crfp::clamp_window(oy, a.D), ex = crfp::clamp_window(ox, a.D);
+        float pass_y = crfp::clamp_pass(oy, a.D), pass_x = crfp::clamp_pass(ox, a.D);
+        if (a.anchor != nullptr) {  // dcn_bwd_kernel's anchored arithmetic
+          const float* f = a.anchor + ((ng * a.nb + py / a.band) * a.nt + px / a.xtile) * 2;
+          const float fy = __ldg(f), fx = __ldg(f + 1);
+          const float ry = oy - fy, rx = ox - fx;
+          pass_y = ry >= -a.dl_r && ry <= a.dl_r ? 1.f : 0.f;
+          pass_x = rx >= -a.dl_c && rx <= a.dl_c ? 1.f : 0.f;
+          ey = fy + fminf(fmaxf(ry, -a.dl_r), a.dl_r);
+          ex = fx + fminf(fmaxf(rx, -a.dl_c), a.dl_c);
+        }
+        const float m = a.shared_mask ? 1.f : __ldg(a.mask + (ng * K2 + k) * HW + p);
+        const float gm = a.shared_mask ? __ldg(a.mask + ng * HW + p) : 1.f;
+        const float mult = m * gm;
+        const float sy = (float)(py + k / KW - ky0) + ey, sx = (float)(px + k % KW - kx0) + ex;
+        const crfp::GenCorners cr = crfp::gen_corners(sy, sx, H, W, cpg);
+        const float fy = sy - floorf(sy), fx = sx - floorf(sx);
+        const T* src = a.xp + ng * HW * cpg + c0;
+        float* dst = a.dxp + ng * HW * cpg + c0;
+        const float wq[4] = {cr.b.w00, cr.b.w01, cr.b.w10, cr.b.w11};
+        float dm = 0.f, dsy = 0.f, dsx = 0.f;
+        if (c0 > 0) dm = part[pq * 3], dsy = part[pq * 3 + 1], dsx = part[pq * 3 + 2];
+        for (int cc = 0; cc < nc; ++cc) {
+          float cv[4];
+          crfp::gen_corner_values(cr, src + cc, cv);
+          const float v = crfp::gen_blend(cr.b, cv);
+          const float s = S[(tl * nc + cc) * P + pq];
+          dm = fmaf(v, s, dm);
+          const float dv = mult * s;
+          dsy = fmaf(dv, (1.f - fx) * (cv[2] - cv[0]) + fx * (cv[3] - cv[1]), dsy);
+          dsx = fmaf(dv, (1.f - fy) * (cv[1] - cv[0]) + fy * (cv[3] - cv[2]), dsx);
+          float u = mult * v;
+          if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+          urow[cc * US] = u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (cr.in[q]) atomicAdd(dst + cr.at[q] + cc, dv * wq[q]);
+        }
+        if (c0 + nc < cpg) {  // the pair goes on in the next chunk
+          part[pq * 3] = dm, part[pq * 3 + 1] = dsy, part[pq * 3 + 2] = dsx;
+          continue;
+        }
+        if (a.shared_taps || a.shared_mask) {  // summed over the taps by the epilogue
+          float* tp = a.tap_part + ((ng * K2 + k) * 3) * HW + p;
+          tp[0] = dm;
+          tp[HW] = pass_y * dsy;
+          tp[2 * HW] = pass_x * dsx;
+        }
+        if (!a.shared_mask) a.dmask[(ng * K2 + k) * HW + p] = dm;
+        if (!a.shared_taps) {
+          a.doff[(ng * K2 + k) * 2 * HW + p] = pass_y * dsy;
+          a.doff[((ng * K2 + k) * 2 + 1) * HW + p] = pass_x * dsx;
+        }
+      }
+      __syncthreads();  // U complete
+      // (c) dW += g^T u over the tile, into the block's partial
+      for (int i = tid; i < O * rows; i += NT) {
+        const int o = i / rows, r = i - o * rows;
+        const int tl = r / nc, pair = t0 + tl, g = pair / K2, k = pair - g * K2;
+        const int c = g * cpg + c0 + (r - tl * nc);
+        const T* go = gn + (long long)o * HW;
+        const float* ur = Us + r * US;
+        float t = 0.f;
+        for (int pq = 0; pq < P; ++pq) {
+          const int py = y0 + pq / a.tile_w, px = x0 + pq % a.tile_w;
+          if (py < H && px < W) t = fmaf(crfp::load_f(go + (long long)py * W + px), ur[pq], t);
+        }
+        float* e = dwp + ((long long)o * C + c) * K2 + k;
+        *e = first ? t : *e + t;
+      }
+    }
+  }
+}
+
+// Launch 3 of the general route: blocks [0, nb_px) take a thread a (image,
+// group, pixel): dx unpacked, under shared taps the per-tap sums added up in
+// tap order; the rest a thread a dW element, the blocks' partials summed in
+// order.
+template <typename T>
+__global__ void __launch_bounds__(256) dcn_bwd_general_epilogue(BwdArgs<T> a, int nb_px) {
+  crfp::wait_for_packed_x();  // the tiled kernel has finished
+  const long long HW = (long long)a.H * a.W;
+  const int K2 = a.KH * a.KW, cpg = a.C / a.G;
+  if ((int)blockIdx.x < nb_px) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)a.N * a.G * HW) return;
+    const long long ng = i / HW, p = i - ng * HW;
+    const float* v = a.dxp + i * cpg;
+    T* out = a.dx + ng * cpg * HW + p;
+    for (int c = 0; c < cpg; ++c) out[c * HW] = crfp::store_f<T>(v[c]);
+    if (a.shared_taps || a.shared_mask) {
+      const float* tp = a.tap_part + ng * K2 * 3 * HW + p;
+      float dm = 0.f, sy = 0.f, sx = 0.f;
+      for (int k = 0; k < K2; ++k) {
+        dm += tp[(k * 3) * HW];
+        sy += tp[(k * 3 + 1) * HW];
+        sx += tp[(k * 3 + 2) * HW];
+      }
+      if (a.shared_taps) {
+        a.doff[ng * 2 * HW + p] = sy;
+        a.doff[(ng * 2 + 1) * HW + p] = sx;
+      }
+      if (a.shared_mask) a.dmask[ng * HW + p] = dm;
+    }
+    return;
+  }
+  const long long E = (long long)a.O * a.C * K2;
+  const long long e = (long long)((int)blockIdx.x - nb_px) * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  float s = 0.f;
+  for (int b = 0; b < a.grid; ++b) s += a.dw_part[(long long)b * E + e];
+  a.dw[e] = s;
+}
+
 // a programmatic dependent launch of `fn` on `stream`
 template <typename... Args>
 cudaError_t launch_dependent(void (*fn)(Args...), dim3 grid, dim3 block, int smem,
@@ -532,6 +755,23 @@ cudaError_t launch_dependent(void (*fn)(Args...), dim3 grid, dim3 block, int sme
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, fn, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_general(BwdArgs<T> a, int smem, cudaStream_t stream) {
+  dcn_bwd_general_pack<T><<<dim3((unsigned)((a.W + 31) / 32), (unsigned)((a.H + 7) / 8),
+                                 (unsigned)(a.N * a.G)),
+                            dim3(32, 8), 0, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_dependent(dcn_bwd_general<T>, dim3((unsigned)a.grid), dim3(crfp::kGenThreads), smem,
+                       stream, a);
+  if (e != cudaSuccess) return e;
+  const long long pixels = (long long)a.N * a.G * a.H * a.W;
+  const int nb_px = (int)((pixels + 255) / 256);
+  const int nb_dw = (int)(((long long)a.O * a.C * a.KH * a.KW + 255) / 256);
+  return launch_dependent(dcn_bwd_general_epilogue<T>, dim3((unsigned)(nb_px + nb_dw)),
+                          dim3(256), 0, stream, a, nb_px);
 }
 
 template <typename T, int O, int CPG>
@@ -621,44 +861,104 @@ cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch, int a_y, int a_x) {
   return tiles > 0 && a.grid >= 1 && a.grid <= tiles ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The general route's plan check (ops/cuda/dcn.py::bwd_plan, route
+// "general"): tiles of kGenPix pixels, no border, no patch, the fixed shared
+// memory; anchored: shared taps and a cell grid.
 template <typename T>
-cudaError_t run(const void* x, const void* offset, const void* mask, const void* weight,
-                const void* grad_out, void* dx, void* d_offset, void* d_mask, void* dw,
-                void* x_packed, void* acc, int N, int C, int H, int W, int O, int G, float D,
-                int shared_taps, int shared_mask, int tile_h, int tile_w, int pad, int smem,
-                int grid, int patch, const float* anchor, int band, int xtile, int a_y,
-                int a_x, float dl_r, float dl_c, cudaStream_t s) {
+cudaError_t check_general_plan(BwdArgs<T>& a, int smem, int patch) {
+  if (a.G < 1 || a.C < 1 || a.C % a.G || a.O < 1 || a.KH < 1 || a.KW < 1)
+    return cudaErrorInvalidValue;
+  if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != crfp::kGenPix || a.pad != 0 ||
+      patch)
+    return cudaErrorInvalidValue;
+  if (a.anchor != nullptr && (!a.shared_taps || a.band < 1 || a.xtile < 1))
+    return cudaErrorInvalidValue;
+  if (smem != gen_bwd_smem_bytes()) return cudaErrorInvalidValue;
+  a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
+  a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  return tiles > 0 && a.grid >= 1 && a.grid <= tiles ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t run(bool general, const void* x, const void* offset, const void* mask,
+                const void* weight, const void* grad_out, void* dx, void* d_offset,
+                void* d_mask, void* dw, void* x_packed, void* acc, int N, int C, int H, int W,
+                int O, int G, int KH, int KW, float D, int shared_taps, int shared_mask,
+                int tile_h, int tile_w, int pad, int smem, int grid, int patch,
+                const float* anchor, int band, int xtile, int a_y, int a_x, float dl_r,
+                float dl_c, cudaStream_t s) {
   const int Hp = crfp::padded(H, pad), Wp = crfp::padded(W, pad);
   float* dxp = static_cast<float*>(acc);
+  float* dw_part = dxp + (long long)N * C * Hp * Wp;
   BwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(offset),
                static_cast<const float*>(mask), static_cast<const float*>(weight),
                static_cast<const T*>(grad_out), static_cast<T*>(dx),
                static_cast<float*>(d_offset), static_cast<float*>(d_mask),
-               static_cast<float*>(dw), static_cast<T*>(x_packed), dxp,
-               dxp + (long long)N * C * Hp * Wp,
+               static_cast<float*>(dw), static_cast<T*>(x_packed), dxp, dw_part,
                N, C, H, W, O, G, D, shared_taps, shared_mask,
                tile_h, tile_w, pad, 0, 0, grid,
                anchor, band, xtile, band > 0 ? (H + band - 1) / band : 0,
-               xtile > 0 ? (W + xtile - 1) / xtile : 0, dl_r, dl_c};
+               xtile > 0 ? (W + xtile - 1) / xtile : 0, dl_r, dl_c,
+               KH, KW, dw_part + (long long)grid * O * C * KH * KW};
+  if (general) {
+    cudaError_t e = check_general_plan(a, smem, patch);
+    return e != cudaSuccess ? e : launch_general(a, smem, s);
+  }
   cudaError_t e = check_plan(a, smem, patch, a_y, a_x);
   if (e != cudaSuccess) return e;
   return dispatch(a, smem, patch, s);
+}
+
+int entry(bool general, const void* x, const void* offset, const void* mask,
+          const void* weight, const void* grad_out, void* dx, void* d_offset, void* d_mask,
+          void* dw, void* x_packed, void* acc, int N, int C, int H, int W, int O, int G, int KH,
+          int KW, float D, int shared_taps, int shared_mask, int x_bf16, const void* anchor,
+          int band, int xtile, int a_y, int a_x, float dl_r, float dl_c, int tile_h,
+          int tile_w, int pad, int smem_bytes, int grid, int patch, void* stream) {
+  if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
+  if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* an = static_cast<const float*>(anchor);
+  cudaError_t e =
+      x_bf16 ? run<__nv_bfloat16>(general, x, offset, mask, weight, grad_out, dx, d_offset,
+                                  d_mask, dw, x_packed, acc, N, C, H, W, O, G, KH, KW, D,
+                                  shared_taps, shared_mask, tile_h, tile_w, pad, smem_bytes,
+                                  grid, patch, an, band, xtile, a_y, a_x, dl_r, dl_c, s)
+             : run<float>(general, x, offset, mask, weight, grad_out, dx, d_offset, d_mask,
+                          dw, x_packed, acc, N, C, H, W, O, G, KH, KW, D, shared_taps,
+                          shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch, an, band,
+                          xtile, a_y, a_x, dl_r, dl_c, s);
+  return (int)e;
 }
 
 }  // namespace
 
 CRFP_EXPORT_ERROR_STRING
 
+#define CRFP_DCN_BWD_ARGS                                                                    \
+  const void *x, const void *offset, const void *mask, const void *weight,                  \
+      const void *grad_out, void *dx, void *d_offset, void *d_mask, void *dw,               \
+      void *x_packed, void *acc, int N, int C, int H, int W, int O, int G, int KH, int KW,  \
+      float D, int shared_taps, int shared_mask, int x_bf16, const void *anchor, int band,  \
+      int xtile, int sub_tile, int lane_q, int a_y, int a_x, float dl_r, float dl_c,        \
+      int tile_h, int tile_w, int pad, int smem_bytes, int grid, int patch, void *stream
+#define CRFP_DCN_BWD_PASS                                                                    \
+  x, offset, mask, weight, grad_out, dx, d_offset, d_mask, dw, x_packed, acc, N, C, H, W, O, \
+      G, KH, KW, D, shared_taps, shared_mask, x_bf16, anchor, band, xtile, a_y, a_x, dl_r,  \
+      dl_c, tile_h, tile_w, pad, smem_bytes, grid, patch, stream
+
 // x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32; mask
-// (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; grad_out (N, O, H, W) in
+// (N, G*M, H, W) f32; weight (O, C, KH, KW) f32; grad_out (N, O, H, W) in
 // x's type. Outputs, every element written: dx (N, C, H, W) in x's type,
 // d_offset and d_mask in the layouts of offset and mask (f32), dw (O, C,
-// 3, 3) f32. Scratch: x_packed, N*C*padded(H)*padded(W) elements of x's
+// KH, KW) f32. Scratch: x_packed, N*C*padded(H)*padded(W) elements of x's
 // type; acc, f32: the packed dx accumulator (as many elements), then
-// grid*O*C*9 for the blocks' dW partials. All contiguous. O in {2, 4, 16,
-// 32}, C/G in {2, 4}, G in {1, 2, 4, 8}. The plan (tile_h, tile_w, pad,
-// smem_bytes, grid, patch), the last arguments, is ops/cuda/dcn.py::bwd_plan's.
-// Three launches, no synchronisation, no allocation.
+// grid*O*C*K2 for the blocks' dW partials. All contiguous. crfp_dcn_bwd
+// takes the tuned widths, 3x3 weights: O in {2, 4, 16, 32}, C/G in {2, 4},
+// G in {1, 2, 4, 8}. The plan (tile_h, tile_w, pad, smem_bytes, grid,
+// patch), the last arguments, is ops/cuda/dcn.py::bwd_plan's. Three
+// launches, no synchronisation, no allocation.
 //
 // Anchored (anchor not NULL, shared taps only): the table that the forward's
 // pre-pass wrote (crfp_dcn_fwd's `anchor`), f32 [N][G][ceil(H / band)]
@@ -667,26 +967,13 @@ CRFP_EXPORT_ERROR_STRING
 // and dl_r, dl_c the residual margins; D the anchored reach max(a_y + dl_r,
 // a_x + dl_c), which bounds every displacement and so sizes the padding
 // (pad >= ceil(D) + 1). NULL: zeros in band ... dl_c.
-extern "C" int crfp_dcn_bwd(const void* x, const void* offset, const void* mask,
-                            const void* weight, const void* grad_out, void* dx,
-                            void* d_offset, void* d_mask, void* dw, void* x_packed,
-                            void* acc, int N, int C, int H, int W, int O, int G, int KH,
-                            int KW, float D, int shared_taps, int shared_mask, int x_bf16,
-                            const void* anchor, int band, int xtile, int sub_tile,
-                            int lane_q, int a_y, int a_x, float dl_r, float dl_c,
-                            int tile_h, int tile_w, int pad, int smem_bytes, int grid,
-                            int patch, void* stream) {
-  if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* an = static_cast<const float*>(anchor);
-  cudaError_t e =
-      x_bf16 ? run<__nv_bfloat16>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask,
-                                  dw, x_packed, acc, N, C, H, W, O, G, D, shared_taps,
-                                  shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch,
-                                  an, band, xtile, a_y, a_x, dl_r, dl_c, s)
-             : run<float>(x, offset, mask, weight, grad_out, dx, d_offset, d_mask, dw,
-                          x_packed, acc, N, C, H, W, O, G, D, shared_taps, shared_mask,
-                          tile_h, tile_w, pad, smem_bytes, grid, patch, an, band, xtile, a_y,
-                          a_x, dl_r, dl_c, s);
-  return (int)e;
+extern "C" int crfp_dcn_bwd(CRFP_DCN_BWD_ARGS) { return entry(false, CRFP_DCN_BWD_PASS); }
+
+// The general route (see "the general route" above): any C % G == 0, O and
+// KH x KW, per-tap, shared taps or anchored shared taps; pad 0, tiles of 32
+// pixels, smem_bytes gen_bwd_smem_bytes(), no patch. acc holds the dx
+// accumulator (N*C*H*W), the dW partials (grid*O*C*KH*KW) and, under shared
+// taps or a shared mask, the per-tap sums (N*G*KH*KW*3*H*W).
+extern "C" int crfp_dcn_bwd_general(CRFP_DCN_BWD_ARGS) {
+  return entry(true, CRFP_DCN_BWD_PASS);
 }

@@ -34,7 +34,10 @@
 // crfp::ProE, which computes each (pixel, group, tap)'s offsets and mask in
 // registers instead of reading f32 tensors that ~14 elementwise launches
 // would have written first. The same offsets therefore give the same bits
-// as "PyTorch prologue, then kernel A" in f32 and in bf16.
+// as "PyTorch prologue, then kernel A" in f32 and in bf16. Every width
+// beside dcn_0/1/2's at mid 16 and 32 (any C % G == 0, O, kh x kw) takes
+// the general route, crfp_dcn_fused_general: kernel A's general routine
+// (common.cuh::dcn_tiles_general) with the same prologue, tap by tap.
 //
 // Bound on the H100 (bf16 x and heads): at the gate shape (1, 32, 180, 320)
 // x 3.7 MB + offset head (1, 144, ...) 16.6 MB + mask head (1, 72, ...)
@@ -62,6 +65,20 @@ template <typename T, int CPG>
 __global__ void __launch_bounds__(256)
 dcn_fused_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int W, int pad) {
   crfp::pack_x<T, CPG>(x, xp, H, W, pad);
+}
+
+// the general route (common.cuh::dcn_tiles_general) and its pre-pass
+template <typename T>
+__global__ void __launch_bounds__(crfp::kGenThreads)
+dcn_fused_general(crfp::GenArgs<T> a, crfp::ProE<T> pro) {
+  crfp::dcn_tiles_general(a, pro);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+dcn_fused_general_pack(const T* __restrict__ x, T* __restrict__ xp, float* __restrict__ dxp,
+                       int H, int W, int cpg) {
+  crfp::gen_pack(x, xp, dxp, H, W, cpg);
 }
 
 // bf16 x at O = 32 on the tensor cores; f32 x and O = 16 on the CUDA cores
@@ -93,21 +110,15 @@ cudaError_t dispatch(int O, int cpg, const crfp::TileArgs<T>& a, const crfp::Pro
 
 CRFP_EXPORT_ERROR_STRING
 
-// x: (N, C, H, W), raw_off (N, G*9*2, H, W) and raw_mask (N, G*9, H, W),
-// all f32 or all bf16 (x_bf16); flow (N, 2, H, W) f32, channels (dx, dy);
-// weight (O, C, 3, 3) f32; bias (O,) f32 or NULL; out (N, O, H, W) in x's
-// type; x_packed: scratch of N*C*padded(H)*padded(W) elements of x's
-// type. All contiguous. D < 0: no clamp. O in {16, 32} (dcn_0/1/2 at mid 16
-// and 32), C/G in {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's
-// (per-tap, no shared mask: the tensor cores take bf16 x at O = 32). No
-// synchronisation, no allocation.
-extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
-                              const void* raw_mask, const void* flow,
-                              const void* weight, const void* bias, void* out,
-                              void* x_packed, int N, int C, int H, int W, int O, int G, int KH,
-                              int KW, float D, float mag, int x_bf16, int tile_h,
-                              int tile_w, int pad, int smem_bytes, void* stream) {
-  if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
+namespace {
+
+// Both entries: the tuned route (dispatch) or the general one.
+int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
+        const void* flow, const void* weight, const void* bias, void* out, void* x_packed,
+        int N, int C, int H, int W, int O, int G, int KH, int KW, float D, float mag,
+        int x_bf16, int tile_h, int tile_w, int pad, int smem_bytes, void* stream) {
+  if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
+  if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
   const float* fl = static_cast<const float*>(flow);
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
@@ -117,6 +128,13 @@ extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
     using B = __nv_bfloat16;
     const crfp::ProE<B> pro{static_cast<const B*>(raw_off), static_cast<const B*>(raw_mask),
                             fl, mag};
+    if (general) {
+      const crfp::GenArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
+                               static_cast<B*>(out), N, C, H, W, G, O, KH, KW, D,
+                               tile_h, tile_w, 0, 0};
+      return (int)crfp::launch_general(dcn_fused_general_pack<B>, dcn_fused_general<B>, a, pro,
+                                       pad, smem_bytes, s);
+    }
     crfp::TileArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
                         static_cast<B*>(out), N, C, H, W,
                         G, D, tile_h, tile_w, pad, 0, 0};
@@ -124,10 +142,47 @@ extern "C" int crfp_dcn_fused(const void* x, const void* raw_off,
   } else {
     const crfp::ProE<float> pro{static_cast<const float*>(raw_off),
                                 static_cast<const float*>(raw_mask), fl, mag};
+    if (general) {
+      const crfp::GenArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed),
+                                   wt, b, static_cast<float*>(out), N, C, H, W, G, O, KH, KW,
+                                   D, tile_h, tile_w, 0, 0};
+      return (int)crfp::launch_general(dcn_fused_general_pack<float>, dcn_fused_general<float>,
+                                       a, pro, pad, smem_bytes, s);
+    }
     crfp::TileArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed), wt,
                             b, static_cast<float*>(out),
                             N, C, H, W, G, D, tile_h, tile_w, pad, 0, 0};
     e = dispatch(O, C / G, a, pro, smem_bytes, s);
   }
   return (int)e;
+}
+
+}  // namespace
+
+#define CRFP_DCN_FUSED_ARGS                                                                  \
+  const void *x, const void *raw_off, const void *raw_mask, const void *flow,                \
+      const void *weight, const void *bias, void *out, void *x_packed, int N, int C, int H,  \
+      int W, int O, int G, int KH, int KW, float D, float mag, int x_bf16, int tile_h,       \
+      int tile_w, int pad, int smem_bytes, void *stream
+#define CRFP_DCN_FUSED_PASS                                                                  \
+  x, raw_off, raw_mask, flow, weight, bias, out, x_packed, N, C, H, W, O, G, KH, KW, D, mag, \
+      x_bf16, tile_h, tile_w, pad, smem_bytes, stream
+
+// x: (N, C, H, W), raw_off (N, G*K2*2, H, W) and raw_mask (N, G*K2, H, W),
+// all f32 or all bf16 (x_bf16); flow (N, 2, H, W) f32, channels (dx, dy);
+// weight (O, C, KH, KW) f32; bias (O,) f32 or NULL; out (N, O, H, W) in x's
+// type; x_packed: scratch of N*C*padded(H)*padded(W) elements of x's
+// type. All contiguous. D < 0: no clamp. crfp_dcn_fused takes the tuned
+// widths, 3x3 weights: O in {16, 32} (dcn_0/1/2 at mid 16 and 32), C/G in
+// {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's (per-tap, no
+// shared mask: the tensor cores take bf16 x at O = 32). No
+// synchronisation, no allocation.
+extern "C" int crfp_dcn_fused(CRFP_DCN_FUSED_ARGS) { return run(false, CRFP_DCN_FUSED_PASS); }
+
+// The general route (common.cuh::dcn_tiles_general with ProE): any C % G ==
+// 0, any O, any KH x KW; the plan is tile_plan's with route "general" (32
+// pixels a tile, pad 0, gen_smem_bytes(O)); x_packed holds N*C*H*W
+// elements.
+extern "C" int crfp_dcn_fused_general(CRFP_DCN_FUSED_ARGS) {
+  return run(true, CRFP_DCN_FUSED_PASS);
 }

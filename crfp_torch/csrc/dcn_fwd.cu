@@ -34,6 +34,12 @@
 // one 4 x 4 patch. The plan (ops/cuda/dcn.py::tile_plan) picks the tile. A
 // group's window of x staged in shared memory for the O <= 32 routes was
 // built and measured slower at every main-path shape (PERF.md) and is gone.
+// Every other width the TPU kernel takes (any C % G == 0, O, kh x kw; the
+// flags --mid_channels, --dg_num and --dcn_kernel reach them) runs the
+// general route, crfp_dcn_fwd_general (common.cuh::dcn_tiles_general): x
+// packed with scalar stores, K walked in chunks through shared memory, f32
+// FMAs on the CUDA cores. Its bound is the same bytes; it is written to be
+// right first.
 //
 // Bound on the H100 at the main-path shapes (1080p, warp 720^2, mid 32):
 // per-tap (dcn_0/1/2): x (1,32,180,180) bf16 2.1 MB + offset (1,144,180,180)
@@ -75,6 +81,20 @@ template <typename T, int CPG>
 __global__ void __launch_bounds__(256)
 dcn_fwd_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int W, int pad) {
   crfp::pack_x<T, CPG>(x, xp, H, W, pad);
+}
+
+// the general route (common.cuh::dcn_tiles_general) and its pre-pass
+template <typename T>
+__global__ void __launch_bounds__(crfp::kGenThreads)
+dcn_fwd_general(crfp::GenArgs<T> a, crfp::ProA pro) {
+  crfp::dcn_tiles_general(a, pro);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+dcn_fwd_general_pack(const T* __restrict__ x, T* __restrict__ xp, float* __restrict__ dxp,
+                     int H, int W, int cpg) {
+  crfp::gen_pack(x, xp, dxp, H, W, cpg);
 }
 
 template <typename T, int O, int CPG, bool MMA>
@@ -154,36 +174,19 @@ cudaError_t dispatch(int O, int cpg, bool mma, const crfp::TileArgs<T>& a,
 
 CRFP_EXPORT_ERROR_STRING
 
-// x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32;
-// mask (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; bias (O,) f32 or
-// NULL; out (N, O, H, W) in x's type; x_packed: scratch of N*C*padded(H)
-// *padded(W) elements of x's type (the pre-pass writes x there per group,
-// pixel-major, zero-padded). All contiguous. O in {2, 4, 16, 32} with C/G
-// in {2, 4}, or O = 64 with C/G in {4, 8, 16, 64}, per-tap (bf16 x: C =
-// 64). The tile plan (tile_h, tile_w, pad, smem_bytes) is
-// ops/cuda/dcn.py::tile_plan's; the tensor cores take bf16 x at O = 32
-// without shared_mask and at O = 64. No synchronisation, no allocation.
-//
-// Anchored (anchor not NULL, shared taps only): the cells are band x xtile
-// pixels, nb = ceil(H / band) x nt = ceil(W / xtile) of them; a pre-pass
-// (common.cuh::anchor_table_kernel) writes their anchors, quantized to
-// sub_tile rows and lane_q columns within +-a_y / +-a_x, into `anchor`, f32
-// scratch of N*G*nb*nt*2 (ops/anchor.py::anchor_table's table); each pixel
-// then takes F + clip(off - F, +-dl) for its cell's anchor F. D is the
-// anchored reach max(a_y + dl_r, a_x + dl_c), which bounds every
-// displacement and so sizes the padding (pad >= ceil(D) + 1) as a clamp to
-// +-D would.
-extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
-                            const void* mask, const void* weight,
-                            const void* bias, void* out, void* x_packed, int N,
-                            int C, int H,
-                            int W, int O, int G, int KH, int KW, float D,
-                            int shared_taps, int shared_mask, int x_bf16,
-                            int tile_h, int tile_w, int pad, int smem_bytes,
-                            void* anchor, int band, int xtile, int sub_tile, int lane_q,
-                            int a_y, int a_x, float dl_r, float dl_c, void* stream) {
-  if (KH != 3 || KW != 3 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
-  if (O == crfp::kWideO && (shared_taps || shared_mask)) return (int)cudaErrorInvalidValue;
+namespace {
+
+// Both entries: the anchored pre-pass, then the tuned route (dispatch) or
+// the general one.
+int run(bool general, const void* x, const void* offset, const void* mask, const void* weight,
+        const void* bias, void* out, void* x_packed, int N, int C, int H, int W, int O, int G,
+        int KH, int KW, float D, int shared_taps, int shared_mask, int x_bf16, int tile_h,
+        int tile_w, int pad, int smem_bytes, void* anchor, int band, int xtile, int sub_tile,
+        int lane_q, int a_y, int a_x, float dl_r, float dl_c, void* stream) {
+  if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
+  if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
+  if (!general && O == crfp::kWideO && (shared_taps || shared_mask))
+    return (int)cudaErrorInvalidValue;
   if (anchor != nullptr && (!shared_taps || D < fmaxf(a_y + dl_r, a_x + dl_c)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -200,9 +203,24 @@ extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
     pro.W = W, pro.band = band, pro.xtile = xtile, pro.nb = g.nb, pro.nt = g.nt;
     pro.dl_r = dl_r, pro.dl_c = dl_c;
   }
-  const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
+  if (general) {
+    if (x_bf16) {
+      using B = __nv_bfloat16;
+      const crfp::GenArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
+                               static_cast<B*>(out), N, C, H, W, G, O, KH, KW, D,
+                               tile_h, tile_w, 0, 0};
+      return (int)crfp::launch_general(dcn_fwd_general_pack<B>, dcn_fwd_general<B>, a, pro,
+                                       pad, smem_bytes, s);
+    }
+    const crfp::GenArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed),
+                                 wt, b, static_cast<float*>(out), N, C, H, W, G, O, KH, KW, D,
+                                 tile_h, tile_w, 0, 0};
+    return (int)crfp::launch_general(dcn_fwd_general_pack<float>, dcn_fwd_general<float>, a,
+                                     pro, pad, smem_bytes, s);
+  }
+  const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
   cudaError_t e;
   if (x_bf16) {
     crfp::TileArgs<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(x),
@@ -218,3 +236,44 @@ extern "C" int crfp_dcn_fwd(const void* x, const void* offset,
   }
   return (int)e;
 }
+
+}  // namespace
+
+#define CRFP_DCN_FWD_ARGS                                                                    \
+  const void *x, const void *offset, const void *mask, const void *weight, const void *bias, \
+      void *out, void *x_packed, int N, int C, int H, int W, int O, int G, int KH, int KW,   \
+      float D, int shared_taps, int shared_mask, int x_bf16, int tile_h, int tile_w, int pad, \
+      int smem_bytes, void *anchor, int band, int xtile, int sub_tile, int lane_q, int a_y,  \
+      int a_x, float dl_r, float dl_c, void *stream
+#define CRFP_DCN_FWD_PASS                                                                    \
+  x, offset, mask, weight, bias, out, x_packed, N, C, H, W, O, G, KH, KW, D, shared_taps,    \
+      shared_mask, x_bf16, tile_h, tile_w, pad, smem_bytes, anchor, band, xtile, sub_tile,   \
+      lane_q, a_y, a_x, dl_r, dl_c, stream
+
+// x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32;
+// mask (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; bias (O,) f32 or
+// NULL; out (N, O, H, W) in x's type; x_packed: scratch of N*C*padded(H)
+// *padded(W) elements of x's type (the pre-pass writes x there per group,
+// pixel-major, zero-padded). All contiguous. crfp_dcn_fwd takes the tuned
+// routes' widths, 3x3 weights: O in {2, 4, 16, 32} with C/G in {2, 4}, or
+// O = 64 with C/G in {4, 8, 16, 64}, per-tap (bf16 x: C = 64). The tile
+// plan (tile_h, tile_w, pad, smem_bytes) is ops/cuda/dcn.py::tile_plan's;
+// the tensor cores take bf16 x at O = 32 without shared_mask and at O =
+// 64. No synchronisation, no allocation.
+//
+// Anchored (anchor not NULL, shared taps only): the cells are band x xtile
+// pixels, nb = ceil(H / band) x nt = ceil(W / xtile) of them; a pre-pass
+// (common.cuh::anchor_table_kernel) writes their anchors, quantized to
+// sub_tile rows and lane_q columns within +-a_y / +-a_x, into `anchor`, f32
+// scratch of N*G*nb*nt*2 (ops/anchor.py::anchor_table's table); each pixel
+// then takes F + clip(off - F, +-dl) for its cell's anchor F. D is the
+// anchored reach max(a_y + dl_r, a_x + dl_c), which bounds every
+// displacement and so sizes the padding (pad >= ceil(D) + 1) as a clamp to
+// +-D would.
+extern "C" int crfp_dcn_fwd(CRFP_DCN_FWD_ARGS) { return run(false, CRFP_DCN_FWD_PASS); }
+
+// The general route (common.cuh::dcn_tiles_general): any C % G == 0, any
+// O, any KH x KW, per-tap, shared taps or anchored shared taps; the plan is
+// tile_plan's with route "general" (tiles of 32 pixels, pad 0, smem_bytes
+// = gen_smem_bytes(O)); x_packed holds N*C*H*W elements of x's type.
+extern "C" int crfp_dcn_fwd_general(CRFP_DCN_FWD_ARGS) { return run(true, CRFP_DCN_FWD_PASS); }

@@ -38,9 +38,29 @@ would take ~9 us on the CUDA cores in f32 and ~0.6 us on the tensor cores
 in bf16. At the training shapes (B 2, GT 192) the backward moves 8.8 MB
 per per-tap call and 3.5 MB per dcn_3 call.
 
-The widths the kernels take are one pure rule, :func:`width_fault`: every
-DCN stage of the v18 models at mid 16 and mid 32 (A, D, E), and the
-pyramids' and PCD's per-tap DCNs at O = 64 (A only). At O = 64 bf16 x
+The widths are two pure rules. :func:`width_fault` refuses only what the
+JAX package refuses too: ``C % G != 0`` (crfp_tpu/ops/pallas/dcn.py:815,
+:1705) and kernel E on shared taps (E is per-tap there as well). Every other
+width runs on the card through one of two routes, which
+:func:`width_route` picks and the plans record (``TilePlan.route``,
+``BwdPlan.route``). The tuned routes keep the widths they were written for:
+every DCN stage of the v18 models at mid 16 and mid 32 (A, D, E), and the
+pyramids' and PCD's per-tap DCNs at O = 64 (A only). The general route
+(``csrc/common.cuh::dcn_tiles_general``, ``csrc/dcn_bwd.cu``'s
+``crfp_dcn_bwd_general``) takes all the others: any C with ``C % G == 0``,
+any O, any kh x kw, per-tap, shared taps and anchored shared taps, f32 or
+bf16 x, each size a runtime value; so ``--mid_channels``, ``--dg_num`` and
+``--dcn_kernel`` run on the card at every value the JAX kernels take. It
+packs x with scalar stores (3 bf16 channels are no vector), checks every
+corner against the frame, walks K = C kh kw in chunks of 64 rows through
+at most 40 KB of shared memory (so nothing is refused for want of it), and
+contracts on the CUDA cores with f32 sums, the modulated samples rounded to
+bf16 for bf16 x as the TPU kernel rounds them. It is written to be right
+first; its times stand beside the tuned routes' in PERF.md. ``plan=`` may
+name it at a tuned width (``tile_plan(..., route="general")``), which is
+how the tests and ``chip_smoke.py`` hold the two routes against each other.
+
+At O = 64 bf16 x
 (C = 64) runs on the tensor cores: tiles of 64 pixels a block of 8 warps,
 the modulated samples of one tap at a time in U (a wide group's corner
 one coalesced 32-128 byte copy across lanes, ``cp.async`` into shared
@@ -92,24 +112,28 @@ from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 
 # launches of the CUDA kernels (not of the plain version): A forward, D
 # backward; anchor_launches and bwd_anchor_launches: A's and D's anchored
-# launches, also in `launches` and `bwd_launches`
+# launches, general_launches and bwd_general_launches: their general
+# route's, each also in `launches` and `bwd_launches`
 launches = 0
 bwd_launches = 0
 anchor_launches = 0
 bwd_anchor_launches = 0
+general_launches = 0
+bwd_general_launches = 0
 
 # why kernel A refuses a per-tap anchored call
 PER_TAP_ANCHOR_REFUSAL = ("per-tap anchored windows (no model makes such a call; the "
                           "plain version computes them) are ROADMAP.md queue 1, "
                           "\"per-tap anchored A\"")
 
-# The widths of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and dcn_fused.cu (E),
-# each {O: channels a group}, 3x3 weights. Every DCN stage of the v18 models
-# at mid 16 and mid 32 (dcn_0/1/2: O = mid, 8 groups; dcn_3: O = mid / 8,
-# one group), 2 or 4 channels a group, in A, D and E (E runs dcn_0/1/2
-# only); and in A alone, per-tap, the pyramids' and PCD's DCNs at mid / nf
-# 64: O = 64 with 4, 16 and 64 channels a group (deformable groups 16, 4
-# and 1) and 8 (PCD's 8 groups). They run inference only: D has no O = 64.
+# The widths of the tuned routes of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and
+# dcn_fused.cu (E), each {O: channels a group}, 3x3 weights. Every DCN stage
+# of the v18 models at mid 16 and mid 32 (dcn_0/1/2: O = mid, 8 groups;
+# dcn_3: O = mid / 8, one group), 2 or 4 channels a group, in A, D and E (E
+# runs dcn_0/1/2 only); and in A alone, per-tap, the pyramids' and PCD's
+# DCNs at mid / nf 64: O = 64 with 4, 16 and 64 channels a group
+# (deformable groups 16, 4 and 1) and 8 (PCD's 8 groups). Every other width
+# takes the general route.
 SUPPORTED_OUT_CHANNELS = (2, 4, 16, 32)
 SUPPORTED_CHANNELS_PER_GROUP = (2, 4)
 FUSED_OUT_CHANNELS = (16, 32)
@@ -121,8 +145,14 @@ _WIDTHS = {
     "dcn_bwd": {o: SUPPORTED_CHANNELS_PER_GROUP for o in SUPPORTED_OUT_CHANNELS},
     "dcn_fused": {o: SUPPORTED_CHANNELS_PER_GROUP for o in FUSED_OUT_CHANNELS},
 }
-# D's block takes 256 / G pixels, a thread per (pixel, group)
+# D's tuned block takes 256 / G pixels, a thread per (pixel, group)
 BWD_GROUPS = (1, 2, 4, 8)
+# the routes a plan records
+ROUTES = ("tuned", "general")
+# the C entries of each kernel's two routes
+_ENTRIES = {"dcn_fwd": {"tuned": "crfp_dcn_fwd", "general": "crfp_dcn_fwd_general"},
+            "dcn_bwd": {"tuned": "crfp_dcn_bwd", "general": "crfp_dcn_bwd_general"},
+            "dcn_fused": {"tuned": "crfp_dcn_fused", "general": "crfp_dcn_fused_general"}}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
     [ctypes.c_void_p]
@@ -136,9 +166,29 @@ def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
                 shared: bool = False) -> str | None:
     """Why ``kernel`` ("dcn_fwd": A, "dcn_bwd": D, "dcn_fused": E) does not
     take a DCN of ``c`` input and ``o`` output channels in ``g`` groups
-    with a ``kh`` x ``kw`` weight (``shared``: one offset and mask per
-    pixel and group, dcn_3), or None when it does. Pure: it reads no
-    tensor and no device, so its answers are cached."""
+    with a ``kh`` x ``kw`` weight (``shared``: one offset or mask per pixel
+    and group, dcn_3), or None when it does. It refuses only what the JAX
+    package refuses too: channels that the groups do not divide
+    (crfp_tpu/ops/pallas/dcn.py:815, :1705: ``assert c % g == 0``) and
+    kernel E on shared taps (the TPU's fused kernel takes 2 * kh * kw offset
+    channels a group, per-tap, :1701). Every width it takes runs through
+    :func:`width_route`'s route. Pure: it reads no tensor and no device, so
+    its answers are cached."""
+    if min(c, o, kh, kw) < 1:
+        return f"C = {c}, O = {o}, {kh}x{kw} weight: every size must be at least 1"
+    if g < 1 or c % g:
+        return (f"{c} channels in {g} groups: the groups must divide the channels "
+                f"(C % G == 0, as the TPU kernel asserts)")
+    if shared and kernel == "dcn_fused":
+        return "per-tap offsets and masks only (kernel E, as the TPU's fused kernel)"
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _tuned_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int,
+                 shared: bool, bf16: bool) -> str | None:
+    """Why the tuned route of ``kernel`` does not take this width for x of
+    this dtype (the table above), or None when it does."""
     if (kh, kw) != (3, 3):
         return f"weight {kh}x{kw} (3x3 only)"
     widths = _WIDTHS[kernel]
@@ -149,6 +199,8 @@ def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
                 f"(one of {widths[o]} at O = {o})")
     if shared and (kernel == "dcn_fused" or o == WIDE_OUT_CHANNELS):
         return f"per-tap offsets and masks only (at O = {o})"
+    if bf16 and o == WIDE_OUT_CHANNELS and c != _WIDE_C:
+        return f"bf16 x at O = {o}: {_WIDE_C} input channels only (the tensor cores), not {c}"
     if kernel == "dcn_bwd":
         if g not in BWD_GROUPS:
             return f"{g} groups (one of {BWD_GROUPS})"
@@ -157,6 +209,26 @@ def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
         if _bwd_smem_bytes(c, o, g) > MAX_SMEM:
             return f"{_bwd_smem_bytes(c, o, g)} bytes of shared memory > {MAX_SMEM}"
     return None
+
+
+# The route of every call whose plan names none: None, the rule's
+# (width_route); "general" sends the tuned widths down the general route
+# too, a whole model at once (chip_smoke.py's control at mid 32).
+forced_route: str | None = None
+
+
+def width_route(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
+                shared: bool = False, bf16: bool = False) -> str:
+    """The route of ``kernel`` for this width and x's dtype (``bf16``):
+    "tuned" where the tuned route's table has it, else "general" (or
+    :data:`forced_route`). Raises ValueError with :func:`width_fault`'s
+    reason where the kernel does not take it. The one route rule: the
+    dispatchers' default plans take their route from it."""
+    check_tiled(kernel, c, g, kh, kw, o, shared)
+    if forced_route is not None:
+        return forced_route
+    return "tuned" if _tuned_fault(kernel, c, o, g, kh, kw, bool(shared),
+                                   bool(bf16)) is None else "general"
 
 
 def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
@@ -222,6 +294,17 @@ _TAPS, _MMA_O, _OUT_STRIDE = 9, 32, 36
 # the O = 64 tensor-core path's tile (pixels) and input channels
 # (csrc/common.cuh::kWidePix, kWideC)
 _WIDE_PIX, _WIDE_C = 64, 64
+# The general route (csrc/common.cuh::kGenPix, kGenRows, kGenOuts): tiles of
+# 32 pixels a block of 256 threads, the shape with the fewest tiles, (1, 32)
+# on a tie; K in chunks of 64 rows; at most 128 outputs a pass of A and E.
+GEN_TILE_SHAPES = ((1, 32), (2, 16))
+_GEN_PIX, _GEN_ROWS, _GEN_OUTS = 32, 64, 128
+# kernel D's general route: S [64][32], U [64][33] and a split pair's sums
+# [32][3], f32 (csrc/dcn_bwd.cu::gen_bwd_smem_bytes)
+_GEN_BWD_SMEM = 4 * (_GEN_ROWS * _GEN_PIX + _GEN_ROWS * (_GEN_PIX + 1) + 3 * _GEN_PIX)
+# its dW partials (grid x O x C x kh x kw f32) are kept under this many
+# elements (64 MB) by a smaller grid
+_GEN_DW_PARTIALS = 1 << 24
 
 
 def _min_blocks(mma: bool, o: int) -> int:
@@ -241,7 +324,8 @@ class TilePlan:
     the packed planes of x (a clamped call: ceil(D) + 1, so that no corner
     needs a frame check; 0: corners checked); ``smem_bytes`` of dynamic
     shared memory (``csrc/common.cuh::smem_bytes``); ``mma``: the bf16
-    contraction on the tensor cores."""
+    contraction on the tensor cores; ``route``: "tuned" (those routes) or
+    "general" (tiles of 32 pixels, pad 0: every corner checked)."""
 
     tile_h: int
     tile_w: int
@@ -250,6 +334,7 @@ class TilePlan:
     mma: bool
     tiles_y: int
     tiles_x: int
+    route: str = "tuned"
 
     def args(self) -> tuple[int, int, int, int]:
         """The C entries' plan arguments."""
@@ -276,8 +361,31 @@ def _smem_bytes(mma: bool, c: int, o: int) -> int:
     return c * _TAPS * o * 4
 
 
+def _gen_smem_bytes(o: int) -> int:
+    """``csrc/common.cuh::gen_smem_bytes``: the general route's U [64][32]
+    and the chunk's weight rows [64][opw], f32, opw = O rounded up to 4, at
+    most 128; 40 KB at most, whatever the widths."""
+    return 4 * _GEN_ROWS * (_GEN_PIX + min(-(-o // 4) * 4, _GEN_OUTS))
+
+
+def _gen_tile(h: int, w: int, tile, who: str) -> tuple[int, int, int, int]:
+    """(tile_h, tile_w, tiles_y, tiles_x) of the general route."""
+    shapes = (tile,) if tile is not None else GEN_TILE_SHAPES
+    th, tw = min(shapes, key=lambda t: -(-h // t[0]) * -(-w // t[1]))
+    if th * tw != _GEN_PIX:
+        raise ValueError(f"{who}: the general route takes {_GEN_PIX}-pixel tiles, "
+                         f"not {th}x{tw}")
+    return th, tw, -(-h // th), -(-w // tw)
+
+
 @functools.lru_cache(maxsize=512)
-def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=None):
+def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=None,
+          route="tuned"):
+    if route == "general":
+        th, tw, ty, tx = _gen_tile(h, w, tile, "tile_plan")
+        return TilePlan(th, tw, 0, _gen_smem_bytes(o), False, ty, tx, "general")
+    if route != "tuned":
+        raise ValueError(f"tile_plan: route {route!r} (one of {ROUTES})")
     wide = o == WIDE_OUT_CHANNELS
     mma = bool(bf16) and o in (_MMA_O, WIDE_OUT_CHANNELS) and not shared_mask
     if mma and wide and c != _WIDE_C:
@@ -306,16 +414,24 @@ def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=
 
 def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
               max_displacement: float | None, *, bf16: bool, shared_mask: bool = False,
-              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None) -> TilePlan:
-    """The tile plan of kernel A (or E: per-tap, no shared mask) for x (n, c,
-    h, w), O = ``o`` outputs and ``g`` groups. A clamped call reads its
+              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
+              route: str | None = None, kernel: str = "dcn_fwd", kh: int = 3, kw: int = 3,
+              shared_taps: bool = False) -> TilePlan:
+    """The tile plan of kernel A (or E, ``kernel="dcn_fused"``: per-tap, no
+    shared mask) for x (n, c, h, w), O = ``o`` outputs, ``g`` groups and a
+    ``kh`` x ``kw`` weight. A clamped call on a tuned route reads its
     corners from x packed with a zero border of ``pad`` pixels, an unclamped
     one with frame checks; a tile of a clamped call therefore reads its
     corners from the tile grown by ``pad`` pixels below and ``pad + 1``
     above, in the packed plane (through L1). ``tile`` forces a tile (rows,
-    columns) instead of the default one."""
+    columns) instead of the default one; ``route`` a route ("tuned" or
+    "general") instead of :func:`width_route`'s (the general route at a
+    tuned width, for measurements)."""
+    if route is None:
+        route = width_route(kernel, c, o, g, kh, kw, shared=bool(shared_taps or shared_mask),
+                            bf16=bool(bf16))
     return _plan(n, c, h, w, o, g, max_displacement, bool(bf16), bool(shared_mask),
-                 sm_count, tile)
+                 sm_count, tile, route)
 
 
 # ---- the plan of kernel D -------------------------------------------------
@@ -362,7 +478,10 @@ class BwdPlan:
     as :class:`TilePlan`'s); ``smem_bytes`` of dynamic shared memory;
     ``grid`` persistent blocks, each leaving one dW partial; ``patch``: a
     clamped call under shared taps sums its 9 taps' dx in one 4x4 patch of
-    registers (16 vector atomics a pixel instead of 36)."""
+    registers (16 vector atomics a pixel instead of 36). ``route``:
+    "tuned", or "general" (tiles of 32 pixels, pad 0, no patch; ``taps``
+    = kh x kw; ``tap_scratch``: f32 elements of its per-tap sums under
+    shared taps or a shared mask)."""
 
     tile_h: int
     tile_w: int
@@ -372,6 +491,9 @@ class BwdPlan:
     patch: bool
     tiles_y: int
     tiles_x: int
+    route: str = "tuned"
+    taps: int = _TAPS
+    tap_scratch: int = 0
 
     def args(self) -> tuple[int, int, int, int, int, int]:
         """The C entry's plan arguments."""
@@ -384,13 +506,24 @@ class BwdPlan:
 
     def acc_numel(self, n: int, c: int, h: int, w: int, o: int) -> int:
         """f32 elements of the accumulator scratch: packed dx, then the
-        blocks' dW partials (``grid`` x O x C x 9)."""
-        return self.packed_numel(n, c, h, w) + self.grid * o * c * _TAPS
+        blocks' dW partials (``grid`` x O x C x taps), then the general
+        route's per-tap sums."""
+        return self.packed_numel(n, c, h, w) + self.grid * o * c * self.taps + self.tap_scratch
 
 
 @functools.lru_cache(maxsize=512)
 def _bwd_plan(n, c, h, w, o, g, max_displacement, shared_taps, sm_count, tile=None,
-              patch=None):
+              patch=None, route="tuned", kh=3, kw=3, shared_mask=False):
+    if route == "general":
+        if patch:
+            raise ValueError("bwd_plan: the general route has no 4x4 patch")
+        th, tw, ty, tx = _gen_tile(h, w, tile, "bwd_plan")
+        taps = kh * kw
+        grid = max(1, min(n * ty * tx, 2 * sm_count, _GEN_DW_PARTIALS // (o * c * taps)))
+        scratch = n * g * taps * 3 * h * w if (shared_taps or shared_mask) else 0
+        return BwdPlan(th, tw, 0, _GEN_BWD_SMEM, grid, False, ty, tx, "general", taps, scratch)
+    if route != "tuned":
+        raise ValueError(f"bwd_plan: route {route!r} (one of {ROUTES})")
     p = BWD_THREADS // g
     shapes = (tile,) if tile is not None else ((p // 32, 32), (p // 16, 16))
     th, tw = min(shapes, key=lambda t: -(-h // t[0]) * -(-w // t[1]))
@@ -409,14 +542,21 @@ def _bwd_plan(n, c, h, w, o, g, max_displacement, shared_taps, sm_count, tile=No
 def bwd_plan(n: int, c: int, h: int, w: int, o: int, g: int,
              max_displacement: float | None, *, shared_taps: bool = False,
              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
-             patch: bool | None = None) -> BwdPlan:
-    """The plan of kernel D for x (n, c, h, w), O = ``o`` and ``g`` groups:
-    of the tiles (256 / G / 32, 32) and (256 / G / 16, 16) the one with the
-    fewest tiles, the first on a tie; the padding of :func:`tile_plan`; a
-    grid of at most ``_bwd_blocks_per_sm`` blocks a SM. ``tile`` and
-    ``patch`` force a tile or the patch on or off (for measurements)."""
+             patch: bool | None = None, route: str | None = None, kh: int = 3,
+             kw: int = 3, shared_mask: bool = False) -> BwdPlan:
+    """The plan of kernel D for x (n, c, h, w), O = ``o``, ``g`` groups and
+    a ``kh`` x ``kw`` weight. The tuned route: of the tiles (256 / G / 32,
+    32) and (256 / G / 16, 16) the one with the fewest tiles, the first on
+    a tie; the padding of :func:`tile_plan`; a grid of at most
+    ``_bwd_blocks_per_sm`` blocks a SM. The general route: 32-pixel tiles
+    (:data:`GEN_TILE_SHAPES`), no padding, a grid of at most 2 blocks a SM.
+    ``tile``, ``patch`` and ``route`` force a tile, the patch on or off or
+    a route instead of :func:`width_route`'s (for measurements)."""
+    shared = bool(shared_taps or shared_mask)
+    if route is None:
+        route = width_route("dcn_bwd", c, o, g, kh, kw, shared=shared)
     return _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps), sm_count,
-                     tile, patch)
+                     tile, patch, route, kh, kw, bool(shared_mask))
 
 
 _sm_counts: dict[int, int] = {}
@@ -440,6 +580,21 @@ def check_tiled(name: str, c: int, g: int, kh: int, kw: int, o: int = 32,
         raise ValueError(f"{name}: {fault}")
 
 
+def check_route(name: str, route: str, c: int, g: int, kh: int, kw: int, o: int,
+                shared: bool, bf16: bool = False) -> str:
+    """The C entry of the ``route`` that a plan names for these widths;
+    ValueError where the kernel, or a tuned route that the plan names, does
+    not take them."""
+    check_tiled(name, c, g, kh, kw, o, shared)
+    if route == "tuned":
+        fault = _tuned_fault(name, c, o, g, kh, kw, bool(shared), bool(bf16))
+        if fault is not None:
+            raise ValueError(f"{name}: the tuned route does not take {fault}")
+    elif route != "general":
+        raise ValueError(f"{name}: route {route!r} (one of {ROUTES})")
+    return _ENTRIES[name][route]
+
+
 def dcn_forward(
     x: torch.Tensor,
     offset: torch.Tensor,
@@ -456,29 +611,32 @@ def dcn_forward(
 ):
     """Kernel A alone (no autograd): (N, O, H, W) in x's dtype. CUDA tensors
     only. ``anchor``: the anchored mode (shared taps only). ``plan``: a
-    :func:`tile_plan` other than the default one (other tiles are measured
-    this way). ``with_table``: return (output, the anchor table the call's
-    pre-pass wrote, f32 (N, G, bands, tiles, 2), or None unanchored), the
-    table that :func:`dcn_backward` takes."""
+    :func:`tile_plan` other than the default one (other tiles, or the
+    general route at a tuned width, are measured this way). ``with_table``:
+    return (output, the anchor table the call's pre-pass wrote, f32 (N, G,
+    bands, tiles, 2), or None unanchored), the table that
+    :func:`dcn_backward` takes."""
     if anchor is not None and not shared_taps:
         raise ValueError(f"dcn_fwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
-    check_tiled("dcn_fwd", c, g, kh, kw, o, shared_mask)
+    shared = bool(shared_taps or shared_mask)
     bf16 = x.dtype == torch.bfloat16
     # an anchored call's displacements are bounded by its reach, which sizes
     # the zero border of the packed planes as a clamp to +-reach would
     d = max_displacement if anchor is None else anchor.reach
     if plan is None:
-        plan = _plan(n, c, h, w, o, g, d, bf16, bool(shared_mask), sm_count(x.device))
+        plan = _plan(n, c, h, w, o, g, d, bf16, bool(shared_mask), sm_count(x.device), None,
+                     width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16))
+    entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16)
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
     # an anchored call's table, written by its own pre-pass
     table = None if anchor is None else torch.empty(
         (n, g, *anchor.cells(h, w), 2), dtype=torch.float32, device=x.device)
-    _build.launch("dcn_fwd", "crfp_dcn_fwd", _ARGTYPES, x.device,
+    _build.launch("dcn_fwd", entry, _ARGTYPES, x.device,
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   packed.data_ptr(),
@@ -486,10 +644,12 @@ def dcn_forward(
                   int(shared_taps), int(shared_mask), int(bf16), *plan.args(),
                   None if table is None else table.data_ptr(),
                   *kernel_args(anchor))
-    global launches, anchor_launches
+    global launches, anchor_launches, general_launches
     launches += 1
     if anchor is not None:
         anchor_launches += 1
+    if plan.route == "general":
+        general_launches += 1
     return (out, table) if with_table else out
 
 
@@ -514,13 +674,13 @@ def dcn_backward(
     ``anchor`` with ``table``: the anchored mode (shared taps only), on the
     table that kernel A's anchored forward wrote (``dcn_forward(...,
     with_table=True)``). ``plan``: a :func:`bwd_plan` other than the
-    default one."""
+    default one (the general route at a tuned width, for one)."""
     if anchor is not None and not shared_taps:
         raise ValueError(f"dcn_bwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
-    check_tiled("dcn_bwd", c, g, kh, kw, o, shared_mask)
+    shared = bool(shared_taps or shared_mask)
     if grad_out.shape != (n, o, h, w) or grad_out.dtype != x.dtype \
             or grad_out.device != x.device or not grad_out.is_contiguous():
         raise ValueError(f"dcn_bwd: grad_out {tuple(grad_out.shape)} {grad_out.dtype} "
@@ -536,7 +696,10 @@ def dcn_backward(
     # the anchored reach bounds every displacement and sizes the padding
     d = max_displacement if anchor is None else anchor.reach
     if plan is None:
-        plan = _bwd_plan(n, c, h, w, o, g, d, bool(shared_taps), sm_count(x.device))
+        plan = _bwd_plan(n, c, h, w, o, g, d, bool(shared_taps), sm_count(x.device), None, None,
+                         width_route("dcn_bwd", c, o, g, kh, kw, shared=shared), kh, kw,
+                         bool(shared_mask))
+    entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared)
     dx = torch.empty_like(x)
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
@@ -545,7 +708,7 @@ def dcn_backward(
     # accumulator followed by the blocks' dW partials
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
     acc = torch.empty(plan.acc_numel(n, c, h, w, o), dtype=torch.float32, device=x.device)
-    _build.launch("dcn_bwd", "crfp_dcn_bwd", _BWD_ARGTYPES, x.device,
+    _build.launch("dcn_bwd", entry, _BWD_ARGTYPES, x.device,
                   x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
                   grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
                   d_mask.data_ptr(), dw.data_ptr(), packed.data_ptr(), acc.data_ptr(),
@@ -553,10 +716,12 @@ def dcn_backward(
                   int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
                   None if table is None else table.data_ptr(), *kernel_args(anchor),
                   *plan.args())
-    global bwd_launches, bwd_anchor_launches
+    global bwd_launches, bwd_anchor_launches, bwd_general_launches
     bwd_launches += 1
     if anchor is not None:
         bwd_anchor_launches += 1
+    if plan.route == "general":
+        bwd_general_launches += 1
     return dx, d_off, d_mask, dw
 
 
@@ -612,7 +777,8 @@ def deform_conv2d_windowed(
     tensors launch kernel A forward and kernel D backward (x float32 or
     bfloat16, offset/mask/weight/bias float32, f32 accumulation; bf16 x at
     O = 32 and O = 64 contracted on the tensor cores) or raise. Widths:
-    :func:`width_fault`. Overridable (``torch.overrides``), as the warp's
+    :func:`width_fault` (every width the JAX kernels take), each on the
+    route :func:`width_route` picks. Overridable (``torch.overrides``), as the warp's
     dispatcher."""
     if has_torch_function((x, offset, mask)):
         return handle_torch_function(
@@ -629,13 +795,14 @@ def deform_conv2d_windowed(
         return dcn_forward(x, offset, mask, weight, bias, max_displacement=max_displacement,
                            shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
     if recorded:
-        # a width that kernel D does not take (O = 64), or a per-tap
-        # anchored call, raises here, where autograd records the call, not
-        # first in the backward pass
+        # a width that kernel D does not take (where the JAX package refuses
+        # it too), or a per-tap anchored call, raises here, where autograd
+        # records the call, not first in the backward pass
         if anchor is not None and not shared_taps:
             raise ValueError(f"deform_conv2d_windowed: {PER_TAP_ANCHOR_REFUSAL}")
         o, c, kh, kw = weight.shape
         taps = 1 if shared_taps else kh * kw
-        check_tiled("dcn_bwd", c, offset.shape[1] // (2 * taps), kh, kw, o, shared_mask)
+        check_tiled("dcn_bwd", c, offset.shape[1] // (2 * taps), kh, kw, o,
+                    shared_taps or shared_mask)
     return _DeformConv2dWindowed.apply(x, offset, mask, weight, bias,
                                        max_displacement, shared_taps, shared_mask, anchor)

@@ -28,14 +28,24 @@ import torch
 from torch.overrides import handle_torch_function, has_torch_function
 
 from crfp_torch.ops.cuda import _build
-from crfp_torch.ops.cuda.dcn import FUSED_OUT_CHANNELS, TilePlan, _plan, check_tiled, sm_count
+from crfp_torch.ops.cuda.dcn import (
+    FUSED_OUT_CHANNELS,
+    TilePlan,
+    _plan,
+    check_route,
+    sm_count,
+    width_route,
+)
 from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
 
-# launches of the CUDA kernel (not of the plain version)
+# launches of the CUDA kernel (not of the plain version); general_launches:
+# those of its general route, also in `launches`
 launches = 0
+general_launches = 0
 
-# the instantiations of csrc/dcn_fused.cu: dcn_0/1/2 at mid 16 and mid 32
-# (the widths are ops/cuda/dcn.py::width_fault's)
+# the tuned route's instantiations in csrc/dcn_fused.cu: dcn_0/1/2 at mid 16
+# and mid 32; every other width takes the general route (the rule is
+# ops/cuda/dcn.py::width_fault and width_route)
 SUPPORTED_OUT_CHANNELS = FUSED_OUT_CHANNELS
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + \
     [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -99,13 +109,14 @@ def deform_conv2d_fusedprep(
     """Per-tap windowed DCNv2 from the heads' raw outputs, NCHW; (N, O, H,
     W) in x's dtype. No gradient: raises if an operand requires grad while
     autograd records. ``plan``: a tile plan other than the default one
-    (:func:`crfp_torch.ops.cuda.dcn.tile_plan`, for measurements).
+    (:func:`crfp_torch.ops.cuda.dcn.tile_plan` with ``kernel="dcn_fused"``,
+    for measurements; ``route="general"`` at a tuned width).
 
     CPU tensors take the plain version; CUDA tensors launch kernel E (x and
     heads float32 or bfloat16 alike, flow/weight/bias float32; bf16 x at O =
     32 contracted on the tensor cores with f32 sums, f32 x and O = 16 on the
-    CUDA cores) or raise. Overridable (``torch.overrides``), as the warp's
-    dispatcher."""
+    CUDA cores, every other width on the general route) or raise.
+    Overridable (``torch.overrides``), as the warp's dispatcher."""
     if has_torch_function((x, raw_offset, raw_mask, flow)):
         return handle_torch_function(
             deform_conv2d_fusedprep, (x, raw_offset, raw_mask, flow), x, raw_offset,
@@ -124,20 +135,23 @@ def deform_conv2d_fusedprep(
     g = _check(*operands)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
-    check_tiled("dcn_fused", c, g, kh, kw, o)
     bf16 = x.dtype == torch.bfloat16
     if plan is None:
-        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device))
+        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device), None,
+                     width_route("dcn_fused", c, o, g, kh, kw, bf16=bf16))
+    entry = check_route("dcn_fused", plan.route, c, g, kh, kw, o, False, bf16)
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
-    _build.launch("dcn_fused", "crfp_dcn_fused", _ARGTYPES, x.device,
+    _build.launch("dcn_fused", entry, _ARGTYPES, x.device,
                   x.data_ptr(), raw_offset.data_ptr(), raw_mask.data_ptr(),
                   flow.data_ptr(), weight.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   packed.data_ptr(),
                   n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
                   float(max_residue_magnitude), int(bf16), *plan.args())
-    global launches
+    global launches, general_launches
     launches += 1
+    if plan.route == "general":
+        general_launches += 1
     return out

@@ -5,10 +5,11 @@ stages, ``hr_dcn`` on and off) and ``CRFPRuntimeV18`` at mid 16 and mid 32
 (the widths of ``checkpoints/v18_mid16_procedural.npz``,
 ``v18_mid32_struct.npz`` and ``basic_fvsr_mid32_struct.npz``) passes the
 pure width rule of kernels A, D and
-(per-tap, windowed) E, ``crfp_torch.ops.cuda.dcn.width_fault``, and every
-DCN of the gen-1 pyramids at mid 64 and of PCD at nf 64 passes A's and is
-refused by D's: a width the kernels do not take shows here, not first on a
-card. Kernel D's plan
+(per-tap, windowed) E, ``crfp_torch.ops.cuda.dcn.width_fault``, on their
+tuned routes, and every DCN of the gen-1 pyramids at mid 64 and of PCD at
+nf 64 passes A's tuned route and D's general one: a width the kernels do
+not take shows here, not first on a card (``tests/test_torch_widths.py``
+holds the other widths). Kernel D's plan
 (``bwd_plan``) at the training shapes: the tiles cover every pixel once,
 the packed planes and the f32 accumulator hold every corner, the shared
 memory is ``csrc/dcn_bwd.cu``'s and fits the H100, and one call of the
@@ -106,14 +107,17 @@ def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt, variant, hr_dcn
     from crfp_torch.params import load_npz
 
     if model in ("CRFPPyramidX8", "CRFPPyramidX4", "PCDAlign"):
-        # per-tap at O = 64: A takes every stage; D refuses O = 64 (inference only)
+        # per-tap at O = 64: A's tuned route takes every stage; D takes O =
+        # 64 on its general route, and so does A under shared taps
         stages = _wide_stages(model, mid, variant)
         assert [g for *_, g in stages] == list(_WIDE_GROUPS[model, variant])
         for name, c, o, g in stages:
             assert (c, o) == (mid, mid), name
             assert dcn.width_fault("dcn_fwd", c, o, g, 3, 3) is None, name
-            assert "O = 64" in dcn.width_fault("dcn_bwd", c, o, g, 3, 3), name
-            assert "per-tap" in dcn.width_fault("dcn_fwd", c, o, g, 3, 3, shared=True), name
+            assert dcn.width_route("dcn_fwd", c, o, g, 3, 3) == "tuned", name
+            assert dcn.width_fault("dcn_bwd", c, o, g, 3, 3) is None, name
+            assert dcn.width_route("dcn_bwd", c, o, g, 3, 3) == "general", name
+            assert dcn.width_route("dcn_fwd", c, o, g, 3, 3, shared=True) == "general", name
         return
     cfg = ModelConfig(variant=variant, hr_dcn=hr_dcn, mid_channels=mid, dcn_window=8,
                       dcn_window_hr=32)
@@ -133,7 +137,12 @@ def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt, variant, hr_dcn
                 (name, kernel)
         if not shared and m.window is not None:  # where DCNAlign takes kernel E
             assert dcn.width_fault("dcn_fused", c, o, g, kh, kw) is None, name
+            assert dcn.width_route("dcn_fused", c, o, g, kh, kw) == "tuned", name
+        # mid 16 and 32 keep the tuned routes
         assert o in dcn.SUPPORTED_OUT_CHANNELS
+        for kernel in ("dcn_fwd", "dcn_bwd"):
+            assert dcn.width_route(kernel, c, o, g, kh, kw, shared=shared) == "tuned", \
+                (name, kernel)
     # dcn_0/1/2 at O = mid with mid/8 channels per group; dcn_3 shared at
     # O = mid/8 with the HR-level cascade, per-tap at O = mid without it
     widths = {name: tuple(m.dcn_weight.shape[:2]) + (m.deform_groups,) for name, m in stages}
@@ -142,20 +151,49 @@ def test_every_dcn_stage_passes_the_width_rule(model, mid, ckpt, variant, hr_dcn
     assert stages[3][1].repeat == hr_dcn
 
 
-@pytest.mark.parametrize("kernel,args,fault", [
-    ("dcn_fwd", (32, 8, 8, 3, 3), "O = 8"),
-    ("dcn_bwd", (32, 64, 8, 3, 3), "O = 64"),
-    ("dcn_fused", (4, 4, 1, 3, 3), "O = 4"),
-    ("dcn_fused", (4, 2, 1, 3, 3), "O = 2"),
-    ("dcn_fwd", (64, 32, 8, 3, 3), "channels per group"),
-    ("dcn_bwd", (32, 32, 8, 5, 5), "3x3"),
-    ("dcn_bwd", (64, 32, 16, 3, 3), "16 groups"),
-], ids=["A_O8", "D_O64", "E_O4", "E_O2", "A_cpg8", "D_5x5", "D_16_groups"])
-def test_width_rule_names_the_fault(kernel, args, fault):
-    got = dcn.width_fault(kernel, *args)
-    assert got is not None and fault in got
-    with pytest.raises(ValueError, match=re.escape(fault)):
-        dcn.check_tiled(kernel, args[0], args[2], args[3], args[4], args[1])
+# (kernel, (C, O, G, kh, kw), the route it takes or the fault it names). The
+# first seven widths were refused until the general route took them (the
+# tuned route's reason is the second item, which a plan that names the tuned
+# route there raises); the faults that remain are the JAX package's own
+# (C % G != 0, crfp_tpu/ops/pallas/dcn.py:815, :1705).
+_RULE_CASES = [
+    ("dcn_fwd", (32, 8, 8, 3, 3), ("general", "O = 8")),
+    ("dcn_bwd", (32, 64, 8, 3, 3), ("general", "O = 64")),
+    ("dcn_fused", (4, 4, 1, 3, 3), ("general", "O = 4")),
+    ("dcn_fused", (4, 2, 1, 3, 3), ("general", "O = 2")),
+    ("dcn_fwd", (64, 32, 8, 3, 3), ("general", "channels per group")),
+    ("dcn_bwd", (32, 32, 8, 5, 5), ("general", "3x3")),
+    ("dcn_bwd", (64, 32, 16, 3, 3), ("general", "16 groups")),
+    ("dcn_fwd", (24, 24, 16, 3, 3), "groups must divide"),
+    ("dcn_bwd", (3, 3, 2, 3, 3), "groups must divide"),
+    ("dcn_fused", (32, 32, 5, 3, 3), "groups must divide"),
+    ("dcn_bwd", (32, 32, 8, 3, 3), ("tuned", None)),
+]
+_RULE_IDS = ["A_O8", "D_O64", "E_O4", "E_O2", "A_cpg8", "D_5x5", "D_16_groups",
+             "A_c_mod_g", "D_c_mod_g", "E_c_mod_g", "D_mid32_tuned"]
+
+
+@pytest.mark.parametrize("kernel,args,want", _RULE_CASES, ids=_RULE_IDS)
+def test_width_rule_names_the_fault(kernel, args, want):
+    c, o, g, kh, kw = args
+    if isinstance(want, str):  # a fault that the JAX package names too
+        got = dcn.width_fault(kernel, *args)
+        assert got is not None and want in got
+        with pytest.raises(ValueError, match=re.escape(want)):
+            dcn.check_tiled(kernel, c, g, kh, kw, o)
+        with pytest.raises(ValueError, match=re.escape(want)):
+            dcn.width_route(kernel, *args)
+        return
+    route, tuned_fault = want
+    assert dcn.width_fault(kernel, *args) is None
+    dcn.check_tiled(kernel, c, g, kh, kw, o)
+    assert dcn.width_route(kernel, *args) == route
+    if route == "general":
+        # a plan that names the tuned route at this width is refused, with its reason
+        with pytest.raises(ValueError, match=re.escape(tuned_fault)):
+            dcn.check_route(kernel, "tuned", c, g, kh, kw, o, False)
+    want_entry = f"crfp_{kernel}" + ("_general" if route == "general" else "")
+    assert dcn.check_route(kernel, route, c, g, kh, kw, o, False) == want_entry
 
 
 def test_kernel_e_refuses_shared_taps():

@@ -163,11 +163,19 @@ def test_unclamped_call_plans_no_window(shape, dtype):
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError, match="channels per group"):
-        dcn.check_tiled("dcn_fwd", 32, 4, 3, 3)  # 8 channels per group
-    with pytest.raises(ValueError, match="3x3"):
-        dcn.check_tiled("dcn_fwd", 32, 8, 5, 5)
+    # refused only where the JAX package refuses too: groups that do not
+    # divide the channels (crfp_tpu/ops/pallas/dcn.py:815)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn.check_tiled("dcn_fwd", 32, 5, 3, 3)
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn.tile_plan(1, 32, 45, 80, 32, 5, 8, bf16=True)
+    # 8 channels a group and a 5x5 weight, once refused, take the general route
+    dcn.check_tiled("dcn_fwd", 32, 4, 3, 3)
+    dcn.check_tiled("dcn_fwd", 32, 8, 5, 5)
+    assert dcn.tile_plan(1, 32, 45, 80, 32, 4, 8, bf16=True).route == "general"
+    assert dcn.tile_plan(1, 32, 45, 80, 32, 8, 8, bf16=True, kh=5, kw=5).route == "general"
     dcn.check_tiled("dcn_fwd", 32, 8, 3, 3)
+    assert dcn.tile_plan(1, 32, 45, 80, 32, 8, 8, bf16=True).route == "tuned"
 
 
 # ---- on the card -------------------------------------------------------

@@ -6,13 +6,14 @@ weight, the corners' staging area and U in 114,688 bytes of shared memory; f32: 
 CUDA-core route, one resident block an SM, the f32 weight of 147,456 bytes;
 tiles covering every pixel once, no border unclamped), every corner of a
 clamped call inside the zero-padded packed plane and inside its tile grown
-by the border, the width rule (per-tap only at O = 64, nothing for kernel
-D, 64 input channels for bf16), and the dispatcher's plain version on CPU
-tensors. On a card only (marker ``cuda``): the kernel against its plain
-version at every channel count, clamped and unclamped, f32 to 1e-4 and
+by the border, the width rule (the tuned route per-tap only at O = 64,
+kernel D and shared taps on the general route, 64 input channels for the
+tensor-core route), and the dispatcher's plain version on CPU tensors. On
+a card only (marker ``cuda``): the kernel against its plain version at
+every channel count, clamped and unclamped, f32 to 1e-4 and
 bf16 to 2e-2 of max|ref|, the same bits in two runs and from a CUDA-graph
 replay, every tile of the tensor-core plan giving the same bits, and a
-call that autograd records refused."""
+call that autograd records trained through kernel D's general route."""
 
 import math
 
@@ -128,18 +129,38 @@ def test_wide_padded_planes_hold_every_corner(shape):
 def test_wide_width_rule(cpg):
     g = 64 // cpg
     assert dcn.width_fault("dcn_fwd", 64, 64, g, 3, 3) is None
-    assert "per-tap" in dcn.width_fault("dcn_fwd", 64, 64, g, 3, 3, shared=True)
-    assert "O = 64" in dcn.width_fault("dcn_bwd", 64, 64, g, 3, 3)
-    assert "O = 64" in dcn.width_fault("dcn_fused", 64, 64, g, 3, 3)
-    # 2 channels a group is a width of the trunk's O, not of O = 64; 8, 16
-    # and 64 are O = 64's alone
-    assert "channels per group" in dcn.width_fault("dcn_fwd", 64, 64, 32, 3, 3)
+    assert dcn.width_route("dcn_fwd", 64, 64, g, 3, 3) == "tuned"
+    # shared taps, D and E at O = 64 run, on the general route (the tuned
+    # route's reasons are what a plan naming it there raises)
+    for kernel, shared, fault in (("dcn_fwd", True, "per-tap"), ("dcn_bwd", False, "O = 64"),
+                                  ("dcn_fused", False, "O = 64")):
+        assert dcn.width_fault(kernel, 64, 64, g, 3, 3, shared=shared) is None
+        assert dcn.width_route(kernel, 64, 64, g, 3, 3, shared=shared) == "general"
+        with pytest.raises(ValueError, match=fault):
+            dcn.check_route(kernel, "tuned", 64, g, 3, 3, 64, shared)
+    # 2 channels a group is a width of the trunk's O, not of O = 64's tuned
+    # route; 8, 16 and 64 are O = 64's alone: the general route takes the rest
+    assert dcn.width_route("dcn_fwd", 64, 64, 32, 3, 3) == "general"
     if cpg not in dcn.SUPPORTED_CHANNELS_PER_GROUP:
-        assert "channels per group" in dcn.width_fault("dcn_fwd", 64, 32, g, 3, 3)
-    # the tensor-core route takes 64 input channels; f32 takes others
+        assert dcn.width_route("dcn_fwd", 64, 32, g, 3, 3) == "general"
+    # the tensor-core route takes 64 input channels; a plan that names it at
+    # other channels raises, the default plan takes the general route; f32
+    # takes the tuned CUDA-core route
     with pytest.raises(ValueError, match="64 input channels"):
-        dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=True)
-    assert not dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=False).mma
+        dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=True, route="tuned")
+    plan = dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=True)
+    assert plan.route == "general" and not plan.mma
+    # the route rule knows the dtype: what it predicts is what the plan takes
+    g32 = max(32 // cpg, 1)
+    if 32 % cpg == 0:  # a width of O = 64's tuned route in f32, not in bf16
+        assert dcn.width_route("dcn_fwd", 32, 64, g32, 3, 3) == "tuned"
+        with pytest.raises(ValueError, match="64 input channels"):
+            dcn.check_route("dcn_fwd", "tuned", 32, g32, 3, 3, 64, False, bf16=True)
+    assert dcn.width_route("dcn_fwd", 32, 64, g32, 3, 3, bf16=True) == plan.route
+    assert dcn.width_route("dcn_fwd", 64, 64, g, 3, 3, bf16=True) == "tuned"
+    plan = dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=False)
+    assert not plan.mma
+    assert plan.route == dcn.width_route("dcn_fwd", 32, 64, max(32 // cpg, 1), 3, 3)
 
 
 def _args(cpg, seed=0, d=8, hw=(37, 53)):
@@ -239,9 +260,27 @@ def test_every_wide_plan_gives_the_same_bits_on_card(cpg, window):
 @pytest.mark.cuda
 @_NEEDS_CARD
 def test_wide_kernel_refuses_a_recorded_call_on_card():
+    """A call that autograd records at O = 64 was refused until kernel D's
+    general route took it: now it trains through that route, every
+    gradient within 1e-4 of max|ref| of autograd of the plain version in
+    f32; a width the JAX package refuses (C % G != 0) is still refused."""
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
     x, off, mask, wt, b = (t.cuda() for t in _args(16))
-    x.requires_grad_(True)
-    with pytest.raises(ValueError, match="dcn_bwd: O = 64"):
-        dcn.deform_conv2d_windowed(x, off, mask, wt, b)
-    with torch.no_grad():
-        assert dcn.deform_conv2d_windowed(x, off, mask, wt, b).shape == x.shape
+    gout = torch.randn_like(x)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, off, mask, wt, b)]
+    before = dcn.bwd_general_launches
+    dcn.deform_conv2d_windowed(*leaves).backward(gout)
+    torch.cuda.synchronize()
+    assert dcn.bwd_general_launches == before + 1
+    want = [t.detach().clone().requires_grad_(True) for t in (x, off, mask, wt, b)]
+    deform_conv2d_windowed_ref(*want).backward(gout)
+    for got, ref in zip(leaves, want):
+        assert float((got.grad - ref.grad).abs().max()) <= 1e-4 * float(ref.grad.abs().max())
+    # 60 channels in 8 groups
+    n, _, h, w = x.shape
+    xr = x[:, :60].contiguous().requires_grad_(True)
+    off8, mask8 = torch.zeros(n, 8 * 18, h, w, device="cuda"), torch.ones(n, 8 * 9, h, w,
+                                                                         device="cuda")
+    with pytest.raises(ValueError, match="groups must divide"):
+        dcn.deform_conv2d_windowed(xr, off8, mask8, wt[:, :60].contiguous(), b)
