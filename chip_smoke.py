@@ -8,6 +8,7 @@
     python3 chip_smoke.py --anchor-only     # phases 1 and 12 alone
     python3 chip_smoke.py --anchor-train-only  # phases 1 and 14 alone
     python3 chip_smoke.py --widths-only     # phases 1 and 15 alone
+    python3 chip_smoke.py --anchor-per-tap-only  # phases 1 and 16 alone
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -204,7 +205,14 @@ Phases, in order; any failure exits non-zero without the final line:
    ``SpatialStreamingRunner`` over 3 frames of phase 3b's 720p clip (LR
    90x160, v18 mid 32 from that checkpoint, f32) with windows 8/32 and
    unclamped against ``StreamingRunner`` (>= 80 dB and max|d| <= 1e-3 a
-   frame; A 4 and B 3 launches a steady frame per rank); ms a step and a
+   frame; A 4 and B 3 launches a steady frame per rank), and anchored
+   (checkpoints/v18_mid32_struct_anchored.npz, windows 8/32, ``hr_s2d``,
+   ``dcn_anchor``: the anchored warp and DCN on the whole height with the
+   whole frame's offsets, mask and flow) on phase 12's clip panning 36 / 44
+   HR px a frame at 720p, where the HR warp's 32-row cell at rows 352-383
+   spans the bands, against the one-process anchored ``StreamingRunner`` at
+   the same limits, the checkpoint served with the clamp outside them, of
+   A's and B's launches anchored 1 each a steady frame per rank; ms a step and a
    frame of the two ranks beside one process (the halo and collective
    overhead on one card, not scaling); last, one step of ``python -m
    crfp_torch.main --cpu false`` with train.sh's flags (``--num_gpu 4``;
@@ -282,8 +290,10 @@ Phases, in order; any failure exits non-zero without the final line:
    ``flow_warp_bwd_anchored``, kernel D's anchored modes, their launches
    the anchored-mode ones of those steps, their times per anchored amp
    step; ``dcn_*_general``, the general routes of A, D and E (phase 15),
-   per unit of their own main path at mid 24) and, last, the {"ok": true,
-   ...} line;
+   per unit of their own main path at mid 24; ``dcn_fwd_tap_anchored`` and
+   ``dcn_bwd_tap_anchored``, A's and D's per-tap anchored modes (phase 16),
+   their launches the per-tap anchored ones of 16(c), their times per call
+   at mid 32 in bf16) and, last, the {"ok": true, ...} line;
 15. (run after phase 14, before phase 13's lines) every DCN width the JAX
    kernels take (``--mid_channels``, ``--dg_num``, ``--dcn_kernel``), the
    general route of kernels A, D and E: (a) each against its plain version
@@ -306,7 +316,28 @@ Phases, in order; any failure exits non-zero without the final line:
    limits), one f32 train step of the recipe at mid 24, mid 64, ``dg_num``
    16 and ``dcn_kernel`` 5 (phase 6's limits) and one amp step each
    (finite), one anchored f32 step at mid 24, one step of ``python -m
-   crfp_torch.main`` at ``--mid_channels 24``.
+   crfp_torch.main`` at ``--mid_channels 24``;
+16. (run after phase 15, before phase 13's lines) per-tap anchored windows
+   (``DCNAlign(anchor=True)`` as a per-tap stage, which no model of the JAX
+   package sets): (a) kernel A in per-tap anchored mode against its plain
+   version on the inference and the training grid at (1,32,180,180) and
+   (1,16,180,180) (tuned), (1,24,180,180) (general), G 8, and (1,64,180,320)
+   at 8, 4, 16 and 64 channels a group (O = 64; G 8, 16, 4, 1), D 8, on a
+   smooth field whose cell anchors reach past ±8: f32 to 1e-4 abs, bf16 to
+   2e-2 of max|ref| (phase 12(a)'s limits), two runs and a CUDA-graph replay
+   bit-equal, the output other than the clamped call's by more than the
+   limit; device and call ms beside the bound and the clamped call's;
+   (b) kernel D in per-tap anchored mode at (2,32,48,48) (tuned) and
+   (2,24,48,48) (general) on the training grid: dx, d-offset, d-mask and dW
+   against autograd of the plain version (phase 14(a)'s limits), d-offset,
+   d-mask and dW bit-equal over two runs, d-offset other than the clamped
+   call's, ms as (a); (c) ``DCNAlign(anchor=True, anchor_vjp=True)`` as a
+   per-tap stage at mid 32, seeded, f32, 3 Adam steps at (2,32,48,48)
+   through the kernels against the plain versions (every leaf's gradient of
+   the first step to 1e-4 of its max|ref|, as phase 14 holds D, then phase
+   6's limits), the counts zeroed just before and read just after: 3 per-tap
+   anchored launches of A and of D, and an inference call at (1,32,180,180)
+   at (a)'s limit.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -962,6 +993,7 @@ def _zero_counts() -> None:
     dcn.anchor_launches = warp.anchor_launches = 0
     dcn.bwd_anchor_launches = warp.bwd_anchor_launches = 0
     dcn.general_launches = dcn.bwd_general_launches = dcn_fused.general_launches = 0
+    dcn.tap_anchor_launches = dcn.bwd_tap_anchor_launches = 0
 
 
 def _counts() -> dict:
@@ -2567,8 +2599,12 @@ def _expect_world_1(log: Path, tag: str) -> None:
 # not scaling. NCCL itself is held on a group of one rank.
 PAR_WORLD, PAR_STEPS, PAR_TIMED_STEPS, PAR_FRAMES = 2, 2, 3, 3
 PAR_LR = 2e-4
+# the anchored configuration runs checkpoints/v18_mid32_struct_anchored.npz
+# on phase 12's panning clip at 720p (_par_clip): 360 HR rows a rank, so the
+# HR warp's 32-row cell at rows 352-383 spans the two bands
 PAR_WINDOWS = (("windows 8/32", dict(dcn_window=8, dcn_window_hr=32)),
-               ("unclamped", dict(dcn_window=None, dcn_window_hr=None)))
+               ("unclamped", dict(dcn_window=None, dcn_window_hr=None)),
+               ("anchored", dict(dcn_window=8, dcn_window_hr=32, hr_s2d=True, dcn_anchor=True)))
 PAR_JOIN_S = 300
 
 
@@ -2580,12 +2616,30 @@ def _par_trainer(group=None):
     return build_trainer(amp=False, ckpt=str(CKPT), lr_rate=PAR_LR, group=group)
 
 
-def _par_stream(runner, frames):
-    """The frames of phase 3b's 720p clip through ``runner`` and the host ms
+@functools.cache
+def _par_clip(anchored: bool):
+    """lr, hr and masks of the parallel frames on the card: phase 3b's 720p
+    gate clip, or (``anchored``) phase 12's clip panning 36 / 44 HR px a
+    frame at 720p, under the gate clip's fovea masks."""
+    import torch
+
+    from crfp_torch.bench.quality_window import panning_clip
+
+    lr, hr, masks = _variant_clip(VARIANT_FRAMES)
+    if anchored:
+        lr, hr = (torch.from_numpy(a).cuda()
+                  for a in panning_clip(VARIANT_FRAMES, GATE_LR_HW, ANCHOR_V, seed=12))
+    return lr, hr, masks
+
+
+def _par_stream(runner, frames, anchored_clip=None):
+    """The frames of :func:`_par_clip` (the anchored one for an anchored
+    model, or as ``anchored_clip`` says) through ``runner`` and the host ms
     of each (synchronised)."""
     import torch
 
-    lr, hr, masks = _variant_clip(VARIANT_FRAMES)
+    anchored = runner.model.cfg.dcn_anchor if anchored_clip is None else anchored_clip
+    lr, hr, masks = _par_clip(anchored)
     outs, ms = [], []
     for i in range(frames):
         t0 = time.perf_counter()
@@ -2595,16 +2649,18 @@ def _par_stream(runner, frames):
     return outs, ms
 
 
-def _par_model(cfg):
-    """v18 mid 32 from the checkpoint at the windows of ``cfg``, f32."""
+def _par_model(cfg, ckpt=None):
+    """v18 mid 32 from the checkpoint (the anchored one for an anchored
+    ``cfg``, or ``ckpt``) at the windows of ``cfg``, f32."""
     import torch
 
     from crfp_torch.models.config import ModelConfig
     from crfp_torch.models.crfp import CRFP
     from crfp_torch.params import from_jax, load_npz
 
+    ckpt = ckpt or (ANCHOR_CKPT if cfg.get("dcn_anchor") else CKPT)
     model = CRFP(ModelConfig(mid_channels=MID, **cfg), device="cuda")
-    model.load_state_dict(from_jax(load_npz(str(CKPT))), strict=True)
+    model.load_state_dict(from_jax(load_npz(str(ckpt))), strict=True)
     return model.to(torch.float32).eval()
 
 
@@ -2702,6 +2758,7 @@ def _parallel_rank(rank: int, world: int, port: int, out_dir: str) -> None:
             _zero_counts()
             outs, ms = _par_stream(runner, PAR_FRAMES)
             res[f"{tag} launches"] = _counts()
+            res[f"{tag} anchored"] = _anchor_counts()
             res[f"{tag} ms"] = ms
             res[f"{tag} digest"] = digest(*outs)
             if rank == 0:
@@ -2798,6 +2855,12 @@ def phase_parallel(tmp: Path) -> dict:
         _par_stream(runner, PAR_FRAMES)  # warm
         runner.clear_states()
         want_frames[tag], one_frame_ms[tag] = _par_stream(runner, PAR_FRAMES)
+    # the anchored checkpoint served with the clamp: its frames must fall
+    # outside the limits that hold the sharded anchored frames
+    clamped = {k: v for k, v in dict(PAR_WINDOWS)["anchored"].items()
+               if k not in ("hr_s2d", "dcn_anchor")}
+    clamp_frames, _ = _par_stream(StreamingRunner(_par_model(clamped, ANCHOR_CKPT)), PAR_FRAMES,
+                                  anchored_clip=True)
 
     # ---- two ranks on cuda:0 over gloo -----------------------------------------
     with tempfile.TemporaryDirectory(prefix="crfp_par_") as out:
@@ -2828,19 +2891,34 @@ def phase_parallel(tmp: Path) -> dict:
 
     steady = PAR_FRAMES - 1
     frame_expect = _expect(dcn_fwd=4 * steady, flow_warp=3 * steady)
-    for tag, _ in PAR_WINDOWS:
+    for tag, cfg in PAR_WINDOWS:
+        # anchored: dcn_3 and the HR warp, each once a steady frame
+        n_anch = steady if cfg.get("dcn_anchor") else 0
+        anch_expect = {"dcn_fwd": n_anch, "flow_warp": n_anch, "dcn_bwd": 0,
+                       "flow_warp_bwd": 0}
         for r, res in enumerate(ranks):
             print(f"[parallel] spatial {tag}: rank {r} launches over {PAR_FRAMES} frames "
                   f"{res[f'{tag} launches']} (A {4} and B {3} a steady frame, one launch "
-                  "a call on its slab)")
-            if res[f"{tag} launches"] != frame_expect:
+                  f"a call on its slab), anchored {res[f'{tag} anchored']}")
+            if res[f"{tag} launches"] != frame_expect or res[f"{tag} anchored"] != anch_expect:
                 fail(f"parallel spatial {tag} rank {r}: launches {res[f'{tag} launches']} "
-                     f"!= {frame_expect}")
+                     f"!= {frame_expect} or anchored {res[f'{tag} anchored']} != "
+                     f"{anch_expect}")
         if len({res[f"{tag} digest"] for res in ranks}) != 1:
             fail(f"parallel spatial {tag}: the ranks returned different frames")
-        _frames_agree(f"[parallel] spatial {tag}", [f.cuda() for f in ranks[0][f"{tag} frames"]],
-                      want_frames[tag], versus="2 ranks vs StreamingRunner",
+        got = [f.cuda() for f in ranks[0][f"{tag} frames"]]
+        _frames_agree(f"[parallel] spatial {tag}", got, want_frames[tag],
+                      versus="2 ranks vs StreamingRunner",
                       shape=(1, GATE_LR_HW[0] * 8, GATE_LR_HW[1] * 8, 3))
+        if cfg.get("dcn_anchor"):
+            readings = _frames_agree(f"[parallel] spatial {tag} vs the clamp", got[1:],
+                                     clamp_frames[1:], -math.inf, None,
+                                     versus="2 ranks anchored vs one process clamped")
+            inside = [i + 1 for i, (p, d) in enumerate(readings) if p >= 80.0 and d <= 1e-3]
+            if inside:
+                fail(f"parallel spatial anchored: the clamped frames {inside} fall inside the "
+                     "limit (>= 80 dB, max|d| <= 1e-3), which then cannot fail a runner that "
+                     "drops the anchor")
 
     # ---- the entry point with --num_gpu 4 on this machine --------------------------
     run = tmp / "train_dp"
@@ -4400,6 +4478,299 @@ def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
     return modes, general
 
 
+# ---- phase 16: per-tap anchored windows (DCNAlign(anchor=True), per-tap) ---
+# (a)'s widths: (id, C = O, G, plane, calls a unit); the per-tap stages at
+# D = 8 in 8 groups. The dcn_fwd_tap_anchored entry's unit is one call at
+# mid 32 in bf16 on the serving plane; (b)'s, dcn_bwd_tap_anchored's, one at
+# the amp step's (2,32,48,48).
+TAP_ANCHOR_D = 8
+TAP_ANCHOR_WIDTHS = [("mid32", 32, 8, (180, 180), 1), ("mid16", 16, 8, (180, 180), 0),
+                     ("mid24", 24, 8, (180, 180), 0), ("O64 cpg8", 64, 8, (180, 320), 0),
+                     ("O64 cpg4", 64, 16, (180, 320), 0), ("O64 cpg16", 64, 4, (180, 320), 0),
+                     ("O64 cpg64", 64, 1, (180, 320), 0)]
+TAP_ANCHOR_BWD = [("mid32", 32, 8, 1), ("mid24", 24, 8, 0)]
+TAP_ANCHOR_STEPS, TAP_ANCHOR_LR = 3, 2e-4
+
+
+# the motion of phase 16's fields: (dy, dx) = (12, 40) px, past D = 8 in
+# every cell and quantum (rows: 8 or 16; columns: 16-128)
+TAP_ANCHOR_SHIFT = (12.0, 40.0)
+
+
+def _tap_field(gen, n: int, g: int, hw) -> "torch.Tensor":
+    """Per-tap offsets (n, g*18, *hw) on the card: a shift of
+    :data:`TAP_ANCHOR_SHIFT` plus a smooth field of std 20 px varying over
+    ~32 px (its cells' anchors pass D = 8), the same for every tap, plus 2
+    px of noise a tap."""
+    import torch
+
+    shift = torch.tensor(TAP_ANCHOR_SHIFT).view(1, 2, 1, 1).cuda()
+    base = (_smooth(gen, 2, hw, 20.0, n=n) + shift).repeat(1, g * 9, 1, 1)
+    return (base + (torch.randn(n, g * 18, *hw, generator=gen) * 2.0).cuda()).contiguous()
+
+
+def _tap_kernels(gen) -> list:
+    """Phase 16(a) and (b): kernels A and D in per-tap anchored mode against
+    their plain versions (see the module note). Returns the records."""
+    import torch
+
+    from crfp_torch.ops import anchor as an
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+
+    modes = []
+    record = functools.partial(_record, modes)
+    d = TAP_ANCHOR_D
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).cuda()
+
+    def geoms(hw, c, g, fullgrad):
+        return tuple(an.dcn_geometry(*hw, c, c, g, 3, d, bf16=b16, shared_taps=False,
+                                     shared_mask=False, fullgrad=fullgrad)
+                     for b16 in (False, True))
+
+    def beyond(off, geom, g, what):
+        reach = float(an.anchor_table(off, geom, g).abs().max())
+        print(f"[tap anchor] {what}: anchors up to {reach:g} px (A = {geom.a_y}/{geom.a_x}, "
+              f"reach {geom.reach:g}), |offset| up to {float(off.abs().max()):.1f} px")
+        if reach <= d:
+            fail(f"[tap anchor] {what}: no cell's anchor passes D = {d}")
+
+    def same_bits(tag, fn):
+        first = fn()
+        if not (torch.equal(fn(), first) and torch.equal(captured(fn), first)):
+            fail(f"[tap anchor] {tag}: two runs and a CUDA-graph replay are not bit-equal")
+        return first
+
+    def now():
+        return (dcn.tap_anchor_launches, dcn.bwd_tap_anchor_launches, dcn.general_launches,
+                dcn.bwd_general_launches)
+
+    def counted(tag, before, fwd, bwd, general):
+        got = tuple(a - b for a, b in zip(now(), before))
+        want = (fwd, bwd, fwd if general[0] else 0, bwd if general[1] else 0)
+        if got != want:
+            fail(f"[tap anchor] {tag}: per-tap anchored launches of A, D and their general "
+                 f"route's {got}, expected {want}")
+
+    # ---- (a) A ------------------------------------------------------------
+    for wid, c, g, hw, calls in TAP_ANCHOR_WIDTHS:
+        route = dcn.width_route("dcn_fwd", c, c, g, 3, 3, bf16=True, tap_anchor=True)
+        x = rn(1, c, *hw)
+        off = _tap_field(gen, 1, g, hw)
+        mask = torch.rand(1, g * 9, *hw, generator=gen).cuda()
+        wt, b = rn(c, c, 3, 3, std=0.1), rn(c)
+        xb = x.to(bf)
+        for grid in ("inference", "training"):
+            g32, g16 = geoms(hw, c, g, grid == "training")
+            mode = f"{wid} C{c} O{c} G{g} (1,{c},{hw[0]},{hw[1]}) D={d} {grid} grid"
+            beyond(off, g16, g, f"A {mode}")
+            before = now()
+            with torch.no_grad():
+                got = dcn.dcn_forward(x, off, mask, wt, b, max_displacement=d, anchor=g32)
+                ref = deform_conv2d_windowed_ref(x, off, mask, wt, b, max_displacement=d,
+                                                 anchor=g32)
+                refb = deform_conv2d_windowed_ref(xb.float(), off, mask, wt, b,
+                                                  max_displacement=d, anchor=g16)
+
+                def call():
+                    return dcn.dcn_forward(xb, off, mask, wt, b, max_displacement=d,
+                                           anchor=g16)
+
+                gotb = call()
+                torch.cuda.synchronize()
+                counted(f"A {mode}", before, 2, 0, (route == "general", False))
+                err = float((got - ref).abs().max())
+                limit = 2e-2 * float(refb.abs().max())
+                rel = float((gotb.float() - refb).abs().max()) / float(refb.abs().max())
+                if not (err <= 1e-4 and rel <= 2e-2):
+                    fail(f"[tap anchor] A {mode}: f32 max|d| {err} (limit 1e-4), bf16 {rel} of "
+                         f"max|ref| (limit 2e-2)")
+                if not torch.equal(same_bits(f"A {mode}", call), gotb):
+                    fail(f"[tap anchor] A {mode}: the first call and its repeats differ")
+                clamp = dcn.dcn_forward(xb, off, mask, wt, b, max_displacement=d)
+                moved = float((clamp.float() - refb).abs().max())
+                if not moved > limit:
+                    fail(f"[tap anchor] A {mode}: the clamped output is within the limit of "
+                         f"the anchored plain version ({moved} <= {limit})")
+                if grid == "training":
+                    continue
+                k_ms = measure(call)
+                c_ms = measure(lambda: dcn.dcn_forward(xb, off, mask, wt, b, max_displacement=d))
+                p_ms = (time_ms(lambda: deform_conv2d_windowed_ref(
+                    xb, off, mask, wt, b, max_displacement=d, anchor=g16), iters=3, warmup=1), None)
+            n_px = hw[0] * hw[1]
+            bnd = bound([xb, off, mask, wt, b], [gotb], 2 * n_px * c * 9 * c + 9 * n_px * c * 9,
+                        "bfloat16")
+            record("dcn_fwd_tap_anchored", mode, calls, err, rel, k_ms, p_ms, None, bnd,
+                   route=route, clamp_ms=c_ms[0], clamp_device_ms=c_ms[1],
+                   anchored_vs_clamp_max_abs=moved, bound_fraction=bnd[0] / k_ms[1],
+                   geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g} "
+                            f"reach {g16.reach:g}",
+                   digest=digest(got, gotb))
+
+    # ---- (b) D, at the amp step's plane, on the training grid --------------
+    for wid, c, g, calls in TAP_ANCHOR_BWD:
+        n, thw = 2, (48, 48)
+        route = dcn.width_route("dcn_bwd", c, c, g, 3, 3, tap_anchor=True)
+        mode = f"{wid} C{c} O{c} G{g} ({n},{c},{thw[0]},{thw[1]}) D={d} training grid"
+        x, gout = rn(n, c, *thw), rn(n, c, *thw)
+        off = _tap_field(gen, n, g, thw)
+        mask = torch.rand(n, g * 9, *thw, generator=gen).cuda()
+        wt, bias = rn(c, c, 3, 3, std=0.1), rn(c)
+        g32, g16 = geoms(thw, c, g, True)
+        beyond(off, g16, g, f"D {mode}")
+
+        def kern(*a, geom=None):
+            return dcn.deform_conv2d_windowed(*a, max_displacement=d, anchor=geom)
+
+        def plain(*a, geom=None):
+            return deform_conv2d_windowed_ref(*a, max_displacement=d, anchor=geom)
+
+        ops = (x, off, mask, wt, bias)
+        before = now()
+        _, got = _grads(functools.partial(kern, geom=g32), ops, gout)
+        _, want = _grads(functools.partial(plain, geom=g32), ops, gout)
+        xb, gb = x.to(bf), gout.to(bf)
+        _, gotb = _grads(functools.partial(kern, geom=g16), (xb, *ops[1:]), gb)
+        _, wantb = _grads(functools.partial(plain, geom=g16), (xb.float(), *ops[1:]),
+                          gb.float())
+        torch.cuda.synchronize()
+        counted(f"D {mode}", before, 2, 2, (dcn.width_route("dcn_fwd", c, c, g, 3, 3,
+                                                            tap_anchor=True) == "general",
+                                            route == "general"))
+        err = _check_grads(f"[tap anchor] D {mode} f32", got, want, 1e-4)[0]
+        _, rel = _check_grads(f"[tap anchor] D {mode} bf16", gotb, wantb, 2e-2)
+        _, table = dcn.dcn_forward(xb, off, mask, wt, bias, max_displacement=d, anchor=g16,
+                                   with_table=True)
+
+        def bwd():
+            return dcn.dcn_backward(xb, off, mask, wt, gb, max_displacement=d, anchor=g16,
+                                    table=table)
+
+        bits = torch.cat([t.flatten() for t in bwd()[1:]])
+        if not torch.equal(torch.cat([t.flatten() for t in bwd()[1:]]), bits):
+            fail(f"[tap anchor] D {mode}: d-offset, d-mask or dW differ over two runs")
+        anch, clamp = bwd(), dcn.dcn_backward(xb, off, mask, wt, gb, max_displacement=d)
+        moved = float((anch[1] - clamp[1]).abs().max())
+        if not moved > 0.1 * float(anch[1].abs().max()):
+            fail(f"[tap anchor] D {mode}: anchored and clamped d-offset differ by only {moved}")
+        k_ms = measure(bwd)
+        c_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, max_displacement=d))
+        p_ms = _time_backward(functools.partial(plain, geom=g16), (xb, *ops[1:]), gb, iters=5)
+        n_px = n * thw[0] * thw[1]
+        bnd = bound([xb, off, mask, wt, gb, table], list(anch), n_px * 9 * c * (4 * c + 22),
+                    "bfloat16")
+        record("dcn_bwd_tap_anchored", mode, calls, err, rel, k_ms, p_ms, None, bnd, route=route,
+               clamp_ms=c_ms[0], clamp_device_ms=c_ms[1], anchored_vs_clamp_max_abs=moved,
+               bound_fraction=bnd[0] / k_ms[1],
+               geometry=f"band {g16.band} xtile {g16.xtile} dl {g16.dl_r:g}/{g16.dl_c:g} "
+                        f"reach {g16.reach:g}",
+               digest=digest(bits))
+    return modes
+
+
+def _tap_stage(seed: int):
+    """``DCNAlign(anchor=True, anchor_vjp=True)`` as a per-tap stage at mid
+    32 (8 groups, window 8) on the card, f32, seeded: random offset and mask
+    heads (offset std 0.02, so that the taps' offsets spread a few pixels
+    around the flow) and DCN weight and bias in place of the init's zero
+    heads and identity weight."""
+    import torch
+
+    from crfp_torch.nn.align import DCNAlign
+
+    torch.manual_seed(seed)
+    stage = DCNAlign(MID, 8, 3, 10.0, window=TAP_ANCHOR_D, anchor=True, anchor_vjp=True)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in stage.named_parameters():
+            if name.startswith(("dcn_offset", "dcn_mask", "dcn_weight", "dcn_bias")):
+                std = 0.02 if name.startswith("dcn_offset") else 0.2
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return stage.cuda()
+
+
+def phase_anchor_per_tap(gen) -> tuple[list, dict]:
+    """Phase 16 (see the module note). Returns (the records of (a) and (b),
+    the per-tap anchored launches of A and D over (c)'s steps)."""
+    import torch
+
+    from crfp_torch.ops.cuda import dcn
+
+    modes = _tap_kernels(gen)
+
+    # ---- (c) the module: DCNAlign per-tap anchored, f32 ---------------------
+    def inputs(n, hw):  # the flow (dx, dy) of _tap_field's motion
+        cur, pre, pre_al = (torch.randn(n, MID, *hw, generator=gen).cuda() for _ in range(3))
+        shift = torch.tensor(TAP_ANCHOR_SHIFT[::-1]).view(1, 2, 1, 1).cuda()
+        return cur, pre, pre_al, _smooth(gen, 2, hw, 20.0, n=n) + shift
+
+    stage = _tap_stage(16)
+    args = inputs(1, (180, 180))
+    with torch.no_grad():
+        got, _ = stage(*args)
+        with plain_kernels():
+            want, _ = stage(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[tap anchor] DCNAlign(anchor=True) per-tap stage, mid 32, (1,32,180,180) f32 "
+          f"inference: kernels vs plain max|d| {err:.3e} (limit 1e-4)")
+    if not err <= 1e-4:
+        fail(f"[tap anchor] the per-tap anchored stage's inference: max|d| {err} > 1e-4")
+
+    n, hw, steps, lr = 2, (48, 48), TAP_ANCHOR_STEPS, TAP_ANCHOR_LR
+    batches = [(*inputs(n, hw), torch.randn(n, MID, *hw, generator=gen).cuda())
+               for _ in range(steps)]
+
+    def train(path):
+        model = _tap_stage(16)
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        losses, first = [], None
+        for cur, pre, pre_al, flow, target in batches:
+            aligned, _ = model(cur, pre, pre_al, flow)
+            loss = ((aligned - target) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            if first is None:  # every leaf's gradient before the first step
+                first = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+            opt.step()
+            losses.append(float(loss.detach()))
+        print(f"[tap anchor] DCNAlign per-tap anchored, {steps} Adam steps {path}: "
+              f"losses {losses}")
+        return losses, {k: p.detach().clone() for k, p in model.named_parameters()}, first
+
+    with plain_kernels():
+        want_losses, want_params, want_grads = train("plain")
+    _zero_counts()
+    got_losses, got_params, got_grads = train("kernels")
+    torch.cuda.synchronize()
+    # a wrong backward moves the first step's gradients, which Adam's
+    # bounded steps would hide in the parameters
+    grad_rel = max(_check_grads(f"[tap anchor] DCNAlign per-tap anchored, first step, {k}",
+                                [got_grads[k]], [want_grads[k]], 1e-4)[1] for k in want_grads)
+    print(f"[tap anchor] the first step's gradients of {len(want_grads)} leaves, kernels vs "
+          f"plain: max|d| {grad_rel:.3e} of max|ref| (limit 1e-4)")
+    launches = {"dcn_fwd": dcn.tap_anchor_launches, "dcn_bwd": dcn.bwd_tap_anchor_launches}
+    print(f"[tap anchor] per-tap anchored launches over {steps} steps: {launches}, "
+          f"all launches {_counts()}")
+    if launches != {"dcn_fwd": steps, "dcn_bwd": steps} or \
+            _counts() != _expect(dcn_fwd=steps, dcn_bwd=steps):
+        fail(f"[tap anchor] the stage's steps launched {launches} per-tap anchored "
+             f"({_counts()} in all), expected {steps} of A and of D")
+    worst = max(float((got_params[k] - want_params[k]).abs().max()) for k in want_params)
+    for i, (g_, w_) in enumerate(zip(got_losses, want_losses)):
+        if not (math.isfinite(g_) and abs(g_ - w_) <= 1e-4 * abs(w_)):
+            fail(f"[tap anchor] step {i}: loss {g_} through the kernels, {w_} plain")
+    print(f"[tap anchor] max param |d| after {steps} steps {worst:.3e} (limit "
+          f"{2 * lr * steps:.1e})")
+    if not worst <= 2 * lr * steps:
+        fail(f"[tap anchor] parameters differ by {worst} > {2 * lr * steps}")
+    return modes, launches
+
+
 def _since(before: dict) -> dict:
     """The launches since the counts ``before``."""
     now = _counts()
@@ -4467,6 +4838,11 @@ def main(argv=None) -> int:
                          "the paths at full width at mid 24 and 64, dg_num 16, dcn_kernel 5, "
                          "main at --mid_channels 24 on a REDS-shaped tree it writes), then a "
                          "{\"modes\": [...]} line; prints no final ok line")
+    ap.add_argument("--anchor-per-tap-only", action="store_true",
+                    help="phases 1 and 16 only (build, kernels A and D in per-tap anchored "
+                         "mode against their plain versions at every route, DCNAlign's "
+                         "per-tap anchored stage through them), then a {\"modes\": [...]} "
+                         "line; prints no final ok line")
     ap.add_argument("--models-bf16-only", action="store_true",
                     help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
                          "kernels against plain versions in bf16, the X8 bf16 frame's "
@@ -4527,6 +4903,12 @@ def main(argv=None) -> int:
         print(f"[done] widths phase passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"modes": modes15}))
         return 0
+    if args.anchor_per_tap_only:
+        modes16, _ = timed("16 per-tap anchored", phase_anchor_per_tap,
+                           torch.Generator().manual_seed(16))
+        print(f"[done] per-tap anchored phase passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"modes": modes16}))
+        return 0
     if args.models_bf16_only:
         timed("3d bf16 pyramids and PCD", _models_bf16, _expect())
         print(f"[done] bf16 models passed in {time.perf_counter() - t_start:.1f} s")
@@ -4561,6 +4943,8 @@ def main(argv=None) -> int:
         modes15, width_general = timed("15 widths", phase_widths,
                                        torch.Generator().manual_seed(15),
                                        str(Path(tmp) / "REDS_sharp") + "/", Path(tmp))
+    modes16, tap_launches = timed("16 per-tap anchored", phase_anchor_per_tap,
+                                  torch.Generator().manual_seed(16))
     modes += anchor_modes
 
     kernels = []
@@ -4635,7 +5019,8 @@ def main(argv=None) -> int:
             "launches_variants": variant_launches[name],
             "launches_models": model_launches[name],
             # rank 0 of phase 10: its 2 data-parallel steps and its bands of
-            # the height-sharded runner's 3 + 3 frames
+            # the height-sharded runner's 3 + 3 + 3 frames (windowed,
+            # unclamped, anchored)
             "launches_parallel": par_launches[name],
             # over phase 11: the capability ablation and its plain check, the
             # window-quality harnesses, the converted checkpoint, the runtime
@@ -4740,6 +5125,43 @@ def main(argv=None) -> int:
             "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
                          else "operations"),
             "library_ms": None, "library_device_ms": None,
+            "per_unit_of": unit, "modes": ms,
+        })
+    # A's and D's per-tap anchored modes (phase 16), entries of their own: the
+    # TPU's :493 and :581 in per-tap anchored mode; per call at mid 32 in bf16
+    for name, src, replaces, what, unit in (
+            ("dcn_fwd_tap_anchored", "crfp_torch/csrc/dcn_fwd.cu + common.cuh (ProA)",
+             "crfp_tpu/ops/pallas/dcn.py:493",
+             "crfp_tpu/ops/pallas/dcn.py::_dcn_kernel in anchored mode, per-tap",
+             "main-path calls per call of a per-tap anchored stage at mid 32 (1,32,180,180), "
+             "G 8, D 8, bf16"),
+            ("dcn_bwd_tap_anchored", "crfp_torch/csrc/dcn_bwd.cu",
+             "crfp_tpu/ops/pallas/dcn.py:581",
+             "crfp_tpu/ops/pallas/dcn.py::_dcn_bwd_kernel in anchored mode (_core_op_anchored), "
+             "per-tap", "main-path calls per backward of a per-tap anchored stage at mid 32 "
+             "(2,32,48,48), G 8, D 8, the training grid, bf16")):
+        ms = [m for m in modes16 if m["kernel"] == name]
+        on_path = [m for m in ms if m["calls"] > 0]
+
+        def per_call16(key, on_path=on_path):
+            if any(m.get(key) is None for m in on_path):
+                return None
+            return sum(m[key] * m["calls"] for m in on_path)
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "tpu_counterpart": what,
+            # the per-tap anchored launches of phase 16(c)'s steps of the stage
+            "launches": tap_launches[name.split("_tap")[0]],
+            "max_abs_err": max(m["max_abs_err"] for m in ms),
+            "ms": per_call16("ms"), "call_ms": per_call16("call_ms"),
+            "device_ms": per_call16("device_ms"), "plain_ms": per_call16("plain_ms"),
+            "plain_device_ms": per_call16("plain_device_ms"),
+            "bound_ms": per_call16("bound_ms"),
+            "bound_by": ("bytes" if all(m["bound_by"] == "bytes" for m in on_path)
+                         else "operations"),
+            "library_ms": None, "library_device_ms": None,
+            "clamp_ms": per_call16("clamp_ms"), "clamp_device_ms": per_call16("clamp_device_ms"),
             "per_unit_of": unit, "modes": ms,
         })
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

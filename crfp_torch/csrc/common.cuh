@@ -42,6 +42,32 @@ __device__ __forceinline__ float clamp_pass(float v, float D) {
   return (D < 0.f || (v >= -D && v <= D)) ? 1.f : 0.f;
 }
 
+// Anchored windows (crfp_tpu/ops/pallas/dcn.py:1006-1007), the one copy of
+// their arithmetic for kernels A and D: the anchor F of the cell that holds
+// pixel (py, px) of image-group ng, in a table f32 [N*G][nb][nt][2] as (dy,
+// dx) of cells of band x xtile pixels (ops/anchor.py::anchor_table's) ...
+__device__ __forceinline__ float2 cell_anchor(const float* table, long long ng, int py, int px,
+                                              int band, int xtile, int nb, int nt) {
+  const float* f = table + ((ng * nb + py / band) * nt + px / xtile) * 2;
+  return make_float2(__ldg(f), __ldg(f + 1));
+}
+
+// ... where an offset (oy, ox) samples around it, F + clip(off - F, +-dl),
+// as (dy, dx) ...
+__device__ __forceinline__ float2 anchored_offset(float2 f, float oy, float ox, float dl_r,
+                                                  float dl_c) {
+  return make_float2(f.x + fminf(fmaxf(oy - f.x, -dl_r), dl_r),
+                     f.y + fminf(fmaxf(ox - f.y, -dl_c), dl_c));
+}
+
+// ... and that clip's derivative, torch.clamp's: 1 where |off - F| <= dl
+// (the margins are never negative)
+__device__ __forceinline__ float2 anchored_pass(float2 f, float oy, float ox, float dl_r,
+                                                float dl_c) {
+  const float ry = oy - f.x, rx = ox - f.y;
+  return make_float2(ry >= -dl_r && ry <= dl_r ? 1.f : 0.f, rx >= -dl_c && rx <= dl_c ? 1.f : 0.f);
+}
+
 // ---------------------------------------------------------------------------
 // Kernels A (dcn_fwd.cu) and E (dcn_fused.cu): one tiled device routine in
 // two contractions, parametrised on where each tap's (dy, dx, m) come from
@@ -158,11 +184,13 @@ struct Taps {
 
 // Kernel A's prologue: f32 offsets (N, G*T*2, H, W), channel (g*T + k)*2 +
 // {dy, dx}, T = 1 under shared_taps; f32 masks (N, G*M, H, W), M = 1 under
-// shared_mask. Every component is clamped to +-D; or, anchored (shared taps
-// only, `anchor` not NULL), clipped around the anchor F of the TPU kernel's
-// cell that holds the pixel: F + clip(off - F, +-dl) (crfp_tpu/ops/pallas/
-// dcn.py:1006-1007). The anchors, f32 [N][G][nb][nt][2] as (dy, dx), are
-// ops/anchor.py::anchor_table's, one per cell of `band` x `xtile` pixels.
+// shared_mask. Every component is clamped to +-D; or, anchored (`anchor` not
+// NULL), clipped around the anchor F of the TPU kernel's cell that holds the
+// pixel: F + clip(off - F, +-dl) (crfp_tpu/ops/pallas/dcn.py:1006-1007), here
+// under shared taps, tap by tap in the general route's tap() and in
+// ProATap. The anchors, f32 [N][G][nb][nt][2] as (dy, dx), are
+// ops/anchor.py::anchor_table's, one per (image, group, cell) of `band` x
+// `xtile` pixels, the mean over the cell and the T taps.
 struct ProA {
   const float* off;
   const float* mask;
@@ -171,6 +199,15 @@ struct ProA {
   int W = 0, band = 1, xtile = 1, nb = 0, nt = 0;
   float dl_r = 0.f, dl_c = 0.f;
 
+  // crfp::cell_anchor for pixel p of image-group ng, and crfp::anchored_offset
+  __device__ __forceinline__ float2 cell_anchor(long long ng, long long p) const {
+    const int py = (int)(p / W), px = (int)(p - (long long)py * W);
+    return crfp::cell_anchor(anchor, ng, py, px, band, xtile, nb, nt);
+  }
+  __device__ __forceinline__ float2 anchored(float2 f, float oy, float ox) const {
+    return anchored_offset(f, oy, ox, dl_r, dl_c);
+  }
+
   __device__ __forceinline__ void operator()(int n, int g, int G, long long p,
                                              long long HW, float D, Taps& t) const {
     const long long ng = (long long)n * G + g;
@@ -178,11 +215,8 @@ struct ProA {
       const float* o = off + ng * 2 * HW + p;
       float dy, dx;
       if (anchor != nullptr) {
-        const int py = (int)(p / W), px = (int)(p - (long long)py * W);
-        const float* f = anchor + ((ng * nb + py / band) * nt + px / xtile) * 2;
-        const float fy = __ldg(f), fx = __ldg(f + 1);
-        dy = fy + fminf(fmaxf(__ldg(o) - fy, -dl_r), dl_r);
-        dx = fx + fminf(fmaxf(__ldg(o + HW) - fx, -dl_c), dl_c);
+        const float2 e = anchored(cell_anchor(ng, p), __ldg(o), __ldg(o + HW));
+        dy = e.x, dx = e.y;
       } else {
         dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
       }
@@ -215,19 +249,11 @@ struct ProA {
                                       long long HW, float D, float& dy, float& dx, float& m,
                                       float& gm) const {
     const long long ng = (long long)n * G + g;
-    if (shared_taps) {
-      const float* o = off + ng * 2 * HW + p;
-      if (anchor != nullptr) {
-        const int py = (int)(p / W), px = (int)(p - (long long)py * W);
-        const float* f = anchor + ((ng * nb + py / band) * nt + px / xtile) * 2;
-        const float fy = __ldg(f), fx = __ldg(f + 1);
-        dy = fy + fminf(fmaxf(__ldg(o) - fy, -dl_r), dl_r);
-        dx = fx + fminf(fmaxf(__ldg(o + HW) - fx, -dl_c), dl_c);
-      } else {
-        dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
-      }
+    const float* o = off + (shared_taps ? ng * 2 * HW : (ng * K2 + k) * 2 * HW) + p;
+    if (anchor != nullptr) {
+      const float2 e = anchored(cell_anchor(ng, p), __ldg(o), __ldg(o + HW));
+      dy = e.x, dx = e.y;
     } else {
-      const float* o = off + (ng * K2 + k) * 2 * HW + p;
       dy = clamp_window(__ldg(o), D), dx = clamp_window(__ldg(o + HW), D);
     }
     if (shared_mask) {
@@ -235,6 +261,29 @@ struct ProA {
     } else {
       m = __ldg(mask + (ng * K2 + k) * HW + p), gm = 1.f;
     }
+  }
+};
+
+// Kernel A's prologue for a per-tap anchored call on the tuned routes (a
+// type of its own, so that the clamped calls keep their code): ProA's
+// operands, each tap k sampled at F + clip(off_k - F, +-dl) around the
+// anchor F of the pixel's cell; per-tap masks.
+struct ProATap {
+  ProA a;
+
+  __device__ __forceinline__ void operator()(int n, int g, int G, long long p,
+                                             long long HW, float D, Taps& t) const {
+    const long long ng = (long long)n * G + g;
+    const float2 f = a.cell_anchor(ng, p);
+    const float* o = a.off + ng * kTaps * 2 * HW + p;
+    const float* mk = a.mask + ng * kTaps * HW + p;
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      const float2 e = a.anchored(f, __ldg(o + (2 * k) * HW), __ldg(o + (2 * k + 1) * HW));
+      t.dy[k] = e.x, t.dx[k] = e.y;
+      t.m[k] = __ldg(mk + k * HW);
+    }
+    t.gm = 1.f;
   }
 };
 
@@ -653,7 +702,9 @@ __device__ __forceinline__ void dcn_tiles(const TileArgs<T>& a, const Prologue& 
 // [g][k][ci][o] as dcn_tiles stages it, is C x 9 x 64 x 4 bytes (147,456 at
 // C = 64): one block of 256 threads an SM. bf16 x takes dcn_tiles_wide_mma.
 
-template <int CPG, int SRC, typename T>
+// ANCHORED: a per-tap anchored call, each tap's offsets taken as ProATap
+// takes them.
+template <int CPG, int SRC, bool ANCHORED, typename T>
 __device__ __forceinline__ void dcn_tiles_wide(const TileArgs<T>& a, const ProA& pro) {
   constexpr int O = kWideO, CH = chunk_of<T, CPG>(), NCH = CPG / CH;
   constexpr bool kChk = SRC == kChecked;
@@ -692,12 +743,21 @@ __device__ __forceinline__ void dcn_tiles_wide(const TileArgs<T>& a, const ProA&
       const long long ng = (long long)n * G + g;
       const float* off = pro.off + ng * kTaps * 2 * HW + p;
       const float* mk = pro.mask + ng * kTaps * HW + p;
+      float2 f = make_float2(0.f, 0.f);
+      if constexpr (ANCHORED) f = pro.cell_anchor(ng, p);
       wait_for_packed_x();
       const Pix<T, CH>* src = xp + ng * HWp * NCH;
 #pragma unroll(NCH == 1 ? kTaps : 1)
       for (int k = 0; k < kTaps; ++k) {
-        const float dy = clamp_window(__ldg(off + (2 * k) * HW), a.D);
-        const float dx = clamp_window(__ldg(off + (2 * k + 1) * HW), a.D);
+        float dy, dx;
+        if constexpr (ANCHORED) {  // ProATap's arithmetic
+          const float2 e = pro.anchored(f, __ldg(off + (2 * k) * HW),
+                                        __ldg(off + (2 * k + 1) * HW));
+          dy = e.x, dx = e.y;
+        } else {
+          dy = clamp_window(__ldg(off + (2 * k) * HW), a.D);
+          dx = clamp_window(__ldg(off + (2 * k + 1) * HW), a.D);
+        }
         const float m = __ldg(mk + k * HW);
         const Bilinear b = bilinear((float)(py + k / 3 - 1) + dy, (float)(px + k % 3 - 1) + dx);
         // the corners' chunk indices in the packed plane and their weights
@@ -937,8 +997,9 @@ __host__ __device__ constexpr int swz(int r, int c, int cols) {
 //  - After a tile's ninth tap each lane writes its sums, bias added last,
 //    straight from its fragments (8 consecutive pixels of a row a store).
 // Shared memory: the weight 73,728 bytes, the staging area 32,768, U
-// 8,192 (kWideSmem): two blocks of 256 threads an SM.
-template <int CPG, int SRC>
+// 8,192 (kWideSmem): two blocks of 256 threads an SM. ANCHORED: a per-tap
+// anchored call, each tap's offsets taken as ProATap takes them.
+template <int CPG, int SRC, bool ANCHORED>
 __device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>& a,
                                                    const ProA& pro) {
   using T = __nv_bfloat16;
@@ -1003,7 +1064,8 @@ __device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>
     x0 = tx * a.tile_w;
   };
   // a step's raw offsets and mask for each item (clamped where used, a
-  // step later, so that nothing waits for these loads)
+  // step later, so that nothing waits for these loads; an anchored call
+  // waits, and takes its anchored offsets here)
   float ody[ITEMS], odx[ITEMS], om[ITEMS];
   auto load_taps = [&](int n, int y0, int x0, int k) {
 #pragma unroll
@@ -1016,6 +1078,11 @@ __device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>
         ody[r] = __ldg(pro.off + ngk * 2 * HW + p);
         odx[r] = __ldg(pro.off + (ngk * 2 + 1) * HW + p);
         om[r] = __ldg(pro.mask + ngk * HW + p);
+        if constexpr (ANCHORED) {  // where ProATap's arithmetic samples, within the
+          const float2 e =         // reach D, which the clamp then keeps
+              pro.anchored(pro.cell_anchor(ngk / kTaps, p), ody[r], odx[r]);
+          ody[r] = e.x, odx[r] = e.y;
+        }
       }
     }
   };

@@ -15,17 +15,19 @@
 //                   mode), times torch's clamp derivative: 1 where
 //                   |off| <= D, else 0
 //   dW[o,c,k]     = sum_p g[o,p] u_ck(p),  u_ck = m_gk gm_g v_ck
-// Anchored (shared taps: dcn_3 trained under ModelConfig.dcn_anchor_vjp, the
-// TPU's _core_op_anchored :673-713): the forward (kernel A) sampled at
-// F + clip(off - F, +-dl) for the anchor F of the pixel's cell, from the
-// table its pre-pass wrote; this kernel reads that table (the forward's, saved
-// by the autograd Function), samples at the same points and multiplies
-// d-offset by the residual clip's derivative, 1 where |off - F| <= dl, else 0
-// (torch.clamp's, the plain version's). The anchor itself is flat (a rounded
-// mean): no gradient reaches it. D is then the anchored reach A + dl, which
-// sizes the zero border of the packed planes (62 pixels for dcn_3 in bf16 at
-// D = 32) as a clamp to +-reach would; dx, d-mask and dW are the clamped
-// mode's.
+// Anchored (the TPU's _core_op_anchored :673-713; shared taps: dcn_3 trained
+// under ModelConfig.dcn_anchor_vjp; per-tap: DCNAlign(anchor=True,
+// anchor_vjp=True) as a per-tap stage): the forward (kernel A) sampled each
+// tap k at F + clip(off_k - F, +-dl) for the anchor F of the pixel's cell,
+// from the table its pre-pass wrote; this kernel reads that table (the
+// forward's, saved by the autograd Function), samples at the same points and
+// multiplies each tap's d-offset by its own residual clip's derivative, 1
+// where |off_k - F| <= dl, else 0 (torch.clamp's, the plain version's). The
+// anchor itself is flat (a rounded mean): no gradient reaches it. D is then
+// the anchored reach A + dl, which sizes the zero border of the packed planes
+// (62 pixels for dcn_3 in bf16 at D = 32) as a clamp to +-reach would, or,
+// per-tap, the planes have no border (pad 0) and every corner is checked
+// (ops/cuda/dcn.py::border); dx, d-mask and dW are the clamped mode's.
 // The bias gradient is a reduction of grad_out outside the kernel, as on the
 // TPU (crfp_tpu/ops/pallas/dcn.py:1139). For bf16 x, u is rounded to bf16
 // before the dW product, as the TPU kernel rounds its dot operands
@@ -134,7 +136,7 @@ struct BwdArgs {
   float D;               // clamp (anchored: the reach); < 0: none
   int shared_taps, shared_mask;
   int tile_h, tile_w, pad, tiles_y, tiles_x, grid;
-  // anchored (shared taps): the forward's table [N][G][nb][nt][2] as (dy,
+  // anchored: the forward's table [N][G][nb][nt][2] as (dy,
   // dx), cells of band x xtile pixels, residual margins dl_r / dl_c; NULL:
   // the clamp
   const float* anchor;
@@ -186,8 +188,10 @@ __global__ void __launch_bounds__(256) dcn_bwd_pack(BwdArgs<T> a) {
 }
 
 // Launch 2 (see the note at the top). SRC: crfp::kPadded or kChecked;
-// PATCH: shared taps on padded planes, dx summed in the 4x4 patch.
-template <typename T, int O, int CPG, int SRC, bool PATCH>
+// PATCH: shared taps on padded planes, dx summed in the 4x4 patch;
+// TAP_ANCHOR: a per-tap anchored call, its own instantiations, so that the
+// clamped calls keep their code.
+template <typename T, int O, int CPG, int SRC, bool PATCH, bool TAP_ANCHOR = false>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm(O, CPG))
 dcn_bwd_kernel(BwdArgs<T> a) {
   static_assert(!PATCH || SRC == crfp::kPadded, "the patch reads padded planes");
@@ -285,17 +289,39 @@ dcn_bwd_kernel(BwdArgs<T> a) {
       // cell's anchor F, every tap then sampling at F + clip(off - F, +-dl)
       // exactly as kernel A's prologue (common.cuh::ProA) computes it
       float pass_y = crfp::clamp_pass(oyk[0], a.D), pass_x = crfp::clamp_pass(oxk[0], a.D);
-      if (a.anchor != nullptr) {
-        const float* f = a.anchor + ((ng * a.nb + py / a.band) * a.nt + px / a.xtile) * 2;
-        const float fy = __ldg(f), fx = __ldg(f + 1);
-        const float ry = oyk[0] - fy, rx = oxk[0] - fx;
-        pass_y = ry >= -a.dl_r && ry <= a.dl_r ? 1.f : 0.f;
-        pass_x = rx >= -a.dl_c && rx <= a.dl_c ? 1.f : 0.f;
-        const float ey = fy + fminf(fmaxf(ry, -a.dl_r), a.dl_r);
-        const float ex = fx + fminf(fmaxf(rx, -a.dl_c), a.dl_c);
+      if (!TAP_ANCHOR && a.anchor != nullptr) {
+        const float2 f = crfp::cell_anchor(a.anchor, ng, py, px, a.band, a.xtile, a.nb, a.nt);
+        const float2 ps = crfp::anchored_pass(f, oyk[0], oxk[0], a.dl_r, a.dl_c);
+        const float2 e = crfp::anchored_offset(f, oyk[0], oxk[0], a.dl_r, a.dl_c);
+        pass_y = ps.x, pass_x = ps.y;
 #pragma unroll
-        for (int k = 0; k < kTaps; ++k) oyk[k] = ey, oxk[k] = ex;
+        for (int k = 0; k < kTaps; ++k) oyk[k] = e.x, oxk[k] = e.y;
       }
+      // per-tap anchored: each tap k samples at F + clip(off_k - F, +-dl)
+      // and passes its d-offset where |off_k - F| <= dl; oyk / oxk keep the
+      // raw offsets, F is all the mode holds besides
+      float2 fa = make_float2(0.f, 0.f);
+      if constexpr (TAP_ANCHOR)
+        fa = crfp::cell_anchor(a.anchor, ng, py, px, a.band, a.xtile, a.nb, a.nt);
+      // tap k's displacement, and its d-offset's factor (the derivative)
+      auto disp_y = [&](int k) {
+        if constexpr (TAP_ANCHOR)
+          return crfp::anchored_offset(fa, oyk[k], oxk[k], a.dl_r, a.dl_c).x;
+        return crfp::clamp_window(oyk[k], a.D);
+      };
+      auto disp_x = [&](int k) {
+        if constexpr (TAP_ANCHOR)
+          return crfp::anchored_offset(fa, oyk[k], oxk[k], a.dl_r, a.dl_c).y;
+        return crfp::clamp_window(oxk[k], a.D);
+      };
+      auto pass_yk = [&](int k) {
+        if constexpr (TAP_ANCHOR) return crfp::anchored_pass(fa, oyk[k], oxk[k], a.dl_r, a.dl_c).x;
+        return crfp::clamp_pass(oyk[k], a.D);
+      };
+      auto pass_xk = [&](int k) {
+        if constexpr (TAP_ANCHOR) return crfp::anchored_pass(fa, oyk[k], oxk[k], a.dl_r, a.dl_c).y;
+        return crfp::clamp_pass(oxk[k], a.D);
+      };
       float dgm = 0.f, sdy = 0.f, sdx = 0.f;
       float pd[4][4][CPG];  // dx of the patch (unused and removed without PATCH)
 
@@ -304,8 +330,8 @@ dcn_bwd_kernel(BwdArgs<T> a) {
       auto tap = [&](int k, float m, const Pix<T, CPG>& p00, const Pix<T, CPG>& p01,
                      const Pix<T, CPG>& p10, const Pix<T, CPG>& p11, bool in_patch) {
         const int ky = k / 3, kx = k % 3;
-        const float sy = (float)(py + ky - 1) + crfp::clamp_window(oyk[k], a.D);
-        const float sx = (float)(px + kx - 1) + crfp::clamp_window(oxk[k], a.D);
+        const float sy = (float)(py + ky - 1) + disp_y(k);
+        const float sx = (float)(px + kx - 1) + disp_x(k);
         const float y0f = floorf(sy), x0f = floorf(sx);
         const float fy = sy - y0f, fx = sx - x0f;
         const int y0 = (int)y0f, x0 = (int)x0f;
@@ -363,14 +389,14 @@ dcn_bwd_kernel(BwdArgs<T> a) {
           sdy += dsy;
           sdx += dsx;
         } else {
-          doffp[(2 * k) * HW] = crfp::clamp_pass(oyk[k], a.D) * dsy;
-          doffp[(2 * k + 1) * HW] = crfp::clamp_pass(oxk[k], a.D) * dsx;
+          doffp[(2 * k) * HW] = pass_yk(k) * dsy;
+          doffp[(2 * k + 1) * HW] = pass_xk(k) * dsx;
         }
       };
       // tap k's top-left corner
       auto corner = [&](int k, int& y, int& x) {
-        y = (int)floorf((float)(py + k / 3 - 1) + crfp::clamp_window(oyk[k], a.D));
-        x = (int)floorf((float)(px + k % 3 - 1) + crfp::clamp_window(oxk[k], a.D));
+        y = (int)floorf((float)(py + k / 3 - 1) + disp_y(k));
+        x = (int)floorf((float)(px + k % 3 - 1) + disp_x(k));
       };
 
       // the patch: under shared taps every tap's top-left corner at its
@@ -628,13 +654,10 @@ __global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> 
         float ey = crfp::clamp_window(oy, a.D), ex = crfp::clamp_window(ox, a.D);
         float pass_y = crfp::clamp_pass(oy, a.D), pass_x = crfp::clamp_pass(ox, a.D);
         if (a.anchor != nullptr) {  // dcn_bwd_kernel's anchored arithmetic
-          const float* f = a.anchor + ((ng * a.nb + py / a.band) * a.nt + px / a.xtile) * 2;
-          const float fy = __ldg(f), fx = __ldg(f + 1);
-          const float ry = oy - fy, rx = ox - fx;
-          pass_y = ry >= -a.dl_r && ry <= a.dl_r ? 1.f : 0.f;
-          pass_x = rx >= -a.dl_c && rx <= a.dl_c ? 1.f : 0.f;
-          ey = fy + fminf(fmaxf(ry, -a.dl_r), a.dl_r);
-          ex = fx + fminf(fmaxf(rx, -a.dl_c), a.dl_c);
+          const float2 f = crfp::cell_anchor(a.anchor, ng, py, px, a.band, a.xtile, a.nb, a.nt);
+          const float2 ps = crfp::anchored_pass(f, oy, ox, a.dl_r, a.dl_c);
+          const float2 e = crfp::anchored_offset(f, oy, ox, a.dl_r, a.dl_c);
+          pass_y = ps.x, pass_x = ps.y, ey = e.x, ex = e.y;
         }
         const float m = a.shared_mask ? 1.f : __ldg(a.mask + (ng * K2 + k) * HW + p);
         const float gm = a.shared_mask ? __ldg(a.mask + ng * HW + p) : 1.f;
@@ -776,15 +799,22 @@ cudaError_t launch_general(BwdArgs<T> a, int smem, cudaStream_t stream) {
 
 template <typename T, int O, int CPG>
 cudaError_t launch(BwdArgs<T> a, int smem, int patch, cudaStream_t stream) {
-  void (*const fns[3])(BwdArgs<T>) = {dcn_bwd_kernel<T, O, CPG, crfp::kChecked, false>,
-                                       dcn_bwd_kernel<T, O, CPG, crfp::kPadded, false>,
-                                       dcn_bwd_kernel<T, O, CPG, crfp::kPadded, true>};
-  const int variant = patch ? 2 : a.pad > 0 ? 1 : 0;
+  void (*fns[4])(BwdArgs<T>) = {dcn_bwd_kernel<T, O, CPG, crfp::kChecked, false>,
+                                 dcn_bwd_kernel<T, O, CPG, crfp::kPadded, false>,
+                                 dcn_bwd_kernel<T, O, CPG, crfp::kPadded, true>, nullptr};
+  // per-tap anchored: the per-tap stages' widths, O >= 16, per-tap masks,
+  // frame-checked corners, pad 0 (ops/cuda/dcn.py sends other calls to the
+  // general route; planes padded by the reach read slower, PERF.md)
+  if constexpr (O >= 16) fns[3] = dcn_bwd_kernel<T, O, CPG, crfp::kChecked, false, true>;
+  const bool tap = a.anchor != nullptr && !a.shared_taps;
+  if (tap && (fns[3] == nullptr || a.shared_mask || patch || a.pad > 0))
+    return cudaErrorInvalidValue;
+  const int variant = tap ? 3 : patch ? 2 : a.pad > 0 ? 1 : 0;
   // the first launch of each instantiation raises its shared memory limit
   // and asks for the largest shared-memory carveout: with the default one
   // an SM held one 78 KB block (per-tap at O = 32), and 144 blocks ran in
   // two waves
-  static bool raised[3] = {false, false, false};
+  static bool raised[4] = {false, false, false, false};
   if (!raised[variant]) {
     cudaError_t e = cudaFuncSetAttribute(fns[variant],
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -848,10 +878,10 @@ cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch, int a_y, int a_x) {
   if (a.pad < 0 || (a.pad > 0 && (a.D < 0.f || (float)(a.pad - 1) < ceilf(a.D))))
     return cudaErrorInvalidValue;
   if (patch && !(a.shared_taps && a.pad > 0)) return cudaErrorInvalidValue;
-  // anchored: shared taps, and D (which sized the padding) no less than the
+  // anchored: a cell grid, and D (which sized the padding) no less than the
   // reach, so that no sample leaves the padded planes
   if (a.anchor != nullptr &&
-      (!a.shared_taps || a.band < 1 || a.xtile < 1 || a.D < fmaxf(a_y + a.dl_r, a_x + a.dl_c)))
+      (a.band < 1 || a.xtile < 1 || a.D < fmaxf(a_y + a.dl_r, a_x + a.dl_c)))
     return cudaErrorInvalidValue;
   if (smem != bwd_smem_bytes(a.C, a.O, a.G) || smem > crfp::kMaxSmem)
     return cudaErrorInvalidValue;
@@ -863,7 +893,7 @@ cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch, int a_y, int a_x) {
 
 // The general route's plan check (ops/cuda/dcn.py::bwd_plan, route
 // "general"): tiles of kGenPix pixels, no border, no patch, the fixed shared
-// memory; anchored: shared taps and a cell grid.
+// memory; anchored: a cell grid.
 template <typename T>
 cudaError_t check_general_plan(BwdArgs<T>& a, int smem, int patch) {
   if (a.G < 1 || a.C < 1 || a.C % a.G || a.O < 1 || a.KH < 1 || a.KW < 1)
@@ -871,8 +901,7 @@ cudaError_t check_general_plan(BwdArgs<T>& a, int smem, int patch) {
   if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != crfp::kGenPix || a.pad != 0 ||
       patch)
     return cudaErrorInvalidValue;
-  if (a.anchor != nullptr && (!a.shared_taps || a.band < 1 || a.xtile < 1))
-    return cudaErrorInvalidValue;
+  if (a.anchor != nullptr && (a.band < 1 || a.xtile < 1)) return cudaErrorInvalidValue;
   if (smem != gen_bwd_smem_bytes()) return cudaErrorInvalidValue;
   a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
   a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
@@ -960,7 +989,7 @@ CRFP_EXPORT_ERROR_STRING
 // patch), the last arguments, is ops/cuda/dcn.py::bwd_plan's. Three
 // launches, no synchronisation, no allocation.
 //
-// Anchored (anchor not NULL, shared taps only): the table that the forward's
+// Anchored (anchor not NULL, shared taps or per-tap): the table that the forward's
 // pre-pass wrote (crfp_dcn_fwd's `anchor`), f32 [N][G][ceil(H / band)]
 // [ceil(W / xtile)][2]; the geometry arguments are crfp_dcn_fwd's (the
 // quanta sub_tile and lane_q are not read here): a_y, a_x the anchors' range
@@ -970,7 +999,7 @@ CRFP_EXPORT_ERROR_STRING
 extern "C" int crfp_dcn_bwd(CRFP_DCN_BWD_ARGS) { return entry(false, CRFP_DCN_BWD_PASS); }
 
 // The general route (see "the general route" above): any C % G == 0, O and
-// KH x KW, per-tap, shared taps or anchored shared taps; pad 0, tiles of 32
+// KH x KW, per-tap or shared taps, clamped or anchored; pad 0, tiles of 32
 // pixels, smem_bytes gen_bwd_smem_bytes(), no patch. acc holds the dx
 // accumulator (N*C*H*W), the dW partials (grid*O*C*KH*KW) and, under shared
 // taps or a shared mask, the per-tap sums (N*G*KH*KW*3*H*W).

@@ -9,12 +9,16 @@
 // the kernel; the bias is added last. shared_taps: one (dy, dx) per pixel
 // and group for every tap. shared_mask: one mask per pixel and group,
 // applied once to the group's sum (crfp_tpu/ops/pallas/dcn.py:196-200).
-// Anchored (shared taps, dcn_3 under ModelConfig.dcn_anchor;
-// crfp_tpu/ops/pallas/dcn.py:975-1014): a pre-pass writes each TPU cell's
-// quantized mean displacement (common.cuh::anchor_table_kernel) and every
-// pixel samples at its cell's anchor plus the residual clipped to +-dl,
-// exactly, up to A + dl (61 px for bf16 at D = 32) from the pixel; the
-// packed planes are padded for that reach.
+// Anchored (crfp_tpu/ops/pallas/dcn.py:975-1014): shared taps (dcn_3 under
+// ModelConfig.dcn_anchor) or per-tap (DCNAlign(anchor=True) as a per-tap
+// stage, which no model of the JAX package sets): a pre-pass writes each TPU
+// cell's quantized mean displacement, averaged over the cell and the taps
+// (common.cuh::anchor_table_kernel), and every tap of a pixel samples at its
+// cell's anchor plus its own residual clipped to +-dl, exactly, up to A + dl
+// (61 px for bf16 dcn_3 at D = 32, and for the per-tap stages at mid 32,
+// D = 8, whose 4 channels a group quantize the columns to 32) from the
+// pixel; the packed planes are padded for that reach (shared taps), or
+// have no border and every corner is checked against the frame (per-tap).
 //
 // Design: the tiled routine of common.cuh, shared with kernel E
 // (dcn_fused.cu), with the prologue crfp::ProA (f32 offsets and masks). A
@@ -63,15 +67,22 @@
 
 namespace {
 
-template <typename T, int O, int CPG, bool MMA, int SRC, bool SHARED_TAPS = false>
+// TAP_ANCHOR: a per-tap anchored call (crfp::ProATap's arithmetic), its own
+// instantiations, so that the clamped calls keep their code
+template <typename T, int O, int CPG, bool MMA, int SRC, bool SHARED_TAPS = false,
+          bool TAP_ANCHOR = false>
 __global__ void __launch_bounds__(crfp::kMaxThreads, crfp::min_blocks(MMA, O))
 dcn_fwd_kernel(crfp::TileArgs<T> a, crfp::ProA pro) {
   if constexpr (MMA && O == crfp::kWideO)
-    crfp::dcn_tiles_wide_mma<CPG, SRC>(a, pro);
+    crfp::dcn_tiles_wide_mma<CPG, SRC, TAP_ANCHOR>(a, pro);
+  else if constexpr (MMA && TAP_ANCHOR)
+    crfp::dcn_tiles_mma<CPG, SRC>(a, crfp::ProATap{pro});
   else if constexpr (MMA)
     crfp::dcn_tiles_mma<CPG, SRC>(a, pro);
   else if constexpr (O == crfp::kWideO)
-    crfp::dcn_tiles_wide<CPG, SRC>(a, pro);
+    crfp::dcn_tiles_wide<CPG, SRC, TAP_ANCHOR>(a, pro);
+  else if constexpr (TAP_ANCHOR)
+    crfp::dcn_tiles<O, CPG, SRC, false>(a, crfp::ProATap{pro});
   else
     crfp::dcn_tiles<O, CPG, SRC, SHARED_TAPS>(a, pro);
 }
@@ -111,6 +122,18 @@ cudaError_t launch(crfp::TileArgs<T> a, const crfp::ProA& pro, int smem,
   // (common.cuh::dcn_tiles); its checked form spills and is slower
   if constexpr (!MMA && O != crfp::kWideO && std::is_same<T, __nv_bfloat16>::value) {
     if (pro.shared_taps && padded) fn = dcn_fwd_kernel<T, O, CPG, false, crfp::kPadded, true>;
+  }
+  // per-tap anchored: the per-tap stages' widths, O >= 16, per-tap masks,
+  // frame-checked corners, pad 0 (the O <= 4 widths are dcn_3's;
+  // ops/cuda/dcn.py sends other calls to the general route; planes padded
+  // by the reach read slower, PERF.md)
+  if (pro.anchor != nullptr && !pro.shared_taps) {
+    if (pro.shared_mask || padded) return cudaErrorInvalidValue;
+    if constexpr (O >= 16) {
+      fn = dcn_fwd_kernel<T, O, CPG, MMA, crfp::kChecked, false, true>;
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
   return crfp::launch_tiles(dcn_fwd_kernel_pack_x<T, CPG>, fn, a, pro, threads, smem, tiles,
                             stream);
@@ -187,8 +210,7 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
   if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
   if (!general && O == crfp::kWideO && (shared_taps || shared_mask))
     return (int)cudaErrorInvalidValue;
-  if (anchor != nullptr && (!shared_taps || D < fmaxf(a_y + dl_r, a_x + dl_c)))
-    return (int)cudaErrorInvalidValue;
+  if (anchor != nullptr && D < fmaxf(a_y + dl_r, a_x + dl_c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   crfp::ProA pro{static_cast<const float*>(offset),
                  static_cast<const float*>(mask), shared_taps, shared_mask};
@@ -196,8 +218,8 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
     const crfp::AnchorGrid g{band, xtile, (H + band - 1) / band, (W + xtile - 1) / xtile,
                              sub_tile, lane_q, a_y, a_x, dl_r, dl_c};
     const cudaError_t e = crfp::launch_anchor_table(
-        static_cast<const float*>(offset), static_cast<float*>(anchor), N, G, 1, 0, 1, H, W,
-        g, s);
+        static_cast<const float*>(offset), static_cast<float*>(anchor), N, G,
+        shared_taps ? 1 : KH * KW, 0, 1, H, W, g, s);
     if (e != cudaSuccess) return (int)e;
     pro.anchor = static_cast<const float*>(anchor);
     pro.W = W, pro.band = band, pro.xtile = xtile, pro.nb = g.nb, pro.nt = g.nt;
@@ -261,19 +283,20 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
 // the tensor cores take bf16 x at O = 32 without shared_mask and at O =
 // 64. No synchronisation, no allocation.
 //
-// Anchored (anchor not NULL, shared taps only): the cells are band x xtile
-// pixels, nb = ceil(H / band) x nt = ceil(W / xtile) of them; a pre-pass
-// (common.cuh::anchor_table_kernel) writes their anchors, quantized to
-// sub_tile rows and lane_q columns within +-a_y / +-a_x, into `anchor`, f32
-// scratch of N*G*nb*nt*2 (ops/anchor.py::anchor_table's table); each pixel
-// then takes F + clip(off - F, +-dl) for its cell's anchor F. D is the
+// Anchored (anchor not NULL, shared taps or per-tap): the cells are band x
+// xtile pixels, nb = ceil(H / band) x nt = ceil(W / xtile) of them; a
+// pre-pass (common.cuh::anchor_table_kernel) writes their anchors, the
+// cell's mean over its pixels and their taps, quantized to sub_tile rows and
+// lane_q columns within +-a_y / +-a_x, into `anchor`, f32 scratch of
+// N*G*nb*nt*2 (ops/anchor.py::anchor_table's table); each tap of a pixel
+// then takes F + clip(off_k - F, +-dl) for its cell's anchor F. D is the
 // anchored reach max(a_y + dl_r, a_x + dl_c), which bounds every
 // displacement and so sizes the padding (pad >= ceil(D) + 1) as a clamp to
-// +-D would.
+// +-D would; a per-tap anchored call takes pad 0 (frame-checked corners).
 extern "C" int crfp_dcn_fwd(CRFP_DCN_FWD_ARGS) { return run(false, CRFP_DCN_FWD_PASS); }
 
 // The general route (common.cuh::dcn_tiles_general): any C % G == 0, any
-// O, any KH x KW, per-tap, shared taps or anchored shared taps; the plan is
+// O, any KH x KW, per-tap or shared taps, clamped or anchored; the plan is
 // tile_plan's with route "general" (tiles of 32 pixels, pad 0, smem_bytes
 // = gen_smem_bytes(O)); x_packed holds N*C*H*W elements of x's type.
 extern "C" int crfp_dcn_fwd_general(CRFP_DCN_FWD_ARGS) { return run(true, CRFP_DCN_FWD_PASS); }

@@ -27,16 +27,26 @@ TPU and to bf16 by its kernel's scratch memory; that is not math, and
 kernel E runs float32 and bfloat16. The JAX package's ``s2d`` operand
 forms are layouts of the same math and are not carried.
 
-``anchor`` (repeat mode, windowed: dcn_3 under ``ModelConfig.dcn_anchor``)
+``anchor`` (windowed; repeat mode: dcn_3 under ``ModelConfig.dcn_anchor``;
+per-tap: a stage that JAX's ``DCNAlign(anchor=True)`` also takes,
+crfp_tpu/nn/align.py:325-336, though no model of the JAX package sets it)
 is math: per-cell anchored windows, which sample past ±window where the
 motion of a cell of the TPU kernel's grid is coherent
 (crfp_tpu/ops/pallas/dcn.py:771-780). The grid is the one the JAX kernel
 resolves for this call (:func:`crfp_torch.ops.anchor.dcn_geometry`: x's
-dtype and its width; the JAX model's s2d operand form resolves the same
-grid for this request); kernel A's anchored mode on the card, the plain
-version on the CPU. ``anchor_vjp``: the training grid, which JAX's anchored
-backward resolves (crfp_tpu/nn/align.py:44-63, ``anchor_vjp``); kernel D's
-anchored mode differentiates it on the card.
+dtype and its width, shared or per-tap; the JAX model's s2d operand form
+resolves the same grid for this request); kernel A's anchored mode on the
+card, the plain version on the CPU. ``anchor_vjp``: the training grid,
+which JAX's anchored backward resolves (crfp_tpu/nn/align.py:44-63,
+``anchor_vjp``); kernel D's anchored mode differentiates it on the card.
+Kernel E has no anchored mode, nor has the TPU's fused kernel, so an
+anchored per-tap stage takes the structured path (kernel A forward, kernel
+D backward) under ``fused_prep`` too. The JAX package differs there on the
+TPU: its fused branch (crfp_tpu/nn/align.py:282-310) takes a bf16 per-tap
+stage with ``fused_prep`` and passes no anchor, so on the TPU that stage is
+served with the ±window clamp. Without ``fused_prep``, and in f32, the TPU
+branch anchors it as the port does (JAX's CPU dispatch drops the anchor,
+:41-84).
 """
 
 from __future__ import annotations
@@ -87,16 +97,14 @@ class DCNAlign(nn.Module):
         incoming offset feature, default mid (only read with
         ``interpolate='pixelshuffle'``). ``fused_prep``: kernel E for a
         per-tap windowed stage outside autograd; ignored in repeat mode,
-        without a window and under grad. ``anchor``: per-cell anchored
-        windows (repeat mode; no effect without a window); ``anchor_vjp``:
-        on the training grid. No parameter depends on these."""
+        without a window, under grad and anchored. ``anchor``: per-cell
+        anchored windows (repeat mode or per-tap; no effect without a
+        window); ``anchor_vjp``: on the training grid. No parameter
+        depends on these."""
         super().__init__()
         m, g, k = mid_channels, deform_groups, kernel
         if repeat and g != 1:
             raise ValueError("repeat mode is defined for one deform group")
-        if anchor and not repeat:
-            raise ValueError("anchored windows are taken in repeat mode (dcn_3); per-tap "
-                             "anchoring is ROADMAP.md queue 1, \"per-tap anchored A\"")
         if interpolate not in ("none", "pixelshuffle"):
             raise ValueError(f"interpolate={interpolate!r}")
         self.mid_channels, self.deform_groups, self.kernel = m, g, k
@@ -150,7 +158,7 @@ class DCNAlign(nn.Module):
         n, _, h, w = feat.shape
         g, mag = self.deform_groups, self.max_residue_magnitude
         if (self.fused_prep and self.window is not None and not self.repeat
-                and not torch.is_grad_enabled()):
+                and not self.anchor and not torch.is_grad_enabled()):
             aligned = deform_conv2d_fusedprep(
                 pre_x.contiguous(), self.dcn_offset(feat).contiguous(),
                 self.dcn_mask(feat).contiguous(), flow.float().contiguous(), self.dcn_weight.float(),
@@ -173,7 +181,7 @@ class DCNAlign(nn.Module):
             _, c, ph, pw = pre_x.shape
             kw["anchor"] = dcn_geometry(ph, pw, c, self.mid_channels, g, self.kernel,
                                         self.window, bf16=pre_x.dtype == torch.bfloat16,
-                                        shared_taps=True, shared_mask=True,
+                                        shared_taps=self.repeat, shared_mask=self.repeat,
                                         fullgrad=self.anchor_vjp)
         aligned = deform_conv2d_windowed(
             pre_x.contiguous(), off, mask, self.dcn_weight.float(),

@@ -74,23 +74,31 @@ channels at a time; one block of 256 threads an SM, its f32 weight of
 C x 9 x 64 x 4 = 147,456 bytes at C = 64 in shared memory.
 
 Anchored (``anchor``, an :class:`crfp_torch.ops.anchor.AnchorGeometry`;
-shared taps only, dcn_3's mode): the per-cell anchored windows of the TPU
-kernel (``anchor=True``, crfp_tpu/ops/pallas/dcn.py:771-780, :975-1014),
-trained as JAX's ``anchor_vjp`` trains them. A pre-pass of the forward call
-(``csrc/common.cuh::anchor_table_kernel``, a block per cell; its plain
-version is :func:`crfp_torch.ops.anchor.anchor_table`, as JAX computes the
-table outside its kernel) writes the cells' anchors into a table from the
-wrapper; kernel A's prologue reads, per pixel, the anchor of the TPU cell
-that holds it and clips the residual to ±dl where it clamps to ±D
-otherwise. The packed planes' zero border is sized from the anchored
-reach ``A + dl`` (61 pixels for dcn_3 in bf16 at D = 32) instead of D.
-The backward takes exactly the forward's anchors: the autograd Function
-saves the table that the forward's pre-pass wrote (``save_for_backward``,
-so a ``torch.utils.checkpoint`` recomputation writes it again, with the
-same bits) and kernel D's anchored mode reads it, samples where A sampled,
-and passes d-offset only where ``|off - F| <= dl``. Its padding is sized
-from the reach as A's. A per-tap anchored call (no model makes one) raises
-here, under grad too, naming ROADMAP.md queue 1.
+shared taps, dcn_3's mode, or per-tap, ``DCNAlign(anchor=True)`` as a
+per-tap stage, which no model of the JAX package sets): the per-cell
+anchored windows of the TPU kernel (``anchor=True``,
+crfp_tpu/ops/pallas/dcn.py:771-780, :975-1014), trained as JAX's
+``anchor_vjp`` trains them, on every route and width. A pre-pass of the
+forward call (``csrc/common.cuh::anchor_table_kernel``, a block per cell;
+its plain version is :func:`crfp_torch.ops.anchor.anchor_table`, as JAX
+computes the table outside its kernel) writes the cells' anchors, each the
+mean over its cell's pixels and their taps, into a table from the wrapper;
+kernel A's prologue reads, per pixel, the anchor of the TPU cell that holds
+it and clips each tap's residual to ±dl where it clamps to ±D otherwise.
+Under shared taps the packed planes' zero border is sized from the anchored
+reach ``A + dl`` (61 pixels for dcn_3 in bf16 at D = 32) instead of D; a
+per-tap call's reach is as large at D = 8 (the column quantum of 4
+channels a group is 32 pixels), and there the corners are frame-checked
+(pad 0, :func:`border`). The backward
+takes exactly the forward's anchors: the autograd Function saves the table
+that the forward's pre-pass wrote (``save_for_backward``, so a
+``torch.utils.checkpoint`` recomputation writes it again, with the same
+bits) and kernel D's anchored mode reads it, samples where A sampled, and
+passes each tap's d-offset only where ``|off_k - F| <= dl``. Its padding is
+A's. The tuned routes run per-tap anchored calls in instantiations of their
+own (the clamped calls keep their code) at the per-tap stages' widths, O >=
+16 with per-tap masks; :func:`width_route` sends the others to the general
+route.
 
 Layouts are those of :func:`crfp_torch.ops.dcn_windowed.deform_conv2d_windowed_ref`.
 """
@@ -113,18 +121,16 @@ from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 # launches of the CUDA kernels (not of the plain version): A forward, D
 # backward; anchor_launches and bwd_anchor_launches: A's and D's anchored
 # launches, general_launches and bwd_general_launches: their general
-# route's, each also in `launches` and `bwd_launches`
+# route's, each also in `launches` and `bwd_launches`; tap_anchor_launches
+# and bwd_tap_anchor_launches: the per-tap ones among the anchored launches
 launches = 0
 bwd_launches = 0
 anchor_launches = 0
 bwd_anchor_launches = 0
 general_launches = 0
 bwd_general_launches = 0
-
-# why kernel A refuses a per-tap anchored call
-PER_TAP_ANCHOR_REFUSAL = ("per-tap anchored windows (no model makes such a call; the "
-                          "plain version computes them) are ROADMAP.md queue 1, "
-                          "\"per-tap anchored A\"")
+tap_anchor_launches = 0
+bwd_tap_anchor_launches = 0
 
 # The widths of the tuned routes of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and
 # dcn_fused.cu (E), each {O: channels a group}, 3x3 weights. Every DCN stage
@@ -186,9 +192,15 @@ def width_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
 
 @functools.lru_cache(maxsize=256)
 def _tuned_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int,
-                 shared: bool, bf16: bool) -> str | None:
+                 shared: bool, bf16: bool, tap_anchor: bool = False) -> str | None:
     """Why the tuned route of ``kernel`` does not take this width for x of
-    this dtype (the table above), or None when it does."""
+    this dtype (the table above), or None when it does; ``tap_anchor``: a
+    per-tap anchored call, which the tuned routes take at the per-tap
+    stages' widths, O >= 16 with per-tap masks (their instantiations of
+    their own; the O <= 4 widths are dcn_3's)."""
+    if tap_anchor and (o < 16 or shared):
+        return (f"per-tap anchored at O = {o}{' with a shared mask' if shared else ''} "
+                f"(O >= 16, per-tap masks)")
     if (kh, kw) != (3, 3):
         return f"weight {kh}x{kw} (3x3 only)"
     widths = _WIDTHS[kernel]
@@ -216,19 +228,35 @@ def _tuned_fault(kernel: str, c: int, o: int, g: int, kh: int, kw: int,
 # too, a whole model at once (chip_smoke.py's control at mid 32).
 forced_route: str | None = None
 
+def border(max_displacement: float | None, anchor: AnchorGeometry | None = None,
+           shared_taps: bool = False) -> float | None:
+    """The displacement that sizes a tuned route's zero border
+    (:func:`tile_plan`, :func:`bwd_plan`): the clamp's ``max_displacement``,
+    the anchored reach under shared taps, or None (no border, every corner
+    checked) for a per-tap anchored call. At the per-tap stages' D = 8 the
+    reach is 61 pixels at 4 channels a group (the columns' quantum is 32),
+    which grows the packed planes 2.35x at (1, 32, 180, 180) and 6.7x at
+    (2, 32, 48, 48); frame-checked corners read faster at every width
+    measured on the H100 (PERF.md), and the tuned routes take no other
+    per-tap anchored plan (:func:`check_route`)."""
+    if anchor is None:
+        return max_displacement
+    return anchor.reach if shared_taps else None
+
 
 def width_route(kernel: str, c: int, o: int, g: int, kh: int, kw: int, *,
-                shared: bool = False, bf16: bool = False) -> str:
+                shared: bool = False, bf16: bool = False, tap_anchor: bool = False) -> str:
     """The route of ``kernel`` for this width and x's dtype (``bf16``):
     "tuned" where the tuned route's table has it, else "general" (or
-    :data:`forced_route`). Raises ValueError with :func:`width_fault`'s
-    reason where the kernel does not take it. The one route rule: the
-    dispatchers' default plans take their route from it."""
+    :data:`forced_route`); ``tap_anchor``: for a per-tap anchored call.
+    Raises ValueError with :func:`width_fault`'s reason where the kernel
+    does not take it. The one route rule: the dispatchers' default plans
+    take their route from it."""
     check_tiled(kernel, c, g, kh, kw, o, shared)
     if forced_route is not None:
         return forced_route
-    return "tuned" if _tuned_fault(kernel, c, o, g, kh, kw, bool(shared),
-                                   bool(bf16)) is None else "general"
+    return "tuned" if _tuned_fault(kernel, c, o, g, kh, kw, bool(shared), bool(bf16),
+                                   bool(tap_anchor)) is None else "general"
 
 
 def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
@@ -416,7 +444,7 @@ def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
               max_displacement: float | None, *, bf16: bool, shared_mask: bool = False,
               sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
               route: str | None = None, kernel: str = "dcn_fwd", kh: int = 3, kw: int = 3,
-              shared_taps: bool = False) -> TilePlan:
+              shared_taps: bool = False, tap_anchor: bool = False) -> TilePlan:
     """The tile plan of kernel A (or E, ``kernel="dcn_fused"``: per-tap, no
     shared mask) for x (n, c, h, w), O = ``o`` outputs, ``g`` groups and a
     ``kh`` x ``kw`` weight. A clamped call on a tuned route reads its
@@ -426,10 +454,11 @@ def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
     above, in the packed plane (through L1). ``tile`` forces a tile (rows,
     columns) instead of the default one; ``route`` a route ("tuned" or
     "general") instead of :func:`width_route`'s (the general route at a
-    tuned width, for measurements)."""
+    tuned width, for measurements); ``tap_anchor``: the route of a per-tap
+    anchored call."""
     if route is None:
         route = width_route(kernel, c, o, g, kh, kw, shared=bool(shared_taps or shared_mask),
-                            bf16=bool(bf16))
+                            bf16=bool(bf16), tap_anchor=tap_anchor)
     return _plan(n, c, h, w, o, g, max_displacement, bool(bf16), bool(shared_mask),
                  sm_count, tile, route)
 
@@ -543,7 +572,7 @@ def bwd_plan(n: int, c: int, h: int, w: int, o: int, g: int,
              max_displacement: float | None, *, shared_taps: bool = False,
              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
              patch: bool | None = None, route: str | None = None, kh: int = 3,
-             kw: int = 3, shared_mask: bool = False) -> BwdPlan:
+             kw: int = 3, shared_mask: bool = False, tap_anchor: bool = False) -> BwdPlan:
     """The plan of kernel D for x (n, c, h, w), O = ``o``, ``g`` groups and
     a ``kh`` x ``kw`` weight. The tuned route: of the tiles (256 / G / 32,
     32) and (256 / G / 16, 16) the one with the fewest tiles, the first on
@@ -551,10 +580,11 @@ def bwd_plan(n: int, c: int, h: int, w: int, o: int, g: int,
     ``_bwd_blocks_per_sm`` blocks a SM. The general route: 32-pixel tiles
     (:data:`GEN_TILE_SHAPES`), no padding, a grid of at most 2 blocks a SM.
     ``tile``, ``patch`` and ``route`` force a tile, the patch on or off or
-    a route instead of :func:`width_route`'s (for measurements)."""
+    a route instead of :func:`width_route`'s (for measurements);
+    ``tap_anchor``: the route of a per-tap anchored call."""
     shared = bool(shared_taps or shared_mask)
     if route is None:
-        route = width_route("dcn_bwd", c, o, g, kh, kw, shared=shared)
+        route = width_route("dcn_bwd", c, o, g, kh, kw, shared=shared, tap_anchor=tap_anchor)
     return _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps), sm_count,
                      tile, patch, route, kh, kw, bool(shared_mask))
 
@@ -581,15 +611,21 @@ def check_tiled(name: str, c: int, g: int, kh: int, kw: int, o: int = 32,
 
 
 def check_route(name: str, route: str, c: int, g: int, kh: int, kw: int, o: int,
-                shared: bool, bf16: bool = False) -> str:
+                shared: bool, bf16: bool = False, tap_anchor: bool = False,
+                pad: int = 0) -> str:
     """The C entry of the ``route`` that a plan names for these widths;
     ValueError where the kernel, or a tuned route that the plan names, does
-    not take them."""
+    not take them, or where a per-tap anchored plan (``tap_anchor``) has a
+    border (``pad``): those calls read frame-checked corners
+    (:func:`border`)."""
     check_tiled(name, c, g, kh, kw, o, shared)
     if route == "tuned":
-        fault = _tuned_fault(name, c, o, g, kh, kw, bool(shared), bool(bf16))
+        fault = _tuned_fault(name, c, o, g, kh, kw, bool(shared), bool(bf16), bool(tap_anchor))
         if fault is not None:
             raise ValueError(f"{name}: the tuned route does not take {fault}")
+        if tap_anchor and pad:
+            raise ValueError(f"{name}: a per-tap anchored call reads frame-checked corners "
+                             f"(pad 0), not planes padded by {pad}")
     elif route != "general":
         raise ValueError(f"{name}: route {route!r} (one of {ROUTES})")
     return _ENTRIES[name][route]
@@ -610,14 +646,12 @@ def dcn_forward(
     with_table: bool = False,
 ):
     """Kernel A alone (no autograd): (N, O, H, W) in x's dtype. CUDA tensors
-    only. ``anchor``: the anchored mode (shared taps only). ``plan``: a
+    only. ``anchor``: the anchored mode (shared taps or per-tap). ``plan``: a
     :func:`tile_plan` other than the default one (other tiles, or the
     general route at a tuned width, are measured this way). ``with_table``:
     return (output, the anchor table the call's pre-pass wrote, f32 (N, G,
     bands, tiles, 2), or None unanchored), the table that
     :func:`dcn_backward` takes."""
-    if anchor is not None and not shared_taps:
-        raise ValueError(f"dcn_fwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
@@ -625,11 +659,16 @@ def dcn_forward(
     bf16 = x.dtype == torch.bfloat16
     # an anchored call's displacements are bounded by its reach, which sizes
     # the zero border of the packed planes as a clamp to +-reach would
+    # (border(): per-tap, no border)
     d = max_displacement if anchor is None else anchor.reach
+    tap_anchor = anchor is not None and not shared_taps
     if plan is None:
-        plan = _plan(n, c, h, w, o, g, d, bf16, bool(shared_mask), sm_count(x.device), None,
-                     width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16))
-    entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16)
+        plan = _plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bf16, bool(shared_mask),
+                     sm_count(x.device), None,
+                     width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16,
+                                 tap_anchor=tap_anchor))
+    entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16, tap_anchor,
+                        plan.pad)
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
@@ -644,10 +683,11 @@ def dcn_forward(
                   int(shared_taps), int(shared_mask), int(bf16), *plan.args(),
                   None if table is None else table.data_ptr(),
                   *kernel_args(anchor))
-    global launches, anchor_launches, general_launches
+    global launches, anchor_launches, general_launches, tap_anchor_launches
     launches += 1
     if anchor is not None:
         anchor_launches += 1
+        tap_anchor_launches += not shared_taps
     if plan.route == "general":
         general_launches += 1
     return (out, table) if with_table else out
@@ -671,12 +711,10 @@ def dcn_backward(
     float32) of :func:`deform_conv2d_windowed` for the output gradient
     ``grad_out`` (N, O, H, W) in x's dtype. CUDA tensors only. Three
     launches, no synchronisation; outputs and scratch from ``torch.empty``.
-    ``anchor`` with ``table``: the anchored mode (shared taps only), on the
-    table that kernel A's anchored forward wrote (``dcn_forward(...,
+    ``anchor`` with ``table``: the anchored mode (shared taps or per-tap), on
+    the table that kernel A's anchored forward wrote (``dcn_forward(...,
     with_table=True)``). ``plan``: a :func:`bwd_plan` other than the
     default one (the general route at a tuned width, for one)."""
-    if anchor is not None and not shared_taps:
-        raise ValueError(f"dcn_bwd: {PER_TAP_ANCHOR_REFUSAL}")
     g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
     n, c, h, w = x.shape
     o, _, kh, kw = weight.shape
@@ -695,11 +733,14 @@ def dcn_backward(
                          f"a contiguous float32 {(n, g, *anchor.cells(h, w), 2)} on {x.device}")
     # the anchored reach bounds every displacement and sizes the padding
     d = max_displacement if anchor is None else anchor.reach
+    tap_anchor = anchor is not None and not shared_taps
     if plan is None:
-        plan = _bwd_plan(n, c, h, w, o, g, d, bool(shared_taps), sm_count(x.device), None, None,
-                         width_route("dcn_bwd", c, o, g, kh, kw, shared=shared), kh, kw,
-                         bool(shared_mask))
-    entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared)
+        plan = _bwd_plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bool(shared_taps),
+                         sm_count(x.device), None, None,
+                         width_route("dcn_bwd", c, o, g, kh, kw, shared=shared,
+                                     tap_anchor=tap_anchor), kh, kw, bool(shared_mask))
+    entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared, tap_anchor=tap_anchor,
+                        pad=plan.pad)
     dx = torch.empty_like(x)
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
@@ -716,10 +757,11 @@ def dcn_backward(
                   int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
                   None if table is None else table.data_ptr(), *kernel_args(anchor),
                   *plan.args())
-    global bwd_launches, bwd_anchor_launches, bwd_general_launches
+    global bwd_launches, bwd_anchor_launches, bwd_general_launches, bwd_tap_anchor_launches
     bwd_launches += 1
     if anchor is not None:
         bwd_anchor_launches += 1
+        bwd_tap_anchor_launches += not shared_taps
     if plan.route == "general":
         bwd_general_launches += 1
     return dx, d_off, d_mask, dw
@@ -770,8 +812,8 @@ def deform_conv2d_windowed(
     x, offset, mask, weight and bias. With ``anchor`` the per-cell anchored
     DCN of that geometry instead of the ±D clamp
     (:func:`crfp_torch.ops.anchor.dcn_geometry`; ``fullgrad=True`` for the
-    training grid), differentiable as well under shared taps (kernel D's
-    anchored mode); a per-tap anchored call raises on a CUDA tensor.
+    training grid), differentiable as well (kernel D's anchored mode), per-tap
+    or under shared taps.
 
     CPU tensors take the plain version (autograd of plain PyTorch); CUDA
     tensors launch kernel A forward and kernel D backward (x float32 or
@@ -796,10 +838,8 @@ def deform_conv2d_windowed(
                            shared_taps=shared_taps, shared_mask=shared_mask, anchor=anchor)
     if recorded:
         # a width that kernel D does not take (where the JAX package refuses
-        # it too), or a per-tap anchored call, raises here, where autograd
-        # records the call, not first in the backward pass
-        if anchor is not None and not shared_taps:
-            raise ValueError(f"deform_conv2d_windowed: {PER_TAP_ANCHOR_REFUSAL}")
+        # it too) raises here, where autograd records the call, not first in
+        # the backward pass
         o, c, kh, kw = weight.shape
         taps = 1 if shared_taps else kh * kw
         check_tiled("dcn_bwd", c, offset.shape[1] // (2 * taps), kh, kw, o,

@@ -29,14 +29,21 @@ rows its rows first and crops after:
   runs on that slab and the rank's rows are cropped out, contiguous: each
   output pixel reads only its own offset and its own window, so the crop
   is exact;
+- an anchored warp or DCN (``ModelConfig.dcn_anchor``) takes the whole
+  height, all-gathered, and so do its offsets, mask and flow: each
+  anchor is the mean of a cell of the TPU kernel's grid, which counts
+  rows from the frame's top and can span two bands (720p over two ranks:
+  360 HR rows a band, and the 32-row cell at rows 352-383), so it reads
+  rows of the neighbouring band. The cell grid does not depend on the
+  height (:func:`crfp_torch.ops.anchor.anchor_geometry`), so the geometry
+  the model builds on its band is the frame's;
 - the flow net runs on the whole LR pair on every rank (``nn/flow.py``
   resizes with ``align_corners=True`` over a 6-level pyramid, so its reach
   is the frame; the LR frame is 1/64 of the 8x pixels) and each rank keeps
   its rows of the flow;
 - elementwise and channel operations pass; an operation on the height
   axis, or one the mode does not know, raises: the runner never computes
-  on a band as if the band were the frame. So does an anchored warp or
-  DCN (``ModelConfig.dcn_anchor``), whose cell means span the bands.
+  on a band as if the band were the frame.
 
 Heights: the LR height must divide evenly over the ranks, as JAX's
 ``device_put`` onto ``P(None, 'data')`` requires of every sharded plane.
@@ -363,13 +370,24 @@ class _RowBands(TorchFunctionMode):
         """``t``'s rows at ``at`` in ``total`` rows of zeros."""
         return F.pad(t, (0, 0, at, total - at - t.shape[2])).contiguous()
 
-    def _on_slab(self, func, x, side, reach, call):
-        """Run ``call(slab, *padded side operands)`` and crop this band."""
+    def _side_rows(self, t: torch.Tensor, total: int, at: int, whole: bool) -> torch.Tensor:
+        """A side operand (offsets, mask, flow) over a slab of ``total``
+        rows: the whole frame's, all-gathered (``whole``: an anchored call,
+        whose cell means read the rows of every band a cell spans), or this
+        band's rows at ``at`` in zeros (each output pixel reads only its own
+        offset)."""
+        if whole:
+            return gather_rows(t, self.group, axis=2)
+        return self._zero_pad(t, total, at)
+
+    def _on_slab(self, func, x, side, reach, call, anchored=False):
+        """Run ``call(slab, *side operands over the slab)`` and crop this
+        band; ``anchored``: the whole frame, side operands too."""
         for t in (x, *side):
             self._nchw(t, func.__name__)
-        slab, at = self._slab(x, reach)
-        padded = [self._zero_pad(t, slab.shape[2], at) for t in side]
-        out = call(slab.contiguous(), *padded)
+        slab, at = self._slab(x, None if anchored else reach)
+        side = [self._side_rows(t, slab.shape[2], at, anchored) for t in side]
+        out = call(slab.contiguous(), *side)
         return out[:, :, at:at + x.shape[2]].contiguous()
 
     @staticmethod
@@ -379,21 +397,19 @@ class _RowBands(TorchFunctionMode):
     def _warp(self, func, args, kwargs):
         a = dict(zip(("x", "flow", "max_displacement", "anchor"), args))
         a.update(kwargs)
-        if a.get("anchor") is not None:
-            self.refuse("an anchored warp (its cells' means span the bands)")
-        d = a["max_displacement"]
+        d, anchor = a["max_displacement"], a.get("anchor")
         return self._on_slab(func, a["x"], (a["flow"],), self._reach(d, 3),
-                             lambda x, f: func(x, f, d))
+                             lambda x, f: func(x, f, d, anchor=anchor),
+                             anchored=anchor is not None)
 
     def _dcn(self, func, args, kwargs):
         a = dict(zip(("x", "offset", "mask", "weight", "bias"), args))
         a.update(kwargs)
-        if a.get("anchor") is not None:
-            self.refuse("an anchored DCN (its cells' means span the bands)")
         kw = {k: v for k, v in a.items() if k not in ("x", "offset", "mask")}
         return self._on_slab(func, a["x"], (a["offset"], a["mask"]),
                              self._reach(a.get("max_displacement"), a["weight"].shape[2]),
-                             lambda x, o, m: func(x, o, m, **kw))
+                             lambda x, o, m: func(x, o, m, **kw),
+                             anchored=a.get("anchor") is not None)
 
     def _dcn_fused(self, func, args, kwargs):
         a = dict(zip(("x", "raw_offset", "raw_mask", "flow", "weight", "bias"), args))

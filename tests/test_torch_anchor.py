@@ -26,8 +26,9 @@ the JAX package, on the CPU.
 - Training (slice 15, tests/test_torch_anchor_train.py holds it against
   JAX): shared-tap anchored calls differentiate through the dispatchers,
   and ``main`` and ``train_procedural`` train with ``--dcn_anchor``.
-- Refusals: a per-tap anchored call to kernel A's dispatcher, the
-  height-sharded runner.
+- Per-tap anchored stages and the height-sharded runner take anchored
+  calls: tests/test_torch_anchor_per_tap.py and
+  tests/test_torch_spatial.py hold them against JAX.
 - On a card (marker ``cuda``): kernels A and B in anchored mode against
   their plain versions, bit-equal over two runs, different from the clamp.
 """
@@ -520,39 +521,6 @@ def test_training_with_the_flag_raises(tmp_path, monkeypatch):
                 "--save", str(tmp_path / "anchored.npz")])
     assert len(seen) == 6 and all(np.isfinite(seen)) and seen[-1] < seen[0], seen
     assert (tmp_path / "anchored.npz").exists()
-
-
-def test_per_tap_anchored_kernel_a_raises():
-    from crfp_torch.nn.align import DCNAlign
-    from crfp_torch.ops.cuda.dcn import dcn_forward
-
-    geom = an.dcn_geometry(16, 24, 8, 8, 2, 3, 8, bf16=False, shared_taps=False,
-                           shared_mask=False)
-    x = torch.randn(1, 8, 16, 24)
-    with pytest.raises(ValueError, match='"per-tap anchored A"'):
-        dcn_forward(x, torch.randn(1, 36, 16, 24), torch.rand(1, 18, 16, 24),
-                    torch.randn(8, 8, 3, 3), anchor=geom)
-    with pytest.raises(ValueError, match='"per-tap anchored A"'):
-        DCNAlign(16, 8, anchor=True)
-    # the plain version computes it (the CPU dispatch)
-    from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
-
-    out = deform_conv2d_windowed(x, torch.randn(1, 36, 16, 24), torch.rand(1, 18, 16, 24),
-                                 torch.randn(8, 8, 3, 3), max_displacement=8, anchor=geom)
-    assert out.shape == (1, 8, 16, 24)
-
-
-def test_height_sharded_runner_refuses_anchored_ops():
-    from crfp_torch.parallel.spatial import _RowBands
-    from crfp_torch.ops.cuda.warp import flow_warp_windowed
-
-    mode = _RowBands.__new__(_RowBands)
-    geom = an.warp_geometry(16, 24, 4, 8, bf16=False)
-    x, f = torch.zeros(1, 4, 16, 24), torch.zeros(1, 2, 16, 24)
-    with pytest.raises(NotImplementedError, match="anchored warp"):
-        mode._warp(flow_warp_windowed, (x, f, 8), {"anchor": geom})
-    with pytest.raises(NotImplementedError, match="anchored DCN"):
-        mode._dcn(None, (x, f, f[:, :1], torch.zeros(4, 4, 3, 3)), {"anchor": geom})
 
 
 # ---- on a card ----------------------------------------------------------------

@@ -2,15 +2,16 @@
 the JAX package, on the CPU.
 
 - Op level: every gradient of the port's plain anchored DCN (shared taps,
-  at r = 1 and in the s2d(4) operand form) and warp (the full-resolution
-  grid and the s2d(4) one) against ``crfp_tpu``'s differentiable entries
+  at r = 1 and in the s2d(4) operand form; per-tap at r = 1) and warp (the
+  full-resolution grid and the s2d(4) one) against ``crfp_tpu``'s differentiable entries
   with ``anchor=True, anchor_vjp=True, interpret=True``, and the
   fallback geometry of tests/test_pallas_dcn.py:401-430 (D 64, C 64,
   16x16, band 8 / xtile 8, where JAX differentiates in XLA at the resolved
   grid); within JAX's own ``atol 2e-4, rtol 1e-4``
   (tests/test_pallas_dcn.py:368-398). In every case the port at the ±D
-  clamp, and at the inference grid (another grid where the two coincide),
-  misses JAX by more than 20 times the tolerance.
+  clamp, and at another grid (the inference one; per-tap, where the two
+  coincide, cells of 16 rows), misses JAX by more than 20 times the
+  tolerance.
 - The grid: ``anchor_geometry(fullgrad=True)`` held to the grid JAX's
   anchored VJP resolves, through its outputs (bf16 dcn_3: band 16; the HR
   warp: band 40 in f32, 48 in bf16).
@@ -91,10 +92,13 @@ def _jax_grads(fn, inputs, gout):
     return [np.asarray(g) for g in grads]
 
 
-# (id, s2d r, (h, w)): c = 8 channels in one group (dcn_3's shared taps and
-# mask) in f32, where the training grid (band 8 x xtile 16) is not the
-# inference one (8 x 32)
-DCN_CASES = [("r1", 1, (24, 40)), ("s2d4", 4, (40, 56))]
+# (id, s2d r, (h, w), shared): c = 8 channels in f32; shared taps and mask
+# in one group (dcn_3's mode), where the training grid (band 8 x xtile 16) is
+# not the inference one (8 x 32); per-tap in 2 groups (4 channels a group,
+# column quantum 32), where the two grids coincide (8 x 32) and a grid of
+# 16-row cells stands for another one
+DCN_CASES = [("r1", 1, (24, 40), True), ("s2d4", 4, (40, 56), True),
+             ("per_tap_r1", 1, (24, 40), False)]
 
 
 @pytest.mark.parametrize("case", DCN_CASES, ids=[c[0] for c in DCN_CASES])
@@ -103,24 +107,32 @@ def test_plain_anchored_dcn_grads_match_pallas_vjp(case):
     from crfp_tpu.ops.pallas.dcn import deform_conv2d_pallas_vjp
     from crfp_tpu.ops.shuffle import pixel_shuffle, pixel_unshuffle
 
-    _, r, (h, w) = case
+    _, r, (h, w), shared = case
     d, n, c = 16, 1, 8
-    rng = np.random.default_rng(10 + r)
+    g, k = (1, 1) if shared else (2, 9)
+    rng = np.random.default_rng(10 + r + (not shared))
     x = rng.standard_normal((n, h, w, c)).astype(np.float32)
     off = _field(rng, n, h, w, d)
-    mk = rng.uniform(0, 1, (n, h, w)).astype(np.float32)
+    if not shared:  # each tap its own offset: the field plus +-3 px a tap
+        off = (off[:, :, :, None, None] + rng.uniform(-3, 3, (n, h, w, g, k, 2))
+               ).astype(np.float32)
+    mk = rng.uniform(0, 1, (n, h, w, g * k)).astype(np.float32)
     wt = (rng.standard_normal((3, 3, c, c)) * 0.2).astype(np.float32)
     b = rng.standard_normal(c).astype(np.float32)
     gout = rng.standard_normal((n, h, w, c)).astype(np.float32)
-    geom = an.dcn_geometry(h, w, c, c, 1, 3, d, bf16=False, shared_taps=True,
-                           shared_mask=True, s2d=r, fullgrad=True)
-    infer = an.dcn_geometry(h, w, c, c, 1, 3, d, bf16=False, shared_taps=True,
-                            shared_mask=True, s2d=r)
-    assert (geom.band, geom.xtile) == (8, 16) and (infer.band, infer.xtile) == (8, 32)
+    geom = an.dcn_geometry(h, w, c, c, g, 3, d, bf16=False, shared_taps=shared,
+                           shared_mask=shared, s2d=r, fullgrad=True)
+    infer = an.dcn_geometry(h, w, c, c, g, 3, d, bf16=False, shared_taps=shared,
+                            shared_mask=shared, s2d=r)
+    if shared:
+        assert (geom.band, geom.xtile) == (8, 16) and (infer.band, infer.xtile) == (8, 32)
+    else:
+        assert geom == infer and (geom.band, geom.xtile) == (8, 32)
+        infer = an.AnchorGeometry(**{**geom.__dict__, "band": 16})
 
     def jax_fn(x, off, mk, wt, b):
-        o6, m5 = off.reshape(n, h, w, 1, 1, 2), mk.reshape(n, h, w, 1, 1)
-        kw = dict(max_displacement=d, band=8, shared_taps=True, shared_mask=True,
+        o6, m5 = off.reshape(n, h, w, g, k, 2), mk.reshape(n, h, w, g, k)
+        kw = dict(max_displacement=d, band=8, shared_taps=shared, shared_mask=shared,
                   anchor=True, anchor_vjp=True, interpret=True)
         if r == 1:
             return deform_conv2d_pallas_vjp(x, o6, m5, wt, b, **kw)
@@ -135,14 +147,15 @@ def test_plain_anchored_dcn_grads_match_pallas_vjp(case):
     def port(**kw):
         def fn(x, off, mk, wt, b):
             out = deform_conv2d_windowed_ref(
-                x.permute(0, 3, 1, 2), off.permute(0, 3, 1, 2), mk[:, None],
-                wt.permute(3, 2, 0, 1), b, shared_taps=True, shared_mask=True, **kw)
+                x.permute(0, 3, 1, 2), off.reshape(n, h, w, -1).permute(0, 3, 1, 2),
+                mk.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1), b, shared_taps=shared,
+                shared_mask=shared, **kw)
             return out.permute(0, 2, 3, 1)
         return _torch_grads(fn, (x, off, mk, wt, b), gout)
 
     got = port(anchor=geom)
-    for i, (g, wnt) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(g, wnt, err_msg=f"gradient {i}", **TOL)
+    for i, (g_, wnt) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g_, wnt, err_msg=f"gradient {i}", **TOL)
     assert _miss(port(max_displacement=d), want) > MISS
     assert _miss(port(anchor=infer), want) > MISS
 

@@ -176,16 +176,29 @@ def _no_halo(x, halo, group=None, axis=1, edge="zeros"):
     return torch.cat([z, x, z], dim=axis)
 
 
-def spatial_frames(rank, world, flat, mid, cfg, lrs, fvs, mks, no_halo=False):
+def _band_side(self, t, total, at, whole):
+    """``_RowBands._side_rows`` that zero-pads every side operand outside
+    the band, anchored calls too: the runner before anchored calls took the
+    whole frame's offsets, mask and flow."""
+    return self._zero_pad(t, total, at)
+
+
+def spatial_frames(rank, world, flat, mid, cfg, lrs, fvs, mks, no_halo=False,
+                   band_side=False):
     """The frames of ``SpatialStreamingRunner`` over the world's ranks and of
     the port's ``StreamingRunner`` in this process, on the same weights.
-    ``no_halo``: every halo row zero, which must change the frames."""
+    ``no_halo``: every halo row zero, which must change the frames;
+    ``band_side``: an anchored call's side operands zero outside the band
+    (:func:`_band_side`), which must change anchored frames whose cells span
+    the bands."""
     from crfp_torch.models.streaming import StreamingRunner
     from crfp_torch.parallel import SpatialStreamingRunner, spatial
 
     model = torch_crfp(flat, mid, **cfg)
     if no_halo:
         spatial.halo_exchange = _no_halo
+    if band_side:
+        spatial._RowBands._side_rows = _band_side
     sharded, single = SpatialStreamingRunner(model), StreamingRunner(model)
     got, want = [], []
     for i in range(len(lrs)):
@@ -195,6 +208,60 @@ def spatial_frames(rank, world, flat, mid, cfg, lrs, fvs, mks, no_halo=False):
     sharded.clear_states()
     again = sharded(lrs[0], fvs[0], mks[0]).numpy()
     return {"got": got, "want": want, "again": again}
+
+
+def anchored_side_rows(rank, world, flat, mid, cfg, lrs, fvs, mks):
+    """One launch of the ranks for what the anchored calls' side operands
+    carry: :func:`anchored_ops` with the whole side operands, then with
+    them zero outside the band, then :func:`spatial_frames` of the anchored
+    model with them zero outside the band (``band_side`` stays set from
+    there on)."""
+    exact = anchored_ops(rank, world)
+    zeroed = anchored_ops(rank, world, True)
+    frames = spatial_frames(rank, world, flat, mid, cfg, lrs, fvs, mks, band_side=True)
+    return {"exact": exact, "zeroed": zeroed, "frames": frames}
+
+
+def anchored_ops(rank, world, band_side=False):
+    """An anchored warp and an anchored DCN (shared taps) through the
+    runner's row-band mode on this rank's band of a 288-row frame (144 rows
+    a rank), on grids of 32-row cells, one of which spans the two bands,
+    against the same calls on the whole frame in this process: the largest
+    |difference| of each over the band. ``band_side``: the side operands
+    zero outside the band (:func:`_band_side`)."""
+    from crfp_torch.ops import anchor as an
+    from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
+    from crfp_torch.ops.cuda.warp import flow_warp_windowed
+    from crfp_torch.parallel import spatial
+
+    if band_side:
+        spatial._RowBands._side_rows = _band_side
+    gen = torch.Generator().manual_seed(0)
+    h, w, c, d = 288, 64, 2, 32
+    rows = h // world
+    band = slice(rank * rows, (rank + 1) * rows)
+    x = torch.randn(1, c, h, w, generator=gen)
+    # coherent motion past the window: (dx, dy) about (-40, 37)
+    flow = (torch.tensor([-40.0, 37.0]).view(1, 2, 1, 1)
+            + torch.rand(1, 2, h, w, generator=gen) * 2 - 1)
+    off = flow.flip(1).contiguous()
+    mask = torch.rand(1, 1, h, w, generator=gen)
+    wt = torch.randn(c, c, 3, 3, generator=gen) * 0.3
+    wgeom = an.warp_geometry(h, w, c, d, bf16=False, s2d=4)
+    dgeom = an.AnchorGeometry(**{**an.dcn_geometry(h, w, c, c, 1, 3, d, bf16=False,
+                                                   shared_taps=True,
+                                                   shared_mask=True).__dict__, "band": 32})
+    assert wgeom.band == dgeom.band == 32 and rows % 32
+
+    xb, flow_b, off_b, mask_b = (t[:, :, band].contiguous() for t in (x, flow, off, mask))
+    kw = dict(max_displacement=d, shared_taps=True, shared_mask=True, anchor=dgeom)
+    with spatial._RowBands(None):
+        warp_b = flow_warp_windowed(xb, flow_b, d, anchor=wgeom)
+        dcn_b = deform_conv2d_windowed(xb, off_b, mask_b, wt, **kw)
+    warp_f = flow_warp_windowed(x, flow, d, anchor=wgeom)[:, :, band]
+    dcn_f = deform_conv2d_windowed(x, off, mask, wt, **kw)[:, :, band]
+    return {"warp": float((warp_b - warp_f).abs().max()),
+            "dcn": float((dcn_b - dcn_f).abs().max())}
 
 
 def refusals(rank, world):
