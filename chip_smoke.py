@@ -9,6 +9,7 @@
     python3 chip_smoke.py --anchor-train-only  # phases 1 and 14 alone
     python3 chip_smoke.py --widths-only     # phases 1 and 15 alone
     python3 chip_smoke.py --anchor-per-tap-only  # phases 1 and 16 alone
+    python3 chip_smoke.py --drift-only      # phases 1 and 17 alone (a reading)
 
 Two times are read for every kernel mode, its plain version and, where
 there is one, the PyTorch call that computes the same function. The
@@ -302,9 +303,14 @@ Phases, in order; any failure exits non-zero without the final line:
    named by ``plan=`` (the rule's own route printed beside it), f32 and
    bf16, A and E bit-equal over two runs and a CUDA-graph replay, D's
    d-offset, d-mask and dW over two runs, at mid 32 also against the tuned
-   route; dcn_3's anchored shared taps at mid 24 and 64 (A forward, D
-   backward against autograd of the plain version, different from the
-   clamp); device and call ms beside the bound; (b) the paths at full
+   route (the general/tuned ratio of each mode printed); dcn_3's anchored
+   shared taps at mid 24 and 64 (A forward, D backward against autograd of
+   the plain version, different from the clamp); device and call ms beside
+   the bound, each record naming the general route's branch and its
+   fraction of the bound; A also at the mid-24 amp step's planes, ms a
+   step; A and E also timed with f32 x at mid 24, 48 and dg 16; D's chunked
+   branch forced at mid 24 (per-tap and dcn_3) on the same operands and
+   limits, its d-offset, d-mask and dW over two runs; (b) the paths at full
    width, seeded weights, kernels against plain versions, launches and their
    general-route share asserted: v18 serving (1080p / warp 720^2, t 5) at mid
    24 and 64 (f32 >= 80 dB, max|d| <= 1e-3 a frame; bf16 between the sound
@@ -338,6 +344,12 @@ Phases, in order; any failure exits non-zero without the final line:
    6's limits), the counts zeroed just before and read just after: 3 per-tap
    anchored launches of A and of D, and an inference call at (1,32,180,180)
    at (a)'s limit.
+17. (``--drift-only`` alone: a reading, not held) where the amp step's
+   ~1e-3 drift from the plain versions comes from: phase 14(b)'s anchored
+   amp steps and the clamped ones it reads beside them, through the
+   kernels with each of A (the DCN forward), D (the DCN backward), B (the
+   warp, forward and backward) and F (the SSIM map) in turn swapped for its
+   plain version, every loss beside the all-plain run's.
 
 Imports nothing of JAX or of crfp_tpu.
 """
@@ -3509,7 +3521,15 @@ ANCHOR_TRAIN_STEPS, ANCHOR_TRAIN_LR, ANCHOR_TRAIN_V = 3, 2e-4, 5.0
 # samples, the plain version its output), and Adam's first, sign-like
 # updates carry that into the next steps' losses: 1.1e-3 and 1.3e-3 at step
 # 1 of the anchored trunk, 8.1e-4 of the clamped one (NVIDIA H100 80GB HBM3,
-# 700 W). The f32 steps hold phase 6's 1e-4.
+# 700 W). The f32 steps hold phase 6's 1e-4. Phase 17 (--drift-only) reads
+# where it comes from: with kernel A alone swapped for its plain version the
+# drift falls from 1.30e-3 to 7.3e-5 (anchored) and from 8.7e-4 to 6.8e-5
+# (clamped); with D, B or F swapped it stays (1.29e-3 to 1.38e-3, 8.65e-4 to
+# 8.98e-4; NVIDIA H100 80GB HBM3, 700 W). A rounds where the TPU kernel
+# rounds (its modulated samples in bf16, crfp_tpu/ops/pallas/dcn.py:169),
+# the plain version computes in f32 and rounds its output: the limit holds
+# the plain version's departure from JAX's bf16 rounding, not a fault of
+# the kernels.
 ANCHOR_TRAIN_AMP_RTOL = 5e-3
 
 
@@ -3775,29 +3795,37 @@ def phase_anchor_train(gen, data: str, tmp: Path) -> tuple[list, dict, dict]:
 # frame of the mid-24 serving slice (A: 3 per-tap + 1 dcn_3), a mid-24
 # amp step (D: 18 per-tap, 6 dcn_3), a DEPLOY frame of the mid-24 gate (E:
 # 3). The tuned widths of mid 32 come last: there the general route, named
-# by plan=, is also held against the tuned one.
+# by plan=, is also held against the tuned one. The last field: A's calls
+# at the amp step's planes in a mid-24 amp step (36 per-tap (2,24,48,48),
+# 12 dcn_3 (2,3,192,192)), timed beside the serving planes.
 WIDTHS = [
-    ("mid8 per-tap", 8, 8, 8, 3, False, None, (0, 0, 0)),
-    ("mid8 dcn_3", 1, 1, 1, 3, True, None, (0, 0, 0)),
-    ("mid24 per-tap", 24, 24, 8, 3, False, None, (3, 18, 3)),
-    ("mid24 dcn_3", 3, 3, 1, 3, True, None, (1, 6, 0)),
-    ("mid48 per-tap", 48, 48, 8, 3, False, None, (0, 0, 0)),
-    ("mid48 dcn_3", 6, 6, 1, 3, True, None, (0, 0, 0)),
-    ("mid64 per-tap", 64, 64, 8, 3, False, None, (0, 0, 0)),
-    ("mid64 dcn_3", 8, 8, 1, 3, True, None, (0, 0, 0)),
-    ("dg1 mid32", 32, 32, 1, 3, False, None, (0, 0, 0)),
-    ("dg2 mid32", 32, 32, 2, 3, False, None, (0, 0, 0)),
-    ("dg4 mid32", 32, 32, 4, 3, False, None, (0, 0, 0)),
-    ("dg16 mid32", 32, 32, 16, 3, False, None, (0, 0, 0)),
-    ("k1 mid32", 32, 32, 8, 1, False, None, (0, 0, 0)),
-    ("k5 mid32", 32, 32, 8, 5, False, None, (0, 0, 0)),
-    ("k5 mid32 dcn_3", 4, 4, 1, 5, True, None, (0, 0, 0)),
+    ("mid8 per-tap", 8, 8, 8, 3, False, None, (0, 0, 0), 0),
+    ("mid8 dcn_3", 1, 1, 1, 3, True, None, (0, 0, 0), 0),
+    ("mid24 per-tap", 24, 24, 8, 3, False, None, (3, 18, 3), 36),
+    ("mid24 dcn_3", 3, 3, 1, 3, True, None, (1, 6, 0), 12),
+    ("mid48 per-tap", 48, 48, 8, 3, False, None, (0, 0, 0), 0),
+    ("mid48 dcn_3", 6, 6, 1, 3, True, None, (0, 0, 0), 0),
+    ("mid64 per-tap", 64, 64, 8, 3, False, None, (0, 0, 0), 0),
+    ("mid64 dcn_3", 8, 8, 1, 3, True, None, (0, 0, 0), 0),
+    ("dg1 mid32", 32, 32, 1, 3, False, None, (0, 0, 0), 0),
+    ("dg2 mid32", 32, 32, 2, 3, False, None, (0, 0, 0), 0),
+    ("dg4 mid32", 32, 32, 4, 3, False, None, (0, 0, 0), 0),
+    ("dg16 mid32", 32, 32, 16, 3, False, None, (0, 0, 0), 0),
+    ("k1 mid32", 32, 32, 8, 1, False, None, (0, 0, 0), 0),
+    ("k5 mid32", 32, 32, 8, 5, False, None, (0, 0, 0), 0),
+    ("k5 mid32 dcn_3", 4, 4, 1, 5, True, None, (0, 0, 0), 0),
     # the gen-1 X8 at mid 16, dg 16: its levels' 16 and 1 groups
-    ("pyramid mid16 dg16 lv1", 16, 16, 16, 3, False, (180, 320), (0, 0, 0)),
-    ("pyramid mid16 dg16 lv3", 16, 16, 1, 3, False, (180, 320), (0, 0, 0)),
-    ("mid32 per-tap", 32, 32, 8, 3, False, None, (0, 0, 0)),
-    ("mid32 dcn_3", 4, 4, 1, 3, True, None, (0, 0, 0)),
+    ("pyramid mid16 dg16 lv1", 16, 16, 16, 3, False, (180, 320), (0, 0, 0), 0),
+    ("pyramid mid16 dg16 lv3", 16, 16, 1, 3, False, (180, 320), (0, 0, 0), 0),
+    ("mid32 per-tap", 32, 32, 8, 3, False, None, (0, 0, 0), 0),
+    ("mid32 dcn_3", 4, 4, 1, 3, True, None, (0, 0, 0), 0),
 ]
+# the widths whose general A and E are also timed with f32 x (train.sh's
+# f32 recipe runs mid 24's; O > 8 takes the chunked branch in f32), and
+# those whose D is also run on its chunked branch (the rule picks the pixel
+# one there; the chunked one takes the widths whose pixel branch does not fit)
+WIDTHS_F32_TIMED = ("mid24 per-tap", "mid24 dcn_3", "mid48 per-tap", "dg16 mid32")
+WIDTHS_D_CHUNKED = ("mid24 per-tap", "mid24 dcn_3")
 WIDTH_FRAMES = 5  # the serving slice's t
 # phase 15(b)'s runtime slices in bf16 on seeded weights, kernels against
 # plain versions, a frame: between the sound readings (>= 73.97 dB, max|d|
@@ -3819,11 +3847,14 @@ def _width_kernels(gen) -> list:
     bf16 to 2e-2 of max|ref| of the f32 plain version on the same values;
     A and E bit-equal over two runs and from a CUDA graph, D's d-offset,
     d-mask and dW over two runs; at mid 32 the general route against the
-    tuned one. Device and call ms in bf16 beside the plain version's call
-    ms and the bound (bytes at 3.35 TB/s against the operations at the
-    bf16 peak, as phases 2 and 5 count them). Returns the records."""
+    tuned one; D's chunked branch forced at :data:`WIDTHS_D_CHUNKED` under
+    the same checks. Device and call ms in bf16 beside the plain version's
+    call ms and the bound (bytes at 3.35 TB/s against the operations at the
+    bf16 peak, as phases 2 and 5 count them); A and E also with f32 x at
+    :data:`WIDTHS_F32_TIMED` (the f32 peak). Returns the records."""
     import torch
 
+    from crfp_torch.bench import card_line
     from crfp_torch.ops.cuda import dcn, dcn_fused
     from crfp_torch.ops.dcn_windowed import (
         deform_conv2d_fusedprep_ref,
@@ -3843,7 +3874,7 @@ def _width_kernels(gen) -> list:
     def plain_ms(fn):  # the plain versions are slow: a short loop, call time only
         return time_ms(fn, iters=3, warmup=1), None
 
-    for wid, c, o, g, k, shared, plane, (a_calls, d_calls, e_calls) in WIDTHS:
+    for wid, c, o, g, k, shared, plane, (a_calls, d_calls, e_calls), step_calls in WIDTHS:
         taps, k2 = (1 if shared else k * k), k * k
         hw = WARP if shared else (plane or (WARP[0] // 4, WARP[1] // 4))
         d = 32 if shared else 8
@@ -3899,10 +3930,48 @@ def _width_kernels(gen) -> list:
         bnd = bound([xb, off, mask, wt, b], [gotb], 2 * n_px * c * k2 * o + 9 * n_px * c * k2,
                     "bfloat16")
         k_ms = measure(lambda: dcn.dcn_forward(xb, off, mask, wt, b, plan=pb, **kw))
+        if "tuned_ms" in extra:
+            extra["general_over_tuned"] = k_ms[1] / extra["tuned_ms"][1]
         record("dcn_fwd_general", f"{tag} (1,{c},{hw[0]},{hw[1]}) D={d}", a_calls, err, rel,
                k_ms, plain_ms(lambda: deform_conv2d_windowed_ref(xb, off, mask, wt, b, **kw)),
-               None, bnd, route=routes["dcn_fwd"], bound_fraction=bnd[0] / k_ms[1],
-               digest=digest(got, gotb), **extra)
+               None, bnd, route=routes["dcn_fwd"], branch=pb.branch,
+               bound_fraction=bnd[0] / k_ms[1], digest=digest(got, gotb), **extra)
+        if wid in WIDTHS_F32_TIMED:  # the same call with f32 x (err: its check above)
+            pf = fwd_plan(x, d)
+            fbnd = bound([x, off, mask, wt, b], [got],
+                         2 * n_px * c * k2 * o + 9 * n_px * c * k2, "float32")
+            f_ms = measure(lambda: dcn.dcn_forward(x, off, mask, wt, b, plan=pf, **kw))
+            record("dcn_fwd_general", f"{tag} f32 (1,{c},{hw[0]},{hw[1]}) D={d}", 0, err,
+                   None, f_ms, plain_ms(lambda: deform_conv2d_windowed_ref(x, off, mask, wt, b,
+                                                                           **kw)),
+                   None, fbnd, route=routes["dcn_fwd"], branch=pf.branch,
+                   bound_fraction=fbnd[0] / f_ms[1])
+        if step_calls:  # A at the amp step's planes (2,C,48,48) / (2,C,192,192)
+            sx = randn(2, c, *(192, 192) if shared else (48, 48))
+            shw = sx.shape[2:]
+            soff = (_smooth(gen, 2, shw, d, n=2).repeat(1, g * taps, 1, 1)
+                    + randn(2, g * taps * 2, *shw, std=1.0 if shared else 2.0))
+            smask = torch.rand(2, g * taps, *shw, generator=gen).cuda()
+            sxb = sx.to(bf)
+            spb = fwd_plan(sxb, d)
+            sgot = dcn.dcn_forward(sxb, soff, smask, wt, b, plan=spb, **kw)
+            sref = deform_conv2d_windowed_ref(sx, soff, smask, wt, b, **kw)
+            serr = float((dcn.dcn_forward(sx, soff, smask, wt, b, plan=fwd_plan(sx, d), **kw)
+                          - sref).abs().max())
+            torch.cuda.synchronize()
+            srel = rel_err(sgot, sref)
+            if not (serr <= 1e-4 and srel <= 2e-2):
+                fail(f"[widths] A {tag} at the amp step's planes: f32 max|d| {serr} (limit "
+                     f"1e-4), bf16 {srel} of max|ref| (limit 2e-2)")
+            n_px = 2 * shw[0] * shw[1]
+            sbnd = bound([sxb, soff, smask, wt, b], [sgot],
+                         2 * n_px * c * k2 * o + 9 * n_px * c * k2, "bfloat16")
+            s_ms = measure(lambda: dcn.dcn_forward(sxb, soff, smask, wt, b, plan=spb, **kw))
+            # calls 0: not a serving frame's; step_calls a mid-24 amp step's
+            record("dcn_fwd_general", f"{tag} amp step (2,{c},{shw[0]},{shw[1]}) D={d}", 0,
+                   serr, srel, s_ms, plain_ms(lambda: deform_conv2d_windowed_ref(
+                       sxb, soff, smask, wt, b, **kw)), None, sbnd, route=routes["dcn_fwd"],
+                   branch=spb.branch, bound_fraction=sbnd[0] / s_ms[1], step_calls=step_calls)
 
         # ---- D, at the amp step's planes ---------------------------------
         thw = (192, 192) if shared else (48, 48)
@@ -3944,14 +4013,42 @@ def _width_kernels(gen) -> list:
         bnd = bound([xb, off, mask, wt, gb], list(gotb), n_px * k2 * c * (4 * o + 22),
                     "bfloat16")
         k_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, plan=bplan, **kw))
+        if "tuned_ms" in extra:
+            extra["general_over_tuned"] = k_ms[1] / extra["tuned_ms"][1]
 
         def plain_bwd():
             lv = [t.detach().requires_grad_(True) for t in (xb, off, mask, wt)]
             deform_conv2d_windowed_ref(*lv, None, **kw).backward(gb)
 
+        p_ms = plain_ms(plain_bwd)
         record("dcn_bwd_general", f"{tag} ({tn},{c},{thw[0]},{thw[1]}) D={d}", d_calls, err,
-               rel, k_ms, plain_ms(plain_bwd), None, bnd, route=routes["dcn_bwd"],
-               bound_fraction=bnd[0] / k_ms[1], digest=digest(*gotb[1:]), **extra)
+               rel, k_ms, p_ms, None, bnd, route=routes["dcn_bwd"],
+               branch=bplan.branch, bound_fraction=bnd[0] / k_ms[1],
+               digest=digest(*gotb[1:]), **extra)
+        if wid in WIDTHS_D_CHUNKED:  # D's chunked branch on the same operands and limits
+            cplan = dcn.bwd_plan(tn, c, *thw, o, g, d, shared_taps=shared, shared_mask=shared,
+                                 kh=k, kw=k, route="general", branch="chunked")
+            before = dcn.bwd_general_launches
+            cerr = max(rel_err(a_, w_) for a_, w_ in zip(
+                dcn.dcn_backward(x, off, mask, wt, gout, plan=cplan, **kw), want))
+            cgotb = dcn.dcn_backward(xb, off, mask, wt, gb, plan=cplan, **kw)
+            cagain = dcn.dcn_backward(xb, off, mask, wt, gb, plan=cplan, **kw)
+            torch.cuda.synchronize()
+            crel = max(rel_err(a_, l_.grad) for a_, l_ in zip(cgotb, leaves))
+            if dcn.bwd_general_launches != before + 3:
+                fail(f"[widths] D {tag} (general/chunked): "
+                     f"{dcn.bwd_general_launches - before} general launches, not 3")
+            if not (cerr <= 1e-4 and crel <= 2e-2):
+                fail(f"[widths] D {tag} (general/chunked): f32 {cerr} of max|ref| (limit "
+                     f"1e-4), bf16 {crel} (2e-2)")
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(cgotb[1:], cagain[1:])):
+                fail(f"[widths] D {tag} (general/chunked): d-offset, d-mask or dW differ over "
+                     f"two runs")
+            c_ms = measure(lambda: dcn.dcn_backward(xb, off, mask, wt, gb, plan=cplan, **kw))
+            record("dcn_bwd_general", f"{tag} chunked ({tn},{c},{thw[0]},{thw[1]}) D={d}", 0,
+                   cerr, crel, c_ms, p_ms, None, bnd, route=routes["dcn_bwd"],
+                   branch=cplan.branch, bound_fraction=bnd[0] / c_ms[1],
+                   digest=digest(*cgotb[1:]))
 
         # ---- E, per-tap, at the gate's 1/4-res plane ---------------------
         if shared:
@@ -3994,11 +4091,36 @@ def _width_kernels(gen) -> list:
                     2 * n_px * c * k2 * o + 9 * n_px * c * k2, "bfloat16")
         k_ms = measure(lambda: dcn_fused.deform_conv2d_fusedprep(xb, rb, rmb, flow, wt, b,
                                                                   plan=epb, **ekw))
+        if "tuned_ms" in extra:
+            extra["general_over_tuned"] = k_ms[1] / extra["tuned_ms"][1]
         record("dcn_fused_general", f"{tag} (1,{c},{ghw[0]},{ghw[1]}) D=8", e_calls, err, rel,
                k_ms, plain_ms(lambda: deform_conv2d_fusedprep_ref(xb, rb, rmb, flow, wt, b,
                                                                   **ekw)),
-               None, bnd, route=routes["dcn_fused"], bound_fraction=bnd[0] / k_ms[1],
-               digest=digest(got, gotb), **extra)
+               None, bnd, route=routes["dcn_fused"], branch=epb.branch,
+               bound_fraction=bnd[0] / k_ms[1], digest=digest(got, gotb), **extra)
+        if wid in WIDTHS_F32_TIMED:  # the same call with f32 x (err: its check above)
+            fbnd = bound([x, raw, rawm, flow, wt, b], [got],
+                         2 * n_px * c * k2 * o + 9 * n_px * c * k2, "float32")
+            f_ms = measure(lambda: dcn_fused.deform_conv2d_fusedprep(x, raw, rawm, flow, wt, b,
+                                                                      plan=ep, **ekw))
+            record("dcn_fused_general", f"{tag} f32 (1,{c},{ghw[0]},{ghw[1]}) D=8", 0, err,
+                   None, f_ms, plain_ms(lambda: deform_conv2d_fusedprep_ref(
+                       x, raw, rawm, flow, wt, b, **ekw)),
+                   None, fbnd, route=routes["dcn_fused"], branch=ep.branch,
+                   bound_fraction=fbnd[0] / f_ms[1])
+    # the general route against the tuned one at mid 32 (plan= names it),
+    # device ms a call; and A's general route per amp step at mid 24
+    for m in modes:
+        if "general_over_tuned" in m:
+            print(f"[widths] general/tuned {m['kernel']} {m['mode']} ({m['branch']}): "
+                  f"{m['device_ms']:.4f} / {m['tuned_ms'][1]:.4f} ms = "
+                  f"{m['general_over_tuned']:.2f}x ({card_line()})")
+    step = [m for m in modes if m.get("step_calls")]
+    print(f"[widths] A general at the mid-24 amp step's planes: "
+          f"{sum(m['device_ms'] * m['step_calls'] for m in step):.4f} ms of device a step ("
+          + ", ".join(f"{m['step_calls']} x {m['device_ms']:.4f} {m['branch']}" for m in step)
+          + f"; bound {sum(m['bound_ms'] * m['step_calls'] for m in step):.4f}; "
+          f"{card_line()})")
     modes += _width_anchored_kernels(gen)
     return modes
 
@@ -4771,6 +4893,122 @@ def phase_anchor_per_tap(gen) -> tuple[list, dict]:
     return modes, launches
 
 
+# ---- phase 17: where the amp step's drift comes from (a reading) ---------
+DRIFT_SWAPS = ("A", "D", "B", "F")
+
+
+@contextlib.contextmanager
+def one_plain(which: str):
+    """The kernel path with one kernel swapped for its plain version: "A"
+    the DCN forward (kernel D's backward kept), "D" the DCN backward (kernel
+    A's forward kept), "B" the warp (kernel B and its backward, D at k = 1),
+    "F" the SSIM map of the loss. The models call the dispatchers by their
+    module-level names, as :func:`plain_kernels` swaps them."""
+    import torch
+
+    import crfp_torch.models.crfp as cr
+    import crfp_torch.nn.align as al
+    import crfp_torch.ops.metrics as mt
+    from crfp_torch.ops.cuda import dcn
+    from crfp_torch.ops.cuda.ssim import ssim_map_ref
+    from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+    from crfp_torch.ops.warp import flow_warp_windowed_ref
+
+    class PlainForward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, offset, mask, weight, bias, kw):
+            out = deform_conv2d_windowed_ref(x, offset, mask, weight, bias, **kw)
+            table = None
+            if kw["anchor"] is not None:  # the table kernel D reads, from A's pre-pass
+                _, table = dcn.dcn_forward(x, offset, mask, weight, bias, with_table=True, **kw)
+            ctx.save_for_backward(x, offset, mask, weight, table)
+            ctx.kw, ctx.has_bias = kw, bias is not None
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            x, offset, mask, weight, table = ctx.saved_tensors
+            g = g.to(x.dtype).contiguous()
+            dx, doff, dmask, dw = dcn.dcn_backward(x, offset, mask, weight, g, table=table,
+                                                   **ctx.kw)
+            return dx, doff, dmask, dw, g.float().sum((0, 2, 3)) if ctx.has_bias else None, None
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, offset, mask, weight, bias, kw):
+            ctx.save_for_backward(x, offset, mask, weight, bias)
+            ctx.kw = kw
+            return dcn.dcn_forward(x, offset, mask, weight, bias, **kw)
+
+        @staticmethod
+        def backward(ctx, g):
+            leaves = [t.detach().requires_grad_(True) if t is not None else None
+                      for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = deform_conv2d_windowed_ref(*leaves, **ctx.kw)
+                got = torch.autograd.grad(out, [t for t in leaves if t is not None], g)
+            grads = iter(got)
+            return (*[next(grads) if t is not None else None for t in leaves], None)
+
+    def dcn_site(fn):
+        def call(x, offset, mask, weight, bias=None, *, max_displacement=None,
+                 shared_taps=False, shared_mask=False, anchor=None):
+            return fn.apply(x, offset, mask, weight, bias,
+                            dict(max_displacement=max_displacement, shared_taps=shared_taps,
+                                 shared_mask=shared_mask, anchor=anchor))
+        return call
+
+    site = {"A": (al, "deform_conv2d_windowed", dcn_site(PlainForward)),
+            "D": (al, "deform_conv2d_windowed", dcn_site(PlainBackward)),
+            "B": (cr, "flow_warp_windowed", flow_warp_windowed_ref),
+            "F": (mt, "ssim_map", ssim_map_ref)}[which]
+    saved = getattr(site[0], site[1])
+    setattr(site[0], site[1], site[2])
+    try:
+        yield
+    finally:
+        setattr(site[0], site[1], saved)
+
+
+def phase_drift() -> dict:
+    """Phase 17 (F2, a reading): phase 14(b)'s anchored amp steps and the
+    clamped amp steps it reads beside them, from the anchored checkpoint on
+    the same batches: all plain, all kernels, and the kernels with each of
+    :data:`DRIFT_SWAPS` swapped for its plain version (:func:`one_plain`).
+    Prints every run's losses and each run's largest relative distance from
+    the plain run's; returns {config: {run: distance}}."""
+    import torch
+
+    from crfp_torch.bench import card_line
+    from crfp_torch.bench.train import build_trainer, device_batches
+
+    steps, lr = ANCHOR_TRAIN_STEPS, ANCHOR_TRAIN_LR
+    batches = device_batches(steps, seed=14, v_max=ANCHOR_TRAIN_V)
+    out = {}
+    for config, build in (("anchored", dict(ckpt=str(ANCHOR_CKPT), anchor=True, hr_s2d=True)),
+                          ("clamped", dict(ckpt=str(ANCHOR_CKPT)))):
+        def run(ctx):
+            model, opt, step = build_trainer(amp=True, lr_rate=lr, **build)
+            with ctx:
+                losses = [float(step(opt, batches[i], i)["loss"]) for i in range(steps)]
+            torch.cuda.synchronize()
+            return losses
+
+        runs = {"plain": run(plain_kernels()), "kernels": run(contextlib.nullcontext())}
+        for which in DRIFT_SWAPS:
+            runs[f"{which} plain"] = run(one_plain(which))
+        want = runs["plain"]
+        dist = {name: max(abs(g - w) / abs(w) for g, w in zip(losses, want))
+                for name, losses in runs.items()}
+        for name, losses in runs.items():
+            print(f"[drift] {config} amp steps, {name:9s}: losses "
+                  + ", ".join(f"{v:.6f}" for v in losses)
+                  + f"; max relative |d| from plain {dist[name]:.3e}")
+        out[config] = dist
+    print(f"[drift] {json.dumps(out)} ({card_line()})")
+    return out
+
+
 def _since(before: dict) -> dict:
     """The launches since the counts ``before``."""
     now = _counts()
@@ -4843,6 +5081,10 @@ def main(argv=None) -> int:
                          "mode against their plain versions at every route, DCNAlign's "
                          "per-tap anchored stage through them), then a {\"modes\": [...]} "
                          "line; prints no final ok line")
+    ap.add_argument("--drift-only", action="store_true",
+                    help="phases 1 and 17 only (build, the amp step's losses with each of A, "
+                         "D, B and F swapped for its plain version, anchored and clamped: a "
+                         "reading); prints no final ok line")
     ap.add_argument("--models-bf16-only", action="store_true",
                     help="phase 1 and phase 3d's bf16 pyramids and PCD only (build, "
                          "kernels against plain versions in bf16, the X8 bf16 frame's "
@@ -4908,6 +5150,10 @@ def main(argv=None) -> int:
                            torch.Generator().manual_seed(16))
         print(f"[done] per-tap anchored phase passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"modes": modes16}))
+        return 0
+    if args.drift_only:
+        timed("17 drift", phase_drift)
+        print(f"[done] drift phase read in {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.models_bf16_only:
         timed("3d bf16 pyramids and PCD", _models_bf16, _expect())

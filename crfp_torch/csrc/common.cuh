@@ -242,10 +242,14 @@ struct ProA {
     }
   }
 
-  // The general route's prologue: tap k of K2 for one pixel and group, the
-  // same arithmetic as operator() at any tap count; m the tap's mask (1
-  // under shared_mask), gm the shared mask (1 otherwise).
-  __device__ __forceinline__ void tap(int n, int g, int G, int k, int K2, long long p,
+  // The general route's prologue: pixel() what a pixel shares across its
+  // taps and groups (ProE: its flow; here nothing), tap() tap k of K2 for
+  // one pixel and group, the same arithmetic as operator() at any tap count;
+  // m the tap's mask (1 under shared_mask), gm the shared mask (1 otherwise).
+  __device__ __forceinline__ float2 pixel(int, long long, long long) const {
+    return make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void tap(float2, int n, int g, int G, int k, int K2, long long p,
                                       long long HW, float D, float& dy, float& dx, float& m,
                                       float& gm) const {
     const long long ng = (long long)n * G + g;
@@ -261,6 +265,13 @@ struct ProA {
     } else {
       m = __ldg(mask + (ng * K2 + k) * HW + p), gm = 1.f;
     }
+  }
+
+  // tap()'s m alone: under shared taps a pixel and group take tap() once
+  // and each later tap only its mask
+  __device__ __forceinline__ float tap_mask(int n, int g, int G, int k, int K2, long long p,
+                                            long long HW) const {
+    return shared_mask ? 1.f : __ldg(mask + (((long long)n * G + g) * K2 + k) * HW + p);
   }
 };
 
@@ -392,18 +403,29 @@ struct ProE {
     t.gm = 1.f;
   }
 
-  // The general route's prologue: tap k of K2, operator()'s arithmetic.
-  __device__ __forceinline__ void tap(int n, int g, int G, int k, int K2, long long p,
+  // The general route's prologue (ProA's interface): pixel() the pixel's
+  // flow (dx, dy), read once for all its taps and groups, tap() tap k of K2,
+  // operator()'s arithmetic.
+  __device__ __forceinline__ float2 pixel(int n, long long p, long long HW) const {
+    return make_float2(__ldg(flow + (long long)n * 2 * HW + p),
+                       __ldg(flow + ((long long)n * 2 + 1) * HW + p));
+  }
+  __device__ __forceinline__ void tap(float2 f, int n, int g, int G, int k, int K2, long long p,
                                       long long HW, float D, float& dy, float& dx, float& m,
                                       float& gm) const {
-    const float fx = __ldg(flow + (long long)n * 2 * HW + p);
-    const float fy = __ldg(flow + ((long long)n * 2 + 1) * HW + p);
     const long long ngk = ((long long)n * G + g) * K2 + k;
     const T* ro = raw_off + ngk * 2 * HW + p;
-    dy = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro))), fy), D);
-    dx = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro + HW))), fx), D);
+    dy = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro))), f.y), D);
+    dx = clamp_window(__fadd_rn(__fmul_rn(mag, tanhf(load_f(ro + HW))), f.x), D);
     m = 1.f / (1.f + expf(-load_f(raw_mask + ngk * HW + p)));
     gm = 1.f;
+  }
+
+  // per-tap only (the general route asks, as it asks ProA)
+  static constexpr int shared_taps = 0;
+  __device__ __forceinline__ float tap_mask(int n, int g, int G, int k, int K2, long long p,
+                                            long long HW) const {
+    return 1.f / (1.f + expf(-load_f(raw_mask + (((long long)n * G + g) * K2 + k) * HW + p)));
   }
 };
 
@@ -1232,50 +1254,134 @@ __device__ __forceinline__ void dcn_tiles_wide_mma(const TileArgs<__nv_bfloat16>
 // C % G == 0, any O, any kh x kw weight, each a runtime value, as are the
 // taps' places p_k = (k / kw - (kh - 1) / 2, k % kw - (kw - 1) / 2). The
 // tuned routes above keep the widths they were written for; the plans
-// (ops/cuda/dcn.py::tile_plan, bwd_plan) send every other width here.
-//  - gen_pack, the pre-pass: x packed per group, pixel-major, with no
-//    border ([N][G][H][W][CPG]); a thread a pixel, its CPG channels one
-//    scalar at a time, so that no channel count needs a vector size (3
-//    bf16 channels are 6 bytes, which no load takes whole). Every corner
-//    is checked against the frame, so no reach sizes a border.
-//  - K = C * kh * kw is walked in chunks of at most kGenRows rows
-//    (GenChunks): the rows are ordered (group, tap, channel), and a chunk is
-//    kGenRows / CPG whole (group, tap) pairs, or, where CPG > kGenRows, a
-//    run of kGenRows channels of one pair. A thread takes a (pair, pixel)
-//    of the chunk: it reads the tap's (dy, dx, m) from the prologue once
-//    and forms the bilinear geometry once, then walks the pair's channels.
-//  - dcn_tiles_general (A, E): a block of 256 threads on a tile of kGenPix =
-//    32 pixels; per chunk the modulated samples go to U [rows][32] in f32
-//    (rounded to bf16 first for bf16 x, as the TPU kernel rounds its
-//    modulated column, crfp_tpu/ops/pallas/dcn.py:169, and as the tuned
-//    tensor-core route rounds; a shared mask scales after the rounding, as
-//    the TPU scales the group's sum, :196-200) and the chunk's weight rows
-//    for up to kGenOuts = 128 outputs to Ws [rows][opw] (bf16-rounded for
-//    bf16 x, as the tensor-core route's weight); thread (pixel q, slot s)
-//    keeps 4 x 4 sums of outputs 4 (s + 8 j) .. + 3 in registers, f32 FMAs
-//    on the CUDA cores. O > 128 takes the chunks again for each 128
-//    outputs. 40 KB of shared memory at most, whatever C, O and kh x kw.
-// Correct first: every tap's prologue is computed once a (pixel, group,
-// tap), but the weight chunk is staged for each tile and the contraction
-// runs on the CUDA cores in bf16 too.
+// (ops/cuda/dcn.py::tile_plan, bwd_plan) send every other width here, and
+// pick one of its branches (GenBranch), which the C entries check.
+//  - gen_pack, the pre-pass: x packed per group, pixel-major, no border,
+//    [N][G][H][W][cpgp], the group's cpg channels padded with zeros to
+//    cpgp (gen_cpgp: 2, 4 or a multiple of 8) so that a pixel's channels
+//    are whole loads of 4, 8 or 16 bytes (gen_vec_bytes; 3 bf16 channels
+//    take 8 bytes, 6 take 16): a corner is one vector load a chunk of CH
+//    channels, checked against the frame once.
+//  - general/pixel (A, E; O <= kGenPixO, every dcn_3 outside the tuned
+//    table): a thread per pixel of a tile of up to 256 pixels walks the
+//    groups, taps and channels with the pixel's O sums in registers (the
+//    tuned dcn_tiles' shape): three taps at a time, their prologues, then
+//    their corners (a vector load a chunk), then their sums; the weight
+//    staged once per block as f32 [C K2][8] and read as 16-byte broadcasts,
+//    the taps' places from a table (no division by a runtime kernel
+//    width). Under shared taps the prologue runs once a (pixel, group),
+//    each later tap reads only its mask.
+//  - general/mma (A, E; bf16 x, O > 8, no shared mask): a block of 8
+//    warps on tiles of kGenPix = 32 pixels on a persistent grid; the
+//    weight staged once per block in bf16 as [OP][KS] (columns (group, tap,
+//    channel) over the padded channels, K padded to 16 and 8 more so that
+//    the fragment loads hit 32 banks), read from the weight in its own
+//    order; per tile the modulated samples, lane = pixel and a warp's sample
+//    rows (group, tap, chunk) three at a time from a table, rounded to bf16
+//    as the TPU kernel rounds its modulated column
+//    (crfp_tpu/ops/pallas/dcn.py:169) and stored to U [32][KS] as one
+//    vector store; then each warp computes 16 x 8 output tiles with
+//    mma.sync m16n8k16 over K and writes them straight from its fragments.
+//    Two barriers a tile. The staging's runtime divisions a weight element
+//    and a sample's once cost more than the samples (PERF.md).
+//  - general/chunked (A, E, D: every width the others do not take: f32 x
+//    at O > 8, a shared mask at O > 8, or a weight too large for shared
+//    memory): K = C kh kw walked in chunks of at most kGenRows rows
+//    (GenChunks): rows ordered (group, tap, channel), a chunk kGenRows /
+//    CPG whole (group, tap) pairs, or a run of kGenRows channels of one
+//    pair where CPG > kGenRows. A: per chunk the modulated samples go to U
+//    [rows][32] in f32, a corner's channels read as the pixel branch reads
+//    them (a vector load a chunk; rounded to bf16 first for bf16 x; a
+//    shared mask scales after the rounding, as the TPU scales the group's
+//    sum, :196-200)
+//    and the weight, once a block where it fits beside U in half the
+//    shared memory (gen_chunked_whole), else the chunk's rows for up to
+//    kGenOuts = 128 outputs once a tile, to Ws [rows][opw]; thread (pixel
+//    q, slot s) keeps 4 x 4 sums of outputs 4 (s + 8 j) .. + 3, f32 FMAs on
+//    the CUDA cores. 40 KB of shared memory where the weight is staged a
+//    chunk at a time, whatever C, O and kh x kw.
+// The route's first design was the chunked branch alone, with x packed one
+// scalar a channel and every channel's corner checked: 5-13x the tuned
+// routes at mid 32 (PERF.md).
 // ---------------------------------------------------------------------------
 
-constexpr int kGenPix = 32;      // pixels of a tile
-constexpr int kGenRows = 64;     // rows of K in a chunk
-constexpr int kGenOuts = 128;    // outputs of one pass of the forward
+constexpr int kGenPix = 32;      // pixels of a tile (mma and chunked branches, D's pixel at G >= 8)
+constexpr int kGenRows = 64;     // chunked: rows of K in a chunk
+constexpr int kGenOuts = 128;    // chunked: outputs of one pass of the forward
 constexpr int kGenThreads = 256;
+constexpr int kGenPixO = 8;      // pixel branch of A and E: O <= 8, the sums in registers
+// resident blocks an SM that the general kernels of A, E and D ask for
+// (__launch_bounds__): 2, at most 128 registers a thread (with 1, the mma
+// and pixel branches at 16-byte corners took 170-210 and read 20-85 %
+// slower, one block an SM); 3 (85 registers) for the mma branch at 4-8
+// byte corners, whose sampling waits on memory (9-21 % faster than 2 at
+// mid 24 and 32; PERF.md)
+constexpr int kGenMinBlocks = 2;
 
-// Output columns of the forward's staged weight: O rounded up to 4, at most
-// kGenOuts.
+// The branches of the general route (ops/cuda/dcn.py::GEN_BRANCHES, in this
+// order); the plan names one, the C entries check it.
+enum GenBranch { kGenChunked = 0, kGenPixel = 1, kGenMma = 2 };
+
+// __launch_bounds__' blocks an SM of a general kernel of A and E (see
+// kGenMinBlocks)
+__host__ __device__ constexpr int gen_min_blocks(int branch, int vb) {
+  return branch == kGenMma && vb <= 8 ? 3 : kGenMinBlocks;
+}
+
+// The padded channel count cpgp of a packed pixel, the same for f32 and
+// bf16 x (ops/cuda/dcn.py::gen_cpgp): 2 up to 2 channels, 4 up to 4, then a
+// multiple of 8; and the bytes of one vector load of its channels, at most
+// 16 (a chunk: f32 8 or 16, bf16 4, 8 or 16).
+__host__ __device__ inline int gen_cpgp(int cpg) {
+  return cpg <= 2 ? 2 : cpg <= 4 ? 4 : (cpg + 7) / 8 * 8;
+}
+__host__ __device__ inline int gen_vec_bytes(int cpg, int esize) {
+  const int b = gen_cpgp(cpg) * esize;
+  return b < 16 ? b : 16;
+}
+
+// Output columns of the chunked forward's staged weight: O rounded up to 4,
+// at most kGenOuts.
 __host__ __device__ inline int gen_opw(int O) {
   const int o4 = (O + 3) / 4 * 4;
   return o4 < kGenOuts ? o4 : kGenOuts;
 }
 
-// Bytes of dynamic shared memory of the general forward (ops/cuda/dcn.py::
-// _gen_smem_bytes): U [kGenRows][kGenPix] and Ws [kGenRows][opw], f32.
-__host__ __device__ inline int gen_smem_bytes(int O) {
-  return 4 * kGenRows * (kGenPix + gen_opw(O));
+// The chunked forward stages the whole weight once a block, Ws [C K2][opw]
+// in the chunks' row order, where O <= kGenOuts and it fits beside U in half
+// the card's shared memory (two blocks an SM); else each chunk's rows, Ws
+// [kGenRows][opw], once a tile. Its bytes of dynamic shared memory
+// (ops/cuda/dcn.py::_gen_smem_bytes): U [kGenRows][kGenPix] and Ws, f32.
+constexpr int kGenWholeSmem = kMaxSmem / 2 - 1024;
+__host__ __device__ inline bool gen_chunked_whole(int C, int K2, int O) {
+  return O <= kGenOuts &&
+         4LL * (kGenRows * kGenPix + (long long)C * K2 * gen_opw(O)) <= kGenWholeSmem;
+}
+__host__ __device__ inline int gen_smem_bytes(int C, int K2, int O) {
+  return 4 * (kGenRows * kGenPix +
+              (gen_chunked_whole(C, K2, O) ? C * K2 : kGenRows) * gen_opw(O));
+}
+
+// The pixel forward: the f32 weight [C K2][kGenPixO] and the taps' places
+// int2 [K2].
+__host__ __device__ inline long long gen_pixel_smem_bytes(int C, int K2) {
+  return 4LL * C * K2 * kGenPixO + 8LL * K2;
+}
+
+// The mma forward: bf16 columns a row of U and of the weight, K = G K2 cpgp
+// padded to 16, plus 8 (conflict-free fragment loads, as mma_kstride); its
+// sample rows (group, tap, chunk), G K2 cpgp / CH of them, CH the channels
+// of a chunk; and the bytes: the weight [OP][KS], U [kGenPix][KS] (OP = O
+// rounded up to 8), the rows' table int4 [rows].
+__host__ __device__ inline int gen_mma_kstride(int G, int K2, int cpgp) {
+  return (G * K2 * cpgp + 15) / 16 * 16 + 8;
+}
+__host__ __device__ inline int gen_mma_rows(int G, int K2, int cpgp) {
+  return G * K2 * (cpgp > 8 ? cpgp / 8 : 1);
+}
+__host__ __device__ inline long long gen_mma_smem_bytes(int G, int K2, int cpgp, int O) {
+  return 2LL * ((O + 7) / 8 * 8 + kGenPix) * gen_mma_kstride(G, K2, cpgp) +
+         16LL * gen_mma_rows(G, K2, cpgp);
 }
 
 // The chunks of K, rows ordered (group, tap, channel): row ((g K2 + k) CPG +
@@ -1306,20 +1412,21 @@ struct GenChunks {
 template <typename T>
 struct GenArgs {
   const T* x;            // (N, C, H, W)
-  T* xp;                 // scratch: x packed per group, [N][G][H][W][CPG]
+  T* xp;                 // scratch: x packed per group, [N][G][H][W][cpgp]
   const float* weight;   // (O, C, KH, KW)
   const float* bias;     // (O,) or NULL
   T* out;                // (N, O, H, W)
   int N, C, H, W, G, O, KH, KW;
   float D;               // clamp; < 0: none
-  int tile_h, tile_w;    // kGenPix pixels
+  int tile_h, tile_w;    // pixels of a tile
   int tiles_y, tiles_x;
+  int cpgp;              // padded channels a packed pixel (gen_cpgp)
 };
 
-// The pre-pass of the general route: x (N, C, H, W) -> xp [N][G][H][W][CPG],
-// blocks of 32 x 8 threads over (column, row), blockIdx.z image x group, a
-// thread a pixel; dxp, where not NULL (kernel D), gets zeros in the same
-// layout.
+// The pre-pass of the general route: x (N, C, H, W) -> xp [N][G][H][W][cpgp]
+// (zeros in the padded channels), blocks of 32 x 8 threads over (column,
+// row), blockIdx.z image x group, a thread a pixel; dxp, where not NULL
+// (kernel D), gets zeros in the same layout.
 template <typename T>
 __device__ __forceinline__ void gen_pack(const T* __restrict__ x, T* __restrict__ xp,
                                          float* __restrict__ dxp, int H, int W, int cpg) {
@@ -1327,17 +1434,18 @@ __device__ __forceinline__ void gen_pack(const T* __restrict__ x, T* __restrict_
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= W || py >= H) return;
+  const int cpgp = gen_cpgp(cpg);
   const long long ng = blockIdx.z, HW = (long long)H * W, p = (long long)py * W + px;
   const T* src = x + ng * cpg * HW + p;
-  const long long d = (ng * HW + p) * cpg;
-  for (int c = 0; c < cpg; ++c) {
-    xp[d + c] = src[c * HW];
+  const long long d = (ng * HW + p) * cpgp;
+  for (int c = 0; c < cpgp; ++c) {
+    xp[d + c] = c < cpg ? src[c * HW] : store_f<T>(0.f);
     if (dxp != nullptr) dxp[d + c] = 0.f;
   }
 }
 
-// A general-route sample: its four corners' element offsets in a packed
-// plane ([H][W][CPG], 0 for a corner outside the frame), whether each lies
+// A sample of D's chunked branch: its four corners' element offsets in a
+// packed plane ([H][W][cpgp], 0 for a corner outside the frame), whether each lies
 // inside, and bilinear()'s weights.
 struct GenCorners {
   long long at[4];
@@ -1345,14 +1453,14 @@ struct GenCorners {
   Bilinear b;
 };
 
-__device__ __forceinline__ GenCorners gen_corners(float sy, float sx, int H, int W, int cpg) {
+__device__ __forceinline__ GenCorners gen_corners(float sy, float sx, int H, int W, int cpgp) {
   GenCorners q;
   q.b = bilinear(sy, sx);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int y = q.b.y0 + i / 2, x = q.b.x0 + i % 2;
     q.in[i] = y >= 0 && y < H && x >= 0 && x < W;
-    q.at[i] = q.in[i] ? ((long long)y * W + x) * cpg : 0;
+    q.at[i] = q.in[i] ? ((long long)y * W + x) * cpgp : 0;
   }
   return q;
 }
@@ -1370,22 +1478,334 @@ __device__ __forceinline__ float gen_blend(const Bilinear& b, const float (&c)[4
   return fmaf(b.w11, c[3], fmaf(b.w10, c[2], fmaf(b.w01, c[1], b.w00 * c[0])));
 }
 
-template <typename T, typename Prologue>
-__device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Prologue& pro) {
+// A sample's four corners in the packed planes of the pixel and mma
+// branches: chunk indices (pixel x chunks a pixel, 0 outside the frame) and
+// bilinear()'s weights, 0 for a corner outside the frame (which then reads
+// pixel 0 and adds nothing: one frame check a corner, not a channel).
+struct GenTap {
+  int at[4];
+  float w[4];
+};
+
+__device__ __forceinline__ GenTap gen_tap(float sy, float sx, int H, int W, int nch) {
+  const Bilinear b = bilinear(sy, sx);
+  GenTap t{{0, 0, 0, 0}, {b.w00, b.w01, b.w10, b.w11}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = b.y0 + i / 2, x = b.x0 + i % 2;
+    const bool in = y >= 0 && y < H && x >= 0 && x < W;
+    t.at[i] = in ? (y * W + x) * nch : 0;
+    t.w[i] = in ? t.w[i] : 0.f;
+  }
+  return t;
+}
+
+// channel cc of a chunk's four corners, blended as blend() blends them
+template <typename T, int CH>
+__device__ __forceinline__ float gen_mix(const GenTap& t, const Pix<T, CH> (&c)[4], int cc) {
+  return fmaf(t.w[3], to_f(c[3].v[cc]),
+              fmaf(t.w[2], to_f(c[2].v[cc]), fmaf(t.w[1], to_f(c[1].v[cc]),
+                                                  t.w[0] * to_f(c[0].v[cc]))));
+}
+
+// Sample rows a warp of the mma branch has in flight, and taps a thread of
+// the pixel branch: their prologue loads issued together, then their corner
+// loads, then the arithmetic (one at a time, each waited for two round
+// trips to memory). 3: a 3x3 kernel's 72 rows at 8 groups are 9 a warp, and
+// its taps 3 rows of 3.
+constexpr int kGenBatch = 3;
+
+// general/pixel (see the note above). Threads: the tile's pixels. The taps
+// are walked kGenBatch at a time.
+template <typename T, int VB, typename Prologue>
+__device__ __forceinline__ void gen_fwd_pixel(const GenArgs<T>& a, const Prologue& pro) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int CH = VB / (int)sizeof(T), B = kGenBatch;  // channels a chunk; taps
+  using V = Pix<T, CH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* wf = reinterpret_cast<float*>(smem);  // [C K2][kGenPixO]: row c K2 + k
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
+  const int cpg = C / G, nch = a.cpgp / CH, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const long long HW = (long long)H * W;
+
+  int2* taps = reinterpret_cast<int2*>(wf + C * K2 * kGenPixO);  // [K2]: tap k's place
+  // the weight, once per block, zeros past O (rounded to bf16 for bf16 x,
+  // as the tensor-core routes round it), and the taps' places
+  for (int i = tid; i < C * K2 * kGenPixO; i += nthreads) {
+    const int o = i % kGenPixO, r = i / kGenPixO;
+    float w = o < O ? __ldg(a.weight + (long long)o * C * K2 + r) : 0.f;
+    if constexpr (kBf16) w = __bfloat162float(__float2bfloat16(w));
+    wf[i] = w;
+  }
+  for (int k = tid; k < K2; k += nthreads) taps[k] = make_int2(k / KW - ky0, k % KW - kx0);
+  float bias[kGenPixO];
+#pragma unroll
+  for (int o = 0; o < kGenPixO; ++o)
+    bias[o] = a.bias != nullptr && o < O ? __ldg(a.bias + o) : 0.f;
+  __syncthreads();
+
+  const V* xp = reinterpret_cast<const V*>(a.xp);
+  const int qy = tid / a.tile_w, qx = tid - qy * a.tile_w;
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  wait_for_packed_x();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
+    const int n = r0 / a.tiles_y, py = (r0 % a.tiles_y) * a.tile_h + qy;
+    const int px = tx * a.tile_w + qx;
+    if (py >= H || px >= W) continue;
+    const long long p = (long long)py * W + px;
+    const float2 ps = pro.pixel(n, p, HW);
+    float acc[kGenPixO];
+#pragma unroll
+    for (int o = 0; o < kGenPixO; ++o) acc[o] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const V* src = xp + ((long long)n * G + g) * HW * nch;
+      float dy0, dx0, m0, gm;
+      pro.tap(ps, n, g, G, 0, K2, p, HW, a.D, dy0, dx0, m0, gm);
+      float gacc[kGenPixO];  // the group's sums, scaled by a shared mask last
+#pragma unroll
+      for (int o = 0; o < kGenPixO; ++o) gacc[o] = 0.f;
+      for (int j = 0; j < nch; ++j) {
+        for (int k0 = 0; k0 < K2; k0 += B) {
+          // the batch's taps: their offsets and masks (under shared taps the
+          // first tap's prologue, each later tap its mask alone) ...
+          float dy[B], dx[B], m[B];
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            const int k = k0 + b;
+            dy[b] = dy0, dx[b] = dx0, m[b] = m0;
+            if (k > 0 && k < K2) {
+              if (!pro.shared_taps) {
+                float gm_;
+                pro.tap(ps, n, g, G, k, K2, p, HW, a.D, dy[b], dx[b], m[b], gm_);
+              } else {
+                m[b] = pro.tap_mask(n, g, G, k, K2, p, HW);
+              }
+            }
+          }
+          // ... their corners ...
+          GenTap t[B];
+          V c[B][4];
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            const int2 at = taps[k0 + b < K2 ? k0 + b : K2 - 1];
+            t[b] = gen_tap((float)(py + at.x) + dy[b], (float)(px + at.y) + dx[b], H, W, nch);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c[b][i] = src[t[b].at[i] + j];
+          }
+          // ... and their sums, in tap order
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            const int k = k0 + b;
+            if (k >= K2) break;
+#pragma unroll
+            for (int cc = 0; cc < CH; ++cc) {
+              const int ci = j * CH + cc;
+              if (ci < cpg) {
+                float u = gen_mix<T, CH>(t[b], c[b], cc) * m[b];
+                if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+                const float4* w4 =
+                    reinterpret_cast<const float4*>(wf + ((g * cpg + ci) * K2 + k) * kGenPixO);
+                const float4 w0 = w4[0];
+                gacc[0] = fmaf(u, w0.x, gacc[0]);
+                gacc[1] = fmaf(u, w0.y, gacc[1]);
+                gacc[2] = fmaf(u, w0.z, gacc[2]);
+                gacc[3] = fmaf(u, w0.w, gacc[3]);
+                if (O > 4) {  // outputs 4-7 (dcn_3 up to mid 32 has O <= 4)
+                  const float4 w1 = w4[1];
+                  gacc[4] = fmaf(u, w1.x, gacc[4]);
+                  gacc[5] = fmaf(u, w1.y, gacc[5]);
+                  gacc[6] = fmaf(u, w1.z, gacc[6]);
+                  gacc[7] = fmaf(u, w1.w, gacc[7]);
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < kGenPixO; ++o) acc[o] = fmaf(gm, gacc[o], acc[o]);
+    }
+    T* op = a.out + (long long)n * O * HW + p;
+#pragma unroll
+    for (int o = 0; o < kGenPixO; ++o)
+      if (o < O) op[o * HW] = store_f<T>(acc[o] + bias[o]);
+  }
+}
+
+// general/mma (see the note above). bf16 x, kGenThreads threads, tiles of
+// kGenPix pixels; no shared mask (its scale follows the rounding). A warp
+// samples kGenBatch rows at a time.
+template <int VB, typename Prologue>
+__device__ __forceinline__ void gen_fwd_mma(const GenArgs<__nv_bfloat16>& a,
+                                            const Prologue& pro) {
+  using T = __nv_bfloat16;
+  constexpr int CH = VB / 2, P = kGenPix, MT = P / 16, B = kGenBatch;
+  using V = Pix<T, CH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
+  const int cpg = C / G, cpgp = a.cpgp, nch = cpgp / CH;
+  const int ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const int KR = G * K2 * cpgp, KS = gen_mma_kstride(G, K2, cpgp), RW = KS / 2;
+  const int OP = (O + 7) / 8 * 8, nrows = gen_mma_rows(G, K2, cpgp);
+  const long long HW = (long long)H * W;
+  T* wb = reinterpret_cast<T*>(smem);  // [OP][KS]: column (g K2 + k) cpgp + ci
+  T* U = wb + OP * KS;                 // [P][KS]
+  // sample row t = (g K2 + k) nch + j: (g, k, j, the tap's place dy 65536 +
+  // dx); its samples are U's columns [t CH, t CH + CH)
+  int4* rows = reinterpret_cast<int4*>(U + P * KS);
+
+  // zeros in the weight (the padded channels, columns and outputs) and in
+  // U's columns past KR (never written); the rows' table
+  {
+    uint4* z = reinterpret_cast<uint4*>(wb);
+    for (int i = tid; i < OP * KS / 8; i += kGenThreads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int i = tid; i < P * (KS - KR); i += kGenThreads) {
+    const int r = i / (KS - KR);
+    U[r * KS + KR + (i - r * (KS - KR))] = __float2bfloat16(0.f);
+  }
+  for (int t = tid; t < nrows; t += kGenThreads) {
+    const int pair = t / nch, g = pair / K2, k = pair - g * K2;
+    rows[t] = make_int4(g, k, t - pair * nch, (k / KW - ky0) * 65536 + (k % KW - kx0));
+  }
+  __syncthreads();
+  // the weight, once per block, in bf16: a thread per (o, c), its K2 taps
+  // read contiguously
+  for (int r = tid; r < O * C; r += kGenThreads) {
+    const int o = r / C, c = r - o * C, g = c / cpg, ci = c - g * cpg;
+    const float* src = a.weight + (long long)r * K2;
+    T* dst = wb + o * KS + g * K2 * cpgp + ci;
+#pragma unroll 9
+    for (int k = 0; k < K2; ++k) dst[k * cpgp] = __float2bfloat16(__ldg(src + k));
+  }
+  __syncthreads();
+
+  const V* xp = reinterpret_cast<const V*>(a.xp);
+  const uint32_t* U32 = reinterpret_cast<const uint32_t*>(U);
+  const uint32_t* W32 = reinterpret_cast<const uint32_t*>(wb);
+  const int gid = lane >> 2, tq = lane & 3;
+  const int units = MT * (OP / 8), ksteps = (KR + 15) / 16;
+  const int qy = lane / a.tile_w, qx = lane - qy * a.tile_w;  // the lane's pixel of a tile
+  const int tiles = a.N * a.tiles_y * a.tiles_x;
+  wait_for_packed_x();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
+    const int n = r0 / a.tiles_y, y0 = (r0 % a.tiles_y) * a.tile_h, x0 = tx * a.tile_w;
+    const int py = y0 + qy, px = x0 + qx;
+    const bool inside = py < H && px < W;
+    const long long p = (long long)py * W + px;
+    const float2 ps = inside ? pro.pixel(n, p, HW) : make_float2(0.f, 0.f);
+    // the modulated samples: lane = pixel, warp w takes the rows w, w + 8,
+    // ..., B at a time: their prologues, then their corners, then their
+    // rounding and stores
+    for (int t0 = warp; t0 < nrows; t0 += B * (kGenThreads / 32)) {
+      int4 d[B];
+      bool ok[B];
+      float dy[B], dx[B], m[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int t = t0 + b * (kGenThreads / 32);
+        d[b] = rows[t < nrows ? t : 0];
+        ok[b] = t < nrows && inside;
+        dy[b] = dx[b] = m[b] = 0.f;
+        if (ok[b]) {
+          float gm;
+          pro.tap(ps, n, d[b].x, G, d[b].y, K2, p, HW, a.D, dy[b], dx[b], m[b], gm);
+        }
+      }
+      GenTap tp[B];
+      V c[B][4];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int ox = (short)(d[b].w & 0xffff), oy = (d[b].w - ox) / 65536;
+        tp[b] = gen_tap((float)(py + oy) + dy[b], (float)(px + ox) + dx[b], H, W, nch);
+        const V* src = xp + ((long long)n * G + d[b].x) * HW * nch + d[b].z;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[b][e] = src[ok[b] ? tp[b].at[e] : 0];
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int t = t0 + b * (kGenThreads / 32);
+        if (t >= nrows) break;
+        V u;
+#pragma unroll
+        for (int cc = 0; cc < CH; ++cc)
+          u.v[cc] = __float2bfloat16(ok[b] ? gen_mix<T, CH>(tp[b], c[b], cc) * m[b] : 0.f);
+        *reinterpret_cast<V*>(U + lane * KS + t * CH) = u;
+      }
+    }
+    __syncthreads();  // U complete
+    for (int un = warp; un < units; un += kGenThreads / 32) {
+      const int mt = un % MT, nt = un / MT;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s = 0; s < ksteps; ++s) {
+        uint32_t af[4], bf[2];
+        const int ra = (mt * 16 + gid) * RW + s * 8 + tq;
+        af[0] = U32[ra];
+        af[1] = U32[ra + 8 * RW];
+        af[2] = U32[ra + 4];
+        af[3] = U32[ra + 8 * RW + 4];
+        const int rb = (nt * 8 + gid) * RW + s * 8 + tq;
+        bf[0] = W32[rb];
+        bf[1] = W32[rb + 4];
+        mma_bf16(acc, af, bf);
+      }
+      // fragment rows gid and gid + 8 are pixels, columns 2 tq, + 1 outputs
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = mt * 16 + gid + 8 * h;
+        const int py = y0 + q / a.tile_w, px = x0 + q % a.tile_w;
+        if (py >= H || px >= W) continue;
+        T* op = a.out + (long long)n * O * HW + (long long)py * W + px;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = nt * 8 + 2 * tq + e;
+          if (o < O)
+            op[o * HW] =
+                store_f<T>(acc[2 * h + e] + (a.bias != nullptr ? __ldg(a.bias + o) : 0.f));
+        }
+      }
+    }
+    __syncthreads();  // U read: the next tile may write it
+  }
+}
+
+// general/chunked (see the note above). kGenThreads threads, tiles of
+// kGenPix pixels; corners of VB bytes, as the pixel branch reads them.
+template <typename T, int VB, typename Prologue>
+__device__ __forceinline__ void gen_fwd_chunked(const GenArgs<T>& a, const Prologue& pro) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int CH = VB / (int)sizeof(T);  // channels a chunk of a corner
+  using V = Pix<T, CH>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* U = reinterpret_cast<float*>(smem);  // [kGenRows][kGenPix]
   float* Ws = U + kGenRows * kGenPix;         // [kGenRows][opw]
   const int tid = threadIdx.x;
   const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
-  const int cpg = C / G, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const int cpg = C / G, nch = a.cpgp / CH, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
   const long long HW = (long long)H * W;
   const int opw = gen_opw(O);
+  const V* xp = reinterpret_cast<const V*>(a.xp);
   const GenChunks chunks(cpg, G, K2);
   const int nchunks = chunks.count();
   // the contraction: pixel q of the tile, output slot s (a warp's)
   const int q = tid % kGenPix, slot = tid / kGenPix;
   const int tiles = a.N * a.tiles_y * a.tiles_x;
+  // the whole weight, once a block (gen_chunked_whole): row (g K2 + k) cpg
+  // + ci; the first chunk's barrier orders these stores before their reads
+  const bool whole = gen_chunked_whole(C, K2, O);
+  if (whole) {
+    for (int i = tid; i < C * K2 * opw; i += kGenThreads) {
+      const int r = i / opw, oo = i - r * opw;
+      const int pair = r / cpg, ci = r - pair * cpg, g = pair / K2, k = pair - g * K2;
+      float w = oo < O ? __ldg(a.weight + ((long long)oo * C + g * cpg + ci) * K2 + k) : 0.f;
+      if constexpr (kBf16) w = __bfloat162float(__float2bfloat16(w));
+      Ws[i] = w;
+    }
+  }
   wait_for_packed_x();
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
@@ -1413,20 +1833,30 @@ __device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Pro
           }
           const long long p = (long long)py * W + px;
           float dy, dx, m, gm;
-          pro.tap(n, g, G, k, K2, p, HW, a.D, dy, dx, m, gm);
-          const GenCorners cr = gen_corners((float)(py + k / KW - ky0) + dy,
-                                            (float)(px + k % KW - kx0) + dx, H, W, cpg);
-          const T* src = a.xp + ((long long)n * G + g) * HW * cpg + c0;
-          for (int cc = 0; cc < nc; ++cc) {
-            float c[4];
-            gen_corner_values(cr, src + cc, c);
-            float u = gen_blend(cr.b, c) * m;
-            if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
-            urow[cc * kGenPix] = u * gm;
+          pro.tap(pro.pixel(n, p, HW), n, g, G, k, K2, p, HW, a.D, dy, dx, m, gm);
+          const GenTap t = gen_tap((float)(py + k / KW - ky0) + dy,
+                                   (float)(px + k % KW - kx0) + dx, H, W, nch);
+          const V* src = xp + ((long long)n * G + g) * HW * nch;
+          // the run's channels [c0, c0 + nc) a chunk of CH at a time (c0 is
+          // 0 or a multiple of kGenRows, so of CH)
+          for (int j = c0 / CH; j * CH < c0 + nc; ++j) {
+            V c[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) c[i] = src[t.at[i] + j];
+#pragma unroll
+            for (int cc = 0; cc < CH; ++cc) {
+              const int r = j * CH + cc - c0;
+              if (r < nc) {
+                float u = gen_mix<T, CH>(t, c, cc) * m;
+                if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+                urow[r * kGenPix] = u * gm;
+              }
+            }
           }
         }
-        // the chunk's weight rows for this pass's outputs
-        for (int i = tid; i < rows * opw; i += kGenThreads) {
+        // the chunk's weight rows for this pass's outputs (once a block where
+        // the whole weight fits)
+        for (int i = tid; !whole && i < rows * opw; i += kGenThreads) {
           const int r = i / opw, oo = i - r * opw;
           const int tl = r / nc, pair = t0 + tl, g = pair / K2, k = pair - g * K2;
           const int c = g * cpg + c0 + (r - tl * nc);
@@ -1435,9 +1865,10 @@ __device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Pro
           Ws[i] = w;
         }
         __syncthreads();  // U and Ws complete
+        const float* ws = whole ? Ws + (t0 * cpg + c0) * opw : Ws;
         for (int r = 0; r < rows; ++r) {
           const float u = U[r * kGenPix + q];
-          const float* wr = Ws + r * opw;
+          const float* wr = ws + r * opw;
 #pragma unroll
           for (int s = 0; s < 4; ++s) {
             const int ob = (slot + 8 * s) * 4;
@@ -1466,6 +1897,20 @@ __device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Pro
         }
       }
     }
+  }
+}
+
+// The general route of A and E: the plan's branch (GenBranch) with corners
+// of VB bytes (gen_vec_bytes); a kernel each.
+template <int BRANCH, int VB, typename T, typename Prologue>
+__device__ __forceinline__ void dcn_tiles_general(const GenArgs<T>& a, const Prologue& pro) {
+  if constexpr (BRANCH == kGenPixel) {
+    gen_fwd_pixel<T, VB>(a, pro);
+  } else if constexpr (BRANCH == kGenMma) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor cores take bf16 x");
+    gen_fwd_mma<VB>(a, pro);
+  } else {
+    gen_fwd_chunked<T, VB>(a, pro);
   }
 }
 
@@ -1573,15 +2018,39 @@ inline cudaError_t check_plan(TileArgs<T>& a, bool mma, int cpg, int O, int smem
 }
 
 // The general route's plan check (ops/cuda/dcn.py::tile_plan with route
-// "general"): tiles of kGenPix pixels, no border (every corner is checked),
-// gen_smem_bytes; completes the tile counts.
+// "general"): the branch (GenBranch) a plan names, its tile (the pixel
+// branch: a multiple of 32 pixels up to kGenThreads, a thread each; the
+// others kGenPix pixels on kGenThreads threads) and shared memory, no
+// border (every corner is checked); the mma branch takes bf16 x and no
+// shared mask (shared_mask). Completes the packed channels, the tile counts
+// and the threads a block.
 template <typename T>
-inline cudaError_t check_gen_plan(GenArgs<T>& a, int pad, int smem, int* tiles) {
-  if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != kGenPix || pad != 0)
-    return cudaErrorInvalidValue;
+inline cudaError_t check_gen_plan(GenArgs<T>& a, int branch, int shared_mask, int pad,
+                                  int smem, int* tiles, int* threads) {
+  const int px = a.tile_h * a.tile_w;
+  if (a.tile_h < 1 || a.tile_w < 1 || pad != 0) return cudaErrorInvalidValue;
   if (a.G < 1 || a.C < 1 || a.C % a.G || a.O < 1 || a.KH < 1 || a.KW < 1)
     return cudaErrorInvalidValue;
-  if (smem != gen_smem_bytes(a.O)) return cudaErrorInvalidValue;
+  const int K2 = a.KH * a.KW;
+  a.cpgp = gen_cpgp(a.C / a.G);
+  long long want = -1;
+  if (branch == kGenPixel) {
+    if (a.O > kGenPixO || px % 32 || px > kGenThreads) return cudaErrorInvalidValue;
+    want = gen_pixel_smem_bytes(a.C, K2);
+    *threads = px;
+  } else if (branch == kGenMma) {
+    if (!std::is_same<T, __nv_bfloat16>::value || shared_mask || px != kGenPix)
+      return cudaErrorInvalidValue;
+    want = gen_mma_smem_bytes(a.G, K2, a.cpgp, a.O);
+    *threads = kGenThreads;
+  } else if (branch == kGenChunked) {
+    if (px != kGenPix) return cudaErrorInvalidValue;
+    want = gen_smem_bytes(a.C, K2, a.O);
+    *threads = kGenThreads;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (smem != want || smem > kMaxSmem) return cudaErrorInvalidValue;
   a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
   a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
   *tiles = a.N * a.tiles_y * a.tiles_x;
@@ -1589,16 +2058,16 @@ inline cudaError_t check_gen_plan(GenArgs<T>& a, int pad, int smem, int* tiles) 
 }
 
 // Launches the general route: the pre-pass `pack` over the frame and N * G
-// planes, then `fn` on a persistent grid as its programmatic dependent.
+// planes, then `fn` (the plan's branch, NULL where none exists) on a
+// persistent grid of `threads`-thread blocks as its programmatic dependent.
 template <typename T, typename Prologue>
 inline cudaError_t launch_general(void (*pack)(const T*, T*, float*, int, int, int),
-                                  void (*fn)(GenArgs<T>, Prologue), GenArgs<T> a,
-                                  const Prologue& pro, int pad, int smem,
+                                  void (*fn)(GenArgs<T>, Prologue), const GenArgs<T>& a,
+                                  const Prologue& pro, int threads, int smem, int tiles,
                                   cudaStream_t stream) {
-  int tiles = 0, grid = 0;
-  cudaError_t e = check_gen_plan(a, pad, smem, &tiles);
-  if (e != cudaSuccess) return e;
-  e = tiled_grid(reinterpret_cast<const void*>(fn), kGenThreads, smem, tiles, &grid);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t e = tiled_grid(reinterpret_cast<const void*>(fn), threads, smem, tiles, &grid);
   if (e != cudaSuccess) return e;
   pack<<<dim3((unsigned)((a.W + 31) / 32), (unsigned)((a.H + 7) / 8), (unsigned)(a.N * a.G)),
          dim3(32, 8), 0, stream>>>(a.x, a.xp, nullptr, a.H, a.W, a.C / a.G);
@@ -1606,7 +2075,7 @@ inline cudaError_t launch_general(void (*pack)(const T*, T*, float*, int, int, i
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
-  cfg.blockDim = dim3((unsigned)kGenThreads);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1617,6 +2086,33 @@ inline cudaError_t launch_general(void (*pack)(const T*, T*, float*, int, int, i
   e = cudaLaunchKernelEx(&cfg, fn, a, pro);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The kernel of a general plan of A or E: K<BRANCH, VB>::get() for the
+// plan's branch and the corners' vector bytes (gen_vec_bytes: 8 or 16 for
+// f32 x, 4, 8 or 16 for bf16); NULL for the mma branch on f32 x.
+template <typename T, template <int, int> class K>
+inline decltype(K<kGenChunked, 16>::get()) gen_kernel(int branch, int cpg) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int vb = gen_vec_bytes(cpg, (int)sizeof(T));
+  if (branch == kGenChunked) {
+    if constexpr (kBf16) {
+      if (vb == 4) return K<kGenChunked, 4>::get();
+    }
+    return vb == 8 ? K<kGenChunked, 8>::get() : K<kGenChunked, 16>::get();
+  }
+  if (branch == kGenPixel) {
+    if constexpr (kBf16) {
+      if (vb == 4) return K<kGenPixel, 4>::get();
+    }
+    return vb == 8 ? K<kGenPixel, 8>::get() : K<kGenPixel, 16>::get();
+  }
+  if constexpr (kBf16) {
+    if (branch == kGenMma)
+      return vb == 4 ? K<kGenMma, 4>::get() : vb == 8 ? K<kGenMma, 8>::get()
+                                                     : K<kGenMma, 16>::get();
+  }
+  return nullptr;
 }
 
 }  // namespace crfp

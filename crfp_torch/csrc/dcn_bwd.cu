@@ -147,6 +147,10 @@ struct BwdArgs {
   // x), which the epilogue adds up over the taps in order
   int KH, KW;
   float* tap_part;
+  // the general route: its branch (crfp::GenBranch), the packed pixel's
+  // padded channels (crfp::gen_cpgp) and, in the pixel branch, whether the
+  // weight is staged in shared memory
+  int branch, cpgp, wstage;
 };
 
 // dv * w into one corner of the packed f32 accumulator: one vector atomic
@@ -555,37 +559,79 @@ __global__ void __launch_bounds__(256) dcn_bwd_epilogue(BwdArgs<T> a, int nb_dx)
 // ---- the general route ------------------------------------------------
 // Every width the TPU kernel takes (any C % G == 0, O, KH x KW; common.cuh's
 // note on the general route), in the tuned route's three launches:
-//  1. dcn_bwd_general_pack: x packed per group, pixel-major, no border
-//     (common.cuh::gen_pack, scalar stores for any CPG), and the f32 dx
-//     accumulator of the same layout zeroed;
-//  2. dcn_bwd_general (programmatic dependent launch, persistent grid): a
-//     block of 256 threads on tiles of kGenPix = 32 pixels walks K = C KH KW
-//     in common.cuh's chunks (rows ordered (group, tap, channel)). Per chunk
-//     (a) s = W^T g for each row and pixel into S [rows][32], a thread a
-//     (row, pixel), the O products from the f32 weight and grad_out through
-//     L1; (b) a thread a (group, tap) pair and pixel: the tap's geometry
-//     once, then per channel the sample v, d-mask += v s, dv = m gm s, the
-//     d-offset sums, u = m gm v (rounded to bf16 for bf16 x) into U [rows]
-//     [33], and dx by one f32 atomicAdd a corner and channel into the packed
-//     accumulator (no vector width fits every CPG); a pair's d-mask and
-//     d-offset (times the clamp's derivative, or anchored the residual
-//     clip's) are written once, under shared taps (a shared mask) as
-//     per-tap sums into tap_part; a pair split over chunks (CPG > 64)
-//     carries its sums in shared memory; (c) dW += g^T u, a thread an
-//     (output, row) element summed over the tile's pixels into the block's
-//     partial, in tile order.
-//  3. dcn_bwd_general_epilogue: dx unpacked into x's type; under shared taps
-//     d-offset, under a shared mask d-mask, summed over the taps in order;
-//     dW summed over the blocks' partials in order. So dW, d-offset and
-//     d-mask are deterministic; only dx's f32 atomics are not.
-// Shared memory: 17,024 bytes whatever the widths (gen_bwd_smem_bytes).
+//  1. dcn_bwd_general_pack: x packed per group, pixel-major, no border, its
+//     channels padded to cpgp (common.cuh::gen_pack, gen_cpgp), and the f32
+//     dx accumulator of the same layout zeroed;
+//  2. the tiled kernel (programmatic dependent launch, persistent grid), of
+//     the plan's branch:
+//     - general/pixel (dcn_bwd_general_pixel, the tuned kernel's shape): a
+//       block of 256 threads on tiles of P pixels (P G >= 256 where shared
+//       memory allows: 256 pixels for dcn_3, 32 at 8 groups), a thread a
+//       (pixel, group). Per tile the output gradient is staged as gs[O][P];
+//       the weight, f32 in its own layout [O][C K2], once per block where
+//       it fits (else read through L1). The thread walks its taps: a
+//       tap's geometry once (under shared taps one offset pair and its
+//       window derivative for all taps), per chunk of CH channels s = W^T g
+//       from gs and the weight, the corners one vector load each (checked
+//       against the frame once), d-mask, d-offset, u = m gm v (rounded to
+//       bf16 for bf16 x) into U [C K2][P + 1], and dx as one vector atomic a
+//       corner into the packed accumulator (float4, float2 or float: the
+//       chunk's CH channels). d-mask and d-offset are summed over the taps
+//       in tap order in registers (shared taps, a shared mask) and written
+//       once; then dW += gs U^T over the tile, each element a fixed-order
+//       sum (split over R pixel slices where O C K2 < 256 and added up in
+//       slice order) added to the block's partial, in tile order.
+//     - general/chunked (dcn_bwd_general_chunked; widths whose U does not
+//       fit): K = C KH KW in common.cuh's chunks (rows ordered (group, tap,
+//       channel)). Per chunk (a) s = W^T g for each row and pixel into S
+//       [rows][32], a thread a (row, pixel), the O products from the f32
+//       weight and grad_out through L1; (b) a thread a (group, tap) pair and
+//       pixel: the tap's geometry once, then per channel the sample v,
+//       d-mask += v s, dv = m gm s, the d-offset sums, u into U [rows][33],
+//       and dx by one f32 atomicAdd a corner and channel; a pair's d-mask
+//       and d-offset are written once, under shared taps (a shared mask) as
+//       per-tap sums into tap_part; a pair split over chunks (CPG > 64)
+//       carries its sums in shared memory; (c) dW += g^T u, a thread an
+//       (output, row) element summed over the tile's pixels into the block's
+//       partial, in tile order.
+//  3. dcn_bwd_general_epilogue: dx unpacked into x's type; for the chunked
+//     branch under shared taps d-offset, under a shared mask d-mask, summed
+//     over the taps in order; dW summed over the blocks' partials in order.
+// So dW, d-offset and d-mask are deterministic; only dx's f32 atomics are
+// not. The route's first design was the chunked branch alone, with x packed
+// and dx added one scalar a channel (PERF.md).
 
-// bytes of dynamic shared memory (ops/cuda/dcn.py::_gen_bwd_smem_bytes): S
-// [kGenRows][kGenPix], U [kGenRows][kGenPix + 1], a split pair's sums
-// [kGenPix][3], f32
+// bytes of dynamic shared memory of the chunked branch
+// (ops/cuda/dcn.py::_GEN_BWD_SMEM): S [kGenRows][kGenPix], U [kGenRows]
+// [kGenPix + 1], a split pair's sums [kGenPix][3], f32
 __host__ __device__ constexpr int gen_bwd_smem_bytes() {
   return 4 * (crfp::kGenRows * crfp::kGenPix + crfp::kGenRows * (crfp::kGenPix + 1) +
               3 * crfp::kGenPix);
+}
+
+// and of the pixel branch at P pixels a tile (ops/cuda/dcn.py::
+// _gen_bwd_pixel_smem): gs [O][P], U [C K2][P + 1], the dW slices' sums
+// [kGenThreads], and where `staged` the weight [O][C K2], f32
+__host__ __device__ inline long long gen_bwd_pixel_smem_bytes(int C, int O, int K2, int P,
+                                                              bool staged) {
+  const long long ck2 = (long long)C * K2;
+  return 4 * ((long long)O * P + ck2 * (P + 1) + crfp::kGenThreads + (staged ? O * ck2 : 0));
+}
+
+// dv * w into one corner's chunk of the packed f32 accumulator: one vector
+// atomic per 4 channels (sm_90), float2 or float below
+template <int CH>
+__device__ __forceinline__ void red_chunk(float* p, const float (&dv)[CH], float w) {
+  if constexpr (CH >= 4) {
+#pragma unroll
+    for (int i = 0; i < CH; i += 4)
+      atomicAdd(reinterpret_cast<float4*>(p + i),
+                make_float4(dv[i] * w, dv[i + 1] * w, dv[i + 2] * w, dv[i + 3] * w));
+  } else if constexpr (CH == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(dv[0] * w, dv[1] * w));
+  } else {
+    atomicAdd(p, dv[0] * w);
+  }
 }
 
 template <typename T>
@@ -593,8 +639,198 @@ __global__ void __launch_bounds__(256) dcn_bwd_general_pack(BwdArgs<T> a) {
   crfp::gen_pack(a.x, a.xp, a.dxp, a.H, a.W, a.C / a.G);
 }
 
+// Launch 2, general/pixel (see above). VB: bytes of a corner's chunk
+// (common.cuh::gen_vec_bytes).
+template <typename T, int VB>
+__global__ void __launch_bounds__(crfp::kGenThreads, crfp::kGenMinBlocks)
+dcn_bwd_general_pixel(BwdArgs<T> a) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int CH = VB / (int)sizeof(T), NT = crfp::kGenThreads;
+  using V = Pix<T, CH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
+  const int cpg = C / G, CK2 = C * K2, nch = a.cpgp / CH;
+  const int ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const int P = a.tile_h * a.tile_w, US = P + 1;
+  const long long HW = (long long)H * W;
+  float* gs = reinterpret_cast<float*>(smem);  // [O][P]
+  float* Us = gs + O * P;                      // [C K2][P + 1]: row c K2 + k
+  float* red = Us + CK2 * US;                  // [NT]
+  float* ws = red + NT;                        // [O][C K2], where staged
+  const float* wt = a.wstage ? ws : a.weight;  // W[o][c][k] at o C K2 + c K2 + k
+  if (a.wstage) {
+    for (int i = tid; i < O * CK2; i += NT) ws[i] = __ldg(a.weight + i);
+  }
+  // dW: element e = o C K2 + c K2 + k, dW's own layout; where O C K2 < NT,
+  // R slices of the pixels each
+  const int E = O * CK2, R = E < NT ? NT / E : 1;
+  float* dwp = a.dw_part + (long long)blockIdx.x * E;
+
+  crfp::wait_for_packed_x();  // the packed x and the zeroed accumulator
+  crfp::allow_dependent_launch();
+  const V* xp = reinterpret_cast<const V*>(a.xp);
+  const int tiles = a.N * a.tiles_y * a.tiles_x, items = P * G;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int tx = tile % a.tiles_x, r0 = tile / a.tiles_x;
+    const int n = r0 / a.tiles_y, ty0 = (r0 % a.tiles_y) * a.tile_h, tx0 = tx * a.tile_w;
+    for (int i = tid; i < O * P; i += NT) {
+      const int o = i / P, qq = i - o * P;
+      const int yy = ty0 + qq / a.tile_w, xx = tx0 + qq % a.tile_w;
+      gs[i] = yy < H && xx < W ? crfp::load_f(a.gout + ((long long)n * O + o) * HW +
+                                              (long long)yy * W + xx)
+                               : 0.f;
+    }
+    __syncthreads();  // gs complete (and the weight staged)
+
+    for (int it = tid; it < items; it += NT) {
+      const int q = it % P, gi = it / P;
+      const int py = ty0 + q / a.tile_w, px = tx0 + q % a.tile_w;
+      float* urow = Us + (gi * cpg) * K2 * US + q;  // row (gi cpg + ci) K2 + k
+      if (py >= H || px >= W) {
+        for (int r = 0; r < cpg * K2; ++r) urow[r * US] = 0.f;
+        continue;
+      }
+      const long long p = (long long)py * W + px, ng = (long long)n * G + gi;
+      const int taps = a.shared_taps ? 1 : K2;
+      const float* offp = a.off + ng * taps * 2 * HW + p;
+      const float gm = a.shared_mask ? __ldg(a.mask + ng * HW + p) : 1.f;
+      const bool anchored = a.anchor != nullptr;
+      float2 fa = make_float2(0.f, 0.f);
+      if (anchored) fa = crfp::cell_anchor(a.anchor, ng, py, px, a.band, a.xtile, a.nb, a.nt);
+      // tap t's displacement and its d-offset's factor: the clamp's
+      // derivative, or anchored the residual clip's around the cell's
+      // anchor (dcn_bwd_kernel's arithmetic)
+      float ey = 0.f, ex = 0.f, pass_y = 0.f, pass_x = 0.f;
+      auto geometry = [&](int t) {
+        const float oy = __ldg(offp + (2 * t) * HW), ox = __ldg(offp + (2 * t + 1) * HW);
+        if (anchored) {
+          const float2 e = crfp::anchored_offset(fa, oy, ox, a.dl_r, a.dl_c);
+          const float2 ps = crfp::anchored_pass(fa, oy, ox, a.dl_r, a.dl_c);
+          ey = e.x, ex = e.y, pass_y = ps.x, pass_x = ps.y;
+        } else {
+          ey = crfp::clamp_window(oy, a.D), ex = crfp::clamp_window(ox, a.D);
+          pass_y = crfp::clamp_pass(oy, a.D), pass_x = crfp::clamp_pass(ox, a.D);
+        }
+      };
+      geometry(0);
+      const V* src = xp + ng * HW * nch;
+      float* dst = a.dxp + ng * HW * a.cpgp;
+      const float* wg = wt + (gi * cpg) * K2;
+      float dgm = 0.f, sdy = 0.f, sdx = 0.f;
+      for (int k = 0; k < K2; ++k) {
+        if (k > 0 && !a.shared_taps) geometry(k);
+        const float m = a.shared_mask ? 1.f : __ldg(a.mask + (ng * K2 + k) * HW + p);
+        const float mult = m * gm;
+        const float sy = (float)(py + k / KW - ky0) + ey, sx = (float)(px + k % KW - kx0) + ex;
+        const float y0f = floorf(sy), x0f = floorf(sx), fy = sy - y0f, fx = sx - x0f;
+        const int y0 = (int)y0f, x0 = (int)x0f;
+        const float wq[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx, fy * (1.f - fx), fy * fx};
+        long long at[4];
+        bool in[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int y = y0 + i / 2, x = x0 + i % 2;
+          in[i] = y >= 0 && y < H && x >= 0 && x < W;
+          at[i] = in[i] ? ((long long)y * W + x) * nch : 0;
+        }
+        float dm = 0.f, dsy = 0.f, dsx = 0.f;
+        for (int j = 0; j < nch; ++j) {
+          // s = W^T g for the chunk's channels
+          float s[CH];
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc) s[cc] = 0.f;
+          const float* wk = wg + (j * CH) * K2 + k;
+          for (int o = 0; o < O; ++o) {
+            const float g = gs[o * P + q];
+            const float* wo = wk + o * CK2;
+#pragma unroll
+            for (int cc = 0; cc < CH; ++cc)
+              if (j * CH + cc < cpg) s[cc] = fmaf(wo[cc * K2], g, s[cc]);
+          }
+          V c[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (in[i]) {
+              c[i] = src[at[i] + j];
+            } else {
+#pragma unroll
+              for (int cc = 0; cc < CH; ++cc) c[i].v[cc] = crfp::store_f<T>(0.f);
+            }
+          }
+          float dv[CH];
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc) {
+            const float c00 = crfp::to_f(c[0].v[cc]), c01 = crfp::to_f(c[1].v[cc]);
+            const float c10 = crfp::to_f(c[2].v[cc]), c11 = crfp::to_f(c[3].v[cc]);
+            const float v = fmaf(wq[3], c11, fmaf(wq[2], c10, fmaf(wq[1], c01, wq[0] * c00)));
+            dm = fmaf(v, s[cc], dm);
+            dv[cc] = mult * s[cc];
+            dsy = fmaf(dv[cc], (1.f - fx) * (c10 - c00) + fx * (c11 - c01), dsy);
+            dsx = fmaf(dv[cc], (1.f - fy) * (c01 - c00) + fy * (c11 - c10), dsx);
+            if (j * CH + cc < cpg) {
+              float u = mult * v;
+              if constexpr (kBf16) u = __bfloat162float(__float2bfloat16(u));
+              urow[((j * CH + cc) * K2 + k) * US] = u;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (in[i]) red_chunk<CH>(dst + (at[i] + j) * CH, dv, wq[i]);
+        }
+        if (a.shared_mask) {
+          dgm += dm;
+        } else {
+          a.dmask[(ng * K2 + k) * HW + p] = dm;
+        }
+        if (a.shared_taps) {
+          sdy += dsy;
+          sdx += dsx;
+        } else {
+          a.doff[(ng * K2 + k) * 2 * HW + p] = pass_y * dsy;
+          a.doff[((ng * K2 + k) * 2 + 1) * HW + p] = pass_x * dsx;
+        }
+      }
+      if (a.shared_mask) a.dmask[ng * HW + p] = dgm;
+      if (a.shared_taps) {  // the one offset pair every tap read
+        a.doff[ng * 2 * HW + p] = pass_y * sdy;
+        a.doff[(ng * 2 + 1) * HW + p] = pass_x * sdx;
+      }
+    }
+    __syncthreads();  // U complete
+
+    // dW += gs U^T over the tile, into the block's partial
+    const bool first = tile == (int)blockIdx.x;
+    if (R > 1) {
+      float t = 0.f;
+      if (tid < E * R) {
+        const int e = tid % E, sl = tid / E, o = e / CK2, r = e - o * CK2;
+        for (int q = sl; q < P; q += R) t = fmaf(gs[o * P + q], Us[r * US + q], t);
+      }
+      red[tid] = t;
+      __syncthreads();
+      if (tid < E) {
+        float sum = 0.f;
+        for (int sl = 0; sl < R; ++sl) sum += red[sl * E + tid];
+        dwp[tid] = first ? sum : dwp[tid] + sum;
+      }
+    } else {
+      for (int e = tid; e < E; e += NT) {
+        const int o = e / CK2, r = e - o * CK2;
+        const float* go = gs + o * P;
+        const float* ur = Us + r * US;
+        float t = 0.f;
+        for (int q = 0; q < P; ++q) t = fmaf(go[q], ur[q], t);
+        dwp[e] = first ? t : dwp[e] + t;
+      }
+    }
+    __syncthreads();  // gs, U and the slices read: the next tile may write them
+  }
+}
+
+// Launch 2, general/chunked (see above).
 template <typename T>
-__global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> a) {
+__global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general_chunked(BwdArgs<T> a) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int P = crfp::kGenPix, R = crfp::kGenRows, US = P + 1, NT = crfp::kGenThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -603,7 +839,7 @@ __global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> 
   float* part = Us + R * US;                  // [P][3]
   const int tid = threadIdx.x;
   const int C = a.C, G = a.G, H = a.H, W = a.W, O = a.O, KW = a.KW, K2 = a.KH * a.KW;
-  const int cpg = C / G, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
+  const int cpg = C / G, cpgp = a.cpgp, ky0 = (a.KH - 1) / 2, kx0 = (KW - 1) / 2;
   const long long HW = (long long)H * W;
   const crfp::GenChunks chunks(cpg, G, K2);
   const int nchunks = chunks.count();
@@ -663,10 +899,10 @@ __global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> 
         const float gm = a.shared_mask ? __ldg(a.mask + ng * HW + p) : 1.f;
         const float mult = m * gm;
         const float sy = (float)(py + k / KW - ky0) + ey, sx = (float)(px + k % KW - kx0) + ex;
-        const crfp::GenCorners cr = crfp::gen_corners(sy, sx, H, W, cpg);
+        const crfp::GenCorners cr = crfp::gen_corners(sy, sx, H, W, cpgp);
         const float fy = sy - floorf(sy), fx = sx - floorf(sx);
-        const T* src = a.xp + ng * HW * cpg + c0;
-        float* dst = a.dxp + ng * HW * cpg + c0;
+        const T* src = a.xp + ng * HW * cpgp + c0;
+        float* dst = a.dxp + ng * HW * cpgp + c0;
         const float wq[4] = {cr.b.w00, cr.b.w01, cr.b.w10, cr.b.w11};
         float dm = 0.f, dsy = 0.f, dsx = 0.f;
         if (c0 > 0) dm = part[pq * 3], dsy = part[pq * 3 + 1], dsx = part[pq * 3 + 2];
@@ -723,9 +959,9 @@ __global__ void __launch_bounds__(crfp::kGenThreads) dcn_bwd_general(BwdArgs<T> 
 }
 
 // Launch 3 of the general route: blocks [0, nb_px) take a thread a (image,
-// group, pixel): dx unpacked, under shared taps the per-tap sums added up in
-// tap order; the rest a thread a dW element, the blocks' partials summed in
-// order.
+// group, pixel): dx unpacked, for the chunked branch under shared taps or a
+// shared mask the per-tap sums added up in tap order; the rest a thread a dW
+// element, the blocks' partials summed in order.
 template <typename T>
 __global__ void __launch_bounds__(256) dcn_bwd_general_epilogue(BwdArgs<T> a, int nb_px) {
   crfp::wait_for_packed_x();  // the tiled kernel has finished
@@ -735,10 +971,10 @@ __global__ void __launch_bounds__(256) dcn_bwd_general_epilogue(BwdArgs<T> a, in
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)a.N * a.G * HW) return;
     const long long ng = i / HW, p = i - ng * HW;
-    const float* v = a.dxp + i * cpg;
+    const float* v = a.dxp + i * a.cpgp;
     T* out = a.dx + ng * cpg * HW + p;
     for (int c = 0; c < cpg; ++c) out[c * HW] = crfp::store_f<T>(v[c]);
-    if (a.shared_taps || a.shared_mask) {
+    if (a.branch == crfp::kGenChunked && (a.shared_taps || a.shared_mask)) {
       const float* tp = a.tap_part + ng * K2 * 3 * HW + p;
       float dm = 0.f, sy = 0.f, sx = 0.f;
       for (int k = 0; k < K2; ++k) {
@@ -780,15 +1016,42 @@ cudaError_t launch_dependent(void (*fn)(Args...), dim3 grid, dim3 block, int sme
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// the pixel branch's kernel for the corners' vector bytes (8 or 16 for f32
+// x, 4, 8 or 16 for bf16)
+template <typename T>
+void (*general_pixel(int vb))(BwdArgs<T>) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (vb == 4) return dcn_bwd_general_pixel<T, 4>;
+  }
+  return vb == 8 ? dcn_bwd_general_pixel<T, 8> : dcn_bwd_general_pixel<T, 16>;
+}
+
 template <typename T>
 cudaError_t launch_general(BwdArgs<T> a, int smem, cudaStream_t stream) {
+  void (*fn)(BwdArgs<T>) =
+      a.branch == crfp::kGenPixel
+          ? general_pixel<T>(crfp::gen_vec_bytes(a.C / a.G, (int)sizeof(T)))
+          : dcn_bwd_general_chunked<T>;
+  // the first launch of each kernel raises its shared memory limit
+  static void (*raised[8])(BwdArgs<T>) = {};
+  bool seen = false;
+  for (auto f : raised) seen = seen || f == fn;
+  if (!seen) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         crfp::kMaxSmem);
+    if (e != cudaSuccess) return e;
+    for (auto& f : raised)
+      if (f == nullptr) {
+        f = fn;
+        break;
+      }
+  }
   dcn_bwd_general_pack<T><<<dim3((unsigned)((a.W + 31) / 32), (unsigned)((a.H + 7) / 8),
                                  (unsigned)(a.N * a.G)),
                             dim3(32, 8), 0, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_dependent(dcn_bwd_general<T>, dim3((unsigned)a.grid), dim3(crfp::kGenThreads), smem,
-                       stream, a);
+  e = launch_dependent(fn, dim3((unsigned)a.grid), dim3(crfp::kGenThreads), smem, stream, a);
   if (e != cudaSuccess) return e;
   const long long pixels = (long long)a.N * a.G * a.H * a.W;
   const int nb_px = (int)((pixels + 255) / 256);
@@ -892,17 +1155,31 @@ cudaError_t check_plan(BwdArgs<T>& a, int smem, int patch, int a_y, int a_x) {
 }
 
 // The general route's plan check (ops/cuda/dcn.py::bwd_plan, route
-// "general"): tiles of kGenPix pixels, no border, no patch, the fixed shared
-// memory; anchored: a cell grid.
+// "general"): no border, no patch; the pixel branch: tiles of 32-256
+// pixels, a multiple of 32, its shared memory with or without the weight
+// (which sets wstage); the chunked branch: tiles of kGenPix pixels, its
+// fixed shared memory; anchored: a cell grid.
 template <typename T>
 cudaError_t check_general_plan(BwdArgs<T>& a, int smem, int patch) {
   if (a.G < 1 || a.C < 1 || a.C % a.G || a.O < 1 || a.KH < 1 || a.KW < 1)
     return cudaErrorInvalidValue;
-  if (a.tile_h < 1 || a.tile_w < 1 || a.tile_h * a.tile_w != crfp::kGenPix || a.pad != 0 ||
-      patch)
-    return cudaErrorInvalidValue;
+  const int P = a.tile_h * a.tile_w;
+  if (a.tile_h < 1 || a.tile_w < 1 || a.pad != 0 || patch) return cudaErrorInvalidValue;
   if (a.anchor != nullptr && (a.band < 1 || a.xtile < 1)) return cudaErrorInvalidValue;
-  if (smem != gen_bwd_smem_bytes()) return cudaErrorInvalidValue;
+  if (a.branch == crfp::kGenPixel) {
+    if (P % 32 || P > crfp::kGenThreads || smem > crfp::kMaxSmem) return cudaErrorInvalidValue;
+    const int K2 = a.KH * a.KW;
+    if (smem == gen_bwd_pixel_smem_bytes(a.C, a.O, K2, P, true))
+      a.wstage = 1;
+    else if (smem == gen_bwd_pixel_smem_bytes(a.C, a.O, K2, P, false))
+      a.wstage = 0;
+    else
+      return cudaErrorInvalidValue;
+  } else if (a.branch == crfp::kGenChunked) {
+    if (P != crfp::kGenPix || smem != gen_bwd_smem_bytes()) return cudaErrorInvalidValue;
+  } else {
+    return cudaErrorInvalidValue;
+  }
   a.tiles_y = (a.H + a.tile_h - 1) / a.tile_h;
   a.tiles_x = (a.W + a.tile_w - 1) / a.tile_w;
   const int tiles = a.N * a.tiles_y * a.tiles_x;
@@ -914,12 +1191,13 @@ cudaError_t run(bool general, const void* x, const void* offset, const void* mas
                 const void* weight, const void* grad_out, void* dx, void* d_offset,
                 void* d_mask, void* dw, void* x_packed, void* acc, int N, int C, int H, int W,
                 int O, int G, int KH, int KW, float D, int shared_taps, int shared_mask,
-                int tile_h, int tile_w, int pad, int smem, int grid, int patch,
+                int tile_h, int tile_w, int pad, int smem, int grid, int patch, int branch,
                 const float* anchor, int band, int xtile, int a_y, int a_x, float dl_r,
                 float dl_c, cudaStream_t s) {
   const int Hp = crfp::padded(H, pad), Wp = crfp::padded(W, pad);
+  const int cpgp = crfp::gen_cpgp(C / G);
   float* dxp = static_cast<float*>(acc);
-  float* dw_part = dxp + (long long)N * C * Hp * Wp;
+  float* dw_part = dxp + (general ? (long long)N * G * H * W * cpgp : (long long)N * C * Hp * Wp);
   BwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(offset),
                static_cast<const float*>(mask), static_cast<const float*>(weight),
                static_cast<const T*>(grad_out), static_cast<T*>(dx),
@@ -929,7 +1207,8 @@ cudaError_t run(bool general, const void* x, const void* offset, const void* mas
                tile_h, tile_w, pad, 0, 0, grid,
                anchor, band, xtile, band > 0 ? (H + band - 1) / band : 0,
                xtile > 0 ? (W + xtile - 1) / xtile : 0, dl_r, dl_c,
-               KH, KW, dw_part + (long long)grid * O * C * KH * KW};
+               KH, KW, dw_part + (long long)grid * O * C * KH * KW, branch, cpgp, 0};
+  if (!general && branch != 0) return cudaErrorInvalidValue;
   if (general) {
     cudaError_t e = check_general_plan(a, smem, patch);
     return e != cudaSuccess ? e : launch_general(a, smem, s);
@@ -944,7 +1223,7 @@ int entry(bool general, const void* x, const void* offset, const void* mask,
           void* dw, void* x_packed, void* acc, int N, int C, int H, int W, int O, int G, int KH,
           int KW, float D, int shared_taps, int shared_mask, int x_bf16, const void* anchor,
           int band, int xtile, int a_y, int a_x, float dl_r, float dl_c, int tile_h,
-          int tile_w, int pad, int smem_bytes, int grid, int patch, void* stream) {
+          int tile_w, int pad, int smem_bytes, int grid, int patch, int branch, void* stream) {
   if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
   if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -953,11 +1232,12 @@ int entry(bool general, const void* x, const void* offset, const void* mask,
       x_bf16 ? run<__nv_bfloat16>(general, x, offset, mask, weight, grad_out, dx, d_offset,
                                   d_mask, dw, x_packed, acc, N, C, H, W, O, G, KH, KW, D,
                                   shared_taps, shared_mask, tile_h, tile_w, pad, smem_bytes,
-                                  grid, patch, an, band, xtile, a_y, a_x, dl_r, dl_c, s)
+                                  grid, patch, branch, an, band, xtile, a_y, a_x, dl_r, dl_c,
+                                  s)
              : run<float>(general, x, offset, mask, weight, grad_out, dx, d_offset, d_mask,
                           dw, x_packed, acc, N, C, H, W, O, G, KH, KW, D, shared_taps,
-                          shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch, an, band,
-                          xtile, a_y, a_x, dl_r, dl_c, s);
+                          shared_mask, tile_h, tile_w, pad, smem_bytes, grid, patch, branch, an,
+                          band, xtile, a_y, a_x, dl_r, dl_c, s);
   return (int)e;
 }
 
@@ -971,11 +1251,12 @@ CRFP_EXPORT_ERROR_STRING
       void *x_packed, void *acc, int N, int C, int H, int W, int O, int G, int KH, int KW,  \
       float D, int shared_taps, int shared_mask, int x_bf16, const void *anchor, int band,  \
       int xtile, int sub_tile, int lane_q, int a_y, int a_x, float dl_r, float dl_c,        \
-      int tile_h, int tile_w, int pad, int smem_bytes, int grid, int patch, void *stream
+      int tile_h, int tile_w, int pad, int smem_bytes, int grid, int patch, int branch,    \
+      void *stream
 #define CRFP_DCN_BWD_PASS                                                                    \
   x, offset, mask, weight, grad_out, dx, d_offset, d_mask, dw, x_packed, acc, N, C, H, W, O, \
       G, KH, KW, D, shared_taps, shared_mask, x_bf16, anchor, band, xtile, a_y, a_x, dl_r,  \
-      dl_c, tile_h, tile_w, pad, smem_bytes, grid, patch, stream
+      dl_c, tile_h, tile_w, pad, smem_bytes, grid, patch, branch, stream
 
 // x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32; mask
 // (N, G*M, H, W) f32; weight (O, C, KH, KW) f32; grad_out (N, O, H, W) in
@@ -986,7 +1267,7 @@ CRFP_EXPORT_ERROR_STRING
 // grid*O*C*K2 for the blocks' dW partials. All contiguous. crfp_dcn_bwd
 // takes the tuned widths, 3x3 weights: O in {2, 4, 16, 32}, C/G in {2, 4},
 // G in {1, 2, 4, 8}. The plan (tile_h, tile_w, pad, smem_bytes, grid,
-// patch), the last arguments, is ops/cuda/dcn.py::bwd_plan's. Three
+// patch, branch = 0), the last arguments, is ops/cuda/dcn.py::bwd_plan's. Three
 // launches, no synchronisation, no allocation.
 //
 // Anchored (anchor not NULL, shared taps or per-tap): the table that the forward's
@@ -999,10 +1280,12 @@ CRFP_EXPORT_ERROR_STRING
 extern "C" int crfp_dcn_bwd(CRFP_DCN_BWD_ARGS) { return entry(false, CRFP_DCN_BWD_PASS); }
 
 // The general route (see "the general route" above): any C % G == 0, O and
-// KH x KW, per-tap or shared taps, clamped or anchored; pad 0, tiles of 32
-// pixels, smem_bytes gen_bwd_smem_bytes(), no patch. acc holds the dx
-// accumulator (N*C*H*W), the dW partials (grid*O*C*KH*KW) and, under shared
-// taps or a shared mask, the per-tap sums (N*G*KH*KW*3*H*W).
+// KH x KW, per-tap or shared taps, clamped or anchored; pad 0, no patch, the
+// plan's branch (crfp::GenBranch: pixel or chunked) with that branch's tile
+// and smem_bytes (check_general_plan). x_packed holds N*G*H*W*cpgp elements
+// (cpgp = crfp::gen_cpgp(C/G)); acc the dx accumulator (as many), the dW
+// partials (grid*O*C*KH*KW) and, for the chunked branch under shared taps or
+// a shared mask, the per-tap sums (N*G*KH*KW*3*H*W).
 extern "C" int crfp_dcn_bwd_general(CRFP_DCN_BWD_ARGS) {
   return entry(true, CRFP_DCN_BWD_PASS);
 }

@@ -67,12 +67,22 @@ dcn_fused_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int 
   crfp::pack_x<T, CPG>(x, xp, H, W, pad);
 }
 
-// the general route (common.cuh::dcn_tiles_general) and its pre-pass
-template <typename T>
-__global__ void __launch_bounds__(crfp::kGenThreads)
+// the general route (common.cuh::dcn_tiles_general: a kernel per branch and
+// corner width) and its pre-pass
+template <typename T, int BRANCH, int VB>
+__global__ void __launch_bounds__(crfp::kGenThreads, crfp::gen_min_blocks(BRANCH, VB))
 dcn_fused_general(crfp::GenArgs<T> a, crfp::ProE<T> pro) {
-  crfp::dcn_tiles_general(a, pro);
+  crfp::dcn_tiles_general<BRANCH, VB>(a, pro);
 }
+template <typename T>
+struct FusedGeneral {
+  template <int BRANCH, int VB>
+  struct K {
+    static void (*get())(crfp::GenArgs<T>, crfp::ProE<T>) {
+      return dcn_fused_general<T, BRANCH, VB>;
+    }
+  };
+};
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -112,11 +122,30 @@ CRFP_EXPORT_ERROR_STRING
 
 namespace {
 
+// The general route: the plan's branch checked (crfp::check_gen_plan), the
+// pre-pass and the branch's kernel.
+template <typename T>
+int general_route(const void* x, void* x_packed, const float* wt, const float* b, void* out,
+                  int N, int C, int H, int W, int G, int O, int KH, int KW, float D, int tile_h,
+                  int tile_w, int pad, int smem_bytes, int branch, const crfp::ProE<T>& pro,
+                  cudaStream_t s) {
+  crfp::GenArgs<T> a{static_cast<const T*>(x), static_cast<T*>(x_packed), wt, b,
+                     static_cast<T*>(out), N, C, H, W, G, O, KH, KW, D, tile_h, tile_w,
+                     0, 0, 0};
+  int tiles = 0, threads = 0;
+  cudaError_t e = crfp::check_gen_plan(a, branch, 0, pad, smem_bytes, &tiles, &threads);
+  if (e != cudaSuccess) return (int)e;
+  return (int)crfp::launch_general(
+      dcn_fused_general_pack<T>,
+      crfp::gen_kernel<T, FusedGeneral<T>::template K>(branch, C / G), a, pro, threads,
+      smem_bytes, tiles, s);
+}
+
 // Both entries: the tuned route (dispatch) or the general one.
 int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
         const void* flow, const void* weight, const void* bias, void* out, void* x_packed,
         int N, int C, int H, int W, int O, int G, int KH, int KW, float D, float mag,
-        int x_bf16, int tile_h, int tile_w, int pad, int smem_bytes, void* stream) {
+        int x_bf16, int tile_h, int tile_w, int pad, int smem_bytes, int branch, void* stream) {
   if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
   if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
   const float* fl = static_cast<const float*>(flow);
@@ -128,13 +157,10 @@ int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
     using B = __nv_bfloat16;
     const crfp::ProE<B> pro{static_cast<const B*>(raw_off), static_cast<const B*>(raw_mask),
                             fl, mag};
-    if (general) {
-      const crfp::GenArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
-                               static_cast<B*>(out), N, C, H, W, G, O, KH, KW, D,
-                               tile_h, tile_w, 0, 0};
-      return (int)crfp::launch_general(dcn_fused_general_pack<B>, dcn_fused_general<B>, a, pro,
-                                       pad, smem_bytes, s);
-    }
+    if (general)
+      return general_route<B>(x, x_packed, wt, b, out, N, C, H, W, G, O, KH, KW, D, tile_h,
+                              tile_w, pad, smem_bytes, branch, pro, s);
+    if (branch != 0) return (int)cudaErrorInvalidValue;
     crfp::TileArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
                         static_cast<B*>(out), N, C, H, W,
                         G, D, tile_h, tile_w, pad, 0, 0};
@@ -142,13 +168,10 @@ int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
   } else {
     const crfp::ProE<float> pro{static_cast<const float*>(raw_off),
                                 static_cast<const float*>(raw_mask), fl, mag};
-    if (general) {
-      const crfp::GenArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed),
-                                   wt, b, static_cast<float*>(out), N, C, H, W, G, O, KH, KW,
-                                   D, tile_h, tile_w, 0, 0};
-      return (int)crfp::launch_general(dcn_fused_general_pack<float>, dcn_fused_general<float>,
-                                       a, pro, pad, smem_bytes, s);
-    }
+    if (general)
+      return general_route<float>(x, x_packed, wt, b, out, N, C, H, W, G, O, KH, KW, D,
+                                  tile_h, tile_w, pad, smem_bytes, branch, pro, s);
+    if (branch != 0) return (int)cudaErrorInvalidValue;
     crfp::TileArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed), wt,
                             b, static_cast<float*>(out),
                             N, C, H, W, G, D, tile_h, tile_w, pad, 0, 0};
@@ -163,10 +186,10 @@ int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
   const void *x, const void *raw_off, const void *raw_mask, const void *flow,                \
       const void *weight, const void *bias, void *out, void *x_packed, int N, int C, int H,  \
       int W, int O, int G, int KH, int KW, float D, float mag, int x_bf16, int tile_h,       \
-      int tile_w, int pad, int smem_bytes, void *stream
+      int tile_w, int pad, int smem_bytes, int branch, void *stream
 #define CRFP_DCN_FUSED_PASS                                                                  \
   x, raw_off, raw_mask, flow, weight, bias, out, x_packed, N, C, H, W, O, G, KH, KW, D, mag, \
-      x_bf16, tile_h, tile_w, pad, smem_bytes, stream
+      x_bf16, tile_h, tile_w, pad, smem_bytes, branch, stream
 
 // x: (N, C, H, W), raw_off (N, G*K2*2, H, W) and raw_mask (N, G*K2, H, W),
 // all f32 or all bf16 (x_bf16); flow (N, 2, H, W) f32, channels (dx, dy);
@@ -175,14 +198,14 @@ int run(bool general, const void* x, const void* raw_off, const void* raw_mask,
 // type. All contiguous. D < 0: no clamp. crfp_dcn_fused takes the tuned
 // widths, 3x3 weights: O in {16, 32} (dcn_0/1/2 at mid 16 and 32), C/G in
 // {2, 4}. The tile plan is ops/cuda/dcn.py::tile_plan's (per-tap, no
-// shared mask: the tensor cores take bf16 x at O = 32). No
+// shared mask: the tensor cores take bf16 x at O = 32; branch 0). No
 // synchronisation, no allocation.
 extern "C" int crfp_dcn_fused(CRFP_DCN_FUSED_ARGS) { return run(false, CRFP_DCN_FUSED_PASS); }
 
 // The general route (common.cuh::dcn_tiles_general with ProE): any C % G ==
-// 0, any O, any KH x KW; the plan is tile_plan's with route "general" (32
-// pixels a tile, pad 0, gen_smem_bytes(O)); x_packed holds N*C*H*W
-// elements.
+// 0, any O, any KH x KW; the plan is tile_plan's with route "general" (its
+// branch with that branch's tile and smem_bytes, pad 0;
+// crfp::check_gen_plan); x_packed holds N*G*H*W*gen_cpgp(C/G) elements.
 extern "C" int crfp_dcn_fused_general(CRFP_DCN_FUSED_ARGS) {
   return run(true, CRFP_DCN_FUSED_PASS);
 }

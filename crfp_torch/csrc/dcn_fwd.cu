@@ -41,9 +41,10 @@
 // Every other width the TPU kernel takes (any C % G == 0, O, kh x kw; the
 // flags --mid_channels, --dg_num and --dcn_kernel reach them) runs the
 // general route, crfp_dcn_fwd_general (common.cuh::dcn_tiles_general): x
-// packed with scalar stores, K walked in chunks through shared memory, f32
-// FMAs on the CUDA cores. Its bound is the same bytes; it is written to be
-// right first.
+// packed with its channels padded to whole 4-16 byte loads; O <= 8 (dcn_3)
+// a thread per pixel with its sums in registers, bf16 x at O > 8 on the
+// tensor cores with the weight staged once per block, the rest in chunks of
+// K through shared memory. Its bound is the same bytes.
 //
 // Bound on the H100 at the main-path shapes (1080p, warp 720^2, mid 32):
 // per-tap (dcn_0/1/2): x (1,32,180,180) bf16 2.1 MB + offset (1,144,180,180)
@@ -94,12 +95,20 @@ dcn_fwd_kernel_pack_x(const T* __restrict__ x, T* __restrict__ xp, int H, int W,
   crfp::pack_x<T, CPG>(x, xp, H, W, pad);
 }
 
-// the general route (common.cuh::dcn_tiles_general) and its pre-pass
-template <typename T>
-__global__ void __launch_bounds__(crfp::kGenThreads)
+// the general route (common.cuh::dcn_tiles_general: a kernel per branch and
+// corner width) and its pre-pass
+template <typename T, int BRANCH, int VB>
+__global__ void __launch_bounds__(crfp::kGenThreads, crfp::gen_min_blocks(BRANCH, VB))
 dcn_fwd_general(crfp::GenArgs<T> a, crfp::ProA pro) {
-  crfp::dcn_tiles_general(a, pro);
+  crfp::dcn_tiles_general<BRANCH, VB>(a, pro);
 }
+template <typename T>
+struct FwdGeneral {
+  template <int BRANCH, int VB>
+  struct K {
+    static void (*get())(crfp::GenArgs<T>, crfp::ProA) { return dcn_fwd_general<T, BRANCH, VB>; }
+  };
+};
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -199,13 +208,32 @@ CRFP_EXPORT_ERROR_STRING
 
 namespace {
 
+// The general route: the plan's branch checked (crfp::check_gen_plan), the
+// pre-pass and the branch's kernel.
+template <typename T>
+int general_route(const void* x, void* x_packed, const float* wt, const float* b, void* out,
+                  int N, int C, int H, int W, int G, int O, int KH, int KW, float D, int tile_h,
+                  int tile_w, int pad, int smem_bytes, int branch, const crfp::ProA& pro,
+                  cudaStream_t s) {
+  crfp::GenArgs<T> a{static_cast<const T*>(x), static_cast<T*>(x_packed), wt, b,
+                     static_cast<T*>(out), N, C, H, W, G, O, KH, KW, D, tile_h, tile_w,
+                     0, 0, 0};
+  int tiles = 0, threads = 0;
+  cudaError_t e = crfp::check_gen_plan(a, branch, pro.shared_mask, pad, smem_bytes, &tiles,
+                                       &threads);
+  if (e != cudaSuccess) return (int)e;
+  return (int)crfp::launch_general(
+      dcn_fwd_general_pack<T>, crfp::gen_kernel<T, FwdGeneral<T>::template K>(branch, C / G),
+      a, pro, threads, smem_bytes, tiles, s);
+}
+
 // Both entries: the anchored pre-pass, then the tuned route (dispatch) or
 // the general one.
 int run(bool general, const void* x, const void* offset, const void* mask, const void* weight,
         const void* bias, void* out, void* x_packed, int N, int C, int H, int W, int O, int G,
         int KH, int KW, float D, int shared_taps, int shared_mask, int x_bf16, int tile_h,
-        int tile_w, int pad, int smem_bytes, void* anchor, int band, int xtile, int sub_tile,
-        int lane_q, int a_y, int a_x, float dl_r, float dl_c, void* stream) {
+        int tile_w, int pad, int smem_bytes, int branch, void* anchor, int band, int xtile,
+        int sub_tile, int lane_q, int a_y, int a_x, float dl_r, float dl_c, void* stream) {
   if (G < 1 || C % G || KH < 1 || KW < 1) return (int)cudaErrorInvalidValue;
   if (!general && (KH != 3 || KW != 3)) return (int)cudaErrorInvalidValue;
   if (!general && O == crfp::kWideO && (shared_taps || shared_mask))
@@ -228,20 +256,13 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
   const float* wt = static_cast<const float*>(weight);
   const float* b = static_cast<const float*>(bias);
   if (general) {
-    if (x_bf16) {
-      using B = __nv_bfloat16;
-      const crfp::GenArgs<B> a{static_cast<const B*>(x), static_cast<B*>(x_packed), wt, b,
-                               static_cast<B*>(out), N, C, H, W, G, O, KH, KW, D,
-                               tile_h, tile_w, 0, 0};
-      return (int)crfp::launch_general(dcn_fwd_general_pack<B>, dcn_fwd_general<B>, a, pro,
-                                       pad, smem_bytes, s);
-    }
-    const crfp::GenArgs<float> a{static_cast<const float*>(x), static_cast<float*>(x_packed),
-                                 wt, b, static_cast<float*>(out), N, C, H, W, G, O, KH, KW, D,
-                                 tile_h, tile_w, 0, 0};
-    return (int)crfp::launch_general(dcn_fwd_general_pack<float>, dcn_fwd_general<float>, a,
-                                     pro, pad, smem_bytes, s);
+    if (x_bf16) return general_route<__nv_bfloat16>(x, x_packed, wt, b, out, N, C, H, W, G, O,
+                                                    KH, KW, D, tile_h, tile_w, pad, smem_bytes,
+                                                    branch, pro, s);
+    return general_route<float>(x, x_packed, wt, b, out, N, C, H, W, G, O, KH, KW, D, tile_h,
+                                tile_w, pad, smem_bytes, branch, pro, s);
   }
+  if (branch != 0) return (int)cudaErrorInvalidValue;
   const bool mma = x_bf16 && (O == crfp::kMmaO || O == crfp::kWideO) && !shared_mask;
   cudaError_t e;
   if (x_bf16) {
@@ -265,12 +286,12 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
   const void *x, const void *offset, const void *mask, const void *weight, const void *bias, \
       void *out, void *x_packed, int N, int C, int H, int W, int O, int G, int KH, int KW,   \
       float D, int shared_taps, int shared_mask, int x_bf16, int tile_h, int tile_w, int pad, \
-      int smem_bytes, void *anchor, int band, int xtile, int sub_tile, int lane_q, int a_y,  \
-      int a_x, float dl_r, float dl_c, void *stream
+      int smem_bytes, int branch, void *anchor, int band, int xtile, int sub_tile,          \
+      int lane_q, int a_y, int a_x, float dl_r, float dl_c, void *stream
 #define CRFP_DCN_FWD_PASS                                                                    \
   x, offset, mask, weight, bias, out, x_packed, N, C, H, W, O, G, KH, KW, D, shared_taps,    \
-      shared_mask, x_bf16, tile_h, tile_w, pad, smem_bytes, anchor, band, xtile, sub_tile,   \
-      lane_q, a_y, a_x, dl_r, dl_c, stream
+      shared_mask, x_bf16, tile_h, tile_w, pad, smem_bytes, branch, anchor, band, xtile,     \
+      sub_tile, lane_q, a_y, a_x, dl_r, dl_c, stream
 
 // x: (N, C, H, W) f32 or bf16 (x_bf16); offset (N, G*T*2, H, W) f32;
 // mask (N, G*M, H, W) f32; weight (O, C, 3, 3) f32; bias (O,) f32 or
@@ -279,7 +300,8 @@ int run(bool general, const void* x, const void* offset, const void* mask, const
 // pixel-major, zero-padded). All contiguous. crfp_dcn_fwd takes the tuned
 // routes' widths, 3x3 weights: O in {2, 4, 16, 32} with C/G in {2, 4}, or
 // O = 64 with C/G in {4, 8, 16, 64}, per-tap (bf16 x: C = 64). The tile
-// plan (tile_h, tile_w, pad, smem_bytes) is ops/cuda/dcn.py::tile_plan's;
+// plan (tile_h, tile_w, pad, smem_bytes, branch = 0) is
+// ops/cuda/dcn.py::tile_plan's;
 // the tensor cores take bf16 x at O = 32 without shared_mask and at O =
 // 64. No synchronisation, no allocation.
 //
@@ -297,6 +319,7 @@ extern "C" int crfp_dcn_fwd(CRFP_DCN_FWD_ARGS) { return run(false, CRFP_DCN_FWD_
 
 // The general route (common.cuh::dcn_tiles_general): any C % G == 0, any
 // O, any KH x KW, per-tap or shared taps, clamped or anchored; the plan is
-// tile_plan's with route "general" (tiles of 32 pixels, pad 0, smem_bytes
-// = gen_smem_bytes(O)); x_packed holds N*C*H*W elements of x's type.
+// tile_plan's with route "general" (its branch, crfp::GenBranch, with that
+// branch's tile and smem_bytes, pad 0; crfp::check_gen_plan); x_packed
+// holds N*G*H*W*gen_cpgp(C/G) elements of x's type.
 extern "C" int crfp_dcn_fwd_general(CRFP_DCN_FWD_ARGS) { return run(true, CRFP_DCN_FWD_PASS); }

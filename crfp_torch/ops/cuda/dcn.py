@@ -51,14 +51,22 @@ pyramids' and PCD's per-tap DCNs at O = 64 (A only). The general route
 any O, any kh x kw, per-tap, shared taps and anchored shared taps, f32 or
 bf16 x, each size a runtime value; so ``--mid_channels``, ``--dg_num`` and
 ``--dcn_kernel`` run on the card at every value the JAX kernels take. It
-packs x with scalar stores (3 bf16 channels are no vector), checks every
-corner against the frame, walks K = C kh kw in chunks of 64 rows through
-at most 40 KB of shared memory (so nothing is refused for want of it), and
-contracts on the CUDA cores with f32 sums, the modulated samples rounded to
-bf16 for bf16 x as the TPU kernel rounds them. It is written to be right
-first; its times stand beside the tuned routes' in PERF.md. ``plan=`` may
-name it at a tuned width (``tile_plan(..., route="general")``), which is
-how the tests and ``chip_smoke.py`` hold the two routes against each other.
+packs x with each group's channels padded to whole 4-16 byte loads
+(:func:`gen_cpgp`), checks each corner against the frame once, and runs
+one of three branches (:data:`GEN_BRANCHES`), which the plan picks and
+records: ``general/pixel`` (A and E at O <= 8, every dcn_3 of the flags: a
+thread a pixel with its sums in registers; D at every width whose shared
+memory fits: a thread a (pixel, group), the output gradient and the weight
+staged, dx by one vector atomic a corner), ``general/mma`` (A and E on bf16
+x at O > 8: the weight staged once per block in bf16, the modulated
+samples rounded to bf16 as the TPU kernel rounds them into U, the
+contraction on the tensor cores) and ``general/chunked`` (the rest: K in
+chunks of 64 rows; A and E stage the weight once a block where it fits in
+half the shared memory, else a chunk's rows a tile through at most 40 KB,
+so nothing is refused for want of it). Its times stand
+beside the tuned routes' in PERF.md. ``plan=`` may name it at a tuned width
+(``tile_plan(..., route="general")``, and a branch with ``branch=``), which
+is how the tests and ``chip_smoke.py`` hold the routes against each other.
 
 At O = 64 bf16 x
 (C = 64) runs on the tensor cores: tiles of 64 pixels a block of 8 warps,
@@ -160,11 +168,11 @@ _ENTRIES = {"dcn_fwd": {"tuned": "crfp_dcn_fwd", "general": "crfp_dcn_fwd_genera
             "dcn_bwd": {"tuned": "crfp_dcn_bwd", "general": "crfp_dcn_bwd_general"},
             "dcn_fused": {"tuned": "crfp_dcn_fused", "general": "crfp_dcn_fused_general"}}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
-    [ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
+    [ctypes.c_int] * 8 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
     [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
-    [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=256)
@@ -306,6 +314,9 @@ def _check(x, offset, mask, weight, bias, shared_taps, shared_mask) -> int:
 # takes the first that fills every SM with its resident blocks
 # (_min_blocks), else the last.
 TILE_SHAPES = ((8, 32), (4, 32), (4, 16), (2, 16))
+# the pixels a tile of the general route's pixel branch may hold (a thread
+# each; TILE_SHAPES by default)
+TILE_SHAPES_PIXELS = tuple(range(32, 257, 32))
 # Tensor-core path (bf16 x, O = 32, per-tap mask): 32 pixels a block of 8
 # warps (one per group); the plan takes the shape with the fewest tiles
 # (the least ragged edge), (1, 32) on a tie: 48-wide planes take (2, 16).
@@ -322,17 +333,39 @@ _TAPS, _MMA_O, _OUT_STRIDE = 9, 32, 36
 # the O = 64 tensor-core path's tile (pixels) and input channels
 # (csrc/common.cuh::kWidePix, kWideC)
 _WIDE_PIX, _WIDE_C = 64, 64
-# The general route (csrc/common.cuh::kGenPix, kGenRows, kGenOuts): tiles of
-# 32 pixels a block of 256 threads, the shape with the fewest tiles, (1, 32)
-# on a tie; K in chunks of 64 rows; at most 128 outputs a pass of A and E.
+# The general route (csrc/common.cuh::kGenPix, kGenRows, kGenOuts,
+# kGenPixO): its branches, in the order of csrc/common.cuh::GenBranch. A
+# plan names one (TilePlan.branch, BwdPlan.branch: "general/<branch>"):
+#  - "pixel": A and E at O <= 8 (every dcn_3 of the flags), a thread per
+#    pixel of a TILE_SHAPES tile with its sums in registers; D at any O where
+#    its shared memory fits, a thread per (pixel, group) of a tile of
+#    32-256 pixels;
+#  - "mma": A and E on bf16 x at O > 8 without a shared mask, tiles of 32
+#    pixels, the weight staged once per block, the contraction on the
+#    tensor cores;
+#  - "chunked": every other width: K in chunks of 64 rows; in A and E the
+#    whole weight staged once a block where it fits (_gen_smem_bytes), else
+#    a chunk's rows a tile through at most 40 KB of shared memory.
+# The chunked and mma tiles: 32 pixels, the shape with the fewest tiles,
+# (1, 32) on a tie.
+GEN_BRANCHES = ("chunked", "pixel", "mma")
 GEN_TILE_SHAPES = ((1, 32), (2, 16))
-_GEN_PIX, _GEN_ROWS, _GEN_OUTS = 32, 64, 128
-# kernel D's general route: S [64][32], U [64][33] and a split pair's sums
+_GEN_PIX, _GEN_ROWS, _GEN_OUTS, _GEN_PIX_O, _GEN_THREADS = 32, 64, 128, 8, 256
+# kernel D's chunked branch: S [64][32], U [64][33] and a split pair's sums
 # [32][3], f32 (csrc/dcn_bwd.cu::gen_bwd_smem_bytes)
 _GEN_BWD_SMEM = 4 * (_GEN_ROWS * _GEN_PIX + _GEN_ROWS * (_GEN_PIX + 1) + 3 * _GEN_PIX)
 # its dW partials (grid x O x C x kh x kw f32) are kept under this many
 # elements (64 MB) by a smaller grid
 _GEN_DW_PARTIALS = 1 << 24
+# an SM's shared memory, of which each resident block takes 1 KB more
+_SM_SMEM = 233472
+
+
+def gen_cpgp(cpg: int) -> int:
+    """Channels of a packed pixel of the general route for ``cpg`` channels
+    a group (``csrc/common.cuh::gen_cpgp``): 2 up to 2, 4 up to 4, then a
+    multiple of 8, zeros in the padding; the same for f32 and bf16 x."""
+    return 2 if cpg <= 2 else 4 if cpg <= 4 else -(-cpg // 8) * 8
 
 
 def _min_blocks(mma: bool, o: int) -> int:
@@ -353,7 +386,10 @@ class TilePlan:
     needs a frame check; 0: corners checked); ``smem_bytes`` of dynamic
     shared memory (``csrc/common.cuh::smem_bytes``); ``mma``: the bf16
     contraction on the tensor cores; ``route``: "tuned" (those routes) or
-    "general" (tiles of 32 pixels, pad 0: every corner checked)."""
+    "general" (pad 0: every corner checked), ``branch`` the general route's
+    branch ("general/pixel", "general/mma" or "general/chunked";
+    :data:`GEN_BRANCHES`), with ``cpg`` channels a group packed as ``cpgp``
+    (:func:`gen_cpgp`)."""
 
     tile_h: int
     tile_w: int
@@ -363,17 +399,30 @@ class TilePlan:
     tiles_y: int
     tiles_x: int
     route: str = "tuned"
+    branch: str = "tuned"
+    cpg: int = 0
+    cpgp: int = 0
 
-    def args(self) -> tuple[int, int, int, int]:
-        """The C entries' plan arguments."""
-        return self.tile_h, self.tile_w, self.pad, self.smem_bytes
+    def args(self) -> tuple[int, int, int, int, int]:
+        """The C entries' plan arguments: tile, padding, shared memory and
+        the branch's index in :data:`GEN_BRANCHES` (0 on a tuned route)."""
+        return self.tile_h, self.tile_w, self.pad, self.smem_bytes, _branch_code(self.branch)
 
     def packed_numel(self, n: int, c: int, h: int, w: int) -> int:
         """Elements of the scratch the pre-pass packs x into: its planes
         carry ``pad`` pixels of zeros below and ``pad + 1`` above
-        (``csrc/common.cuh::padded``)."""
+        (``csrc/common.cuh::padded``); a general plan's pixels ``cpgp``
+        channels a group."""
+        if self.route == "general":
+            return n * (c // self.cpg) * self.cpgp * h * w
         ext = 2 * self.pad + 1 if self.pad else 0
         return n * c * (h + ext) * (w + ext)
+
+
+def _branch_code(branch: str) -> int:
+    """The C entries' branch argument: a general branch's index in
+    :data:`GEN_BRANCHES`, 0 for "tuned"."""
+    return 0 if branch == "tuned" else GEN_BRANCHES.index(branch.split("/")[1])
 
 
 def _smem_bytes(mma: bool, c: int, o: int) -> int:
@@ -389,29 +438,106 @@ def _smem_bytes(mma: bool, c: int, o: int) -> int:
     return c * _TAPS * o * 4
 
 
-def _gen_smem_bytes(o: int) -> int:
-    """``csrc/common.cuh::gen_smem_bytes``: the general route's U [64][32]
-    and the chunk's weight rows [64][opw], f32, opw = O rounded up to 4, at
-    most 128; 40 KB at most, whatever the widths."""
-    return 4 * _GEN_ROWS * (_GEN_PIX + min(-(-o // 4) * 4, _GEN_OUTS))
+def _gen_smem_bytes(c: int, o: int, k2: int) -> int:
+    """``csrc/common.cuh::gen_smem_bytes``: the chunked branch's U [64][32]
+    and its weight rows, f32, opw = O rounded up to 4, at most 128: the
+    whole weight [C k2][opw] where O <= 128 and it fits beside U in half
+    of :data:`MAX_SMEM` (two blocks an SM), else a chunk's rows [64][opw]
+    (40 KB at most, whatever the widths)."""
+    opw = min(-(-o // 4) * 4, _GEN_OUTS)
+    whole = o <= _GEN_OUTS and 4 * (_GEN_ROWS * _GEN_PIX + c * k2 * opw) <= MAX_SMEM // 2 - 1024
+    return 4 * (_GEN_ROWS * _GEN_PIX + (c * k2 if whole else _GEN_ROWS) * opw)
 
 
-def _gen_tile(h: int, w: int, tile, who: str) -> tuple[int, int, int, int]:
-    """(tile_h, tile_w, tiles_y, tiles_x) of the general route."""
-    shapes = (tile,) if tile is not None else GEN_TILE_SHAPES
+def _gen_pixel_smem(c: int, k2: int) -> int:
+    """The pixel branch of A and E: the f32 weight [C k2][8] and the taps'
+    places, int2 [k2] (``csrc/common.cuh::gen_pixel_smem_bytes``)."""
+    return 4 * c * k2 * _GEN_PIX_O + 8 * k2
+
+
+def _gen_mma_smem(c: int, o: int, g: int, k2: int) -> int:
+    """The mma branch: the bf16 weight [O8][KS] and U [32][KS], O8 = O
+    rounded up to 8, KS = G k2 cpgp rounded up to 16, plus 8, and the
+    table of its sample rows, int4 [G k2 max(1, cpgp / 8)]
+    (``csrc/common.cuh::gen_mma_smem_bytes``)."""
+    cpgp = gen_cpgp(c // g)
+    ks = -(-g * k2 * cpgp // 16) * 16 + 8
+    return 2 * (-(-o // 8) * 8 + _GEN_PIX) * ks + 16 * g * k2 * max(1, cpgp // 8)
+
+
+def _gen_fwd_fault(branch: str, c: int, o: int, g: int, k2: int, bf16: bool,
+                   shared_mask: bool) -> str | None:
+    """Why the general route's ``branch`` of A or E does not take this width
+    (``csrc/common.cuh::check_gen_plan``), or None when it does."""
+    if branch == "pixel":
+        if o > _GEN_PIX_O:
+            return f"the pixel branch takes O <= {_GEN_PIX_O}, not {o}"
+        smem = _gen_pixel_smem(c, k2)
+    elif branch == "mma":
+        if not bf16 or shared_mask:
+            return "the mma branch takes bf16 x and no shared mask"
+        smem = _gen_mma_smem(c, o, g, k2)
+    elif branch == "chunked":
+        smem = _gen_smem_bytes(c, o, k2)
+    else:
+        return f"branch {branch!r} (one of {GEN_BRANCHES})"
+    if smem > MAX_SMEM:
+        return f"the {branch} branch's {smem} bytes of shared memory > {MAX_SMEM}"
+    return None
+
+
+def _gen_fwd_branch(c: int, o: int, g: int, k2: int, bf16: bool, shared_mask: bool) -> str:
+    """The general route's branch of A and E: pixel at O <= 8, mma for bf16
+    x without a shared mask, else chunked; each where its shared memory
+    fits."""
+    for branch in ("pixel", "mma"):
+        if _gen_fwd_fault(branch, c, o, g, k2, bf16, shared_mask) is None:
+            return branch
+    return "chunked"
+
+
+def _gen_tile(h: int, w: int, tile, who: str, shapes=GEN_TILE_SHAPES,
+              pixels=(_GEN_PIX,)) -> tuple[int, int, int, int]:
+    """(tile_h, tile_w, tiles_y, tiles_x) of the general route: of
+    ``shapes`` (or ``tile``) the one with the fewest tiles."""
+    shapes = (tile,) if tile is not None else shapes
     th, tw = min(shapes, key=lambda t: -(-h // t[0]) * -(-w // t[1]))
-    if th * tw != _GEN_PIX:
-        raise ValueError(f"{who}: the general route takes {_GEN_PIX}-pixel tiles, "
-                         f"not {th}x{tw}")
+    if th * tw not in pixels:
+        raise ValueError(f"{who}: this branch of the general route takes "
+                         f"{'/'.join(map(str, pixels))}-pixel tiles, not {th}x{tw}")
     return th, tw, -(-h // th), -(-w // tw)
+
+
+def _gen_plan(n, c, h, w, o, g, bf16, shared_mask, sm_count, tile, k2, branch):
+    """The general route's tile plan (see :func:`tile_plan`)."""
+    if branch is None:
+        branch = _gen_fwd_branch(c, o, g, k2, bf16, shared_mask)
+    fault = _gen_fwd_fault(branch, c, o, g, k2, bf16, shared_mask)
+    if fault is not None:
+        raise ValueError(f"tile_plan: {fault}")
+    if branch == "pixel":  # a thread per pixel: TILE_SHAPES, as the tuned CUDA-core path
+        if tile is None:
+            for th, tw in TILE_SHAPES:
+                if n * -(-h // th) * -(-w // tw) >= 3 * sm_count:
+                    break
+            tile = (th, tw)
+        th, tw, ty, tx = _gen_tile(h, w, tile, "tile_plan", pixels=TILE_SHAPES_PIXELS)
+        smem = _gen_pixel_smem(c, k2)
+    else:
+        th, tw, ty, tx = _gen_tile(h, w, tile, "tile_plan")
+        smem = _gen_mma_smem(c, o, g, k2) if branch == "mma" else _gen_smem_bytes(c, o, k2)
+    return TilePlan(th, tw, 0, smem, branch == "mma", ty, tx, "general", f"general/{branch}",
+                    c // g, gen_cpgp(c // g))
 
 
 @functools.lru_cache(maxsize=512)
 def _plan(n, c, h, w, o, g, max_displacement, bf16, shared_mask, sm_count, tile=None,
-          route="tuned"):
+          route="tuned", k2=9, branch=None):
     if route == "general":
-        th, tw, ty, tx = _gen_tile(h, w, tile, "tile_plan")
-        return TilePlan(th, tw, 0, _gen_smem_bytes(o), False, ty, tx, "general")
+        return _gen_plan(n, c, h, w, o, g, bool(bf16), bool(shared_mask), sm_count, tile, k2,
+                         branch)
+    if branch is not None:
+        raise ValueError(f"tile_plan: branch {branch!r} names the general route, not {route!r}")
     if route != "tuned":
         raise ValueError(f"tile_plan: route {route!r} (one of {ROUTES})")
     wide = o == WIDE_OUT_CHANNELS
@@ -444,7 +570,8 @@ def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
               max_displacement: float | None, *, bf16: bool, shared_mask: bool = False,
               sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
               route: str | None = None, kernel: str = "dcn_fwd", kh: int = 3, kw: int = 3,
-              shared_taps: bool = False, tap_anchor: bool = False) -> TilePlan:
+              shared_taps: bool = False, tap_anchor: bool = False,
+              branch: str | None = None) -> TilePlan:
     """The tile plan of kernel A (or E, ``kernel="dcn_fused"``: per-tap, no
     shared mask) for x (n, c, h, w), O = ``o`` outputs, ``g`` groups and a
     ``kh`` x ``kw`` weight. A clamped call on a tuned route reads its
@@ -455,12 +582,17 @@ def tile_plan(n: int, c: int, h: int, w: int, o: int, g: int,
     columns) instead of the default one; ``route`` a route ("tuned" or
     "general") instead of :func:`width_route`'s (the general route at a
     tuned width, for measurements); ``tap_anchor``: the route of a per-tap
-    anchored call."""
+    anchored call. On the general route the plan also picks the branch
+    (:data:`GEN_BRANCHES`: pixel at O <= 8, mma for bf16 x at O > 8 without
+    a shared mask, else chunked) and its tile: the pixel branch a
+    :data:`TILE_SHAPES` tile as the tuned CUDA-core path, the others
+    :data:`GEN_TILE_SHAPES`; ``branch`` forces one (ValueError where it
+    does not take the width)."""
     if route is None:
         route = width_route(kernel, c, o, g, kh, kw, shared=bool(shared_taps or shared_mask),
                             bf16=bool(bf16), tap_anchor=tap_anchor)
     return _plan(n, c, h, w, o, g, max_displacement, bool(bf16), bool(shared_mask),
-                 sm_count, tile, route)
+                 sm_count, tile, route, kh * kw, branch)
 
 
 # ---- the plan of kernel D -------------------------------------------------
@@ -508,9 +640,11 @@ class BwdPlan:
     ``grid`` persistent blocks, each leaving one dW partial; ``patch``: a
     clamped call under shared taps sums its 9 taps' dx in one 4x4 patch of
     registers (16 vector atomics a pixel instead of 36). ``route``:
-    "tuned", or "general" (tiles of 32 pixels, pad 0, no patch; ``taps``
-    = kh x kw; ``tap_scratch``: f32 elements of its per-tap sums under
-    shared taps or a shared mask)."""
+    "tuned", or "general" (pad 0, no patch; ``taps`` = kh x kw; ``branch``
+    "general/pixel", tiles of 32-256 pixels, or "general/chunked", tiles of
+    32; ``cpg`` channels a group packed as ``cpgp``, :func:`gen_cpgp`;
+    ``tap_scratch``: f32 elements of the chunked branch's per-tap sums
+    under shared taps or a shared mask)."""
 
     tile_h: int
     tile_w: int
@@ -523,34 +657,105 @@ class BwdPlan:
     route: str = "tuned"
     taps: int = _TAPS
     tap_scratch: int = 0
+    branch: str = "tuned"
+    cpg: int = 0
+    cpgp: int = 0
 
-    def args(self) -> tuple[int, int, int, int, int, int]:
-        """The C entry's plan arguments."""
-        return self.tile_h, self.tile_w, self.pad, self.smem_bytes, self.grid, int(self.patch)
+    def args(self) -> tuple[int, int, int, int, int, int, int]:
+        """The C entry's plan arguments (the branch's index in
+        :data:`GEN_BRANCHES` last, 0 on the tuned route)."""
+        return (self.tile_h, self.tile_w, self.pad, self.smem_bytes, self.grid, int(self.patch),
+                _branch_code(self.branch))
 
     def packed_numel(self, n: int, c: int, h: int, w: int) -> int:
         """Elements of the packed x and of the packed dx accumulator."""
+        if self.route == "general":
+            return n * (c // self.cpg) * self.cpgp * h * w
         ext = 2 * self.pad + 1 if self.pad else 0
         return n * c * (h + ext) * (w + ext)
 
     def acc_numel(self, n: int, c: int, h: int, w: int, o: int) -> int:
         """f32 elements of the accumulator scratch: packed dx, then the
-        blocks' dW partials (``grid`` x O x C x taps), then the general
-        route's per-tap sums."""
+        blocks' dW partials (``grid`` x O x C x taps), then the chunked
+        branch's per-tap sums."""
         return self.packed_numel(n, c, h, w) + self.grid * o * c * self.taps + self.tap_scratch
+
+
+def _gen_bwd_pixel_smem(c: int, o: int, k2: int, p: int, staged: bool) -> int:
+    """D's pixel branch at ``p`` pixels a tile
+    (``csrc/dcn_bwd.cu::gen_bwd_pixel_smem_bytes``): the output gradient
+    [O][P], U [C k2][P + 1], the dW slices' sums [256] and, ``staged``, the
+    weight [O][C k2], f32."""
+    return 4 * (o * p + c * k2 * (p + 1) + _GEN_THREADS + (o * c * k2 if staged else 0))
+
+
+def _gen_bwd_pixel_fit(c: int, o: int, g: int, k2: int,
+                       tiles_at=None, sm_count: int = SM_COUNT) -> tuple[int, bool] | None:
+    """(pixels a tile, weight staged) of D's pixel branch, or None where it
+    does not fit: the smallest power of two P with P G >= 256 (a thread a
+    (pixel, group)), at least 32 and at most 256, halved while the call
+    (``tiles_at(P)``: its tiles at P pixels) has fewer than two tiles an SM
+    (at (2,16,48,48) in one group 256-pixel tiles kept 18 SMs busy and read
+    9 % slower than the chunked branch) and while U does not fit; the
+    weight staged where it fits beside them, and so that two blocks fit an
+    SM unless one block fills it already."""
+    p = 32
+    while p < _GEN_THREADS and p * g < _GEN_THREADS:
+        p *= 2
+    while p > 32 and tiles_at is not None and tiles_at(p) < 2 * sm_count:
+        p //= 2
+    while p > 32 and _gen_bwd_pixel_smem(c, o, k2, p, False) > MAX_SMEM:
+        p //= 2
+    bare = _gen_bwd_pixel_smem(c, o, k2, p, False)
+    if bare > MAX_SMEM:
+        return None
+    half = _SM_SMEM // 2 - 1024
+    full = _gen_bwd_pixel_smem(c, o, k2, p, True)
+    return p, full <= MAX_SMEM and (full <= half or bare > half)
+
+
+def _gen_bwd_plan(n, c, h, w, o, g, shared_taps, sm_count, tile, kh, kw, shared_mask,
+                  branch):
+    """The general route's plan of kernel D (see :func:`bwd_plan`)."""
+    taps = kh * kw
+
+    def tiles_at(p):  # the call's tiles at p pixels, of the shapes below
+        return min(n * -(-h // t[0]) * -(-w // t[1]) for t in ((p // 32, 32), (p // 16, 16)))
+
+    fit = _gen_bwd_pixel_fit(c, o, g, taps, tiles_at if tile is None else None, sm_count)
+    if branch is None:
+        branch = "pixel" if fit is not None else "chunked"
+    if branch == "pixel":
+        if fit is None:
+            raise ValueError(f"bwd_plan: the pixel branch's shared memory does not fit "
+                             f"C = {c}, O = {o}, {kh}x{kw}")
+        p, staged = fit
+        shapes = ((p // 32, 32), (p // 16, 16))
+        th, tw, ty, tx = _gen_tile(h, w, tile, "bwd_plan", shapes, pixels=(p,))
+        smem = _gen_bwd_pixel_smem(c, o, taps, p, staged)
+        blocks = max(1, min(3, _SM_SMEM // (smem + 1024)))
+        scratch = 0
+    elif branch == "chunked":
+        th, tw, ty, tx = _gen_tile(h, w, tile, "bwd_plan")
+        smem, blocks = _GEN_BWD_SMEM, 2
+        scratch = n * g * taps * 3 * h * w if (shared_taps or shared_mask) else 0
+    else:
+        raise ValueError(f"bwd_plan: branch {branch!r} (one of {GEN_BRANCHES[:2]})")
+    grid = max(1, min(n * ty * tx, blocks * sm_count, _GEN_DW_PARTIALS // (o * c * taps)))
+    return BwdPlan(th, tw, 0, smem, grid, False, ty, tx, "general", taps, scratch,
+                   f"general/{branch}", c // g, gen_cpgp(c // g))
 
 
 @functools.lru_cache(maxsize=512)
 def _bwd_plan(n, c, h, w, o, g, max_displacement, shared_taps, sm_count, tile=None,
-              patch=None, route="tuned", kh=3, kw=3, shared_mask=False):
+              patch=None, route="tuned", kh=3, kw=3, shared_mask=False, branch=None):
     if route == "general":
         if patch:
             raise ValueError("bwd_plan: the general route has no 4x4 patch")
-        th, tw, ty, tx = _gen_tile(h, w, tile, "bwd_plan")
-        taps = kh * kw
-        grid = max(1, min(n * ty * tx, 2 * sm_count, _GEN_DW_PARTIALS // (o * c * taps)))
-        scratch = n * g * taps * 3 * h * w if (shared_taps or shared_mask) else 0
-        return BwdPlan(th, tw, 0, _GEN_BWD_SMEM, grid, False, ty, tx, "general", taps, scratch)
+        return _gen_bwd_plan(n, c, h, w, o, g, bool(shared_taps), sm_count, tile, kh, kw,
+                             bool(shared_mask), branch)
+    if branch is not None:
+        raise ValueError(f"bwd_plan: branch {branch!r} names the general route, not {route!r}")
     if route != "tuned":
         raise ValueError(f"bwd_plan: route {route!r} (one of {ROUTES})")
     p = BWD_THREADS // g
@@ -572,21 +777,26 @@ def bwd_plan(n: int, c: int, h: int, w: int, o: int, g: int,
              max_displacement: float | None, *, shared_taps: bool = False,
              sm_count: int = SM_COUNT, tile: tuple[int, int] | None = None,
              patch: bool | None = None, route: str | None = None, kh: int = 3,
-             kw: int = 3, shared_mask: bool = False, tap_anchor: bool = False) -> BwdPlan:
+             kw: int = 3, shared_mask: bool = False, tap_anchor: bool = False,
+             branch: str | None = None) -> BwdPlan:
     """The plan of kernel D for x (n, c, h, w), O = ``o``, ``g`` groups and
     a ``kh`` x ``kw`` weight. The tuned route: of the tiles (256 / G / 32,
     32) and (256 / G / 16, 16) the one with the fewest tiles, the first on
     a tie; the padding of :func:`tile_plan`; a grid of at most
-    ``_bwd_blocks_per_sm`` blocks a SM. The general route: 32-pixel tiles
-    (:data:`GEN_TILE_SHAPES`), no padding, a grid of at most 2 blocks a SM.
-    ``tile``, ``patch`` and ``route`` force a tile, the patch on or off or
-    a route instead of :func:`width_route`'s (for measurements);
-    ``tap_anchor``: the route of a per-tap anchored call."""
+    ``_bwd_blocks_per_sm`` blocks a SM. The general route, no padding: the
+    pixel branch where its shared memory fits (:func:`_gen_bwd_pixel_fit`:
+    tiles of P pixels, (P / 32, 32) or (P / 16, 16), a grid of at most 3
+    blocks a SM, as many as fit its shared memory), else the chunked one
+    (32-pixel tiles of :data:`GEN_TILE_SHAPES`, at most 2 blocks a SM).
+    ``tile``, ``patch``, ``route`` and ``branch`` force a tile, the patch on
+    or off, a route or a general branch instead of :func:`width_route`'s
+    (for measurements); ``tap_anchor``: the route of a per-tap anchored
+    call."""
     shared = bool(shared_taps or shared_mask)
     if route is None:
         route = width_route("dcn_bwd", c, o, g, kh, kw, shared=shared, tap_anchor=tap_anchor)
     return _bwd_plan(n, c, h, w, o, g, max_displacement, bool(shared_taps), sm_count,
-                     tile, patch, route, kh, kw, bool(shared_mask))
+                     tile, patch, route, kh, kw, bool(shared_mask), branch)
 
 
 _sm_counts: dict[int, int] = {}
@@ -612,12 +822,15 @@ def check_tiled(name: str, c: int, g: int, kh: int, kw: int, o: int = 32,
 
 def check_route(name: str, route: str, c: int, g: int, kh: int, kw: int, o: int,
                 shared: bool, bf16: bool = False, tap_anchor: bool = False,
-                pad: int = 0) -> str:
+                pad: int = 0, branch: str | None = None, shared_mask: bool = False) -> str:
     """The C entry of the ``route`` that a plan names for these widths;
     ValueError where the kernel, or a tuned route that the plan names, does
-    not take them, or where a per-tap anchored plan (``tap_anchor``) has a
+    not take them, where a per-tap anchored plan (``tap_anchor``) has a
     border (``pad``): those calls read frame-checked corners
-    (:func:`border`)."""
+    (:func:`border`), or where the plan's general ``branch`` (None: not
+    checked) does not take them (the mma branch on f32 x or a shared mask,
+    the pixel branch of A and E at O > 8, a branch whose shared memory does
+    not fit)."""
     check_tiled(name, c, g, kh, kw, o, shared)
     if route == "tuned":
         fault = _tuned_fault(name, c, o, g, kh, kw, bool(shared), bool(bf16), bool(tap_anchor))
@@ -626,7 +839,22 @@ def check_route(name: str, route: str, c: int, g: int, kh: int, kw: int, o: int,
         if tap_anchor and pad:
             raise ValueError(f"{name}: a per-tap anchored call reads frame-checked corners "
                              f"(pad 0), not planes padded by {pad}")
-    elif route != "general":
+        if branch not in (None, "tuned"):
+            raise ValueError(f"{name}: branch {branch!r} is the general route's")
+    elif route == "general":
+        kind = None if branch is None else branch.split("/")[-1]
+        if kind is None:
+            fault = None
+        elif name == "dcn_bwd":
+            fault = None if kind == "chunked" else \
+                f"branch {branch!r} (one of {GEN_BRANCHES[:2]})" if kind != "pixel" else \
+                None if _gen_bwd_pixel_fit(c, o, g, kh * kw) is not None else \
+                "the pixel branch's shared memory at this width"
+        else:
+            fault = _gen_fwd_fault(kind, c, o, g, kh * kw, bool(bf16), bool(shared_mask))
+        if fault is not None:
+            raise ValueError(f"{name}: the general route's plan does not take {fault}")
+    else:
         raise ValueError(f"{name}: route {route!r} (one of {ROUTES})")
     return _ENTRIES[name][route]
 
@@ -666,9 +894,9 @@ def dcn_forward(
         plan = _plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bf16, bool(shared_mask),
                      sm_count(x.device), None,
                      width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16,
-                                 tap_anchor=tap_anchor))
+                                 tap_anchor=tap_anchor), kh * kw)
     entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16, tap_anchor,
-                        plan.pad)
+                        plan.pad, plan.branch, bool(shared_mask))
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
@@ -740,7 +968,7 @@ def dcn_backward(
                          width_route("dcn_bwd", c, o, g, kh, kw, shared=shared,
                                      tap_anchor=tap_anchor), kh, kw, bool(shared_mask))
     entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared, tap_anchor=tap_anchor,
-                        pad=plan.pad)
+                        pad=plan.pad, branch=plan.branch)
     dx = torch.empty_like(x)
     d_off = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)

@@ -48,7 +48,7 @@ general_launches = 0
 # ops/cuda/dcn.py::width_fault and width_route)
 SUPPORTED_OUT_CHANNELS = FUSED_OUT_CHANNELS
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 + \
-    [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check(x, raw_offset, raw_mask, flow, weight, bias) -> int:
@@ -138,8 +138,9 @@ def deform_conv2d_fusedprep(
     bf16 = x.dtype == torch.bfloat16
     if plan is None:
         plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device), None,
-                     width_route("dcn_fused", c, o, g, kh, kw, bf16=bf16))
-    entry = check_route("dcn_fused", plan.route, c, g, kh, kw, o, False, bf16)
+                     width_route("dcn_fused", c, o, g, kh, kw, bf16=bf16), kh * kw)
+    entry = check_route("dcn_fused", plan.route, c, g, kh, kw, o, False, bf16,
+                        branch=plan.branch)
     out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
     # the pre-pass's zero-padded, pixel-major copy of x
     packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)

@@ -506,7 +506,7 @@ def test_anchored_backward_entries_take_the_forward_table(monkeypatch):
     entry, argtypes, args = sent[-1]
     assert entry == "crfp_dcn_bwd" and len(args) + 1 == len(argtypes)
     plan = dcn.bwd_plan(n, c, h, w, c, 1, geom.reach, shared_taps=True)
-    assert plan.pad == 62 and tuple(args[-6:]) == plan.args()
+    assert plan.pad == 62 and tuple(args[-7:]) == plan.args()
     assert args[19] == geom.reach and args[23] == table.data_ptr()
     assert tuple(args[24:32]) == an.kernel_args(geom)
     assert dcn.bwd_anchor_launches == before + 1

@@ -143,7 +143,10 @@ def test_load_params_refuses_an_orbax_directory(tmp_path):
     from crfp_torch.utils.params_io import load_params
 
     tree = {"params": {"conv": {"kernel": np.ones((3, 3, 2, 2), np.float32)}}}
-    ocp.StandardCheckpointer().save(str(tmp_path / "bare"), tree)
+    ckptr = ocp.StandardCheckpointer()  # saves asynchronously: wait, as the manager does
+    ckptr.save(str(tmp_path / "bare"), tree)
+    ckptr.wait_until_finished()
+    ckptr.close()
     mgr = ocp.CheckpointManager(str(tmp_path / "root"))
     mgr.save(3, args=ocp.args.StandardSave(tree))
     mgr.wait_until_finished()

@@ -335,7 +335,7 @@ def test_bwd_call_is_one_foreign_call_of_three_launches(monkeypatch):
     lib, entry, argtypes, _, *args = calls[0]
     assert (lib, entry) == ("dcn_bwd", "crfp_dcn_bwd") and len(args) + 1 == len(argtypes)
     plan = dcn.bwd_plan(n, c, h, w, o, 8, 8)
-    assert tuple(args[-6:]) == plan.args()
+    assert tuple(args[-7:]) == plan.args()
     assert dx.dtype == torch.bfloat16 and dx.shape == x.shape
     assert d_off.shape == off.shape and d_mask.shape == mask.shape and dw.shape == weight.shape
     assert sorted(allocs[-2:]) == sorted([plan.packed_numel(n, c, h, w),

@@ -159,7 +159,8 @@ def test_unclamped_call_plans_no_window(shape, dtype):
     assert plan.pad == 0
     n, c, h, w = shape[1]
     assert plan.packed_numel(n, c, h, w) == n * c * h * w  # no border: checked corners
-    assert plan.args() == (plan.tile_h, plan.tile_w, 0, plan.smem_bytes)
+    # the last plan argument names the general route's branch: 0 on a tuned route
+    assert plan.args() == (plan.tile_h, plan.tile_w, 0, plan.smem_bytes, 0)
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():

@@ -144,12 +144,13 @@ def test_wide_width_rule(cpg):
     if cpg not in dcn.SUPPORTED_CHANNELS_PER_GROUP:
         assert dcn.width_route("dcn_fwd", 64, 32, g, 3, 3) == "general"
     # the tensor-core route takes 64 input channels; a plan that names it at
-    # other channels raises, the default plan takes the general route; f32
-    # takes the tuned CUDA-core route
+    # other channels raises, the default plan takes the general route (its
+    # own tensor-core branch, general/mma); f32 takes the tuned
+    # CUDA-core route
     with pytest.raises(ValueError, match="64 input channels"):
         dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=True, route="tuned")
     plan = dcn.tile_plan(1, 32, 45, 80, 64, max(32 // cpg, 1), None, bf16=True)
-    assert plan.route == "general" and not plan.mma
+    assert plan.route == "general" and plan.branch == "general/mma"
     # the route rule knows the dtype: what it predicts is what the plan takes
     g32 = max(32 // cpg, 1)
     if 32 % cpg == 0:  # a width of O = 64's tuned route in f32, not in bf16

@@ -103,7 +103,8 @@ def _stages(model):
 def _assert_plans(c, o, g, k, shared, kernels):
     """Both dtypes' plans of each kernel at this width, on ragged frames
     clamped and unclamped: every pixel in exactly one tile, the shared
-    memory under the H100's 227 KB."""
+    memory under the H100's 227 KB; a general plan has no border and its
+    branch's tile (32 pixels, the pixel branch a multiple of 32 up to 256)."""
     for (h, w), d, bf16 in itertools.product(((45, 80), (7, 33)), (8, None), (False, True)):
         plans = []
         if "dcn_fwd" in kernels:
@@ -120,7 +121,9 @@ def _assert_plans(c, o, g, k, shared, kernels):
             assert (plan.tiles_y - 1) * plan.tile_h < h <= plan.tiles_y * plan.tile_h
             assert (plan.tiles_x - 1) * plan.tile_w < w <= plan.tiles_x * plan.tile_w
             if plan.route == "general":
-                assert plan.tile_h * plan.tile_w == 32 and plan.pad == 0
+                px = plan.tile_h * plan.tile_w
+                assert plan.pad == 0 and plan.branch.startswith("general/")
+                assert (px % 32 == 0 and px <= 256) if plan.branch == "general/pixel" else px == 32
 
 
 def _jax_refuses(c, o, g):
@@ -246,13 +249,24 @@ def test_plan_names_the_general_route_at_a_tuned_width(monkeypatch):
     refused, with the tuned route's reason."""
     tuned = dcn.tile_plan(1, 32, 180, 180, 32, 8, 8, bf16=True)
     general = dcn.tile_plan(1, 32, 180, 180, 32, 8, 8, bf16=True, route="general")
-    assert (tuned.route, tuned.mma, general.route, general.mma) == ("tuned", True, "general", False)
-    assert general.pad == 0 and general.smem_bytes == 4 * 64 * (32 + 32)
+    assert (tuned.route, tuned.mma, general.route, general.mma) == ("tuned", True, "general", True)
+    # the mma branch: the bf16 weight [32][K + 8] and U [32][K + 8], K = 8 x 9 x 4,
+    # and the table of its 8 x 9 sample rows
+    assert general.branch == "general/mma" and general.args()[-1] == 2
+    assert general.pad == 0 and general.smem_bytes == 2 * (32 + 32) * (8 * 9 * 4 + 8) + 16 * 72
     assert general.packed_numel(1, 32, 180, 180) == 32 * 180 * 180
     bwd = dcn.bwd_plan(2, 4, 192, 192, 4, 1, 32, shared_taps=True, shared_mask=True,
                        route="general")
     assert (bwd.route, bwd.patch, bwd.pad, bwd.taps) == ("general", False, 0, 9)
-    # packed dx, the dW partials, the per-tap sums of the shared taps
+    # the pixel branch: 256-pixel tiles at one group; packed dx and the dW
+    # partials (d-offset and d-mask summed over the taps in registers)
+    assert bwd.branch == "general/pixel" and bwd.tile_h * bwd.tile_w == 256
+    assert bwd.acc_numel(2, 4, 192, 192, 4) == 2 * 4 * 192 * 192 + bwd.grid * 4 * 4 * 9
+    assert bwd.grid == min(bwd.tiles_y * bwd.tiles_x * 2, 3 * dcn.SM_COUNT)
+    # the chunked branch: packed dx, the dW partials, the per-tap sums of the
+    # shared taps
+    bwd = dcn.bwd_plan(2, 4, 192, 192, 4, 1, 32, shared_taps=True, shared_mask=True,
+                       route="general", branch="chunked")
     assert bwd.acc_numel(2, 4, 192, 192, 4) == (2 * 4 * 192 * 192 + bwd.grid * 4 * 4 * 9
                                                 + 2 * 1 * 9 * 3 * 192 * 192)
     assert bwd.grid == min(bwd.tiles_y * bwd.tiles_x * 2, 2 * dcn.SM_COUNT)
@@ -311,8 +325,8 @@ def test_dispatchers_launch_the_routes_entries(monkeypatch):
         assert all(len(a) + 1 == n for _, _, n, a in calls[-3:])
         plan = dcn.tile_plan(1, mid, 12, 20, mid, 8, 8, bf16=True)
         assert plan.route == ("general" if want else "tuned")
-        assert calls[-3][3][19:23] == plan.args() == calls[-1][3][19:23]
-        assert dcn.bwd_plan(1, mid, 12, 20, mid, 8, 8).args() == calls[-2][3][-6:]
+        assert calls[-3][3][19:24] == plan.args() == calls[-1][3][19:24]
+        assert dcn.bwd_plan(1, mid, 12, 20, mid, 8, 8).args() == calls[-2][3][-7:]
     assert (dcn.general_launches, dcn.bwd_general_launches, dcn_fused.general_launches) == \
         tuple(b + 1 for b in before)
 
@@ -504,56 +518,125 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# the widths whose general route also runs anchored (dcn_3's shared taps and
+# a per-tap stage), on the training grid of their geometry
+_ANCHORED = ("mid24_per_tap", "mid24_dcn3", "mid8_dcn3", "mid64_dcn3")
+
+
+def _branch_plans(x, o, g, k, shared, window, branch, anchor):
+    """(A's plan, D's plan) of the general route: the rule's branches
+    ("rule"), or its chunked branch forced ("chunked")."""
+    if branch == "rule":
+        return None, None
+    n, c, h, w = x.shape
+    d = anchor.reach if anchor is not None else window
+    fwd = dcn.tile_plan(n, c, h, w, o, g, d if shared or anchor is None else None,
+                        bf16=x.dtype == torch.bfloat16, shared_mask=shared, shared_taps=shared,
+                        kh=k, kw=k, route="general", branch=branch)
+    bwd = dcn.bwd_plan(n, c, h, w, o, g, d, shared_taps=shared, shared_mask=shared, kh=k, kw=k,
+                       route="general", branch=branch)
+    return fwd, bwd
+
+
 @pytest.mark.cuda
 @_NEEDS_CARD
-@pytest.mark.parametrize("window", [3, None], ids=["clamped", "unclamped"])
+@pytest.mark.parametrize("branch", ["rule", "chunked"])
+@pytest.mark.parametrize("window", [3, None, "anchored"], ids=["clamped", "unclamped", "anchored"])
 @pytest.mark.parametrize("width", _CARD_WIDTHS, ids=[w[0] for w in _CARD_WIDTHS])
-def test_general_route_matches_plain_on_card(width, window):
-    """A forward and D backward through the dispatcher on the general
-    route against autograd of the plain version: f32 to 1e-4 of max|ref|,
-    bf16 x and output gradient to 2e-2 of max|ref| of the f32 plain version
-    on the same (rounded) values; dW, d-offset and d-mask bit-equal over two
-    runs."""
+def test_general_route_matches_plain_on_card(width, window, branch):
+    """A forward and D backward on the general route against autograd of
+    the plain version, through the dispatcher with the rule's branches
+    ("rule": pixel, mma or chunked by the width and dtype) or with the
+    chunked branch forced ("chunked"), clamped, unclamped and (dcn_3 and
+    the mid-24 per-tap stage) anchored on the training grid: the output
+    and the gradients of x, offset, mask, weight and (through the
+    dispatcher) bias, f32 to 1e-4 of max|ref|, bf16 x and output gradient
+    to 2e-2 of max|ref| of the f32 plain version on the same (rounded)
+    values; A bit-equal over two runs
+    and from a CUDA graph; dW, d-offset and d-mask bit-equal over two runs."""
+    from crfp_torch.ops import anchor as an
     from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
 
-    _, c, o, g, k, shared = width
+    wid, c, o, g, k, shared = width
+    if window == "anchored" and wid not in _ANCHORED:
+        pytest.skip(f"{wid}: no anchored geometry of this width on the card list")
     x, off, mask, w, b, gout = _card_operands(c, o, g, k, shared, seed=4)
-    kw = dict(max_displacement=window, shared_taps=shared, shared_mask=shared)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        geom = None
+        if window == "anchored":
+            geom = an.dcn_geometry(*x.shape[2:], c, o, g, k, 3, bf16=dtype == torch.bfloat16,
+                                   shared_taps=shared, shared_mask=shared, fullgrad=True)
+        d = 3 if window == "anchored" else window
+        kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared, anchor=geom)
         xx, gg = x.to(dtype), gout.to(dtype)
-        before = (dcn.general_launches, dcn.bwd_general_launches)
-        leaves = [t.detach().clone().requires_grad_(True) for t in (xx, off, mask, w, b)]
-        out = dcn.deform_conv2d_windowed(*leaves, **kw)
-        out.backward(gg)
-        torch.cuda.synchronize()
-        # dg 16 at mid 32 (2 channels a group, O = 32) is a width of A's tuned
-        # route; D's general route takes its 16 groups
-        routes = [dcn.width_route(k_, c, o, g, k, k, shared=shared)
+        fplan, bplan = _branch_plans(xx, o, g, k, shared, d, branch, geom)
+        routes = [dcn.width_route(k_, c, o, g, k, k, shared=shared,
+                                  tap_anchor=geom is not None and not shared)
                   for k_ in ("dcn_fwd", "dcn_bwd")]
+        before = (dcn.general_launches, dcn.bwd_general_launches)
+        if branch == "rule":
+            leaves = [t.detach().clone().requires_grad_(True) for t in (xx, off, mask, w, b)]
+            out = dcn.deform_conv2d_windowed(*leaves, **kw)
+            out.backward(gg)
+            grads = [t.grad for t in leaves]  # the bias's too
+            # dg 16 at mid 32 (2 channels a group, O = 32) is a width of A's
+            # tuned route; D's general route takes its 16 groups
+            want_general = tuple(int(r == "general") for r in routes)
+        else:
+            out, table = dcn.dcn_forward(xx, off, mask, w, b, plan=fplan, with_table=True, **kw)
+            grads = list(dcn.dcn_backward(xx, off, mask, w, gg, table=table, plan=bplan, **kw))
+            want_general = (1, 1)
+        torch.cuda.synchronize()
         assert (dcn.general_launches - before[0], dcn.bwd_general_launches - before[1]) == \
-            tuple(int(r == "general") for r in routes)
+            want_general
         ref = [t.detach().float().clone().requires_grad_(True) for t in (xx, off, mask, w, b)]
         want = deform_conv2d_windowed_ref(*ref, **kw)
         want.backward(gg.float())
         assert _rel(out, want) <= tol
-        for name, got, r in zip(("x", "offset", "mask", "weight", "bias"), leaves, ref):
-            assert _rel(got.grad, r.grad) <= tol, (name, _rel(got.grad, r.grad))
-        again = dcn.dcn_backward(xx, off, mask, w, gg, **kw)
-        first = dcn.dcn_backward(xx, off, mask, w, gg, **kw)
+        for name, got, r in zip(("x", "offset", "mask", "weight", "bias"), grads, ref):
+            assert _rel(got, r.grad) <= tol, (name, _rel(got, r.grad))
+        if routes[0] == "general" or branch != "rule":
+            def fwd():
+                return dcn.dcn_forward(xx, off, mask, w, b, plan=fplan, **kw)
+            first = fwd()
+            assert torch.equal(first, fwd())
+            assert torch.equal(captured_on_card(fwd), first)
+        table = dcn.dcn_forward(xx, off, mask, w, b, with_table=True, **kw)[1]
+        again = dcn.dcn_backward(xx, off, mask, w, gg, table=table, plan=bplan, **kw)
+        first = dcn.dcn_backward(xx, off, mask, w, gg, table=table, plan=bplan, **kw)
         torch.cuda.synchronize()
         for a_, b_ in zip(first[1:], again[1:]):
             assert torch.equal(a_, b_)
 
 
+def captured_on_card(fn):
+    """``fn()`` replayed from a CUDA graph, its output zeroed before the
+    replay (chip_smoke.py's ``captured``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 @pytest.mark.cuda
 @_NEEDS_CARD
+@pytest.mark.parametrize("branch", [None, "chunked"], ids=["rule", "chunked"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_general_route_matches_tuned_at_mid32_on_card(dtype):
+def test_general_route_matches_tuned_at_mid32_on_card(dtype, branch):
     """At mid 32 both routes take the widths: A, D and E's general route
-    named by ``plan=`` against the tuned one on the same operands (f32 to
-    1e-5 of max|ref|; bf16 to 1e-2: both round the samples and the weight
-    to bf16 and sum in f32, in other orders), and E's general route
-    against its plain version."""
+    named by ``plan=`` (the rule's branch, or the chunked one forced)
+    against the tuned one on the same operands (f32 to 1e-5 of max|ref|;
+    bf16 to 1e-2: both round the samples and the weight to bf16 and sum in
+    f32, in other orders), and E's general route against its plain
+    version."""
     from crfp_torch.ops.cuda import dcn_fused
     from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
 
@@ -565,9 +648,9 @@ def test_general_route_matches_tuned_at_mid32_on_card(dtype):
         x, gout = x.to(dtype), gout.to(dtype)
         kw = dict(max_displacement=d, shared_taps=shared, shared_mask=shared)
         plan = dcn.tile_plan(*x.shape, o, g, d, bf16=bf16, shared_mask=shared,
-                             shared_taps=shared, route="general")
+                             shared_taps=shared, route="general", branch=branch)
         bplan = dcn.bwd_plan(*x.shape, o, g, d, shared_taps=shared, shared_mask=shared,
-                             route="general")
+                             route="general", branch=branch)
         assert _rel(dcn.dcn_forward(x, off, mask, w, b, plan=plan, **kw),
                     dcn.dcn_forward(x, off, mask, w, b, **kw)) <= tol
         for got, want in zip(dcn.dcn_backward(x, off, mask, w, gout, plan=bplan, **kw),
@@ -580,7 +663,8 @@ def test_general_route_matches_tuned_at_mid32_on_card(dtype):
         raw_mask = torch.randn(1, g * 9, 45, 80, generator=gen).cuda().to(dtype)
         flow = (torch.randn(1, 2, 45, 80, generator=gen) * 2).cuda()
         x1 = x[:1].contiguous()
-        fplan = dcn.tile_plan(*x1.shape, o, g, d, bf16=bf16, kernel="dcn_fused", route="general")
+        fplan = dcn.tile_plan(*x1.shape, o, g, d, bf16=bf16, kernel="dcn_fused", route="general",
+                              branch=branch)
         got = dcn_fused.deform_conv2d_fusedprep(x1, raw_off, raw_mask, flow, w, b,
                                                 max_displacement=d, plan=fplan)
         assert _rel(got, dcn_fused.deform_conv2d_fusedprep(
