@@ -3,7 +3,7 @@
 
 Runs N steady frames (encode + step) of ``CRFPRuntimeV18`` at 1080p, warp
 720^2, bf16, windows 8/32 (seeded weights, ``bench/runtime.py::build_model``)
-under ``bench/profile.py::capture``, exports the Chrome trace under
+under ``torch.profiler`` (:func:`capture`), exports the Chrome trace under
 ``logdir`` and prints each device kernel's total time over N, largest
 first. The device lanes are the trace's processes labelled ``GPU <n>``; their
 kernel, memcpy and memset events are summed by name (the annotations that
@@ -50,6 +50,21 @@ def parse_trace(logdir: str, frames: int, top: int = 40) -> list[tuple[str, floa
     return [(n, us / 1e3 / frames) for n, us in rows[:top]]
 
 
+def capture(run, trace_path: str) -> None:
+    """Run ``run()`` under ``torch.profiler`` (host and CUDA activities)
+    and export the Chrome trace to ``trace_path``. No CUDA graph may have
+    been captured in the process before: the profiler then loses device
+    events."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+
+
 def run(frames: int = 10, logdir: str | None = None, **bench_kw) -> list[tuple[str, float]]:
     """Capture and print the table. ``bench_kw``: preset, warp_size, bf16
     and the ``ModelConfig`` fields of ``bench/runtime.py::build_model``
@@ -57,7 +72,6 @@ def run(frames: int = 10, logdir: str | None = None, **bench_kw) -> list[tuple[s
     import torch
 
     from crfp_torch.bench import device_of
-    from crfp_torch.bench.profile import capture
     from crfp_torch.bench.runtime import build_model
 
     device_of("cuda")

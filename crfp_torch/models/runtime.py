@@ -26,6 +26,15 @@ Public entry points (``encode``, ``step0``, ``step``) take and return NHWC
 tensors like the JAX model — frames, encoder features and the state
 tensors; inside, everything is NCHW. The NHWC tensors returned are views
 of NCHW storage, so handing them back costs no copy.
+
+Spans (``crfp_torch.trace``, on only under a profiler session that records
+CPU activity): the entry points are the unit spans ``crfp.serve.encode``,
+``crfp.serve.step0`` and ``crfp.serve.step``; inside a step,
+``crfp.serve.flow`` (the flow and its two resizes), ``crfp.serve.warp``
+(the state warps and downsamples), ``crfp.serve.dcn_0`` to ``dcn_2`` (each
+stage's DCN and resblock; the cold start's resblocks), ``crfp.serve.dcn_3``
+(``upsample_post``, dcn_3 and its resblock) and ``crfp.serve.finish`` (the
+fovea blend, ``conv_last`` and kernel C).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from crfp_torch.ops import resize
 from crfp_torch.ops.anchor import hr_warp_geometry
 from crfp_torch.ops.cuda.emit import emit_frame
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
+from crfp_torch.trace import span
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -129,21 +139,24 @@ class _Runtime(nn.Module):
     def encode(self, lr: torch.Tensor, fv: torch.Tensor | None):
         """lr (N, h, w, c), fv (N, fh, fw, c) -> (x_lr, x_hr), NHWC; c is 3,
         or 1 with ``cfg.y_only``. x_hr is None without a fovea branch."""
-        x_lr, x_hr = self._encode(_nchw(lr), _nchw_or_none(fv))
-        return _nhwc(x_lr), None if x_hr is None else _nhwc(x_hr)
+        with span("crfp.serve.encode", unit=True):
+            x_lr, x_hr = self._encode(_nchw(lr), _nchw_or_none(fv))
+            return _nhwc(x_lr), None if x_hr is None else _nhwc(x_hr)
 
     def step0(self, lr, x_lr, x_hr):
         """Cold start. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
-        state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw_or_none(x_hr))
-        return self._state_nhwc(state), out
+        with span("crfp.serve.step0", unit=True):
+            state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw_or_none(x_hr))
+            return self._state_nhwc(state), out
 
     def step(self, state, lr, pre_lr, x_lr, x_hr):
         """Steady state. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
-        state = {k: tuple(_nchw(f) for f in v) if k == "lv" else _nchw(v)
-                 for k, v in state.items()}
-        state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
-                                _nchw_or_none(x_hr))
-        return self._state_nhwc(state), out
+        with span("crfp.serve.step", unit=True):
+            state = {k: tuple(_nchw(f) for f in v) if k == "lv" else _nchw(v)
+                     for k, v in state.items()}
+            state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
+                                    _nchw_or_none(x_hr))
+            return self._state_nhwc(state), out
 
     @staticmethod
     def _state_nhwc(state):
@@ -176,12 +189,13 @@ class _Runtime(nn.Module):
         """Blend the fovea into the top-left corner (unless x_hr is None),
         reconstruct, and emit the NHWC frame ``conv_last(lv3) +
         upsample(lr, scale)`` (kernel C). Returns (lv3 NCHW, frame NHWC)."""
-        if x_hr is not None:
-            fh, fw = x_hr.shape[-2:]
-            blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
-            lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
-        lv3 = lrelu(lv3)
-        return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)
+        with span("crfp.serve.finish"):
+            if x_hr is not None:
+                fh, fw = x_hr.shape[-2:]
+                blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
+                lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
+            lv3 = lrelu(lv3)
+            return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)
 
 
 class CRFPRuntimeV18(_Runtime):
@@ -226,14 +240,17 @@ class CRFPRuntimeV18(_Runtime):
         wph, wpw = self.warp_size
         x = self.upsample(x_lr)  # keep @ 2h x 2w
         lvs = []
-        for rb in (self.forward_resblocks_0_, self.forward_resblocks_1_,
-                   self.forward_resblocks_2_):
-            chunks = torch.chunk(rb(x), 4, dim=1)
-            lvs.append(torch.cat(chunks[sr:], dim=1)[:, :, : wph // 4, : wpw // 4]
-                       .contiguous())
-            x = torch.cat(chunks[:sr], dim=1)
-        x = lrelu(self.upsample_post(x))
-        lv3 = self.forward_resblocks_3_(x)
+        for name, rb in (("crfp.serve.dcn_0", self.forward_resblocks_0_),
+                         ("crfp.serve.dcn_1", self.forward_resblocks_1_),
+                         ("crfp.serve.dcn_2", self.forward_resblocks_2_)):
+            with span(name):
+                chunks = torch.chunk(rb(x), 4, dim=1)
+                lvs.append(torch.cat(chunks[sr:], dim=1)[:, :, : wph // 4, : wpw // 4]
+                           .contiguous())
+                x = torch.cat(chunks[:sr], dim=1)
+        with span("crfp.serve.dcn_3"):
+            x = lrelu(self.upsample_post(x))
+            lv3 = self.forward_resblocks_3_(x)
         lv3, out = self._finish(lv3, x_hr, lr)
         return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
 
@@ -241,37 +258,44 @@ class CRFPRuntimeV18(_Runtime):
         cfg = self.cfg
         sr = cfg.split_ratio
         wph, wpw = self.warp_size
-        flow = self.compute_flow(lr, pre_lr)
+        with span("crfp.serve.flow"):
+            flow = self.compute_flow(lr, pre_lr)
+            # the warp kernels take f32 flow whatever the activations' dtype
+            flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
+            flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
         feat_prop_lv0 = self.upsample(x_lr)
-        # the warp kernels take f32 flow whatever the activations' dtype
-        flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
-        flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
 
         hr_state = state["hr"]  # last @ ROI
-        hr_warped = self._warp_hr(hr_state, flow_lv0)
-        lv3_warped = self.downsample(hr_warped)
-        lv3_state = self.downsample(hr_state)
-        f = flow_warp_windowed(torch.cat(state["lv"], dim=1), flow_lv3, cfg.dcn_window)
-        feats = torch.chunk(f, 3, dim=1)
+        with span("crfp.serve.warp"):
+            hr_warped = self._warp_hr(hr_state, flow_lv0)
+            lv3_warped = self.downsample(hr_warped)
+            lv3_state = self.downsample(hr_state)
+            f = flow_warp_windowed(torch.cat(state["lv"], dim=1), flow_lv3, cfg.dcn_window)
+            feats = torch.chunk(f, 3, dim=1)
 
         roi_lv0 = feat_prop_lv0[:, :, : wph // 4, : wpw // 4]
         offset = None
         lvs = []
-        for dcn, rb, f in ((self.dcn_0, self.forward_resblocks_0, feats[0]),
-                           (self.dcn_1, self.forward_resblocks_1, feats[1]),
-                           (self.dcn_2, self.forward_resblocks_2, feats[2])):
-            feat_temp = torch.cat([roi_lv0, f], dim=1)
-            aligned, offset = dcn(feat_temp, lv3_state, lv3_warped, flow_lv3,
-                                  offset if cfg.offset_prop else None)
-            chunks = torch.chunk(rb(torch.cat([feat_temp, aligned], dim=1), feat_temp),
-                                 4, dim=1)
-            lvs.append(torch.cat(chunks[sr:], dim=1))
+        for name, dcn, rb, f in (("crfp.serve.dcn_0", self.dcn_0, self.forward_resblocks_0,
+                                  feats[0]),
+                                 ("crfp.serve.dcn_1", self.dcn_1, self.forward_resblocks_1,
+                                  feats[1]),
+                                 ("crfp.serve.dcn_2", self.dcn_2, self.forward_resblocks_2,
+                                  feats[2])):
+            with span(name):
+                feat_temp = torch.cat([roi_lv0, f], dim=1)
+                aligned, offset = dcn(feat_temp, lv3_state, lv3_warped, flow_lv3,
+                                      offset if cfg.offset_prop else None)
+                chunks = torch.chunk(rb(torch.cat([feat_temp, aligned], dim=1), feat_temp),
+                                     4, dim=1)
+                lvs.append(torch.cat(chunks[sr:], dim=1))
 
-        full_lv3 = lrelu(self.upsample_post(feat_prop_lv0))
-        roi = full_lv3[:, :, :wph, :wpw]
-        aligned, _ = self.dcn_3(roi, hr_state, hr_warped, flow_lv0,
-                                offset if cfg.offset_prop else None)
-        lv3 = self.forward_resblocks_3(torch.cat([roi, aligned], dim=1), full_lv3)
+        with span("crfp.serve.dcn_3"):
+            full_lv3 = lrelu(self.upsample_post(feat_prop_lv0))
+            roi = full_lv3[:, :, :wph, :wpw]
+            aligned, _ = self.dcn_3(roi, hr_state, hr_warped, flow_lv0,
+                                    offset if cfg.offset_prop else None)
+            lv3 = self.forward_resblocks_3(torch.cat([roi, aligned], dim=1), full_lv3)
         lv3, out = self._finish(lv3, x_hr, lr)
         return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
 
@@ -318,10 +342,13 @@ class CRFPRuntimeSimple(_Runtime):
 
     def _step0(self, lr, x_lr, x_hr):
         x = self.upsample(x_lr)
-        x = self.forward_resblocks_0_(x)
-        x = self.forward_resblocks_1_(x)
-        x = self.forward_resblocks_2_(x)
-        lv3 = self.forward_resblocks_3_(lrelu(self.upsample_post(x)))
+        for name, rb in (("crfp.serve.dcn_0", self.forward_resblocks_0_),
+                         ("crfp.serve.dcn_1", self.forward_resblocks_1_),
+                         ("crfp.serve.dcn_2", self.forward_resblocks_2_)):
+            with span(name):
+                x = rb(x)
+        with span("crfp.serve.dcn_3"):
+            lv3 = self.forward_resblocks_3_(lrelu(self.upsample_post(x)))
         lv3, out = self._finish(lv3, x_hr, lr)
         return {"hr": self._roi(lv3).contiguous()}, out
 
@@ -329,32 +356,36 @@ class CRFPRuntimeSimple(_Runtime):
         cfg = self.cfg
         wph, wpw = self.warp_size
         three_way = cfg.variant == "v15"
-        flow = self.compute_flow(lr, pre_lr)
+        with span("crfp.serve.flow"):
+            flow = self.compute_flow(lr, pre_lr)
+            flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
+            flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
         feat_prop_lv0 = self.upsample(x_lr)  # mid @ 2h x 2w, full frame
-        flow_lv3 = (resize.upsample(flow, 2) * 2.0).float()
-        flow_lv0 = (resize.upsample(flow, cfg.scale) * float(cfg.scale)).float()
 
         hr_state = state["hr"]  # last @ ROI
-        hr_warped = self._warp_hr(hr_state, flow_lv0)
-        lv3_warped = self.downsample(hr_warped)
-        lv3_state = self.downsample(hr_state)
+        with span("crfp.serve.warp"):
+            hr_warped = self._warp_hr(hr_state, flow_lv0)
+            lv3_warped = self.downsample(hr_warped)
+            lv3_state = self.downsample(hr_state)
 
         roi_lv0 = feat_prop_lv0[:, :, : wph // 4, : wpw // 4]
         offset = None
         x = roi_lv0
-        for dcn, rb in ((self.dcn_0, self.forward_resblocks_0),
-                        (self.dcn_1, self.forward_resblocks_1),
-                        (self.dcn_2, self.forward_resblocks_2)):
-            aligned, offset = dcn(roi_lv0, lv3_state, lv3_warped, flow_lv3,
-                                  offset if cfg.offset_prop else None)
-            parts = [roi_lv0, aligned] + ([lv3_warped] if three_way else [])
-            x = rb(torch.cat(parts, dim=1), feat_prop_lv0)
+        for name, dcn, rb in (("crfp.serve.dcn_0", self.dcn_0, self.forward_resblocks_0),
+                              ("crfp.serve.dcn_1", self.dcn_1, self.forward_resblocks_1),
+                              ("crfp.serve.dcn_2", self.dcn_2, self.forward_resblocks_2)):
+            with span(name):
+                aligned, offset = dcn(roi_lv0, lv3_state, lv3_warped, flow_lv3,
+                                      offset if cfg.offset_prop else None)
+                parts = [roi_lv0, aligned] + ([lv3_warped] if three_way else [])
+                x = rb(torch.cat(parts, dim=1), feat_prop_lv0)
 
-        full_lv3 = lrelu(self.upsample_post(x))
-        roi_lv3 = self._roi(full_lv3)
-        aligned, _ = self.dcn_3(roi_lv3, hr_state, hr_warped, flow_lv0,
-                                offset if cfg.offset_prop else None)
-        parts3 = [roi_lv3, aligned] + ([hr_warped] if three_way else [])
-        lv3 = self.forward_resblocks_3(torch.cat(parts3, dim=1), full_lv3)
+        with span("crfp.serve.dcn_3"):
+            full_lv3 = lrelu(self.upsample_post(x))
+            roi_lv3 = self._roi(full_lv3)
+            aligned, _ = self.dcn_3(roi_lv3, hr_state, hr_warped, flow_lv0,
+                                    offset if cfg.offset_prop else None)
+            parts3 = [roi_lv3, aligned] + ([hr_warped] if three_way else [])
+            lv3 = self.forward_resblocks_3(torch.cat(parts3, dim=1), full_lv3)
         lv3, out = self._finish(lv3, x_hr, lr)
         return {"hr": self._roi(lv3).contiguous()}, out

@@ -125,6 +125,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 from crfp_torch.ops.anchor import AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.dcn_windowed import deform_conv2d_windowed_ref
+from crfp_torch.trace import span
 
 # launches of the CUDA kernels (not of the plain version): A forward, D
 # backward; anchor_launches and bwd_anchor_launches: A's and D's anchored
@@ -880,45 +881,48 @@ def dcn_forward(
     return (output, the anchor table the call's pre-pass wrote, f32 (N, G,
     bands, tiles, 2), or None unanchored), the table that
     :func:`dcn_backward` takes."""
-    g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
-    n, c, h, w = x.shape
-    o, _, kh, kw = weight.shape
-    shared = bool(shared_taps or shared_mask)
-    bf16 = x.dtype == torch.bfloat16
-    # an anchored call's displacements are bounded by its reach, which sizes
-    # the zero border of the packed planes as a clamp to +-reach would
-    # (border(): per-tap, no border)
-    d = max_displacement if anchor is None else anchor.reach
-    tap_anchor = anchor is not None and not shared_taps
-    if plan is None:
-        plan = _plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bf16, bool(shared_mask),
-                     sm_count(x.device), None,
-                     width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16,
-                                 tap_anchor=tap_anchor), kh * kw)
-    entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16, tap_anchor,
-                        plan.pad, plan.branch, bool(shared_mask))
-    out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
-    # the pre-pass's zero-padded, pixel-major copy of x
-    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
-    # an anchored call's table, written by its own pre-pass
-    table = None if anchor is None else torch.empty(
-        (n, g, *anchor.cells(h, w), 2), dtype=torch.float32, device=x.device)
-    _build.launch("dcn_fwd", entry, _ARGTYPES, x.device,
-                  x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  packed.data_ptr(),
-                  n, c, h, w, o, g, kh, kw, _build.window(d),
-                  int(shared_taps), int(shared_mask), int(bf16), *plan.args(),
-                  None if table is None else table.data_ptr(),
-                  *kernel_args(anchor))
     global launches, anchor_launches, general_launches, tap_anchor_launches
-    launches += 1
-    if anchor is not None:
-        anchor_launches += 1
-        tap_anchor_launches += not shared_taps
-    if plan.route == "general":
-        general_launches += 1
-    return (out, table) if with_table else out
+    with span("crfp.kernel.A", {"x": x, "weight": weight,
+                                "anchored": anchor is not None}) as s:
+        g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
+        n, c, h, w = x.shape
+        o, _, kh, kw = weight.shape
+        shared = bool(shared_taps or shared_mask)
+        bf16 = x.dtype == torch.bfloat16
+        # an anchored call's displacements are bounded by its reach, which sizes
+        # the zero border of the packed planes as a clamp to +-reach would
+        # (border(): per-tap, no border)
+        d = max_displacement if anchor is None else anchor.reach
+        tap_anchor = anchor is not None and not shared_taps
+        if plan is None:
+            plan = _plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bf16,
+                         bool(shared_mask), sm_count(x.device), None,
+                         width_route("dcn_fwd", c, o, g, kh, kw, shared=shared, bf16=bf16,
+                                     tap_anchor=tap_anchor), kh * kw)
+        entry = check_route("dcn_fwd", plan.route, c, g, kh, kw, o, shared, bf16, tap_anchor,
+                            plan.pad, plan.branch, bool(shared_mask))
+        s.note(route=plan.route, branch=plan.branch)
+        out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
+        # the pre-pass's zero-padded, pixel-major copy of x
+        packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
+        # an anchored call's table, written by its own pre-pass
+        table = None if anchor is None else torch.empty(
+            (n, g, *anchor.cells(h, w), 2), dtype=torch.float32, device=x.device)
+        _build.launch("dcn_fwd", entry, _ARGTYPES, x.device,
+                      x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(),
+                      packed.data_ptr(),
+                      n, c, h, w, o, g, kh, kw, _build.window(d),
+                      int(shared_taps), int(shared_mask), int(bf16), *plan.args(),
+                      None if table is None else table.data_ptr(),
+                      *kernel_args(anchor))
+        launches += 1
+        if anchor is not None:
+            anchor_launches += 1
+            tap_anchor_launches += not shared_taps
+        if plan.route == "general":
+            general_launches += 1
+        return (out, table) if with_table else out
 
 
 def dcn_backward(
@@ -943,56 +947,59 @@ def dcn_backward(
     the table that kernel A's anchored forward wrote (``dcn_forward(...,
     with_table=True)``). ``plan``: a :func:`bwd_plan` other than the
     default one (the general route at a tuned width, for one)."""
-    g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
-    n, c, h, w = x.shape
-    o, _, kh, kw = weight.shape
-    shared = bool(shared_taps or shared_mask)
-    if grad_out.shape != (n, o, h, w) or grad_out.dtype != x.dtype \
-            or grad_out.device != x.device or not grad_out.is_contiguous():
-        raise ValueError(f"dcn_bwd: grad_out {tuple(grad_out.shape)} {grad_out.dtype} "
-                         f"must be a contiguous {(n, o, h, w)} {x.dtype} on {x.device}")
-    if (anchor is None) != (table is None):
-        raise ValueError("dcn_bwd: an anchored call takes the anchor geometry and the "
-                         "table of its forward, both")
-    if table is not None and (table.shape != (n, g, *anchor.cells(h, w), 2)
-                              or table.dtype != torch.float32 or table.device != x.device
-                              or not table.is_contiguous()):
-        raise ValueError(f"dcn_bwd: anchor table {tuple(table.shape)} {table.dtype} must be "
-                         f"a contiguous float32 {(n, g, *anchor.cells(h, w), 2)} on {x.device}")
-    # the anchored reach bounds every displacement and sizes the padding
-    d = max_displacement if anchor is None else anchor.reach
-    tap_anchor = anchor is not None and not shared_taps
-    if plan is None:
-        plan = _bwd_plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bool(shared_taps),
-                         sm_count(x.device), None, None,
-                         width_route("dcn_bwd", c, o, g, kh, kw, shared=shared,
-                                     tap_anchor=tap_anchor), kh, kw, bool(shared_mask))
-    entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared, tap_anchor=tap_anchor,
-                        pad=plan.pad, branch=plan.branch)
-    dx = torch.empty_like(x)
-    d_off = torch.empty_like(offset)
-    d_mask = torch.empty_like(mask)
-    dw = torch.empty_like(weight)
-    # scratch: x packed as kernel A packs it, and the f32 packed dx
-    # accumulator followed by the blocks' dW partials
-    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
-    acc = torch.empty(plan.acc_numel(n, c, h, w, o), dtype=torch.float32, device=x.device)
-    _build.launch("dcn_bwd", entry, _BWD_ARGTYPES, x.device,
-                  x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-                  grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
-                  d_mask.data_ptr(), dw.data_ptr(), packed.data_ptr(), acc.data_ptr(),
-                  n, c, h, w, o, g, kh, kw, _build.window(d),
-                  int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
-                  None if table is None else table.data_ptr(), *kernel_args(anchor),
-                  *plan.args())
     global bwd_launches, bwd_anchor_launches, bwd_general_launches, bwd_tap_anchor_launches
-    bwd_launches += 1
-    if anchor is not None:
-        bwd_anchor_launches += 1
-        bwd_tap_anchor_launches += not shared_taps
-    if plan.route == "general":
-        bwd_general_launches += 1
-    return dx, d_off, d_mask, dw
+    with span("crfp.kernel.D", {"x": x, "weight": weight,
+                                "anchored": anchor is not None}) as s:
+        g = _check(x, offset, mask, weight, None, shared_taps, shared_mask)
+        n, c, h, w = x.shape
+        o, _, kh, kw = weight.shape
+        shared = bool(shared_taps or shared_mask)
+        if grad_out.shape != (n, o, h, w) or grad_out.dtype != x.dtype \
+                or grad_out.device != x.device or not grad_out.is_contiguous():
+            raise ValueError(f"dcn_bwd: grad_out {tuple(grad_out.shape)} {grad_out.dtype} "
+                             f"must be a contiguous {(n, o, h, w)} {x.dtype} on {x.device}")
+        if (anchor is None) != (table is None):
+            raise ValueError("dcn_bwd: an anchored call takes the anchor geometry and the "
+                             "table of its forward, both")
+        if table is not None and (table.shape != (n, g, *anchor.cells(h, w), 2)
+                                  or table.dtype != torch.float32 or table.device != x.device
+                                  or not table.is_contiguous()):
+            raise ValueError(f"dcn_bwd: anchor table {tuple(table.shape)} {table.dtype} must be "
+                             f"a contiguous float32 {(n, g, *anchor.cells(h, w), 2)} on {x.device}")
+        # the anchored reach bounds every displacement and sizes the padding
+        d = max_displacement if anchor is None else anchor.reach
+        tap_anchor = anchor is not None and not shared_taps
+        if plan is None:
+            plan = _bwd_plan(n, c, h, w, o, g, border(d, anchor, shared_taps), bool(shared_taps),
+                             sm_count(x.device), None, None,
+                             width_route("dcn_bwd", c, o, g, kh, kw, shared=shared,
+                                         tap_anchor=tap_anchor), kh, kw, bool(shared_mask))
+        entry = check_route("dcn_bwd", plan.route, c, g, kh, kw, o, shared, tap_anchor=tap_anchor,
+                            pad=plan.pad, branch=plan.branch)
+        s.note(route=plan.route, branch=plan.branch)
+        dx = torch.empty_like(x)
+        d_off = torch.empty_like(offset)
+        d_mask = torch.empty_like(mask)
+        dw = torch.empty_like(weight)
+        # scratch: x packed as kernel A packs it, and the f32 packed dx
+        # accumulator followed by the blocks' dW partials
+        packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
+        acc = torch.empty(plan.acc_numel(n, c, h, w, o), dtype=torch.float32, device=x.device)
+        _build.launch("dcn_bwd", entry, _BWD_ARGTYPES, x.device,
+                      x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                      grad_out.data_ptr(), dx.data_ptr(), d_off.data_ptr(),
+                      d_mask.data_ptr(), dw.data_ptr(), packed.data_ptr(), acc.data_ptr(),
+                      n, c, h, w, o, g, kh, kw, _build.window(d),
+                      int(shared_taps), int(shared_mask), int(x.dtype == torch.bfloat16),
+                      None if table is None else table.data_ptr(), *kernel_args(anchor),
+                      *plan.args())
+        bwd_launches += 1
+        if anchor is not None:
+            bwd_anchor_launches += 1
+            bwd_tap_anchor_launches += not shared_taps
+        if plan.route == "general":
+            bwd_general_launches += 1
+        return dx, d_off, d_mask, dw
 
 
 

@@ -37,6 +37,7 @@ from crfp_torch.ops.cuda.dcn import (
     width_route,
 )
 from crfp_torch.ops.dcn_windowed import deform_conv2d_fusedprep_ref
+from crfp_torch.trace import span
 
 # launches of the CUDA kernel (not of the plain version); general_launches:
 # those of its general route, also in `launches`
@@ -132,27 +133,29 @@ def deform_conv2d_fusedprep(
             x, raw_offset, raw_mask, flow, weight, bias,
             max_residue_magnitude=max_residue_magnitude,
             max_displacement=max_displacement)
-    g = _check(*operands)
-    n, c, h, w = x.shape
-    o, _, kh, kw = weight.shape
-    bf16 = x.dtype == torch.bfloat16
-    if plan is None:
-        plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device), None,
-                     width_route("dcn_fused", c, o, g, kh, kw, bf16=bf16), kh * kw)
-    entry = check_route("dcn_fused", plan.route, c, g, kh, kw, o, False, bf16,
-                        branch=plan.branch)
-    out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
-    # the pre-pass's zero-padded, pixel-major copy of x
-    packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
-    _build.launch("dcn_fused", entry, _ARGTYPES, x.device,
-                  x.data_ptr(), raw_offset.data_ptr(), raw_mask.data_ptr(),
-                  flow.data_ptr(), weight.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  packed.data_ptr(),
-                  n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
-                  float(max_residue_magnitude), int(bf16), *plan.args())
     global launches, general_launches
-    launches += 1
-    if plan.route == "general":
-        general_launches += 1
+    with span("crfp.kernel.E", {"x": x, "weight": weight}) as s:
+        g = _check(*operands)
+        n, c, h, w = x.shape
+        o, _, kh, kw = weight.shape
+        bf16 = x.dtype == torch.bfloat16
+        if plan is None:
+            plan = _plan(n, c, h, w, o, g, max_displacement, bf16, False, sm_count(x.device),
+                         None, width_route("dcn_fused", c, o, g, kh, kw, bf16=bf16), kh * kw)
+        entry = check_route("dcn_fused", plan.route, c, g, kh, kw, o, False, bf16,
+                            branch=plan.branch)
+        s.note(route=plan.route, branch=plan.branch)
+        out = torch.empty((n, o, h, w), dtype=x.dtype, device=x.device)
+        # the pre-pass's zero-padded, pixel-major copy of x
+        packed = torch.empty(plan.packed_numel(n, c, h, w), dtype=x.dtype, device=x.device)
+        _build.launch("dcn_fused", entry, _ARGTYPES, x.device,
+                      x.data_ptr(), raw_offset.data_ptr(), raw_mask.data_ptr(),
+                      flow.data_ptr(), weight.data_ptr(),
+                      None if bias is None else bias.data_ptr(), out.data_ptr(),
+                      packed.data_ptr(),
+                      n, c, h, w, o, g, kh, kw, _build.window(max_displacement),
+                      float(max_residue_magnitude), int(bf16), *plan.args())
+        launches += 1
+        if plan.route == "general":
+            general_launches += 1
     return out

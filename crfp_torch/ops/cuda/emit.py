@@ -29,6 +29,7 @@ import torch
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.resize import resize_bilinear
 from crfp_torch.ops.shuffle import pixel_shuffle
+from crfp_torch.trace import span
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
@@ -134,15 +135,16 @@ def emit_frame(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
     raise."""
     if y.device.type == "cpu":
         return emit_frame_ref(y, lr, r)
-    _check(y, lr, r)
-    n, _, hs, ws = y.shape
-    c, h, w = lr.shape[1:]
-    big_h, big_w = hs * r, ws * r
-    out = torch.empty((n, big_h, big_w, c), dtype=y.dtype, device=y.device)
-    plan = emit_plan(n, c, big_h, big_w, r, y.dtype, y.data_ptr(), out.data_ptr(), w)
-    _build.launch("emit", "crfp_emit", _ARGTYPES, y.device,
-                  y.data_ptr(), lr.data_ptr(), out.data_ptr(), n, c, big_h, big_w,
-                  r, h, w, int(y.dtype is _BF16), int(plan.vector), plan.threads)
     global launches
-    launches += 1
+    with span("crfp.kernel.C", {"y": y, "lr": lr, "r": r}):
+        _check(y, lr, r)
+        n, _, hs, ws = y.shape
+        c, h, w = lr.shape[1:]
+        big_h, big_w = hs * r, ws * r
+        out = torch.empty((n, big_h, big_w, c), dtype=y.dtype, device=y.device)
+        plan = emit_plan(n, c, big_h, big_w, r, y.dtype, y.data_ptr(), out.data_ptr(), w)
+        _build.launch("emit", "crfp_emit", _ARGTYPES, y.device,
+                      y.data_ptr(), lr.data_ptr(), out.data_ptr(), n, c, big_h, big_w,
+                      r, h, w, int(y.dtype is _BF16), int(plan.vector), plan.threads)
+        launches += 1
     return out

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from crfp_torch.ops.cuda import _build
+from crfp_torch.trace import span
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
@@ -170,12 +171,13 @@ def ssim_map(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     version; CUDA tensors launch kernel F (float32, no gradient) or raise."""
     if x.device.type == "cpu":
         return ssim_map_ref(x, y)
-    _check(x, y)
-    n, c, h, w = x.shape
-    out = torch.empty((n, c, h, w), dtype=_F32, device=x.device)
-    _build.launch("ssim", "crfp_ssim", _ARGTYPES, x.device,
-                  x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, h, w,
-                  *x.stride(), *y.stride(), _TAPS_ADDRESS)
     global launches
-    launches += 1
+    with span("crfp.kernel.F", {"x": x, "y": y}):
+        _check(x, y)
+        n, c, h, w = x.shape
+        out = torch.empty((n, c, h, w), dtype=_F32, device=x.device)
+        _build.launch("ssim", "crfp_ssim", _ARGTYPES, x.device,
+                      x.data_ptr(), y.data_ptr(), out.data_ptr(), n, c, h, w,
+                      *x.stride(), *y.stride(), _TAPS_ADDRESS)
+        launches += 1
     return out

@@ -71,6 +71,7 @@ from torch.overrides import handle_torch_function, has_torch_function
 from crfp_torch.ops.anchor import AnchorGeometry, kernel_args
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.warp import flow_warp_windowed_ref
+from crfp_torch.trace import span
 
 # launches of the CUDA kernels (not of the plain version): B forward, D
 # backward; anchor_launches and bwd_anchor_launches: B's and D's anchored
@@ -124,20 +125,22 @@ def _forward(x: torch.Tensor, flow: torch.Tensor, max_displacement: int | None,
              anchor: AnchorGeometry | None = None):
     """Kernel B on checked operands: (output, the anchor table its pre-pass
     wrote, or None unanchored)."""
-    n, c, h, w = _check(x, flow)
-    out = torch.empty_like(x)
-    # an anchored call's table, written by its own pre-pass
-    table = None if anchor is None else torch.empty(
-        (n, 1, *anchor.cells(h, w), 2), dtype=_F32, device=x.device)
-    _build.launch("flow_warp", "crfp_flow_warp", _ARGTYPES, x.device,
-                  x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
-                  _build.window(max_displacement), int(x.dtype is _BF16),
-                  None if table is None else table.data_ptr(),
-                  *kernel_args(anchor))
     global launches, anchor_launches
-    launches += 1
-    if anchor is not None:
-        anchor_launches += 1
+    with span("crfp.kernel.B", {"x": x, "window": max_displacement,
+                                "anchored": anchor is not None}):
+        n, c, h, w = _check(x, flow)
+        out = torch.empty_like(x)
+        # an anchored call's table, written by its own pre-pass
+        table = None if anchor is None else torch.empty(
+            (n, 1, *anchor.cells(h, w), 2), dtype=_F32, device=x.device)
+        _build.launch("flow_warp", "crfp_flow_warp", _ARGTYPES, x.device,
+                      x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
+                      _build.window(max_displacement), int(x.dtype is _BF16),
+                      None if table is None else table.data_ptr(),
+                      *kernel_args(anchor))
+        launches += 1
+        if anchor is not None:
+            anchor_launches += 1
     return out, table
 
 
@@ -149,23 +152,25 @@ def _backward(x: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor,
     scatter adds up to four corner terms per source pixel, and a bf16 sum
     would round each): for float32 x the accumulator is the result, for
     bfloat16 x the C entry casts it into ``dx`` after the scatter."""
-    n, c, h, w = x.shape
-    # acc may be freed on return: PyTorch's allocator reuses a block only
-    # after the work queued on this stream before the free
-    if x.dtype is _F32:
-        acc = dx = torch.empty_like(x)
-    else:
-        acc, dx = torch.empty_like(x, dtype=_F32), torch.empty_like(x)
-    d_flow = torch.empty_like(flow)
-    _build.launch("flow_warp_bwd", "crfp_flow_warp_bwd", _BWD_ARGTYPES, x.device,
-                  x.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
-                  dx.data_ptr(), d_flow.data_ptr(), n, c, h, w,
-                  _build.window(max_displacement), int(x.dtype is _BF16),
-                  None if table is None else table.data_ptr(), *kernel_args(anchor))
     global bwd_launches, bwd_anchor_launches
-    bwd_launches += 1
-    if anchor is not None:
-        bwd_anchor_launches += 1
+    with span("crfp.kernel.D_warp", {"x": x, "window": max_displacement,
+                                     "anchored": anchor is not None}):
+        n, c, h, w = x.shape
+        # acc may be freed on return: PyTorch's allocator reuses a block only
+        # after the work queued on this stream before the free
+        if x.dtype is _F32:
+            acc = dx = torch.empty_like(x)
+        else:
+            acc, dx = torch.empty_like(x, dtype=_F32), torch.empty_like(x)
+        d_flow = torch.empty_like(flow)
+        _build.launch("flow_warp_bwd", "crfp_flow_warp_bwd", _BWD_ARGTYPES, x.device,
+                      x.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
+                      dx.data_ptr(), d_flow.data_ptr(), n, c, h, w,
+                      _build.window(max_displacement), int(x.dtype is _BF16),
+                      None if table is None else table.data_ptr(), *kernel_args(anchor))
+        bwd_launches += 1
+        if anchor is not None:
+            bwd_anchor_launches += 1
     return dx, d_flow
 
 

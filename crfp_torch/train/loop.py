@@ -33,6 +33,14 @@ no ``DistributedDataParallel``: the amp path calls the model through
 The loss is the all-reduced mean, and PSNR/SSIM are reduced as ratios of
 global sums (``crfp_torch/ops/metrics.py``), so every rank reports the
 global batch's numbers.
+
+Spans (``crfp_torch.trace``, on only under a profiler session that records
+CPU activity): ``crfp.train.step`` is the unit span; inside it
+``crfp.train.optimizer`` (the schedules and ``zero_grad``; later the
+flow-freeze drop and ``opt.step()``), ``crfp.train.forward`` (the model and
+the loss), ``crfp.train.backward`` (``loss.backward()``, remat's recompute
+included), ``crfp.train.allreduce`` (more than one rank) and
+``crfp.train.metrics`` (the four PSNR/SSIM passes).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from crfp_torch.ops.color import bgr2ycbcr_y
 from crfp_torch.ops.metrics import masked_psnr, masked_ssim
 from crfp_torch.parallel.sharding import group_of
+from crfp_torch.trace import span
 from crfp_torch.train.schedule import cosine_restart_schedule
 
 
@@ -102,9 +111,11 @@ class _LossBackward(nn.Module):
         self.rec_w = rec_w
 
     def forward(self, lr, fv, mk, hr):
-        sr = self.model(lr, fv, mk).float()
-        loss = self.rec_w * charbonnier_loss(sr, hr)
-        loss.backward()
+        with span("crfp.train.forward"):
+            sr = self.model(lr, fv, mk).float()
+            loss = self.rec_w * charbonnier_loss(sr, hr)
+        with span("crfp.train.backward"):
+            loss.backward()
         return sr.detach(), loss.detach()
 
 
@@ -181,30 +192,34 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, group=None
         return torch.func.functional_call(loss_backward, params, args)
 
     def train_step(opt: torch.optim.Adam, batch: dict, step: int) -> dict[str, torch.Tensor]:
-        b = _device_batch(batch, device)
-        frozen = step < cfg.flow_freeze_iters
-        opt.param_groups[0]["lr"] = sched_trunk(step)
-        opt.param_groups[1]["lr"] = sched_flow(max(step - cfg.flow_freeze_iters, 0))
-        opt.zero_grad(set_to_none=True)
-        sr, loss = forward_backward(b)
-        if group is not None:
-            all_reduce_gradients(all_params, group)
-            dist.all_reduce(loss, group=group)
-            loss = loss / dist.get_world_size(group)
-        if frozen:
-            for p in flow_params:
-                p.grad = None
-        opt.step()
+        with span("crfp.train.step", unit=True):
+            b = _device_batch(batch, device)
+            frozen = step < cfg.flow_freeze_iters
+            with span("crfp.train.optimizer"):
+                opt.param_groups[0]["lr"] = sched_trunk(step)
+                opt.param_groups[1]["lr"] = sched_flow(max(step - cfg.flow_freeze_iters, 0))
+                opt.zero_grad(set_to_none=True)
+            sr, loss = forward_backward(b)
+            if group is not None:
+                with span("crfp.train.allreduce"):
+                    all_reduce_gradients(all_params, group)
+                    dist.all_reduce(loss, group=group)
+                    loss = loss / dist.get_world_size(group)
+            with span("crfp.train.optimizer"):
+                if frozen:
+                    for p in flow_params:
+                        p.grad = None
+                opt.step()
 
-        with torch.no_grad():
-            sr_f = sr.reshape(-1, *sr.shape[2:])
-            hr_f = b["hr"].reshape(-1, *sr.shape[2:])
-            ones = torch.ones_like(sr_f[..., :1])
-            sy, hy = bgr2ycbcr_y(sr_f) / 255.0, bgr2ycbcr_y(hr_f) / 255.0
-            return {"loss": loss,
-                    "psnr": masked_psnr(sr_f, hr_f, ones, group),
-                    "ssim": masked_ssim(sr_f, hr_f, ones, group),
-                    "psnr_y": masked_psnr(sy, hy, ones, group),
-                    "ssim_y": masked_ssim(sy, hy, ones, group)}
+            with span("crfp.train.metrics"), torch.no_grad():
+                sr_f = sr.reshape(-1, *sr.shape[2:])
+                hr_f = b["hr"].reshape(-1, *sr.shape[2:])
+                ones = torch.ones_like(sr_f[..., :1])
+                sy, hy = bgr2ycbcr_y(sr_f) / 255.0, bgr2ycbcr_y(hr_f) / 255.0
+                return {"loss": loss,
+                        "psnr": masked_psnr(sr_f, hr_f, ones, group),
+                        "ssim": masked_ssim(sr_f, hr_f, ones, group),
+                        "psnr_y": masked_psnr(sy, hy, ones, group),
+                        "ssim_y": masked_ssim(sy, hy, ones, group)}
 
     return train_step

@@ -56,10 +56,12 @@ def test_port_imports_no_jax():
                 # the tools and benches
                 "tools/convert_torch.py", "tools/test_runtime.py", "tools/bench.py",
                 "tools/video.py", "bench/__init__.py", "bench/runtime.py",
-                "bench/profile.py", "bench/capability.py", "bench/quality_window.py",
+                "bench/capability.py", "bench/quality_window.py",
                 "bench/quality_trained.py", "bench/trace_table.py",
                 # anchored windows and the VMAF harness
-                "ops/anchor.py", "eval/vmaf.py"):
+                "ops/anchor.py", "eval/vmaf.py",
+                # the spans
+                "trace.py"):
         assert _ROOT / "crfp_torch" / rel in files, rel
     bad = {str(f.relative_to(_ROOT)): sorted(_imported_roots(f) & set(_FORBIDDEN))
            for f in files}
