@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (crfp_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only    # phases 1, 2 and 5 alone
+    python3 chip_smoke.py --kernels-only    # phases 1, 2, 2b and 5 alone
     python3 chip_smoke.py --parallel-only   # phases 1 and 10 alone
     python3 chip_smoke.py --tools-only      # phases 1 and 11 alone
     python3 chip_smoke.py --models-bf16-only  # phase 1 and phase 3d's bf16 pyramids and PCD
@@ -71,11 +71,16 @@ Phases, in order; any failure exits non-zero without the final line:
    offset view the pixel route with the row route's bits; two runs and a
    CUDA-graph replay bit-equal; its records carry the route and
    ``bound_fraction``;
+   2b. kernels G and H and C's conv route (the runtime models'
+   full-resolution chains) at 4 viewers, 1080p, mid 32, warp = the frame
+   and 720^2, and at 1 viewer, warp 720^2 (phase_hr_conv_kernels:
+   tolerances, times and bounds there);
 3. drive the slice through its entry points (encode, step0, step) over 5
    frames at 1080p / warp 720^2 / mid 32 with checkpoints/v18_mid32_struct.npz,
    once through the kernels and once through the plain versions, both in
    f32; every frame must agree to >= 80 dB PSNR and max|d| <= 1e-3, and
-   the launch counters must show A 4, B 2, C 1 per steady-state frame;
+   the launch counters must show A 4, B 2, G 1, H 1 per steady-state frame
+   and C 1 a frame, by its conv route;
    3b. the same at mid 16 with checkpoints/v18_mid16_procedural.npz (A at
    O = 16 and O = 2), then 4 frames of a 720p gate clip of that checkpoint
    through StreamingRunner, EXACT and DEPLOY with dcn_fused (E at O = 16),
@@ -357,6 +362,7 @@ Imports nothing of JAX or of crfp_tpu.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -509,10 +515,18 @@ def bound(inputs, outputs, flops: float, dtype: str) -> tuple[float, str, float,
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(hr_chains: bool = True):
     """Route the models', the metric's and the zone evaluator's kernel call sites to the plain
     versions (they call the dispatchers by these module-level names); on
-    the plain versions autograd of plain PyTorch applies."""
+    the plain versions autograd of plain PyTorch applies. ``hr_chains``
+    False keeps the runtime models' full-resolution chains (G, H and C's
+    conv route) on their kernels: for the bf16 comparisons of A, B and E
+    through the runtime models, whose limits hold the kernels under test to
+    the plain versions where the rest of the frame is computed alike on both
+    sides. G, H and C's conv route replace cuDNN's bf16 convolutions, whose
+    sums round in another order (a bf16 step at some pixels, 67 dB on the
+    anchored slice's cold frame); phase 2b holds them to the exact answer,
+    phases 3 and 3d in f32 at the runtime level."""
     import crfp_torch.eval.flow_warp_eval as fw
     import crfp_torch.eval.zones as zn
     import crfp_torch.models.crfp as cr
@@ -520,7 +534,8 @@ def plain_kernels():
     import crfp_torch.models.runtime as rt
     import crfp_torch.nn.align as al
     import crfp_torch.ops.metrics as mt
-    from crfp_torch.ops.cuda.emit import emit_frame_ref
+    from crfp_torch.ops.cuda.emit import emit_frame_conv_ref, emit_frame_ref
+    from crfp_torch.ops.cuda.hr_conv import hr_conv_head_ref, hr_conv_tail_ref
     from crfp_torch.ops.cuda.ssim import ssim_map_ref
     from crfp_torch.ops.dcn_windowed import (
         deform_conv2d_fusedprep_ref,
@@ -539,6 +554,10 @@ def plain_kernels():
              (fw, "flow_warp_windowed", flow_warp_windowed_ref),
              (mt, "ssim_map", ssim_map_ref),
              (zn, "ssim_map", ssim_map_ref)]
+    if hr_chains:
+        sites += [(rt, "emit_frame_conv", emit_frame_conv_ref),
+                  (rt, "hr_conv_head", hr_conv_head_ref),
+                  (rt, "hr_conv_tail", hr_conv_tail_ref)]
     saved = [getattr(m, name) for m, name, _ in sites]
     for m, name, plain in sites:
         setattr(m, name, plain)
@@ -859,13 +878,16 @@ def phase_kernels(gen):
                bound([xb, flow], [gotb], 8 * h * w * c, "bfloat16"),
                copy_device_ms=copy_ms, digest=digest(got, gotb))
 
-    # ---- C: r=1 (main path) and r=4 (the s2d frame); the pixel route at a
-    # width that is not a multiple of 8 and on y read through a view offset
-    # by one element (misaligned), which must give the row route's bits.
-    # The last two draw from a generator of their own, so that every later
-    # mode gets the operands it got before they were added -----------------
+    # ---- C: r=1 and r=4 (the s2d frame); the pixel route at a width that is
+    # not a multiple of 8 and on y read through a view offset by one element
+    # (misaligned), which must give the row route's bits. The last two draw
+    # from a generator of their own, so that every later mode gets the
+    # operands it got before they were added. No mode is on the serving
+    # slice's path, whose frame takes C's conv route (phase 2b); ``main``:
+    # the 1080p frame of the runtime models' plain finish (grad on, or
+    # last_channels outside the conv route's) ----------------------------
     own = torch.Generator().manual_seed(7)
-    for mode, (r, hw, lr_hw, offset, calls, g_) in {
+    for mode, (r, hw, lr_hw, offset, main, g_) in {
         f"r=1 (1,3,{HR_HW[0]},{HR_HW[1]})": (1, HR_HW, LR_HW, False, 1, gen),
         f"r=4 (1,48,{HR_HW[0] // 4},{HR_HW[1] // 4})": (4, HR_HW, LR_HW, False, 0, gen),
         "r=1 W%8=6 (1,3,270,486)": (1, (270, 486), (34, 61), False, 0, own),
@@ -891,9 +913,9 @@ def phase_kernels(gen):
         rel = check_bf16("kernel C", mode, gotb, ref)
         plans = [emit.emit_plan(1, 3, *hw, r, t.dtype, t.data_ptr(), o.data_ptr(), lr_hw[1])
                  for t, o in ((y, got), (yb, gotb))]
-        # the main path's frame takes the row route in both types
-        if calls and not all(p.vector for p in plans):
-            fail(f"kernel C {mode}: the main path's frame takes the pixel route {plans}")
+        # the runtime models' 1080p frame takes the row route in both types
+        if main and not all(p.vector for p in plans):
+            fail(f"kernel C {mode}: the 1080p frame takes the pixel route {plans}")
         if offset and (any(p.vector for p in plans)
                        or not (torch.equal(got, aligned[0]) and torch.equal(gotb, aligned[1]))):
             fail(f"kernel C {mode}: the pixel route {plans} differs from the row route")
@@ -903,9 +925,149 @@ def phase_kernels(gen):
         k_ms = measure(lambda: emit.emit_frame(yb, lrb, r))
         p_ms = measure(lambda: emit.emit_frame_ref(yb, lrb, r), iters=5)
         bnd = bound([yb, lrb], [gotb], 10 * hw[0] * hw[1] * 3, "bfloat16")
-        record("emit", mode, calls, err, rel, k_ms, p_ms, None, bnd,
+        record("emit", mode, 0, err, rel, k_ms, p_ms, None, bnd,
                bound_fraction=bnd[0] / k_ms[1],
                route="row" if plans[1].vector else "pixel", digest=digest(got, gotb))
+    return modes
+
+
+def phase_hr_conv_kernels():
+    """Phase 2b: kernels G and H and kernel C's conv route (the runtime
+    models' full-resolution chains) against their plain versions on 4
+    viewers at 1080p, mid 32 (L 4), warp = the frame (the stream cells'
+    step, ``calls_stream``) and 720^2, and on 1 viewer at 720^2 (the serving
+    slice's frame, phase 3: ``calls``). f32 operands to 2e-5 of max|ref| (TF32
+    off: only the order of f32 sums differs). bf16: the chains round their
+    stored intermediates to bf16 where the module path does, and a sum taken
+    in another order can land a bf16 step away at each, so the kernel's gap
+    to the plain version in f32 on the same bf16 operands and weights must be
+    at most twice the bf16 module chain's gap to it plus 2^-8 of max|ref|;
+    C's state bit-equal. G's offset is held as its residual, offset - flow
+    (the flow passes through exactly and would set max|ref|), apart from the
+    mask. Two runs and a CUDA-graph replay bit-equal. Timed in bf16 beside
+    the plain version on f32 operands and, as the library, the module chain
+    on the bf16 operands (cuDNN and PyTorch's passes; for C, kernel C's row
+    route after cuDNN's ``conv_last``), with the f32 kernel's device time
+    beside them. Bounds: bytes at 3.35 TB/s against the FMAs at the bf16
+    peak (bytes set it); ``fma_f32_ms``: the FMAs at the f32 CUDA-core rate
+    the kernels issue them at, their own design's limit, not the card's.
+    Returns the records."""
+    import torch
+
+    from crfp_torch.models.config import ModelConfig
+    from crfp_torch.models.runtime import CRFPRuntimeV18
+    from crfp_torch.ops.cuda import emit, hr_conv
+
+    modes = []
+    record = functools.partial(_record, modes)
+    gen = torch.Generator().manual_seed(22)
+    (H, W), last = HR_HW, MID // 8
+
+    def rel(got, ref):
+        return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+    # (viewers, warp, calls per serving-slice frame, calls per stream-cell step)
+    for n, warp, calls, calls_stream in ((4, (H, W), 0, 1), (4, WARP, 0, 0), (1, WARP, 1, 0)):
+        model = CRFPRuntimeV18(ModelConfig(mid_channels=MID, dcn_window=8, dcn_window_hr=32),
+                               warp_size=warp, device="cpu")
+        with torch.no_grad():  # heads off their zero init, so the offsets move
+            for conv in (model.dcn_3.dcn_offset.conv, model.dcn_3.dcn_mask.conv):
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.3)
+                conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen) * 0.3)
+        # f32; bf16; the bf16 weights in f32 (the bf16 operands' exact answer)
+        models = {"f32": model.cuda().eval()}
+        models["bf16"] = copy.deepcopy(models["f32"]).to(torch.bfloat16)
+        models["exact"] = copy.deepcopy(models["bf16"]).float()
+        wph, wpw = warp
+        ops = {"f32": {"u": torch.randn(n, 16 * last, H // 4, W // 4, generator=gen),
+                       "hw": torch.randn(n, last, wph, wpw, generator=gen) * 0.5,
+                       "flow": torch.randn(n, 2, wph, wpw, generator=gen) * 3,
+                       "p": torch.randn(n, 16 * last, wph // 4, wpw // 4, generator=gen) * 0.3,
+                       "aligned": torch.randn(n, last, wph, wpw, generator=gen) * 0.5,
+                       "lv3": torch.randn(n, last, H, W, generator=gen),
+                       "lr": torch.rand(n, 3, *LR_HW, generator=gen)}}
+        ops["f32"] = {k: v.cuda() for k, v in ops["f32"].items()}
+        ops["bf16"] = {k: v if k == "flow" else v.to(torch.bfloat16)
+                       for k, v in ops["f32"].items()}
+        ops["exact"] = {k: v.float() for k, v in ops["bf16"].items()}
+        tag = f"({n},{last},{H},{W}) warp {wph}x{wpw}"
+
+        def calls_of(kind):
+            m, o = models[kind], ops[kind]
+            return {
+                "hr_conv_head": (
+                    lambda: hr_conv.hr_conv_head(m.dcn_3, o["u"], o["hw"], o["flow"], o["p"], warp),
+                    lambda: hr_conv.hr_conv_head_ref(m.dcn_3, o["u"], o["hw"], o["flow"], o["p"],
+                                                     warp),
+                    [o["u"], o["hw"], o["flow"], o["p"]], 9 * last * (5 * last + 5) * wph * wpw * n,
+                    "dcn_3's 5 head convs + shuffle, lrelus, cats, tanh, sigmoid"),
+                "hr_conv_tail": (
+                    lambda: hr_conv.hr_conv_tail(m.forward_resblocks_3, o["u"], o["aligned"], None,
+                                                 warp),
+                    lambda: hr_conv.hr_conv_tail_ref(m.forward_resblocks_3, o["u"], o["aligned"],
+                                                     None, warp),
+                    [o["u"], o["aligned"]], 9 * last * 4 * last * H * W * n,
+                    "forward_resblocks_3's 4 convs + shuffle, lrelu, cat, relu, add"),
+                "emit_conv": (
+                    lambda: emit.emit_frame_conv(o["lv3"], m.conv_last, o["lr"], warp),
+                    lambda: emit.emit_frame_conv_ref(o["lv3"], m.conv_last, o["lr"], warp),
+                    [o["lv3"], o["lr"]], 9 * last * 3 * H * W * n,
+                    "lrelu + conv_last + kernel C's row route",
+                    lambda: emit.emit_frame_conv_ref(o["lv3"], m.conv_last, o["lr"], warp,
+                                                     emit=emit.emit_frame)),
+            }
+
+        def residual(kernel, outs, kind):
+            # G's offset less the flow it adds (y, x order), beside the mask
+            if kernel != "hr_conv_head":
+                return outs
+            return (outs[0] - ops[kind]["flow"].flip(1).float(), *outs[1:])
+
+        def tup(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        with torch.inference_mode():
+            cf, cb, ce = calls_of("f32"), calls_of("bf16"), calls_of("exact")
+            for kernel in cf:
+                k32, p32 = cf[kernel][:2]
+                k16, p16, ins, fmas, lib_what, *lib = cb[kernel]
+                lib16 = lib[0] if lib else p16
+                got, want = (residual(kernel, tup(f()), "f32") for f in (k32, p32))
+                gotb, wantb = (residual(kernel, tup(f()), "bf16") for f in (k16, p16))
+                best = residual(kernel, tup(ce[kernel][1]()), "exact")
+                torch.cuda.synchronize()
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                for a, b in zip(got, want):
+                    if not rel(a, b) <= 2e-5:
+                        fail(f"{kernel} {tag}: f32 max|d| {rel(a, b)} of max|ref| > 2e-5")
+                pairs = list(zip(gotb, wantb, best))
+                if kernel == "emit_conv":
+                    if not torch.equal(gotb[0], wantb[0]):
+                        fail(f"{kernel} {tag}: the bf16 state differs from the plain version's")
+                    pairs = pairs[1:]
+                for a, b, e in pairs:
+                    if not rel(a, e) <= 2 * rel(b, e) + 2 ** -8:
+                        fail(f"{kernel} {tag}: bf16 gap {rel(a, e)} to the exact answer over "
+                             f"twice the module chain's {rel(b, e)} + 2^-8")
+                krel = max(rel(a, e) for a, _, e in pairs)
+                mrel = max(rel(b, e) for _, b, e in pairs)
+                first = tup(k16())
+                again = tup(k16())
+                replay = captured(lambda: tup(k16())[0])
+                if not (all(torch.equal(a, b) for a, b in zip(again, first))
+                        and torch.equal(replay, first[0])):
+                    fail(f"{kernel} {tag}: two runs and a CUDA-graph replay are not bit-equal")
+                k_ms = measure(k16)
+                p_ms = measure(p32, iters=5)
+                lib_ms = measure(lib16, iters=5)
+                f32_dev = device_time_ms(k32)
+                bnd = bound(ins, gotb, 2 * fmas, "bfloat16")
+                fma_ms = 2 * fmas / PEAK_FLOPS["float32"] * 1e3
+                record(kernel, tag, calls, err, krel, k_ms, p_ms, lib_ms, bnd,
+                       calls_stream=calls_stream, module_bf16_rel=mrel, f32_device_ms=f32_dev,
+                       bound_fraction=bnd[0] / k_ms[1], fma_f32_ms=fma_ms,
+                       fma_fraction=fma_ms / k_ms[1], library=lib_what,
+                       digest=digest(*first))
     return modes
 
 
@@ -998,9 +1160,10 @@ def _wide_modes(gen, check, check_bf16):
 
 
 def _zero_counts() -> None:
-    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, ssim, warp
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, hr_conv, ssim, warp
 
     dcn.launches = warp.launches = emit.launches = dcn_fused.launches = 0
+    hr_conv.head_launches = hr_conv.tail_launches = emit.conv_launches = 0
     dcn.bwd_launches = warp.bwd_launches = ssim.launches = 0
     dcn.anchor_launches = warp.anchor_launches = 0
     dcn.bwd_anchor_launches = warp.bwd_anchor_launches = 0
@@ -1015,6 +1178,22 @@ def _counts() -> dict:
             "emit": emit.launches, "dcn_bwd": dcn.bwd_launches,
             "flow_warp_bwd": warp.bwd_launches, "dcn_fused": dcn_fused.launches,
             "ssim": ssim.launches}
+
+
+def _hr_counts() -> dict:
+    """The launches of G, H and C's conv route (a part of :func:`_counts`'s
+    ``emit``): the runtime models' full-resolution chains."""
+    from crfp_torch.ops.cuda import emit, hr_conv
+
+    return {"hr_conv_head": hr_conv.head_launches, "hr_conv_tail": hr_conv.tail_launches,
+            "emit_conv": emit.conv_launches}
+
+
+def _hr_expect(steady: int, frames: int) -> dict:
+    """:func:`_hr_counts` of a runtime model's ``frames`` frames outside
+    autograd, ``steady`` of them steady steps: G and H a steady step, C's
+    conv route every frame."""
+    return {"hr_conv_head": steady, "hr_conv_tail": steady, "emit_conv": frames}
 
 
 def _anchor_counts() -> dict:
@@ -1119,8 +1298,9 @@ def phase_slice(mid=MID, ckpt=CKPT):
     t0 = time.perf_counter()
     got = run()
     wall = time.perf_counter() - t0
-    launches = _counts()
-    expect = _expect(dcn_fwd=4 * (t - 1), flow_warp=2 * (t - 1), emit=t)
+    launches = {**_counts(), **_hr_counts()}
+    expect = {**_expect(dcn_fwd=4 * (t - 1), flow_warp=2 * (t - 1), emit=t),
+              **_hr_expect(t - 1, t)}
     print(f"[slice] {t} frames 1080p warp {WARP} mid {mid} ({Path(ckpt).name}) f32 via "
           f"kernels in {wall:.3f} s (first run, host clock); launches {launches}")
     if launches != expect:
@@ -1546,6 +1726,10 @@ def phase_models():
                          lambda: _runtime_frames(model, lrs, clip_fv, MODEL_FRAMES),
                          _expect(dcn_fwd=4 * steady, flow_warp=b_per * steady,
                                  emit=MODEL_FRAMES), total, (1, *HR_HW, 3))
+        # the plain run launches none of G, H and C's conv route
+        if _hr_counts() != _hr_expect(steady, MODEL_FRAMES):
+            fail(f"models runtime {kind}: G, H and C's conv route launched {_hr_counts()} "
+                 f"!= expected {_hr_expect(steady, MODEL_FRAMES)}")
     lap("runtime variants")
 
     # the v18 trunk with flow_net="spynet": streamed, then trained
@@ -1795,13 +1979,14 @@ def phase_bench():
         res = run_runtime_bench(preset="1080p", warp_size=WARP, bf16=True, t=t,
                                 repeat_time=repeat_time, warm_up=warm_up,
                                 dcn_fused=fused)
-        launches = _counts()
+        launches = {**_counts(), **_hr_counts()}
         tag = "dcn_fused" if fused else "structured"
         print(f"[bench] {tag}: {res}")
         print(f"[bench] {tag}: launches over {frames} frames ({steady} steady): {launches}")
-        expect = (_expect(dcn_fused=3 * steady, dcn_fwd=steady, flow_warp=2 * steady,
-                          emit=frames) if fused else
-                  _expect(dcn_fwd=4 * steady, flow_warp=2 * steady, emit=frames))
+        expect = {**(_expect(dcn_fused=3 * steady, dcn_fwd=steady, flow_warp=2 * steady,
+                             emit=frames) if fused else
+                     _expect(dcn_fwd=4 * steady, flow_warp=2 * steady, emit=frames)),
+                  **_hr_expect(steady, frames)}
         if launches != expect:
             fail(f"serving bench ({tag}) launch counts {launches} != expected {expect}")
         results[tag].append(res.sec_per_frame * 1e3)
@@ -3473,7 +3658,7 @@ def phase_anchor(gen) -> tuple[list, dict]:
                             (torch.bfloat16, ANCHOR_BF16_DB, ANCHOR_BF16_DMAX)):
         name = "f32" if dtype == torch.float32 else "bf16"
         model = build(True, dtype)
-        with plain_kernels():
+        with plain_kernels(hr_chains=dtype == torch.float32):
             want = run(model, dtype)
         dcn.anchor_launches = warp.anchor_launches = 0
         _zero_counts()
@@ -4421,8 +4606,8 @@ def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
         torch.cuda.synchronize()
         return outs
 
-    def held(tag, run, expect, expect_general, limits, shape):
-        with plain_kernels():
+    def held(tag, run, expect, expect_general, limits, shape, hr_chains=True):
+        with plain_kernels(hr_chains):
             want = run()
         _zero_counts()
         got = run()
@@ -4457,7 +4642,8 @@ def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
             run = functools.partial(serve, model, lrs, fvs, dtype)
             got, _, want = held(f"serving mid {mid} {'bf16' if bf16 else 'f32'}", run,
                                 serve_expect, {"dcn_fwd": a_gen * steady, "dcn_bwd": 0,
-                                               "dcn_fused": 0}, limits, (1, *HR_HW, 3))
+                                               "dcn_fused": 0}, limits, (1, *HR_HW, 3),
+                                hr_chains=not bf16)
             if mid == 24 and bf16:
                 general["serving mid 24 bf16"] = got
                 with planted_fault():
@@ -4469,7 +4655,7 @@ def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
     # forced on the same weights, each against the plain versions
     model = _width_runtime(32, torch.bfloat16)
     run32 = functools.partial(serve, model, lrs, fvs, torch.bfloat16)
-    with plain_kernels():
+    with plain_kernels(hr_chains=False):
         want = run32()
     tuned = run32()
     _zero_counts()
@@ -4524,7 +4710,7 @@ def phase_widths(gen, data: str, tmp: Path) -> tuple[list, dict]:
         limits = (WIDTHS_BF16_DB, WIDTHS_BF16_DMAX) if bf16 else (80.0, 1e-3)
         _, got, _ = held(tag, functools.partial(serve, model, alrs, afvs, dtype), serve_expect,
                          {"dcn_fwd": 4 * steady, "dcn_bwd": 0, "dcn_fused": 0}, limits,
-                         (1, *HR_HW, 3))
+                         (1, *HR_HW, 3), hr_chains=not bf16)
         anchored = _anchor_counts()
         if anchored["dcn_fwd"] != steady or anchored["flow_warp"] != steady:
             fail(f"[widths] {tag}: anchored launches {anchored}")
@@ -5052,7 +5238,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 2 and 5 only (build, kernels against their plain "
+                    help="phases 1, 2, 2b and 5 only (build, kernels against their plain "
                          "versions, device and call times), then a {\"modes\": [...]} "
                          "line; prints no final ok line")
     ap.add_argument("--parallel-only", action="store_true",
@@ -5161,6 +5347,7 @@ def main(argv=None) -> int:
         return 0
     gen = torch.Generator().manual_seed(0)
     modes = timed("2 kernels", phase_kernels, gen)
+    modes += timed("2b full-resolution chains", phase_hr_conv_kernels)
     if args.kernels_only:
         modes += phase_kernels_train(gen)
         print(f"[done] kernel phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -5219,7 +5406,10 @@ def main(argv=None) -> int:
     }
     path_launches = {serve: serve_launches, train: train_launches, gate: gate_launches}
     for name, (src, replaces, tpu, per) in meta.items():
-        ms = [m for m in modes if m["kernel"] == name]
+        # kernel C's entry holds both its routes: the serving slice's frame
+        # takes the conv route (phase 2b), the row route's modes are off it
+        kinds = ("emit", "emit_conv") if name == "emit" else (name,)
+        ms = [m for m in modes if m["kernel"] in kinds]
         on_path = [m for m in ms if m["calls"] > 0]
 
         def per_unit(key):
@@ -5251,6 +5441,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_counterpart": tpu,
+            "routes_on_path": sorted({m["kernel"] for m in on_path}),
             # launches on this kernel's own main path: the 5-frame serving
             # slice (phase 3), the 13 amp steps of the train bench (phase 7)
             # or the gate's run (phase 8)
@@ -5298,6 +5489,37 @@ def main(argv=None) -> int:
             **extra,
             "per_unit_of": per,
             "modes": ms,
+        })
+    # G, H and C's conv route (phase 2b), entries of their own: no TPU kernel
+    # (the JAX package leaves these convolutions to XLA); per steady frame of
+    # the serving slice, whose launches phase 3 counted, and per step of the
+    # stream cells (4 viewers, 1080p, warp = the frame)
+    for name, src, what in (
+            ("hr_conv_head", "crfp_torch/csrc/hr_conv.cu (hr_conv_head_kernel) + common.cuh",
+             "dcn_3's offset and mask head"),
+            ("hr_conv_tail", "crfp_torch/csrc/hr_conv.cu (hr_conv_tail_kernel) + common.cuh",
+             "forward_resblocks_3"),
+            ("emit_conv", "crfp_torch/csrc/emit.cu (emit_kernel_conv) + common.cuh",
+             "the finish's leaky_relu and conv_last, before kernel C's emission")):
+        ms = [m for m in modes if m["kernel"] == name]
+
+        def per_unit(key, calls, ms=ms):
+            return sum(m[key] * m[calls] for m in ms if m[calls] > 0)
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": None,
+            "tpu_counterpart": f"none: {what}, which the JAX package leaves to XLA",
+            "launches": serve_launches[name],
+            "max_abs_err": max(m["max_abs_err"] for m in ms),
+            **{key: per_unit(key, "calls")
+               for key in ("ms", "call_ms", "device_ms", "plain_ms", "plain_device_ms",
+                           "bound_ms", "fma_f32_ms", "library_ms", "library_call_ms",
+                           "library_device_ms", "f32_device_ms")},
+            "bound_by": "bytes" if all(m["bound_by"] == "bytes" for m in ms) else "operations",
+            **{f"stream_step_{key}": per_unit(key, "calls_stream")
+               for key in ("device_ms", "bound_ms", "fma_f32_ms", "library_device_ms",
+                           "f32_device_ms")},
+            "per_unit_of": serve, "modes": ms,
         })
     # kernel D's anchored modes (phase 14), entries of their own: the TPU's
     # anchored call site :581; per anchored amp step of phase 14(b)

@@ -2115,6 +2115,182 @@ inline decltype(K<kGenChunked, 16>::get()) gen_kernel(int branch, int cpg) {
   return nullptr;
 }
 
+// ---------------------------------------------------------------------------
+// Few-channel 3x3 convolutions of a tile held in shared memory: kernels G and
+// H (hr_conv.cu) and kernel C's conv route (emit.cu), the serving step's
+// full-resolution chains of 1-18 channels. A block stages a tile of its
+// inputs with the chain's halo (one pixel a convolution) in shared memory as
+// f32, then runs each convolution of the chain over the tile as wide as the
+// later ones need, into shared memory again; only the chain's last output
+// goes to device memory. A stage's thread takes an item of kHcRows
+// vertically adjacent output pixels of one column and every output channel:
+// neighbouring threads take neighbouring columns (conflict-free loads), a
+// loaded input column of kHcRows + 2 values serves all three vertical taps
+// of the item's pixels, and the weights, staged once a block as
+// [ci][tap][co] f32, are broadcast loads of up to four output channels at
+// once. Sums are f32 (fmaf in the order ci, kx, ky), the bias added last.
+constexpr int kHcRows = 4;
+
+// rows to allocate for the input buffer of a stage of `oh` output rows: the
+// stage reads whole items of kHcRows rows and their 2-row halo
+__host__ __device__ constexpr int hc_in_rows(int oh) {
+  return (oh + kHcRows - 1) / kHcRows * kHcRows + 2;
+}
+
+// weights a tap of a stage of `cout` outputs is padded to: 1, 2 or a multiple of 4
+__host__ __device__ constexpr int hc_cpad(int cout) {
+  return cout <= 2 ? cout : (cout + 3) / 4 * 4;
+}
+
+// f32 words a stage's staged weights and bias take (a multiple of 4, so
+// that the next stage's stay 16-byte aligned)
+__host__ __device__ constexpr int hc_weight_words(int cin, int cout) {
+  return (cin * 9 * hc_cpad(cout) + hc_cpad(cout) + 3) / 4 * 4;
+}
+
+// the value stored in the working type T, as f32 (the module path's
+// rounding points)
+template <typename T> __device__ __forceinline__ float hc_round(float v);
+template <> __device__ __forceinline__ float hc_round<float>(float v) { return v; }
+template <> __device__ __forceinline__ float hc_round<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// F.leaky_relu at the models' slope, on a value of T, stored in T
+template <typename T> __device__ __forceinline__ float hc_lrelu(float v) {
+  return hc_round<T>(v > 0.f ? v : v * 0.1f);
+}
+
+// Stage a convolution's weight (cout, cin, 3, 3) and bias (cout) of type T
+// into dst as f32 [cin * 9][cp] + [cp] (cp = hc_cpad of the stage's
+// outputs), its output channels at co0 .. co0 + cout - 1 (a stage can
+// gather two convolutions of one input: the offset and mask heads). Padded
+// channels are never read into a sum.
+template <typename T>
+__device__ void hc_stage_weights(float* dst, const T* __restrict__ w, const T* __restrict__ b,
+                                 int co0, int cout, int cin, int cp) {
+  for (int i = threadIdx.x; i < cout * cin * 9; i += blockDim.x) {
+    const int co = i / (cin * 9), k = i - co * cin * 9;  // k = ci * 9 + tap
+    dst[k * cp + co0 + co] = load_f(w + i);
+  }
+  for (int i = threadIdx.x; i < cout; i += blockDim.x) dst[cin * 9 * cp + co0 + i] = load_f(b + i);
+}
+
+template <int CP>
+__device__ __forceinline__ void hc_load_w(float (&wv)[CP], const float* p) {
+  if constexpr (CP % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < CP / 4; ++j) {
+      const float4 q = reinterpret_cast<const float4*>(p)[j];
+      wv[4 * j] = q.x;
+      wv[4 * j + 1] = q.y;
+      wv[4 * j + 2] = q.z;
+      wv[4 * j + 3] = q.w;
+    }
+  } else if constexpr (CP == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    wv[0] = q.x;
+    wv[1] = q.y;
+  } else {
+    wv[0] = p[0];
+  }
+}
+
+// One 3x3 stage over an output region of oh x ow: output (r, c) reads input
+// (r + ky, c + kx), ky, kx in 0..2, of a buffer whose origin is one pixel
+// up and left of the output's. Input channels 0 .. CA-1 are planes of `a`
+// (plane stride a_plane), CA .. CA+CB-1 planes of `b`; both of row pitch
+// `pitch` and at least hc_in_rows(oh) rows (rows past oh + 2 only feed sums
+// that are discarded). `w`: hc_stage_weights' layout. For every item, epi(x,
+// y0, acc) gets the sums plus bias of output rows y0 .. y0 + kHcRows - 1
+// (those < oh are real) of column x.
+template <int CA, int CB, int COUT, typename Epi>
+__device__ __forceinline__ void hc_conv3x3(const float* a, int a_plane, const float* b,
+                                           int b_plane, int pitch, const float* w, int oh,
+                                           int ow, Epi epi) {
+  constexpr int CP = hc_cpad(COUT);
+  const int items = (oh + kHcRows - 1) / kHcRows * ow;
+  const float* bias = w + (CA + CB) * 9 * CP;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int g = i / ow, x = i - g * ow, y0 = g * kHcRows;
+    float acc[COUT][kHcRows];
+#pragma unroll
+    for (int co = 0; co < COUT; ++co)
+#pragma unroll
+      for (int p = 0; p < kHcRows; ++p) acc[co][p] = 0.f;
+#pragma unroll 2
+    for (int ci = 0; ci < CA + CB; ++ci) {
+      const float* src = (ci < CA ? a + ci * a_plane : b + (ci - CA) * b_plane) + y0 * pitch + x;
+      const float* wc = w + ci * 9 * CP;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        float v[kHcRows + 2];
+#pragma unroll
+        for (int r = 0; r < kHcRows + 2; ++r) v[r] = src[r * pitch + kx];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          float wv[CP];
+          hc_load_w<CP>(wv, wc + (ky * 3 + kx) * CP);
+#pragma unroll
+          for (int co = 0; co < COUT; ++co)
+#pragma unroll
+            for (int p = 0; p < kHcRows; ++p) acc[co][p] = fmaf(wv[co], v[p + ky], acc[co][p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int co = 0; co < COUT; ++co)
+#pragma unroll
+      for (int p = 0; p < kHcRows; ++p) acc[co][p] += bias[co];
+    epi(x, y0, acc);
+  }
+}
+
+// Fill C planes of R rows x P columns (plane stride `plane`, row pitch P)
+// with value(c, r, col). A warp takes kHcFillRows rows at a time and its lanes the
+// rows' columns: the reads of a thread are independent and in flight
+// together, and whatever value() works out from (c, r) alone is worked out
+// once a row (with a flat index, the divisions and the address arithmetic
+// of every element were as many instructions as the convolutions').
+constexpr int kHcFillRows = 2;
+
+template <int P, typename F>
+__device__ __forceinline__ void hc_fill(float* dst, int C, int R, int plane, F value) {
+  constexpr int kCols = (P + 31) / 32;
+  const int lane = threadIdx.x & 31, step = kHcFillRows * (blockDim.x >> 5), rows = C * R;
+  for (int r0 = kHcFillRows * (threadIdx.x >> 5); r0 < rows; r0 += step) {
+    float v[kHcFillRows][kCols];
+#pragma unroll
+    for (int k = 0; k < kHcFillRows; ++k) {
+      const int rr = r0 + k, c = rr / R, r = rr - c * R;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = lane + 32 * j;
+        v[k][j] = rr < rows && col < P ? value(c, r, col) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kHcFillRows; ++k) {
+      const int rr = r0 + k, c = rr / R, r = rr - c * R;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = lane + 32 * j;
+        if (rr < rows && col < P) dst[c * plane + r * P + col] = v[k][j];
+      }
+    }
+  }
+}
+
+// the depth-to-space (factor 4) read of channel c at pixel (y, x) of a frame
+// from one image's conv output un (16 C, hq, wq): F.pixel_shuffle's channel
+// c * 16 + (y % 4) * 4 + x % 4 at (y / 4, x / 4); 32-bit offsets within the
+// image
+template <typename T>
+__device__ __forceinline__ float hc_d2s4(const T* __restrict__ un, int c, int y, int x, int hq,
+                                         int wq) {
+  return load_f(un + ((c * 16 + (y & 3) * 4 + (x & 3)) * hq + (y >> 2)) * wq + (x >> 2));
+}
+
 }  // namespace crfp
 
 // cudaGetErrorString for the Python wrapper's message (ctypes has no cudart)

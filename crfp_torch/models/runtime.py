@@ -20,7 +20,13 @@ take per-cell anchored windows on the cell grid of the JAX model's
 deployment configuration runs (bench.py's ``_DEPLOY``). Three kernels run
 per frame: kernel A for the four DCNs (dcn_0/1/2 per-tap, dcn_3
 shared-tap), kernel B for the HR and lv state warps, kernel C for the
-output frame (crfp_torch/ops/cuda).
+output frame (crfp_torch/ops/cuda). Outside autograd, with
+``last_channels`` in :data:`crfp_torch.ops.cuda.hr_conv.CHANNELS`, the
+steady step's full-resolution chains take kernels of their own: G for
+dcn_3's offset and mask head, H for ``forward_resblocks_3``, and kernel C's
+conv route for the finish's leaky_relu and ``conv_last`` (every frame); any
+other call takes their plain versions, which call the modules (and kernel C's
+row route for the frame).
 
 Public entry points (``encode``, ``step0``, ``step``) take and return NHWC
 tensors like the JAX model — frames, encoder features and the state
@@ -34,7 +40,8 @@ CPU activity): the entry points are the unit spans ``crfp.serve.encode``,
 (the state warps and downsamples), ``crfp.serve.dcn_0`` to ``dcn_2`` (each
 stage's DCN and resblock; the cold start's resblocks), ``crfp.serve.dcn_3``
 (``upsample_post``, dcn_3 and its resblock) and ``crfp.serve.finish`` (the
-fovea blend, ``conv_last`` and kernel C).
+fovea blend, ``conv_last`` and kernel C). Dispatcher spans
+``crfp.kernel.G`` and ``crfp.kernel.H`` sit inside ``crfp.serve.dcn_3``.
 """
 
 from __future__ import annotations
@@ -57,7 +64,14 @@ from crfp_torch.nn.layers import (
 from crfp_torch.nn.lte import LTESimpleHRSingle, LTESimpleLR
 from crfp_torch.ops import resize
 from crfp_torch.ops.anchor import hr_warp_geometry
-from crfp_torch.ops.cuda.emit import emit_frame
+from crfp_torch.ops.cuda import hr_conv
+from crfp_torch.ops.cuda.emit import emit_frame, emit_frame_conv, emit_frame_conv_ref
+from crfp_torch.ops.cuda.hr_conv import (
+    hr_conv_head,
+    hr_conv_head_ref,
+    hr_conv_tail,
+    hr_conv_tail_ref,
+)
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
 from crfp_torch.trace import span
 
@@ -185,17 +199,42 @@ class _Runtime(nn.Module):
                                   anchor=hr_warp_geometry(hr_state, cfg.dcn_window_hr,
                                                           cfg.dcn_anchor, cfg.anchor_s2d))
 
+    def _hr_kernels(self) -> bool:
+        """Whether the full-resolution chains take kernels G, H and C's conv
+        route: outside autograd, at the channel counts they are built for,
+        with the offset propagation that dcn_3's head fuses."""
+        return (not torch.is_grad_enabled() and self.cfg.offset_prop
+                and self.cfg.last_channels in hr_conv.CHANNELS)
+
+    def _hr_stage(self, u, hr_state, hr_warped, flow_lv0, offset, third):
+        """dcn_3 and ``forward_resblocks_3`` from ``upsample_post``'s conv
+        output ``u`` over the full frame: dcn_3's offset and mask (from
+        dcn_2's offset feature ``offset`` under ``offset_prop``), kernel A,
+        the resblock (``third``: v15's third input to its conv1, else None).
+        Kernels G and H where :meth:`_hr_kernels` holds, else their plain
+        versions, which call the modules. Returns lv3 before the fovea
+        blend."""
+        dcn = self.dcn_3
+        head, tail = ((hr_conv_head, hr_conv_tail) if self._hr_kernels()
+                      else (hr_conv_head_ref, hr_conv_tail_ref))
+        p = dcn.upsample.upsample_conv(offset) if self.cfg.offset_prop else None
+        off, mask = head(dcn, u, hr_warped, flow_lv0, p, self.warp_size)
+        aligned = dcn.deform(hr_state, off, mask)
+        return tail(self.forward_resblocks_3, u, aligned, third, self.warp_size)
+
     def _finish(self, lv3, x_hr, lr):
         """Blend the fovea into the top-left corner (unless x_hr is None),
         reconstruct, and emit the NHWC frame ``conv_last(lv3) +
-        upsample(lr, scale)`` (kernel C). Returns (lv3 NCHW, frame NHWC)."""
+        upsample(lr, scale)`` (kernel C). Returns (the new HR state: the
+        warp_size ROI of lrelu(lv3), NCHW; the frame, NHWC)."""
         with span("crfp.serve.finish"):
             if x_hr is not None:
                 fh, fw = x_hr.shape[-2:]
                 blended = self.conv_tttf(torch.cat([lv3[:, :, :fh, :fw], x_hr], dim=1))
                 lv3[:, :, :fh, :fw] = blended  # in place on the resblock's fresh output
-            lv3 = lrelu(lv3)
-            return lv3, emit_frame(self.conv_last(lv3).contiguous(), lr.contiguous(), r=1)
+            if self._hr_kernels():
+                return emit_frame_conv(lv3, self.conv_last, lr.contiguous(), self.warp_size)
+            return emit_frame_conv_ref(lv3, self.conv_last, lr, self.warp_size, emit=emit_frame)
 
 
 class CRFPRuntimeV18(_Runtime):
@@ -251,8 +290,8 @@ class CRFPRuntimeV18(_Runtime):
         with span("crfp.serve.dcn_3"):
             x = lrelu(self.upsample_post(x))
             lv3 = self.forward_resblocks_3_(x)
-        lv3, out = self._finish(lv3, x_hr, lr)
-        return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
+        hr, out = self._finish(lv3, x_hr, lr)
+        return {"hr": hr, "lv": tuple(lvs)}, out
 
     def _step(self, state, lr, pre_lr, x_lr, x_hr):
         cfg = self.cfg
@@ -291,13 +330,10 @@ class CRFPRuntimeV18(_Runtime):
                 lvs.append(torch.cat(chunks[sr:], dim=1))
 
         with span("crfp.serve.dcn_3"):
-            full_lv3 = lrelu(self.upsample_post(feat_prop_lv0))
-            roi = full_lv3[:, :, :wph, :wpw]
-            aligned, _ = self.dcn_3(roi, hr_state, hr_warped, flow_lv0,
-                                    offset if cfg.offset_prop else None)
-            lv3 = self.forward_resblocks_3(torch.cat([roi, aligned], dim=1), full_lv3)
-        lv3, out = self._finish(lv3, x_hr, lr)
-        return {"hr": lv3[:, :, :wph, :wpw].contiguous(), "lv": tuple(lvs)}, out
+            lv3 = self._hr_stage(self.upsample_post.upsample_conv(feat_prop_lv0), hr_state,
+                                 hr_warped, flow_lv0, offset, None)
+        hr, out = self._finish(lv3, x_hr, lr)
+        return {"hr": hr, "lv": tuple(lvs)}, out
 
 
 class CRFPRuntimeSimple(_Runtime):
@@ -336,10 +372,6 @@ class CRFPRuntimeSimple(_Runtime):
         init_parameters(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
-    def _roi(self, lv3):
-        wph, wpw = self.warp_size
-        return lv3[:, :, :wph, :wpw]
-
     def _step0(self, lr, x_lr, x_hr):
         x = self.upsample(x_lr)
         for name, rb in (("crfp.serve.dcn_0", self.forward_resblocks_0_),
@@ -349,8 +381,8 @@ class CRFPRuntimeSimple(_Runtime):
                 x = rb(x)
         with span("crfp.serve.dcn_3"):
             lv3 = self.forward_resblocks_3_(lrelu(self.upsample_post(x)))
-        lv3, out = self._finish(lv3, x_hr, lr)
-        return {"hr": self._roi(lv3).contiguous()}, out
+        hr, out = self._finish(lv3, x_hr, lr)
+        return {"hr": hr}, out
 
     def _step(self, state, lr, pre_lr, x_lr, x_hr):
         cfg = self.cfg
@@ -381,11 +413,7 @@ class CRFPRuntimeSimple(_Runtime):
                 x = rb(torch.cat(parts, dim=1), feat_prop_lv0)
 
         with span("crfp.serve.dcn_3"):
-            full_lv3 = lrelu(self.upsample_post(x))
-            roi_lv3 = self._roi(full_lv3)
-            aligned, _ = self.dcn_3(roi_lv3, hr_state, hr_warped, flow_lv0,
-                                    offset if cfg.offset_prop else None)
-            parts3 = [roi_lv3, aligned] + ([hr_warped] if three_way else [])
-            lv3 = self.forward_resblocks_3(torch.cat(parts3, dim=1), full_lv3)
-        lv3, out = self._finish(lv3, x_hr, lr)
-        return {"hr": self._roi(lv3).contiguous()}, out
+            lv3 = self._hr_stage(self.upsample_post.upsample_conv(x), hr_state, hr_warped,
+                                 flow_lv0, offset, hr_warped if three_way else None)
+        hr, out = self._finish(lv3, x_hr, lr)
+        return {"hr": hr}, out

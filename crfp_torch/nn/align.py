@@ -146,25 +146,40 @@ class DCNAlign(nn.Module):
         """Returns (aligned pre_x, offset feature for propagation).
 
         flow: (N, 2, H, W), channels (dx, dy), at cur_x's resolution."""
-        feat = torch.cat([cur_x, pre_x_aligned, flow.to(cur_x.dtype)], dim=1)
-        feat = lrelu(self.dcn_block_conv1(feat))
-        feat = lrelu(self.dcn_block_conv2(feat))
+        pre = None
         if pre_offset_feat is not None:
             assert self.pre_offset
+            pre = pre_offset_feat
             if self.interpolate == "pixelshuffle":
-                pre_offset_feat = self.upsample(pre_offset_feat) * 2.0
-            feat = lrelu(self.conv_fuse(torch.cat([feat, pre_offset_feat], dim=1)))
-
-        n, _, h, w = feat.shape
-        g, mag = self.deform_groups, self.max_residue_magnitude
+                pre = self.upsample(pre_offset_feat) * 2.0
+        feat = self.features(cur_x, pre_x_aligned, flow, pre)
         if (self.fused_prep and self.window is not None and not self.repeat
                 and not self.anchor and not torch.is_grad_enabled()):
             aligned = deform_conv2d_fusedprep(
                 pre_x.contiguous(), self.dcn_offset(feat).contiguous(),
                 self.dcn_mask(feat).contiguous(), flow.float().contiguous(), self.dcn_weight.float(),
-                self.dcn_bias.float(), max_residue_magnitude=mag,
+                self.dcn_bias.float(), max_residue_magnitude=self.max_residue_magnitude,
                 max_displacement=self.window)
             return aligned, feat
+        return self.deform(pre_x, *self.offsets(feat, flow)), feat
+
+    def features(self, cur_x: torch.Tensor, pre_x_aligned: torch.Tensor, flow: torch.Tensor,
+                 pre: torch.Tensor | None) -> torch.Tensor:
+        """The offset feature: two conv + lrelu over concat(cur_x,
+        pre_x_aligned, flow), then conv_fuse + lrelu with ``pre``, the
+        previous stage's offset feature at this resolution (already
+        interpolated; None: no fuse)."""
+        feat = torch.cat([cur_x, pre_x_aligned, flow.to(cur_x.dtype)], dim=1)
+        feat = lrelu(self.dcn_block_conv1(feat))
+        feat = lrelu(self.dcn_block_conv2(feat))
+        if pre is not None:
+            feat = lrelu(self.conv_fuse(torch.cat([feat, pre], dim=1)))
+        return feat
+
+    def offsets(self, feat: torch.Tensor, flow: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The heads over ``feat``: kernel A's float32 offset and mask."""
+        n, _, h, w = feat.shape
+        g, mag = self.deform_groups, self.max_residue_magnitude
         # the kernel takes f32 offsets/masks/weights whatever x's dtype
         if self.repeat:
             raw = self.dcn_offset(feat).float()
@@ -173,9 +188,13 @@ class DCNAlign(nn.Module):
             off_x = mag * torch.tanh(raw[:, g:]) + flow[:, 0:1]
             off = torch.stack([off_y, off_x], dim=2).reshape(n, -1, h, w)
             mask = torch.sigmoid(self.dcn_mask(feat).float())
-        else:
-            off, mask = fusedprep_offsets_and_mask(
-                self.dcn_offset(feat), self.dcn_mask(feat), flow, mag)
+            return off, mask
+        return fusedprep_offsets_and_mask(self.dcn_offset(feat), self.dcn_mask(feat), flow, mag)
+
+    def deform(self, pre_x: torch.Tensor, off: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Kernel A's modulated DCN of ``pre_x`` at ``off`` and ``mask``
+        (:meth:`offsets`' layouts), windowed and anchored as configured."""
+        g = self.deform_groups
         kw = dict(shared_taps=self.repeat, shared_mask=self.repeat)
         if self.anchor and self.window is not None:
             _, c, ph, pw = pre_x.shape
@@ -183,7 +202,6 @@ class DCNAlign(nn.Module):
                                         self.window, bf16=pre_x.dtype == torch.bfloat16,
                                         shared_taps=self.repeat, shared_mask=self.repeat,
                                         fullgrad=self.anchor_vjp)
-        aligned = deform_conv2d_windowed(
+        return deform_conv2d_windowed(
             pre_x.contiguous(), off, mask, self.dcn_weight.float(),
             self.dcn_bias.float(), max_displacement=self.window, **kw)
-        return aligned, feat

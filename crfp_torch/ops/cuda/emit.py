@@ -16,6 +16,12 @@ takes a thread per output pixel.
 Bound on the H100 at 1080p (bytes, see the source note): y (1, 3, 1080,
 1920) bf16 in and the frame out move 25 MB (~7.5 us at 3.35 TB/s). The
 kernel reads y and writes the frame once.
+
+:func:`emit_frame_conv` is kernel C's conv route, the runtime models'
+frame finish in one launch: leaky_relu of lv3 (the new HR state over the
+ROI) and ``conv_last`` (a 3x3 convolution of L <= 8 channels to the
+frame's) before the same emission, so that neither the activation nor
+``conv_last``'s output goes to device memory.
 """
 
 from __future__ import annotations
@@ -25,17 +31,23 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from crfp_torch.ops.cuda import _build
 from crfp_torch.ops.resize import resize_bilinear
 from crfp_torch.ops.shuffle import pixel_shuffle
 from crfp_torch.trace import span
 
-# launches of the CUDA kernel (not of the plain version)
+# launches of the CUDA kernel (not of the plain version); conv_launches:
+# those of its conv route, also in `launches`
 launches = 0
+conv_launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_CONV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _F32, _BF16 = torch.float32, torch.bfloat16
+# lv3's channel counts the conv route is instantiated for (mid 16, 24, 32, 64)
+CONV_CHANNELS = (2, 3, 4, 8)
 
 # csrc/emit.cu's geometry: output columns per thread and the largest block
 # of the row route; the pixel route's block
@@ -148,3 +160,58 @@ def emit_frame(y: torch.Tensor, lr: torch.Tensor, r: int = 1) -> torch.Tensor:
                       r, h, w, int(y.dtype is _BF16), int(plan.vector), plan.threads)
         launches += 1
     return out
+
+
+def emit_frame_conv_ref(lv3: torch.Tensor, conv, lr: torch.Tensor, roi_hw: tuple[int, int],
+                        emit=emit_frame_ref) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the conv route: ``lv3 = leaky_relu(lv3)``, its
+    top-left ``roi_hw`` as a new contiguous state, and ``emit`` (the plain
+    :func:`emit_frame_ref`; the runtime models' calls outside the conv route
+    pass :func:`emit_frame`, kernel C's row route on a card) of ``conv(lv3)``
+    (the model's ``conv_last``, a ``Conv``) on ``lr``. Returns (state (N, L,
+    *roi_hw), frame (N, H, W, C))."""
+    lv3 = F.leaky_relu(lv3, negative_slope=0.1)
+    wph, wpw = roi_hw
+    return (lv3[:, :, :wph, :wpw].contiguous(),
+            emit(conv(lv3).contiguous(), lr.contiguous(), r=1))
+
+
+def emit_frame_conv(lv3: torch.Tensor, conv, lr: torch.Tensor,
+                    roi_hw: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame finish of the runtime models: (state, frame) of
+    :func:`emit_frame_conv_ref`. lv3 (N, L, H, W) after the fovea blend;
+    ``conv``: ``conv_last`` (L -> C, 3x3, padding 1, bias); lr (N, C, h, w)
+    of lv3's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel C's conv
+    route (float32 or bfloat16, L in :data:`CONV_CHANNELS`, C 1 or 3) or
+    raise."""
+    if lv3.device.type == "cpu":
+        return emit_frame_conv_ref(lv3, conv, lr, roi_hw)
+    global launches, conv_launches
+    w, b = conv.conv.weight, conv.conv.bias
+    with span("crfp.kernel.C", {"y": lv3, "lr": lr, "r": 1}) as s:
+        n, nl, big_h, big_w = lv3.shape
+        c, h, wl = lr.shape[1:]
+        wph, wpw = roi_hw
+        if not (lv3.is_cuda and lv3.dtype in (_F32, _BF16) and nl in CONV_CHANNELS
+                and c in (1, 3) and lr.shape[0] == n and w.shape == (c, nl, 3, 3) and b is not None
+                and conv.conv.padding == (1, 1) and conv.conv.stride == (1, 1)
+                and 0 < wph <= big_h and 0 < wpw <= big_w
+                and all(t.dtype == lv3.dtype and t.device == lv3.device and t.is_contiguous()
+                        for t in (lv3, lr, w, b))):
+            raise ValueError(f"emit conv route: lv3 {tuple(lv3.shape)} {lv3.dtype}, conv "
+                             f"{tuple(w.shape)} {w.dtype}, lr {tuple(lr.shape)} {lr.dtype}, "
+                             f"roi {tuple(roi_hw)}: needs lv3 of {CONV_CHANNELS} channels, "
+                             "a 3x3 conv with bias to 1 or 3 channels, one float32 or "
+                             "bfloat16 type on one card, contiguous, the ROI inside the frame")
+        s.note(route="conv")
+        out = torch.empty((n, big_h, big_w, c), dtype=lv3.dtype, device=lv3.device)
+        state = torch.empty((n, nl, wph, wpw), dtype=lv3.dtype, device=lv3.device)
+        _build.launch("emit", "crfp_emit_conv", _CONV_ARGTYPES, lv3.device,
+                      lv3.data_ptr(), w.data_ptr(), b.data_ptr(), lr.data_ptr(),
+                      out.data_ptr(), state.data_ptr(), n, nl, c, big_h, big_w, h, wl,
+                      wph, wpw, int(lv3.dtype is _BF16))
+        launches += 1
+        conv_launches += 1
+    return state, out

@@ -46,7 +46,7 @@ from typing import Any, NamedTuple
 import torch.autograd.profiler as _prof
 
 CAP = 1 << 16
-_COUNTER_MODULES = ("dcn", "dcn_fused", "emit", "ssim", "warp")
+_COUNTER_MODULES = ("dcn", "dcn_fused", "emit", "hr_conv", "ssim", "warp")
 
 _store: list = []
 _dropped = 0

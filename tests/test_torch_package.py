@@ -140,10 +140,11 @@ def test_warp_and_emit_dispatchers_take_plain_version_on_cpu():
 
 
 def _launch_counts():
-    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, ssim, warp
+    from crfp_torch.ops.cuda import dcn, dcn_fused, emit, hr_conv, ssim, warp
 
     return (dcn.launches, dcn.bwd_launches, warp.launches, warp.bwd_launches,
-            emit.launches, dcn_fused.launches, ssim.launches)
+            emit.launches, dcn_fused.launches, ssim.launches, hr_conv.head_launches,
+            hr_conv.tail_launches)
 
 
 def _run_model(name):
@@ -232,7 +233,7 @@ def test_build_targets_follow_the_sources():
 
     names = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
     assert names == ["dcn_bwd", "dcn_fused", "dcn_fwd", "emit", "flow_warp",
-                     "flow_warp_bwd", "ssim"]
+                     "flow_warp_bwd", "hr_conv", "ssim"]
     # the header kernels A and E share is part of every library's hash
     assert (_build.SRC_DIR / "common.cuh").exists()
     t = _build._target(_build.SRC_DIR / "emit.cu")

@@ -9,7 +9,8 @@
   holds.
 - On a card (``cuda`` marker, skipped here): a CUDA-only session records no
   span; a unit span's launch counts equal the dispatcher spans inside it and
-  the A/B/C/E kernels of the same trace, at the deployment's configuration.
+  the A/B/C/E/G/H kernels of the same trace (C's conv route among C's), at
+  the deployment's configuration.
 
     python -m pytest tests/test_torch_trace.py --noconftest -m cuda -q   # on a card
 """
@@ -263,9 +264,12 @@ _KERNELS = {"dcn_fwd_": (("dcn.launches", 2),),
             "anchor_table_kernel": (("dcn.anchor_launches", 1), ("warp.anchor_launches", 1)),
             "flow_warp_kernel": (("warp.launches", 1),),
             "emit_kernel": (("emit.launches", 1),),
-            "dcn_fused_": (("dcn_fused.launches", 2),)}
+            "dcn_fused_": (("dcn_fused.launches", 2),),
+            "hr_conv_head_kernel": (("hr_conv.head_launches", 1),),
+            "hr_conv_tail_kernel": (("hr_conv.tail_launches", 1),)}
 _SPAN_OF = {"dcn.launches": "crfp.kernel.A", "warp.launches": "crfp.kernel.B",
-            "emit.launches": "crfp.kernel.C", "dcn_fused.launches": "crfp.kernel.E"}
+            "emit.launches": "crfp.kernel.C", "dcn_fused.launches": "crfp.kernel.E",
+            "hr_conv.head_launches": "crfp.kernel.G", "hr_conv.tail_launches": "crfp.kernel.H"}
 
 
 @pytest.mark.cuda
@@ -303,6 +307,9 @@ def test_unit_counts_match_spans_and_kernels(card):
         assert counts.get(counter, 0) == sum(r.name == name for r in inside), counter
     assert counts["dcn.launches"] == 1 and counts["dcn_fused.launches"] == 3
     assert counts["warp.launches"] == 2 and counts["emit.launches"] == 1
+    # the full-resolution chains: kernels G and H, and C's conv route
+    assert counts["hr_conv.head_launches"] == 1 and counts["hr_conv.tail_launches"] == 1
+    assert counts["emit.conv_launches"] == 1
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     for key, terms in _KERNELS.items():
         seen = sum(key in n for n in names)
