@@ -10,8 +10,8 @@ replays (a) from the stream's start with its own state, and for each of
 only follow the program's recurrent state from there; (a) checks the start
 and the steps that (b) skips). Numbers: ``frame_err``, the widest gap
 between a served frame and the reference's; ``state_err``, the widest gap
-of the carried state (HR and the three level states), each over the
-reference's largest magnitude of that tensor.
+of each tensor of the carried state (v18: HR and the three level states),
+each over the reference's largest magnitude of that tensor.
 
 Training. Set-up drives the program's train step through its first
 ``reference_steps`` steps; the reference follows them from the same
@@ -26,6 +26,10 @@ thousandth of the median leaf's (they move by round-off alone). The median
 and not the worst leaf: the worst leaf's gap swings from seed to seed with
 the gradients that pass through the bilinear sampler's positions, which
 TF32 rounding moves across pixel boundaries (``PERF.md``).
+
+The reference models are the model family's (``benchmark/families/``), built
+on the meta device; the program's carried state reaches the reference
+through the family's ``state_nchw``.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ import statistics
 
 import torch
 
+from torch import nn
+
 from benchmark.reference import names
-from benchmark.reference.runtime import RuntimeV18, Spec
-from benchmark.reference.trunk import Trunk, adam_update, charbonnier, is_flow, lr_at
+from benchmark.reference.trunk import adam_update, charbonnier, is_flow, lr_at
 
 
 @contextlib.contextmanager
@@ -58,18 +63,6 @@ def fp8_round(x: torch.Tensor) -> torch.Tensor:
     return ((x.float() / scale).to(torch.float8_e4m3fn).float() * scale).to(x.dtype)
 
 
-def spec_of(cfg: dict, fullgrad: bool = False) -> Spec:
-    """The reference's view of a configuration file."""
-    m = cfg["model"]
-    return Spec(mid=m.get("mid_channels", 32), dg=m.get("deform_groups", 8),
-                k=m.get("dcn_kernel", 3), mag=m.get("max_residue_magnitude", 10.0),
-                scale=m.get("scale", 8), split=m.get("split_ratio", 3),
-                window=m.get("dcn_window"), window_hr=m.get("dcn_window_hr"),
-                anchor=m.get("dcn_anchor", False), grid_bf16=cfg["dtype"] == "bfloat16",
-                s2d=4 if m.get("hr_s2d", False) else 1, fused=m.get("dcn_fused", False),
-                fullgrad=fullgrad)
-
-
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2).float()
 
@@ -78,24 +71,38 @@ def _gap(prog: torch.Tensor, ref: torch.Tensor) -> float:
     return float((prog.float() - ref.float()).abs().max())
 
 
-def _state_gap(prog: dict, ref: dict) -> float:
+def leaves(state) -> list[torch.Tensor]:
+    """The tensors of a state of nested dicts (by key) and tuples, in order."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in leaves(state[k])]
+    return [t for x in state for t in leaves(x)]
+
+
+def tree_map(fn, state):
+    """``state`` with ``fn`` applied to each of its tensors."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, dict):
+        return {k: tree_map(fn, v) for k, v in state.items()}
+    return type(state)(tree_map(fn, x) for x in state)
+
+
+def _state_gap(prog, ref) -> float:
     """The widest gap of each state tensor over its reference magnitude."""
-    pairs = [(prog["hr"], ref["hr"])] + list(zip(prog["lv"], ref["lv"]))
-    return max(_gap(p, r) / max(float(r.abs().max()), 1e-12) for p, r in pairs)
+    return max(_gap(p, r) / max(float(r.abs().max()), 1e-12)
+               for p, r in zip(leaves(prog), leaves(ref), strict=True))
 
 
-def _state_nchw(state: dict) -> dict:
-    return {"hr": _nchw(state["hr"]), "lv": tuple(_nchw(t) for t in state["lv"])}
-
-
-def stream_reference(cfg: dict, mix: dict, weights, device, dtype=torch.float32,
-                     quant=None):
-    """The reference streaming model of ``cfg`` on ``device`` in ``dtype``,
-    and a ``run(fn)`` that calls ``fn`` under the reference's arithmetic
-    (``quant``: every conv's input and weight rounded through it)."""
+def stream_reference(model: nn.Module, weights, device, dtype=torch.float32, quant=None):
+    """The reference streaming ``model`` (the family's, on the meta device) on
+    ``device`` in ``dtype`` with ``weights``, and a ``run(fn)`` that calls
+    ``fn`` under the reference's arithmetic (``quant``: every conv's input and
+    weight rounded through it)."""
     from benchmark.reference.nets import quantized
 
-    model = names.materialize(RuntimeV18(spec_of(cfg), mix["warp_hw"]), weights, device, dtype)
+    model = names.materialize(model, weights, device, dtype)
 
     def run(fn):
         with torch.no_grad(), exact_math(), (quantized(quant) if quant else
@@ -105,11 +112,12 @@ def stream_reference(cfg: dict, mix: dict, weights, device, dtype=torch.float32,
     return model, run
 
 
-def stream_numbers(ref, run, pool: dict, start: dict, samples: list):
+def stream_numbers(ref, run, pool: dict, start: dict, samples: list, state_nchw):
     """``frame_err`` and ``state_err`` of the program's kept outputs
     (``start``: 'pos', 'outs', 'state' of a stream's first frames;
-    ``samples``: (pos, prev_pos, state_in, out, state_out) of later frames)
-    against the reference ``ref`` (:func:`stream_reference`)."""
+    ``samples``: (pos, prev_pos, state_in, out, state_out) of later frames;
+    frames NHWC, states as ``state_nchw`` takes them to the reference's
+    form) against the reference ``ref`` (:func:`stream_reference`)."""
     def frame(p):
         return pool["lr"][p].permute(0, 3, 1, 2).float(), \
             pool["fv"][p].permute(0, 3, 1, 2).float()
@@ -131,11 +139,11 @@ def stream_numbers(ref, run, pool: dict, start: dict, samples: list):
         return state
 
     state = run(replay)
-    state_err = max(state_err, _state_gap(_state_nchw(start["state"]), state))
+    state_err = max(state_err, _state_gap(state_nchw(start["state"]), state))
     for p, prev_p, s_in, out, s_out in samples:
         lr, fv = frame(p)
         prev, _ = frame(prev_p)
-        s = _state_nchw(s_in)
+        s = state_nchw(s_in)
 
         def one():
             x_lr, x_hr = ref.encode(lr, fv)
@@ -143,28 +151,29 @@ def stream_numbers(ref, run, pool: dict, start: dict, samples: list):
 
         r_state, r_out = run(one)
         frame_err = max(frame_err, _gap(_nchw(out), r_out))
-        state_err = max(state_err, _state_gap(_state_nchw(s_out), r_state))
+        state_err = max(state_err, _state_gap(state_nchw(s_out), r_state))
     return {"frame_err": frame_err, "state_err": state_err}
 
 
-def _batch_nchw(batch: dict, dtype=torch.float32):
+def batch_nchw(batch: dict, dtype=torch.float32):
     def f(t):
         return t.permute(0, 1, 4, 2, 3).to(dtype)
     return f(batch["lr"]), f(batch["fv"]), f(batch["mk"]), f(batch["hr"])
 
 
-def train_reference(cfg: dict, weights: dict, batches: list, first_step: int, steps: int,
-                    device, amp: bool = False, exact: bool = True) -> dict:
-    """The reference recipe over ``batches[:steps]`` from ``weights``:
-    'losses', 'grad_norms' (the first step's, per leaf), 'update_norms'
-    (the change after ``steps`` updates, per leaf). ``amp``: forward and
-    backward in bfloat16 on casts of the float32 masters (the control);
-    ``exact`` False: TF32 as PyTorch's defaults leave it (a witness of what
-    TF32 alone does)."""
+def train_reference(model: nn.Module, cfg: dict, weights: dict, batches: list,
+                    first_step: int, steps: int, device, amp: bool = False,
+                    exact: bool = True) -> dict:
+    """The reference recipe of ``cfg`` over ``batches[:steps]`` from
+    ``weights``, on the reference trunk ``model`` (the family's, on the meta
+    device): 'losses', 'grad_norms' (the first step's, per leaf),
+    'update_norms' (the change after ``steps`` updates, per leaf). ``amp``:
+    forward and backward in bfloat16 on casts of the float32 masters (the
+    control); ``exact`` False: TF32 as PyTorch's defaults leave it (a witness
+    of what TF32 alone does)."""
     tr = cfg["train"]
-    spec = spec_of(cfg, fullgrad=cfg["model"].get("dcn_anchor_vjp", False))
     dtype = torch.bfloat16 if amp else torch.float32
-    model = names.materialize(Trunk(spec), weights, device, dtype)
+    model = names.materialize(model, weights, device, dtype)
     params = dict(model.named_parameters())
     masters = {k: v.detach().float().clone() for k, v in weights.items()}
     moments: dict = {}
@@ -176,7 +185,7 @@ def train_reference(cfg: dict, weights: dict, batches: list, first_step: int, st
                      tr["min_lr"]))
         for p in params.values():
             p.grad = None
-        lr, fv, mk, hr = _batch_nchw(batches[k], dtype)
+        lr, fv, mk, hr = batch_nchw(batches[k], dtype)
         with exact_math() if exact else contextlib.nullcontext():
             pred = model(lr, fv, mk).float()
             loss = tr.get("rec_w", 1.0) * charbonnier(pred, hr.float())

@@ -71,15 +71,13 @@ def call_bound_s(kind: str, info: dict) -> float:
     return fwd + max((x_in + flow + x_in + x_in + flow) / HBM_BYTES_PER_S, 2 * ops_n / peak)
 
 
-def stream_counts(model, viewers, lr_hw, fovea_hw, dtype) -> dict:
+def stream_counts(model, lr, fv) -> dict:
     """FLOPs and the DCN-stage bound of one steady step (``encode`` and
     ``step``) and of the streams' first step (``encode`` and ``step0``) of
-    the reference streaming ``model`` (built on the meta device), a batch of
-    ``viewers`` frames in ``dtype``."""
-    model = model.to(dtype)
-    h, w = lr_hw
-    lr = torch.empty(viewers, 3, h, w, device="meta", dtype=dtype)
-    fv = torch.empty(viewers, 3, *fovea_hw, device="meta", dtype=dtype)
+    the reference streaming ``model`` (built on the meta device) on one
+    step's inputs ``lr`` and ``fv`` (NCHW on the meta device, in the served
+    dtype)."""
+    model = model.to(lr.dtype)
     out = {}
     with torch.no_grad():
         with FlopCounterMode(display=False) as fc, ops.recording() as calls:
@@ -95,18 +93,15 @@ def stream_counts(model, viewers, lr_hw, fovea_hw, dtype) -> dict:
     return out
 
 
-def train_counts(model, b: int, t: int, gt: int, scale: int) -> dict:
+def train_counts(model, lrs, fvs, mks, hrs) -> dict:
     """FLOPs (forward and backward) and the DCN-stage bound (forward and
     gradient calls) of one train step of the reference trunk ``model``
-    (built on the meta device) on a (b, t, gt) float32 batch."""
-    h = gt // scale
-    lrs = torch.empty(b, t, 3, h, h, device="meta")
-    hrs = torch.empty(b, t, 3, gt, gt, device="meta")
-    mks = torch.empty(b, t, 1, gt, gt, device="meta")
+    (built on the meta device) on a batch of clips (B, T, C, H, W) NCHW on
+    the meta device: LR frames, fovea frames, fovea masks and targets."""
     for p in model.parameters():
         p.requires_grad_(True)
     with FlopCounterMode(display=False) as fc, ops.recording() as calls:
-        pred = model(lrs, hrs, mks, checkpoint=False)
+        pred = model(lrs, fvs, mks, checkpoint=False)
         torch.sqrt((pred - hrs) ** 2 + 1e-12).mean().backward()
     return {"flops_step": fc.get_total_flops(),
             "bound_s_step": sum(call_bound_s(k, i) for k, i in calls)}

@@ -3,8 +3,9 @@
     python3 benchmark/run.py --workload deploy.streams4_1080p --seed 7 --seconds 10 --trace 0
 
 (``python3 -m benchmark.run`` takes the same arguments.) The cell's
-configuration, traffic mix, per-layer readers and comparison limits are
-found by the names in ``BENCHMARK.json`` (``benchmark/manifest.py``). The
+configuration and its model's family, traffic mix and its kind's module,
+per-layer readers and comparison limits are found by the names in
+``BENCHMARK.json`` (``benchmark/manifest.py``). The
 run makes its weights and inputs on the card from ``--seed``, warms up,
 measures for ``--seconds`` and then checks what the timed path produced
 against the plain reference (``benchmark/compare.py``). With ``--trace 0``
@@ -53,11 +54,10 @@ def execute(cell: dict, seed: int, seconds: float, trace: bool, device) -> dict:
     result line's object (without the card checks of :func:`main`)."""
     import torch
 
-    from benchmark import manifest, stream, train
+    from benchmark import manifest
 
-    kind = cell["traffic"]["kind"]
     t0 = process_start()
-    runner = {"stream": stream.run, "train": train.run}[kind]
+    runner = manifest.kind_module(cell["traffic"]["kind"]).run
     if device.type == "cuda":
         torch.cuda.set_device(device)
         torch.empty(0, device=device)  # the allocator exists before its peak is reset

@@ -1,8 +1,8 @@
 """The program's own spans (``crfp_torch.trace``), as the per-layer readers
 ``host_ms.*``, ``dispatch_us.serve`` and ``*_host_ms.train`` read them.
 
-This module is the benchmark's only contact with the program besides
-``benchmark/program.py``, and it only reads: the store of spans that the
+This module is the benchmark's only contact with the program besides the
+model families (``benchmark/families/``); it only reads the store of spans that the
 program fills while a profiler session that records CPU activity is open.
 In a ``--trace 1`` run that is the traced window's second session alone
 (host and device, ``benchmark/trace.py``; the first records the device

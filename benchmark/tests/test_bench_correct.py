@@ -14,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from benchmark import calibrate, manifest
+from benchmark import calibrate, manifest, stream, train
 from benchmark.run import execute
 from benchmark.tests.tiny import tiny_cell
 
@@ -23,6 +23,10 @@ CPU = torch.device("cpu")
 
 def _run(name: str, seed: int) -> dict:
     return execute(tiny_cell(name), seed, 0.2, False, CPU)
+
+
+def _family(name: str):
+    return tiny_cell(name)["family"]
 
 
 @pytest.mark.parametrize("name", ["ref.streams4_1080p", "ref.train_sh"])
@@ -36,7 +40,7 @@ def test_sound_run_is_correct(name):
     ("deploy.streams4_1080p", "state"), ("deploy.streams4_1080p", "answer"),
     ("ref.streams4_1080p", "state"), ("ref.streams4_1080p", "answer")])
 def test_stream_fault_is_not_correct(name, fault):
-    with calibrate.stream_fault(fault):
+    with stream.FAULTS[fault](_family(name)):
         line = _run(name, 32)
     assert not line["correct"], line["checks"]
 
@@ -46,7 +50,7 @@ def test_train_fault_is_not_correct(fault):
     if fault == "state":
         ctx = calibrate.patched(torch.optim.Adam, "step", lambda self, closure=None: None)
     else:
-        ctx = calibrate.train_fault(fault)
+        ctx = train.FAULTS[fault](_family("ref.train_sh"))
     with ctx:
         line = _run("ref.train_sh", 33)
     assert not line["correct"], line["checks"]
@@ -55,9 +59,7 @@ def test_train_fault_is_not_correct(fault):
 @pytest.mark.parametrize("name", ["deploy.streams4_1080p", "ref.streams4_1080p", "ref.train_sh"])
 def test_control_fails_the_limits(name):
     cell = tiny_cell(name)
-    control = (calibrate.train_control if cell["traffic"]["kind"] == "train"
-               else calibrate.stream_control)
-    numbers = control(cell, 34, CPU)
+    numbers = manifest.kind_module(cell["traffic"]["kind"]).control(cell, 34, CPU)
     assert any(numbers[k] > v["limit"] for k, v in cell["limits"].items()), numbers
 
 

@@ -59,3 +59,27 @@ def test_a_run_loads_no_jax():
                          text=True, timeout=600, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+OUTSIDE = [p for p in SOURCES if not {"families", "reference"} & set(p.relative_to(BENCH).parts)]
+
+
+@pytest.mark.parametrize("path", OUTSIDE, ids=lambda p: str(p.relative_to(BENCH)))
+def test_only_the_families_know_the_model(path):
+    """Outside ``benchmark/families/`` and ``benchmark/reference/`` no module
+    names a model class of either side, and the harness (tests aside) takes
+    nothing of the port but its store of spans."""
+    tree = ast.parse(path.read_text())
+    used = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    used |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    used |= {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert not used & {"RuntimeV18", "Trunk", "CRFPRuntimeV18", "CRFP"}
+    if "tests" in path.relative_to(BENCH).parts:
+        return
+    port = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            port |= {a.name for a in node.names if a.name.split(".")[0] == "crfp_torch"}
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == "crfp_torch":
+            port |= {f"{node.module}.{a.name}" for a in node.names}
+    assert port <= {"crfp_torch.trace"}, port

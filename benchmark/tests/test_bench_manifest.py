@@ -17,6 +17,8 @@ UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}\Z")
 TEXT = re.compile(r"[^\t\n\r]{1,200}\Z")
 METRICS = M["end_to_end"] + M["per_layer"]
 CELLS = [w["name"] for w in M["workloads"]]
+KINDS = sorted({json.loads(p.read_text())["kind"]
+                for p in (manifest.BENCH_DIR / "traffic").glob("*.json")})
 
 
 def test_top_level_keys_and_size():
@@ -64,7 +66,7 @@ def test_cell_resolves(name):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(w["traffic"]) and w["chips"] in (1, 4) and TEXT.match(w["why"])
     cell = manifest.cell(name)
-    assert cell["traffic"]["kind"] in ("stream", "train")
+    assert cell["traffic"]["kind"] in KINDS
     reported = {m["name"] for m in cell["end_to_end"]}
     assert "setup_s" in reported and len(reported) >= 2 and cell["per_layer"]
     assert set(cell["limits"]) and all(v["limit"] > 0 for v in cell["limits"].values())
@@ -114,3 +116,30 @@ def test_one_layer_name_per_layer():
         prefix = m["name"].split(".")[0]
         same = {x["layer"] for x in M["per_layer"] if x["name"].split(".")[0] == prefix}
         assert len(same) == 1
+
+
+@pytest.mark.parametrize("entry", M["configs"], ids=lambda c: c["name"])
+def test_config_family_has_the_contract(entry):
+    """A configuration's ``family`` resolves to a module of
+    ``benchmark/families/`` with everything that its cells' kinds call."""
+    family = manifest.family(json.loads((ROOT / entry["file"]).read_text())["family"])
+    kinds = {manifest.cell(w["name"])["traffic"]["kind"] for w in M["workloads"]
+             if w["config"] == entry["name"]}
+    for kind in kinds:
+        for need in manifest.kind_module(kind).FAMILY:
+            assert callable(getattr(family, need, None)), (kind, need)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_every_traffic_kind_has_a_module(kind):
+    kind_mod = manifest.kind_module(kind)
+    assert kind_mod.__file__ == str(manifest.BENCH_DIR / f"{kind}.py")
+    assert callable(kind_mod.run) and callable(kind_mod.control) and kind_mod.FAULTS
+    assert all(callable(f) for f in kind_mod.FAULTS.values())
+
+
+def test_unknown_kind_and_family_are_named():
+    with pytest.raises(KeyError, match="no_such_kind"):
+        manifest.kind_module("no_such_kind")
+    with pytest.raises(KeyError, match="no_such_family"):
+        manifest.family("no_such_family")

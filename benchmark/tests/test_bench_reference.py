@@ -6,21 +6,20 @@ from __future__ import annotations
 
 import torch
 
-from benchmark import compare, generate, program
+from benchmark import compare, generate
 from benchmark.reference import names
-from benchmark.reference.runtime import RuntimeV18
-from benchmark.reference.trunk import Trunk, charbonnier
+from benchmark.reference.trunk import charbonnier
 from benchmark.tests.tiny import tiny_cell
 
 
 def _stream_pair(name: str, seed: int):
     cell = tiny_cell(name)
-    cfg, mix = cell["config"], cell["traffic"]
+    cfg, mix, family = cell["config"], cell["traffic"], cell["family"]
     cfg = dict(cfg, dtype="float32")  # the port's plain path and the reference alike
-    rows = names.table(RuntimeV18(compare.spec_of(cfg), mix["warp_hw"]))
+    rows = names.table(family.stream_reference(cfg, mix))
     w = names.seeded_weights(rows, seed, "cpu")
-    port = program.runtime_model(cfg, mix["warp_hw"], w, torch.device("cpu"))
-    ref, run = compare.stream_reference(cfg, mix, w, "cpu")
+    port = family.stream_program(cfg, mix, w, torch.device("cpu"))
+    ref, run = compare.stream_reference(family.stream_reference(cfg, mix), w, "cpu")
     return port, ref, run, generate.stream_pool(mix, seed, "cpu", torch.float32)
 
 
@@ -49,15 +48,15 @@ def test_stream_deploy_and_ref_match_the_port():
 
 def test_train_step_matches_the_port():
     cell = tiny_cell("ref.train_sh")
-    cfg, mix = cell["config"], cell["traffic"]
-    w = names.seeded_weights(names.table(Trunk(compare.spec_of(cfg))), 22, "cpu")
+    cfg, mix, family = cell["config"], cell["traffic"], cell["family"]
+    w = names.seeded_weights(names.table(family.train_reference(cfg)), 22, "cpu")
     batch = generate.train_pool(mix, 22, "cpu")[0]
-    model, _, _, _ = program.trainer(cfg, w, torch.device("cpu"))
-    ref = names.materialize(Trunk(compare.spec_of(cfg)), w, "cpu")
+    model, _, _, _ = family.train_program(cfg, w, torch.device("cpu"))
+    ref = names.materialize(family.train_reference(cfg), w, "cpu")
     pred = model(batch["lr"], batch["fv"], batch["mk"]).float()
     loss = charbonnier(pred, batch["hr"])
     loss.backward()
-    lr, fv, mk, hr = compare._batch_nchw(batch)
+    lr, fv, mk, hr = compare.batch_nchw(batch)
     r_loss = charbonnier(ref(lr, fv, mk), hr)
     r_loss.backward()
     torch.testing.assert_close(loss, r_loss, atol=0, rtol=1e-5)
@@ -69,26 +68,27 @@ def test_train_step_matches_the_port():
 def test_name_table_loads_strictly_into_both():
     for name in ("deploy.streams4_1080p", "ref.train_sh"):
         cell = tiny_cell(name)
-        cfg = cell["config"]
-        module = (Trunk(compare.spec_of(cfg)) if cell["traffic"]["kind"] == "train"
-                  else RuntimeV18(compare.spec_of(cfg), cell["traffic"]["warp_hw"]))
+        cfg, mix, family = cell["config"], cell["traffic"], cell["family"]
+        train = mix["kind"] == "train"
+        module = family.train_reference(cfg) if train else family.stream_reference(cfg, mix)
         rows = names.table(module)
         w = names.seeded_weights(rows, 1, "cpu")
         again = names.seeded_weights(rows, 1, "cpu")
         assert all(torch.equal(w[k], again[k]) for k in w)
         names.materialize(module, w, "cpu")  # strict
-        if cell["traffic"]["kind"] == "train":
-            program.trainer(cfg, w, torch.device("cpu"))  # strict
+        if train:
+            family.train_program(cfg, w, torch.device("cpu"))  # strict
         else:
-            program.runtime_model(cfg, cell["traffic"]["warp_hw"], w, torch.device("cpu"))
+            family.stream_program(cfg, mix, w, torch.device("cpu"))
 
 
 def test_configuration_files_state_what_main_runs():
     """The ref configuration's model and trainer fields are what ``python -m
     crfp_torch.main`` derives from its ``train.sh`` flags."""
-    cfg = tiny_cell("ref.train_sh")["config"]
-    mcfg, tcfg = program.train_settings(cfg)
-    assert mcfg == program.model_config(cfg)
+    cell = tiny_cell("ref.train_sh")
+    cfg, family = cell["config"], cell["family"]
+    mcfg, tcfg = family.train_settings(cfg)
+    assert mcfg == family.model_config(cfg)
     t = cfg["train"]
     assert (tcfg.lr_rate, tcfg.lr_rate_flow, tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.min_lr,
             tcfg.flow_freeze_iters, tcfg.rec_w, tcfg.amp) == (

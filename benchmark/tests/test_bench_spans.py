@@ -121,11 +121,15 @@ def test_a_program_without_a_store_reads_none(monkeypatch):
 def test_reads_the_programs_store():
     """The store a CPU session of the program fills reads as the metrics do."""
     from crfp_torch import trace
-    from crfp_torch.models.config import ModelConfig
-    from crfp_torch.models.runtime import CRFPRuntimeV18
 
-    model = CRFPRuntimeV18(ModelConfig(mid_channels=16), warp_size=(64, 64), device="cpu")
-    lr, fv = torch.rand(1, 16, 24, 3), torch.rand(1, 32, 32, 3)
+    from benchmark import stream
+    from benchmark.tests.tiny import tiny_cell
+
+    cell = tiny_cell("ref.streams4_1080p")
+    model = cell["family"].stream_program(cell["config"], cell["traffic"],
+                                          stream.seeded_weights(cell, 1, "cpu"), "cpu")
+    pool = stream.inputs(cell, 1, "cpu")
+    lr, fv = pool["lr"][0], pool["fv"][0]
     trace.clear()
     try:
         with torch.inference_mode(), torch.profiler.profile(

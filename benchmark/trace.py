@@ -9,9 +9,9 @@ device interval, kernels, copies and sets) and the window it is a share of
 from it, and so do the per-layer metrics. The second records host
 operations too, which slows the host, and is read only to name what the
 host was doing in each device idle gap; a host range named
-``bench.window`` marks its start and end on the profiler's clock. Kernel names are grouped by :data:`GROUPS`, a copy of
-``crfp_torch/bench/profile.py::_GROUPS`` widened to every kernel of A-F
-(the general routes' and the anchor table's too).
+``bench.window`` marks its start and end on the profiler's clock. Kernel
+names are grouped by :data:`GROUPS`, the benchmark's own table, which covers
+every kernel of A-F (the general routes' and the anchor table's too).
 """
 
 from __future__ import annotations
