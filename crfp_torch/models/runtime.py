@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from crfp_torch.models.config import ModelConfig
+from crfp_torch.models.layout import nchw, nchw_or_none, nhwc
 from crfp_torch.nn.align import DCNAlign
 from crfp_torch.nn.flow import FNet
 from crfp_torch.nn.layers import (
@@ -74,18 +75,6 @@ from crfp_torch.ops.cuda.hr_conv import (
 )
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
 from crfp_torch.trace import span
-
-
-def _nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 3, 1, 2).contiguous()
-
-
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 2, 3, 1)
-
-
-def _nchw_or_none(t: torch.Tensor | None) -> torch.Tensor | None:
-    return None if t is None else _nchw(t)
 
 
 class ResidualBlocksWithInputConvV2(nn.Module):
@@ -154,27 +143,27 @@ class _Runtime(nn.Module):
         """lr (N, h, w, c), fv (N, fh, fw, c) -> (x_lr, x_hr), NHWC; c is 3,
         or 1 with ``cfg.y_only``. x_hr is None without a fovea branch."""
         with span("crfp.serve.encode", unit=True):
-            x_lr, x_hr = self._encode(_nchw(lr), _nchw_or_none(fv))
-            return _nhwc(x_lr), None if x_hr is None else _nhwc(x_hr)
+            x_lr, x_hr = self._encode(nchw(lr), nchw_or_none(fv))
+            return nhwc(x_lr), None if x_hr is None else nhwc(x_hr)
 
     def step0(self, lr, x_lr, x_hr):
         """Cold start. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
         with span("crfp.serve.step0", unit=True):
-            state, out = self._step0(_nchw(lr), _nchw(x_lr), _nchw_or_none(x_hr))
+            state, out = self._step0(nchw(lr), nchw(x_lr), nchw_or_none(x_hr))
             return self._state_nhwc(state), out
 
     def step(self, state, lr, pre_lr, x_lr, x_hr):
         """Steady state. Returns (state, frame (N, 8h, 8w, c)), NHWC."""
         with span("crfp.serve.step", unit=True):
-            state = {k: tuple(_nchw(f) for f in v) if k == "lv" else _nchw(v)
+            state = {k: tuple(nchw(f) for f in v) if k == "lv" else nchw(v)
                      for k, v in state.items()}
-            state, out = self._step(state, _nchw(lr), _nchw(pre_lr), _nchw(x_lr),
-                                    _nchw_or_none(x_hr))
+            state, out = self._step(state, nchw(lr), nchw(pre_lr), nchw(x_lr),
+                                    nchw_or_none(x_hr))
             return self._state_nhwc(state), out
 
     @staticmethod
     def _state_nhwc(state):
-        return {k: tuple(_nhwc(f) for f in v) if k == "lv" else _nhwc(v)
+        return {k: tuple(nhwc(f) for f in v) if k == "lv" else nhwc(v)
                 for k, v in state.items()}
 
     # ---- NCHW internals -----------------------------------------------

@@ -18,10 +18,7 @@ from __future__ import annotations
 import torch
 
 from crfp_torch.models.crfp import CRFP
-
-
-def _nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 3, 1, 2).contiguous()
+from crfp_torch.models.layout import nchw
 
 
 class StreamingRunner:
@@ -47,7 +44,7 @@ class StreamingRunner:
     @torch.no_grad()
     def __call__(self, lr, fv, mk, fg=None) -> torch.Tensor:
         p = next(self.model.parameters())
-        lr, fv, mk = (_nchw(torch.as_tensor(a).to(p.device, p.dtype))
+        lr, fv, mk = (nchw(torch.as_tensor(a).to(p.device, p.dtype))
                       for a in (lr, fv, mk))
         model = self.model
         x_lr, x_hr = model.encode_frame(lr, fv, mk)
@@ -56,7 +53,7 @@ class StreamingRunner:
         else:
             if self.use_fg:
                 fg = (torch.ones_like(mk) if fg is None
-                      else _nchw(torch.as_tensor(fg).to(p.device, p.dtype)))
+                      else nchw(torch.as_tensor(fg).to(p.device, p.dtype)))
             flow = model.compute_flow(lr, self._pre_lr)
             self._state, out = model.step(self._state, lr, x_lr, x_hr, mk, flow,
                                           fg if self.use_fg else None)

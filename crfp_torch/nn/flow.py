@@ -81,6 +81,21 @@ class SPyNetBasicModule(nn.Module):
 
 _SPYNET_MEAN = (0.485, 0.456, 0.406)
 _SPYNET_STD = (0.229, 0.224, 0.225)
+_CONSTANTS: dict = {}
+
+
+def _constant(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a 1-d tensor in ``like``'s dtype on its device, made once
+    per (values, dtype, device): a tensor made from host data on a card copies
+    and then waits for everything queued before it, which would stall the
+    host at every call. Made outside inference mode, so that autograd may
+    use it after a call under ``torch.inference_mode()``."""
+    key = (values, like.dtype, like.device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return t
 
 
 class SPyNet(nn.Module):
@@ -96,8 +111,8 @@ class SPyNet(nn.Module):
         n, _, h, w = ref.shape
         h_up = h if h % 32 == 0 else 32 * (h // 32 + 1)
         w_up = w if w % 32 == 0 else 32 * (w // 32 + 1)
-        mean = torch.tensor(_SPYNET_MEAN, dtype=ref.dtype, device=ref.device).view(1, 3, 1, 1)
-        std = torch.tensor(_SPYNET_STD, dtype=ref.dtype, device=ref.device).view(1, 3, 1, 1)
+        mean = _constant(_SPYNET_MEAN, ref).view(1, 3, 1, 1)
+        std = _constant(_SPYNET_STD, ref).view(1, 3, 1, 1)
         refs = [(resize_bilinear(ref, (h_up, w_up)) - mean) / std]
         supps = [(resize_bilinear(supp, (h_up, w_up)) - mean) / std]
         for _ in range(self.levels - 1):
@@ -117,5 +132,4 @@ class SPyNet(nn.Module):
             flow = flow_up + getattr(self, f"basic_module{level}")(inp)
 
         flow = resize_bilinear(flow, (h, w))
-        scale = torch.tensor([w / w_up, h / h_up], dtype=ref.dtype, device=ref.device)
-        return flow * scale.view(1, 2, 1, 1)
+        return flow * _constant((w / w_up, h / h_up), ref).view(1, 2, 1, 1)

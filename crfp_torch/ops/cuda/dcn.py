@@ -131,7 +131,9 @@ from crfp_torch.trace import span
 # backward; anchor_launches and bwd_anchor_launches: A's and D's anchored
 # launches, general_launches and bwd_general_launches: their general
 # route's, each also in `launches` and `bwd_launches`; tap_anchor_launches
-# and bwd_tap_anchor_launches: the per-tap ones among the anchored launches
+# and bwd_tap_anchor_launches: the per-tap ones among the anchored launches;
+# wide_launches: A's on its tuned O = 64 routes (the pyramids', PCD's), also
+# in `launches`
 launches = 0
 bwd_launches = 0
 anchor_launches = 0
@@ -140,6 +142,7 @@ general_launches = 0
 bwd_general_launches = 0
 tap_anchor_launches = 0
 bwd_tap_anchor_launches = 0
+wide_launches = 0
 
 # The widths of the tuned routes of csrc/dcn_fwd.cu (A), dcn_bwd.cu (D) and
 # dcn_fused.cu (E), each {O: channels a group}, 3x3 weights. Every DCN stage
@@ -881,7 +884,7 @@ def dcn_forward(
     return (output, the anchor table the call's pre-pass wrote, f32 (N, G,
     bands, tiles, 2), or None unanchored), the table that
     :func:`dcn_backward` takes."""
-    global launches, anchor_launches, general_launches, tap_anchor_launches
+    global launches, anchor_launches, general_launches, tap_anchor_launches, wide_launches
     with span("crfp.kernel.A", {"x": x, "weight": weight,
                                 "anchored": anchor is not None}) as s:
         g = _check(x, offset, mask, weight, bias, shared_taps, shared_mask)
@@ -922,6 +925,8 @@ def dcn_forward(
             tap_anchor_launches += not shared_taps
         if plan.route == "general":
             general_launches += 1
+        elif o == WIDE_OUT_CHANNELS:
+            wide_launches += 1
         return (out, table) if with_table else out
 
 

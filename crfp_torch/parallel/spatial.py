@@ -56,6 +56,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from crfp_torch.models.layout import nchw
 from crfp_torch.ops.cuda.dcn import deform_conv2d_windowed
 from crfp_torch.ops.cuda.dcn_fused import deform_conv2d_fusedprep
 from crfp_torch.ops.cuda.warp import flow_warp_windowed
@@ -421,10 +422,6 @@ class _RowBands(TorchFunctionMode):
                              lambda x, o, m, f: func(x, o, m, f, **kw))
 
 
-def _nchw(t) -> torch.Tensor:
-    return t.permute(0, 3, 1, 2).contiguous()
-
-
 class SpatialStreamingRunner:
     """``runner(lr, fv, mk)``: one frame in, one 8x frame out, as
     :class:`crfp_torch.models.streaming.StreamingRunner` (NHWC with the batch
@@ -454,7 +451,7 @@ class SpatialStreamingRunner:
     @torch.no_grad()
     def __call__(self, lr, fv, mk) -> torch.Tensor:
         p = next(self.model.parameters())
-        lr, fv, mk = (_nchw(torch.as_tensor(a).to(p.device, p.dtype)) for a in (lr, fv, mk))
+        lr, fv, mk = (nchw(torch.as_tensor(a).to(p.device, p.dtype)) for a in (lr, fv, mk))
         h = lr.shape[2]
         if h % self.world:
             raise ValueError(f"SpatialStreamingRunner: {h} LR rows do not divide evenly "
